@@ -6,18 +6,27 @@ checks it, end to end:
    power limit as nvidia-smi reports them;
 2. build: compiles every CUDA source of the port with nvcc (in parallel)
    into build/torch_kernels/;
-3. kernels: holds the list-rank kernel (ruling and wyllie, shared-memory
-   and global-scratch table variants) bit-exact against its plain torch
-   version on the same CUDA tensors;
-4. main path: generates a full-size 8-doc chunk of automerge-perf-shaped
-   documents (tracegen), contracts chains, carries the columns to the card
-   and merges them with chain_merge_docs_v — once with the default rank
-   (the ruling kernel) and once with rank_impl="cuda:wyllie" — with launch
-   counts reset before and read after each; every distinct doc's text must
-   equal the host oracle's and the checksums must equal the plain rank's;
+3. kernels: holds every list-rank kernel (ruling, wyllie and blocked in
+   their shared-memory and global-scratch table variants, and the wide
+   kernel) bit-exact against its plain torch version on the same CUDA
+   tensors;
+4. main paths, each with launch counts reset before and read after:
+   a. chain merge: a full-size 8-doc chunk of automerge-perf-shaped
+      documents (tracegen), chain-contracted, merged with
+      chain_merge_docs_v with the default rank (the ruling kernel), with
+      rank_impl="cuda:wyllie" and with "cuda:blocked"; every distinct
+      doc's text must equal the host oracle's, the merges must agree and
+      the checksums must equal the plain rank's;
+   b. element merge (entry()'s path): an 8-doc chunk at N = 32,768 (a
+      40,000-patch prefix of the same trace) merged with merge_docs,
+      which must launch only the wide kernel; texts equal the oracle and
+      codes equal the chain path's on the same docs; an N = 16,384 chunk
+      through the default, "cuda:blocked" and "cuda:ruling"; one doc at
+      N = 65,536, past the kernels' ring cap, through the counted
+      torch:wyllie route; the port's entry() once;
 5. timings (CUDA events, warm-up then median): merge ms per chunk and
-   ops/s, rank-only ms, each kernel's ms beside its bound and its plain
-   version's ms.
+   ops/s for both paths, rank-only ms, each kernel's ms beside its bound
+   and its plain version's ms, and the device-busy share.
 
 Prints one {"kernels": [...]} line and ends with the line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}.
@@ -36,6 +45,13 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 CHUNK = 8  # docs per launch, as the JAX bench's BENCH_CHUNK
 SEED = 0
+ELEMENT_PATCHES = 40_000  # trace prefix whose docs bucket to N = 32,768
+ELEMENT_N = 32_768
+SMALL_PATCHES = 20_000  # docs that bucket to N = 16,384
+SMALL_N = 16_384
+SPINE_ELEMENTS, SPINE_N = 40_000, 65_536  # ring 131,074 tokens > RANK_MAX_M
+# the TPU kernel each CUDA kernel replaces (loro_tpu/ops/pallas_rank.py)
+REPLACES = {"ruling": 226, "wyllie": 379, "blocked": 237, "wide": 184}
 
 
 def check(cond: bool, what: str) -> None:
@@ -116,7 +132,7 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     import numpy as np
 
-    from loro_tpu_torch import _build, tracegen
+    from loro_tpu_torch import _build, entry, tracegen
     from loro_tpu_torch.ops import columnar, fugue_batch, list_rank
 
     # ---- 1. device ------------------------------------------------------
@@ -163,24 +179,51 @@ def main() -> int:
     cols = fugue_batch.chain_columns_to_torch(np_batch, device=dev)
     flag_succ, _ = fugue_batch._ring_and_anchors(cols.c_parent, cols.c_side, cols.c_valid)
 
+    def element_chunk(n_patches: int, n: int):
+        """(distinct docs, chunk doc indices, SeqColumns on the card,
+        applied patches in the chunk) for CHUNK docs cycled over the
+        distinct docs of a trace prefix, padded to n rows."""
+        edocs = tracegen.fleet_docs(2, n_patches=n_patches, seed=SEED)
+        check(all(fugue_batch.pad_bucket(d.extract.n) == n for d in edocs), f"{n_patches}-patch docs bucket to {n}")
+        eidx = [j % len(edocs) for j in range(CHUNK)]
+        np_seq = columnar.stack_docs([edocs[i].extract.to_seq_columns(pad_to=n) for i in eidx])
+        return edocs, eidx, fugue_batch.seq_columns_to_torch(np_seq, device=dev), sum(edocs[i].n_ops for i in eidx)
+
+    t0 = time.perf_counter()
+    edocs, eidx, ecols, echunk_ops = element_chunk(ELEMENT_PATCHES, ELEMENT_N)
+    sdocs, sidx, scols, _ = element_chunk(SMALL_PATCHES, SMALL_N)
+    egen_s = time.perf_counter() - t0
+    esucc, _ = fugue_batch._ring_and_anchors(ecols.parent, ecols.side, ecols.valid)
+    print(
+        f"element data: {len(edocs)} distinct docs of {ELEMENT_PATCHES} patches in {egen_s:.1f} s; "
+        f"rows {[d.extract.n for d in edocs]}, patches {[d.n_ops for d in edocs]}, "
+        f"text lengths {[len(d.text) for d in edocs]}; N {ELEMENT_N}, ring {esucc.shape[1]} tokens; "
+        f"N {SMALL_N} docs rows {[d.extract.n for d in sdocs]}",
+        flush=True,
+    )
+
     # ---- 3. kernel vs plain version, on the card --------------------------
-    max_err = {"ruling": 0, "wyllie": 0}
+    max_err = {name: 0 for name in REPLACES}
     variants_seen = set()
 
-    def compare(label: str, succ, algo: str, **kw) -> None:
+    def compare(label: str, succ, algo: str, expect: str = "", **kw) -> None:
         s = torch.as_tensor(succ).to(dev)
+        if "weights" in kw:
+            kw["weights"] = torch.as_tensor(kw["weights"]).to(dev)
         before = dict(list_rank.LAUNCHES)
         got = list_rank.wyllie_rank(s, algo=algo, device=dev, **kw)
         ref = list_rank.wyllie_rank_reference(s, algo=algo, **kw)
         torch.cuda.synchronize()
         ran = [k for k in list_rank.LAUNCHES if list_rank.LAUNCHES[k] != before[k]]
         check(len(ran) == 1, f"{label}: expected one kernel launch, saw {ran}")
+        check(not expect or ran[0] == expect, f"{label}: expected {expect}, ran {ran[0]}")
         variants_seen.add(ran[0])
+        kernel = ran[0].split("/")[0]
         err = int((got.to(torch.int64) - ref.to(torch.int64)).abs().max()) if got.numel() else 0
-        max_err[algo] = max(max_err[algo], err)
+        max_err[kernel] = max(max_err[kernel], err)
         check(got.dtype == torch.int32 and got.shape == s.shape, f"{label}: dtype/shape")
         check(torch.equal(got, ref), f"{label}: kernel != plain version (max abs err {err})")
-        print(f"  ok {label:<38} {algo:<6} {ran[0]}", flush=True)
+        print(f"  ok {label:<40} {algo:<7} {ran[0]}", flush=True)
 
     def under_over(words_of_mp, quantum: int):
         mp = quantum
@@ -208,7 +251,28 @@ def main() -> int:
         compare("weighted m=20000", succ, algo, weights=w, dist_bound=int(w.sum()) + 1)
     for k in (2, 8, 64):
         compare(f"ruler spacing k={k} m=32770", random_ring(np, 32770, 100 + k), "ruling", k=k)
-    for v in ("ruling/smem", "ruling/global", "wyllie/smem", "wyllie/global"):
+    # blocked: phase A inside blocks, then the ruling phases
+    for m in (1000, 32770, 65536):
+        for block in (128, 1024, 65536):
+            compare(f"random ring m={m} block={block}", random_ring(np, m, 200 + m + block), "blocked", block=block)
+    compare(f"flagship rings [{CHUNK}, {ring_m}]", flag_succ, "blocked")
+    compare(f"ring under smem budget m={r_under}", random_ring(np, r_under, 6), "blocked", "blocked/smem")
+    compare(f"ring over smem budget m={r_over}", random_ring(np, r_over, 7), "blocked", "blocked/global")
+    compare("adversarial ruler gap m=65536", gap_ring(np, 65536, 8), "blocked")
+    for k in (2, 8):
+        compare(f"ruler spacing k={k} m=32770", random_ring(np, 32770, 300 + k), "blocked", k=k)
+    # wide: rings past 65536 lane-padded tokens, or dist_bound > 65536
+    for m in (65537, 98304, 131072):
+        compare(f"random ring m={m}", random_ring(np, m, 400 + m), "ruling", "wide/global")
+    compare(f"element rings [{CHUNK}, {esucc.shape[1]}]", esucc, "ruling", "wide/global")
+    rng = np.random.default_rng(8)
+    succ = random_ring(np, 20000, 9)
+    w = np.where(succ == np.arange(20000), 0, 3 + (rng.random(20000) < 0.3)).astype(np.int32)
+    check(int(w.sum()) < 70_000, "weighted wide ring stays under its dist_bound")
+    compare("weighted m=20000 dist_bound=70000", succ, "ruling", "wide/global", weights=w, dist_bound=70_000)
+    compare("blocked on a wide ring m=65600", random_ring(np, 65600, 10), "blocked", "wide/global")
+    for v in ("ruling/smem", "ruling/global", "wyllie/smem", "wyllie/global", "blocked/smem", "blocked/global",
+              "wide/global"):
         check(v in variants_seen, f"variant {v} was not exercised")
 
     # ---- 4. main path ----------------------------------------------------
@@ -216,11 +280,11 @@ def main() -> int:
     for d, t in zip(docs, texts):
         check(t == d.text, "host oracle disagrees with the generator's own text")
     paths = {}
-    for label, spec in (("default (cuda:ruling)", None), ("cuda:wyllie", "cuda:wyllie")):
+    for label, spec in (("default (cuda:ruling)", None), ("cuda:wyllie", "cuda:wyllie"), ("cuda:blocked", "cuda:blocked")):
         list_rank.reset_launches()
         codes, counts = fugue_batch.chain_merge_docs_v(cols, rank_impl=spec, device=dev)
         torch.cuda.synchronize()
-        launches = dict(list_rank.LAUNCHES)
+        ran = dict(list_rank.LAUNCHES)
         check(codes.shape == (CHUNK, pad_n) and codes.dtype == torch.int32, f"{label}: codes shape/dtype")
         codes_h, counts_h = codes.cpu().numpy(), counts.cpu().numpy()
         for j, i in enumerate(idxs[: len(docs)]):
@@ -228,25 +292,99 @@ def main() -> int:
             check(got == texts[i], f"{label}: doc {j} text != host oracle ({len(got)} vs {len(texts[i])} chars)")
         for j, i in enumerate(idxs):
             check(np.array_equal(codes_h[j], codes_h[i]), f"{label}: cycled doc {j} differs from doc {i}")
-        paths[label] = (launches, codes)
-        print(f"main path {label}: {CHUNK} docs merged, texts == host oracle, launches {launches}", flush=True)
-    ruling_launches = sum(v for k, v in paths["default (cuda:ruling)"][0].items() if k.startswith("ruling/"))
-    wyllie_launches = sum(v for k, v in paths["cuda:wyllie"][0].items() if k.startswith("wyllie/"))
-    check(ruling_launches > 0, "the main path never launched the ruling kernel")
-    check(wyllie_launches > 0, "the cuda:wyllie path never launched the wyllie kernel")
-    check(torch.equal(paths["default (cuda:ruling)"][1], paths["cuda:wyllie"][1]), "ruling and wyllie merges differ")
+        paths[label] = (ran, codes)
+        print(f"main path {label}: {CHUNK} docs merged, texts == host oracle, launches {ran}", flush=True)
+    def launched(label: str, kernel: str) -> int:
+        return sum(v for k, v in paths[label][0].items() if k.startswith(kernel + "/"))
+
+    launches = {
+        "ruling": launched("default (cuda:ruling)", "ruling"),
+        "wyllie": launched("cuda:wyllie", "wyllie"),
+        "blocked": launched("cuda:blocked", "blocked"),
+    }
+    check(launches["ruling"] > 0, "the main path never launched the ruling kernel")
+    check(launches["wyllie"] > 0, "the cuda:wyllie path never launched the wyllie kernel")
+    check(launches["blocked"] > 0, "the cuda:blocked path never launched the blocked kernel")
+    for label in ("cuda:wyllie", "cuda:blocked"):
+        check(torch.equal(paths["default (cuda:ruling)"][1], paths[label][1]), f"default and {label} merges differ")
     cs_kernel, n_kernel = fugue_batch.chain_merge_docs_checksum_v(cols, device=dev)
     cs_plain, n_plain = fugue_batch.chain_merge_docs_checksum_v(cols, rank_impl="torch:ruling", device=dev)
     check(torch.equal(cs_kernel, cs_plain) and torch.equal(n_kernel, n_plain), "checksum: kernel rank != plain rank")
     print(f"checksums (default == torch:ruling): {cs_kernel.tolist()}", flush=True)
 
+    # ---- 4b. element merge (entry()'s path) -------------------------------
+    def element_merge(label: str, c, texts_, idx_, spec=None):
+        list_rank.reset_launches()
+        codes, counts = fugue_batch.merge_docs(c, rank_impl=spec, device=dev)
+        torch.cuda.synchronize()
+        ran = {k: v for k, v in list_rank.LAUNCHES.items() if v}
+        n = c.parent.shape[1]
+        check(codes.shape == (CHUNK, n) and codes.dtype == torch.int32, f"{label}: codes shape/dtype")
+        codes_h, counts_h = codes.cpu().numpy(), counts.cpu().numpy()
+        for j, i in enumerate(idx_):
+            got = "".join(map(chr, codes_h[j][: int(counts_h[j])].tolist()))
+            check(got == texts_[i], f"{label}: doc {j} text != host oracle")
+        print(f"element merge {label} [{CHUNK}, {n}]: texts == host oracle, launches {ran}", flush=True)
+        return ran, codes, counts
+
+    etexts = [tracegen.oracle_text(d.extract) for d in edocs]
+    stexts = [tracegen.oracle_text(d.extract) for d in sdocs]
+    for d, t in zip(edocs + sdocs, etexts + stexts):
+        check(t == d.text, "host oracle disagrees with the generator's own text")
+    ran, ecodes, ecounts = element_merge("default", ecols, etexts, eidx)
+    check(ran == {"wide/global": 1}, f"the element merge at N={ELEMENT_N} launched {ran}, not only the wide kernel")
+    launches["wide"] = ran["wide/global"]
+    # the chain path on the same docs, padded to the same rows
+    ech = [columnar.contract_chains(d.extract).n_chains for d in edocs]
+    epad_c = -(-max(ech) // 1024) * 1024
+    ecc = columnar.stack_docs([columnar.chain_columns(edocs[i].extract, pad_n=ELEMENT_N, pad_c=epad_c) for i in eidx])
+    ccodes, ccounts = fugue_batch.chain_merge_docs_v(fugue_batch.chain_columns_to_torch(ecc, device=dev), device=dev)
+    check(torch.equal(ecodes, ccodes) and torch.equal(ecounts, ccounts), "element merge != chain merge on the same docs")
+    print(f"element merge == chain merge on the same docs (pad_c {epad_c})", flush=True)
+
+    ran, scodes, scounts = element_merge("default", scols, stexts, sidx)
+    check(set(ran) == {"ruling/smem"}, f"N={SMALL_N} default launched {ran}")
+    for spec, kernel in (("cuda:blocked", "blocked/"), ("cuda:ruling", "ruling/")):
+        ran, codes, counts = element_merge(spec, scols, stexts, sidx, spec)
+        check(ran and all(k.startswith(kernel) for k in ran), f"{spec} at N={SMALL_N} launched {ran}")
+        check(torch.equal(codes, scodes) and torch.equal(counts, scounts), f"{spec} != default merge at N={SMALL_N}")
+
+    spine = entry.example_cols(d=1, n=SPINE_ELEMENTS)
+    spine = fugue_batch.SeqColumns(*[a[0] for a in spine])
+    list_rank.reset_launches()
+    over_cap = fugue_batch.RANK_ROUTES["torch:wyllie/over_cap"]
+    codes, counts = fugue_batch.merge_docs(
+        fugue_batch.seq_columns_to_torch(fugue_batch.pad_seq_columns(spine, SPINE_N), device=dev), device=dev
+    )
+    torch.cuda.synchronize()
+    want = "".join(chr(97 + i % 26) for i in range(SPINE_ELEMENTS) if i % 7 != 6)
+    check("".join(map(chr, codes[0][: int(counts[0])].tolist())) == want, "over-cap doc text != oracle")
+    check(fugue_batch.RANK_ROUTES["torch:wyllie/over_cap"] == over_cap + 1, "over-cap doc did not take torch:wyllie")
+    check(sum(list_rank.LAUNCHES.values()) == 0, "over-cap doc launched a kernel")
+    print(f"over-cap doc N={SPINE_N} (ring {fugue_batch.rank_bound(SPINE_N)} tokens): torch:wyllie route, "
+          "text == oracle", flush=True)
+
+    fn, (ex_cols,) = entry.entry()
+    codes, counts = fn(ex_cols)
+    torch.cuda.synchronize()
+    check(codes.device.type == "cuda" and counts.tolist() == [256 - 256 // 7] * 8, "entry() on the card")
+    print("entry(): example batch merged on the card", flush=True)
+
     # ---- 5. timings -------------------------------------------------------
-    plan, succ_p, w_p = list_rank._prepare(flag_succ, None, "ruling", 8, None)
-    wplan, wsucc_p, ww_p = list_rank._prepare(flag_succ, None, "wyllie", 8, None)
+    # each kernel at its main-path shape: the flagship chain rings for the
+    # packed kernels, the element rings for the wide kernel
+    plans = {
+        algo: list_rank._prepare(flag_succ, None, algo, 8, None) for algo in ("ruling", "wyllie", "blocked")
+    }
+    plans["wide"] = list_rank._prepare(esucc, None, "ruling", 8, None)
+    check(plans["wide"][0].wide and not plans["blocked"][0].wide, "kernel plans at the main-path shapes")
     res = {
         "merge_ms": time_ms(torch, lambda: fugue_batch.chain_merge_docs_checksum_v(cols, device=dev)),
         "merge_wyllie_ms": time_ms(
             torch, lambda: fugue_batch.chain_merge_docs_checksum_v(cols, rank_impl="cuda:wyllie", device=dev)
+        ),
+        "merge_blocked_ms": time_ms(
+            torch, lambda: fugue_batch.chain_merge_docs_checksum_v(cols, rank_impl="cuda:blocked", device=dev)
         ),
         "merge_plain_rank_ms": time_ms(
             torch, lambda: fugue_batch.chain_merge_docs_checksum_v(cols, rank_impl="torch:ruling", device=dev)
@@ -256,59 +394,79 @@ def main() -> int:
             torch, lambda: fugue_batch.chain_rank_checksum_v(cols, rank_impl="torch:ruling", device=dev)
         ),
         "ring_ms": time_ms(torch, lambda: fugue_batch._ring_and_anchors(cols.c_parent, cols.c_side, cols.c_valid)),
-        "ruling_ms": time_ms(torch, lambda: list_rank.launch_kernel(succ_p, w_p, plan), inner=20),
-        "ruling_plain_ms": time_ms(torch, lambda: list_rank.packed_rank_plain(succ_p, w_p, plan)),
-        "wyllie_ms": time_ms(torch, lambda: list_rank.launch_kernel(wsucc_p, ww_p, wplan), inner=20),
-        "wyllie_plain_ms": time_ms(torch, lambda: list_rank.packed_rank_plain(wsucc_p, ww_p, wplan)),
+        "element_merge_ms": time_ms(torch, lambda: fugue_batch.merge_docs_checksum(ecols, device=dev)),
+        "element_merge_plain_rank_ms": time_ms(
+            torch, lambda: fugue_batch.merge_docs_checksum(ecols, rank_impl="torch:wyllie", device=dev)
+        ),
+        "element_order_ms": time_ms(torch, lambda: fugue_batch.fugue_order(ecols, device=dev)),
+        "element_rank_ms": time_ms(torch, lambda: fugue_batch._rank_dist(esucc, "cuda", "ruling")),
+        "element_ring_ms": time_ms(
+            torch, lambda: fugue_batch._ring_and_anchors(ecols.parent, ecols.side, ecols.valid)
+        ),
     }
+    for name, (p, succ_p, w_p) in plans.items():
+        res[f"{name}_ms"] = time_ms(torch, lambda: list_rank.launch_kernel(succ_p, w_p, p), inner=20)
+        res[f"{name}_plain_ms"] = time_ms(torch, lambda: list_rank.rank_plain(succ_p, w_p, p))
     res["ops_per_s"] = chunk_ops / (res["merge_ms"] / 1e3)
+    res["element_ops_per_s"] = echunk_ops / (res["element_merge_ms"] / 1e3)
     for label, fn in (
         ("merge", lambda: fugue_batch.chain_merge_docs_checksum_v(cols, device=dev)),
         ("rank", lambda: fugue_batch.chain_rank_checksum_v(cols, device=dev)),
+        ("element_merge", lambda: fugue_batch.merge_docs_checksum(ecols, device=dev)),
     ):
         busy, wall, top = device_breakdown(torch, fn)
         res[f"{label}_device_busy_ms"] = busy
         res[f"{label}_profiled_wall_ms"] = wall
         shown = "; ".join(f"{name[:60]} x{cnt} {ms:.4f} ms" for ms, name, cnt in top)
         print(f"profile {label}: device busy {busy:.3f} ms of {wall:.3f} ms wall per call; top: {shown}", flush=True)
-    bounds = {}
-    for algo, p in (("ruling", plan), ("wyllie", wplan)):
-        # succ and w read once, dist written once: 12 bytes per padded token
-        bytes_moved = 12 * CHUNK * p.mp
-        bounds[algo] = bytes_moved / HBM_BYTES_PER_S * 1e3
+    res["element_merge_busy_share"] = res["element_merge_device_busy_ms"] / res["element_merge_ms"]
+    # succ and w read once, dist written once: 12 bytes per padded token
+    bounds = {name: 12 * CHUNK * p.mp / HBM_BYTES_PER_S * 1e3 for name, (p, _, _) in plans.items()}
     print(
-        f"timings on {kind} ({card}): merge {res['merge_ms']:.3f} ms/chunk = {res['ops_per_s'] / 1e6:.2f}M ops/s "
-        f"({chunk_ops} patches x docs); merge via cuda:wyllie {res['merge_wyllie_ms']:.3f} ms; "
-        f"merge with plain rank {res['merge_plain_rank_ms']:.3f} ms; rank only {res['rank_ms']:.3f} ms "
-        f"(plain {res['rank_plain_ms']:.3f} ms); ring build {res['ring_ms']:.3f} ms",
+        f"timings on {kind} ({card}): chain merge {res['merge_ms']:.3f} ms/chunk = "
+        f"{res['ops_per_s'] / 1e6:.2f}M ops/s ({chunk_ops} patches x docs); via cuda:wyllie "
+        f"{res['merge_wyllie_ms']:.3f} ms; via cuda:blocked {res['merge_blocked_ms']:.3f} ms; with plain rank "
+        f"{res['merge_plain_rank_ms']:.3f} ms; rank only {res['rank_ms']:.3f} ms (plain {res['rank_plain_ms']:.3f} ms); "
+        f"ring build {res['ring_ms']:.3f} ms",
         flush=True,
     )
-    for algo, p in (("ruling", plan), ("wyllie", wplan)):
+    print(
+        f"timings on {kind} ({card}): element merge [{CHUNK}, {ELEMENT_N}] {res['element_merge_ms']:.3f} ms/chunk = "
+        f"{res['element_ops_per_s'] / 1e6:.2f}M ops/s ({echunk_ops} patches x docs); with plain rank "
+        f"{res['element_merge_plain_rank_ms']:.3f} ms; order (ring + rank + anchors) {res['element_order_ms']:.3f} ms; "
+        f"rank only {res['element_rank_ms']:.3f} ms; ring build {res['element_ring_ms']:.3f} ms; device busy "
+        f"{res['element_merge_device_busy_ms']:.3f} ms = {100 * res['element_merge_busy_share']:.1f} % of the merge",
+        flush=True,
+    )
+    for name, (p, _, _) in plans.items():
         print(
-            f"kernel {algo} [{CHUNK}, {p.mp}] ({list_rank.table_variant(p, dev)}): {res[algo + '_ms']:.4f} ms, "
-            f"bound {bounds[algo]:.5f} ms (bytes), plain {res[algo + '_plain_ms']:.3f} ms",
+            f"kernel {name} [{CHUNK}, {p.mp}] ({list_rank.table_variant(p, dev)}): {res[name + '_ms']:.4f} ms, "
+            f"bound {bounds[name]:.5f} ms (bytes), plain {res[name + '_plain_ms']:.3f} ms",
             flush=True,
         )
     print("results " + json.dumps({
         "card": card, "kind": kind, "chunk": CHUNK, "pad_n": pad_n, "pad_c": pad_c, "ring_tokens": ring_m,
-        "ruling_mp": plan.mp, "wyllie_mp": wplan.mp, "chunk_ops": chunk_ops, "build_s": build_s,
-        "gen_s": gen_s, **res, "bound_ms": bounds, "total_s": time.perf_counter() - t_start,
+        "element_n": ELEMENT_N, "element_ring_tokens": esucc.shape[1],
+        "mp": {name: p.mp for name, (p, _, _) in plans.items()}, "chunk_ops": chunk_ops,
+        "element_chunk_ops": echunk_ops, "build_s": build_s, "gen_s": gen_s, "element_gen_s": egen_s, **res,
+        "bound_ms": bounds, "total_s": time.perf_counter() - t_start,
     }))
-    kernels = []
-    for algo, line, launches in (("ruling", 226, ruling_launches), ("wyllie", 379, wyllie_launches)):
-        kernels.append({
-            "name": f"list_rank_{algo}",
+    kernels = [
+        {
+            "name": f"list_rank_{name}",
             "route": "cuda",
             "source": "loro_tpu_torch/csrc/list_rank.cu",
-            "replaces": f"loro_tpu/ops/pallas_rank.py:{line}",
-            "launches": launches,
-            "max_abs_err": max_err[algo],
-            "ms": res[f"{algo}_ms"],
-            "plain_ms": res[f"{algo}_plain_ms"],
-            "bound_ms": bounds[algo],
+            "replaces": f"loro_tpu/ops/pallas_rank.py:{REPLACES[name]}",
+            "launches": launches[name],
+            "max_abs_err": max_err[name],
+            "ms": res[f"{name}_ms"],
+            "plain_ms": res[f"{name}_plain_ms"],
+            "bound_ms": bounds[name],
             "bound_by": "bytes",
             "library_ms": None,
-        })
+        }
+        for name in REPLACES
+    ]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

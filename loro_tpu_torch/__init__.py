@@ -1,14 +1,15 @@
 """loro_tpu_torch — the PyTorch/CUDA port of the loro_tpu fleet merge.
 
 The JAX package ``loro_tpu`` stays the reference; this package imports
-nothing of it (and never imports jax).  Slice one covers the
-chain-contracted fleet text merge:
+nothing of it (and never imports jax).  It covers the fleet text merge,
+element-level and chain-contracted:
 
-    ops.columnar      host numpy element tables -> ChainColumns
+    ops.columnar      host numpy element tables -> SeqColumns / ChainColumns
     ops.fugue_batch   Euler-tour ring, list-rank dispatch, placement,
                       batch entry points (explicit leading doc axis)
-    ops.list_rank     hand-written Hopper list-ranking kernel
-                      (csrc/list_rank.cu) + its plain torch version
+    ops.list_rank     hand-written Hopper list-ranking kernels
+                      (csrc/list_rank.cu) + their plain torch versions
+    entry             entry(): the element merge of an example batch
     tracegen          seeded automerge-perf-shaped traces + host oracle
 
 Public entry points take ``device=`` (default ``"cuda"``) and raise

@@ -3,20 +3,22 @@ plain C interface, loaded with ctypes.
 
 Each source compiles on its own (one nvcc process per source, all
 started together) into ``build/torch_kernels/`` at the repository root,
-named by a hash of the source and flags, so an unchanged source is not
-rebuilt and ``python3 chip_smoke.py`` alone builds everything it runs.
-Nothing here runs at import time.
+named by a hash of the source, every local header it includes
+(``#include "..."``, followed recursively) and the flags, so an
+unchanged source is not rebuilt and ``python3 chip_smoke.py`` alone
+builds everything it runs.  Nothing here runs at import time.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 PKG_DIR = Path(__file__).resolve().parent
 BUILD_DIR = PKG_DIR.parent / "build" / "torch_kernels"
@@ -39,9 +41,32 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin): cannot build the CUDA kernels")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def _inputs(src: Path) -> List[Path]:
+    """`src` and every local header it includes, directly or through
+    another header (paths relative to the including file)."""
+    seen: List[Path] = []
+    todo = [src.resolve()]
+    while todo:
+        f = todo.pop()
+        if f in seen:
+            continue
+        seen.append(f)
+        for inc in _LOCAL_INCLUDE.findall(f.read_bytes()):
+            dep = (f.parent / inc.decode()).resolve()
+            if dep.exists():
+                todo.append(dep)
+    return seen
+
+
 def _target(name: str) -> Path:
-    h = hashlib.sha256(SOURCES[name].read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}.{h[:16]}.so"
+    h = hashlib.sha256()
+    for f in _inputs(SOURCES[name]):
+        h.update(f.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}.{h.hexdigest()[:16]}.so"
 
 
 def build_all() -> Dict[str, Dict[str, object]]:

@@ -1,9 +1,10 @@
-"""Host-side columnar extraction for the chain-contracted merge: numpy
-element tables -> padded ChainColumns.
+"""Host-side columnar extraction: numpy element tables -> padded
+SeqColumns (the element-level merge) or ChainColumns (the
+chain-contracted merge).
 
 Numpy only, exactly as in the JAX package (loro_tpu/ops/columnar.py):
 this stage runs on the host and its output is carried to the device by
-fugue_batch.chain_columns_to_torch.
+fugue_batch.seq_columns_to_torch / chain_columns_to_torch.
 """
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ from typing import List, Optional
 
 import numpy as np
 
-from .fugue_batch import ChainColumns, pad_bucket
+from .fugue_batch import ChainColumns, SeqColumns, pad_bucket, pad_rows, pad_seq_columns
 
 
 @dataclass
@@ -50,6 +51,14 @@ class SeqExtract:
             values=self.values,
         )
 
+    def to_seq_columns(self, pad_to: Optional[int] = None) -> SeqColumns:
+        """Numpy SeqColumns of this table, padded to `pad_to` rows
+        (invalid tail) when given."""
+        if pad_to is not None and pad_to < self.n:
+            raise ValueError(f"pad_to {pad_to} < {self.n} rows")
+        cols = SeqColumns(self.parent, self.side, self.peer, self.counter, self.deleted, self.content, self.valid)
+        return cols if pad_to is None else pad_seq_columns(cols, pad_to)
+
 
 def peer_counter_perm(peer: np.ndarray, counter: np.ndarray, parent: np.ndarray):
     """(perm, inv, remapped_parent) ordering rows by (peer, counter);
@@ -73,14 +82,6 @@ def peer_counter_perm(peer: np.ndarray, counter: np.ndarray, parent: np.ndarray)
     mask = out_parent >= 0
     out_parent[mask] = inv[out_parent[mask]]
     return perm, inv, out_parent.astype(np.int32)
-
-
-def pad_rows(a: np.ndarray, n: int, fill) -> np.ndarray:
-    if a.shape[0] == n:
-        return a
-    out = np.full((n,) + a.shape[1:], fill, a.dtype)
-    out[: a.shape[0]] = a
-    return out
 
 
 @dataclass
@@ -160,7 +161,8 @@ def contract_chains(ex: SeqExtract) -> ChainExtract:
     )
 
 
-def stack_docs(per_doc: List[ChainColumns]) -> ChainColumns:
-    """Stack per-doc numpy ChainColumns (same pads) into one [D, ...]
-    batch."""
-    return ChainColumns(*[np.stack([getattr(c, f) for c in per_doc]) for f in ChainColumns._fields])
+def stack_docs(per_doc):
+    """Stack per-doc numpy ChainColumns or SeqColumns (same pads, one
+    type) into one [D, ...] batch of that type."""
+    kind = type(per_doc[0])
+    return kind(*[np.stack([getattr(c, f) for c in per_doc]) for f in kind._fields])

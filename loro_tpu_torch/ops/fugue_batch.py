@@ -1,18 +1,24 @@
-"""Batched Fugue sequence order for the chain-contracted fleet text
-merge — the torch counterpart of loro_tpu/ops/fugue_batch.py.
+"""Batched Fugue sequence order for the fleet text merge — the torch
+counterpart of loro_tpu/ops/fugue_batch.py: the element-level merge
+(fugue_order .. merge_docs, and the row-order-free SeqColumnsU
+variants) and the chain-contracted merge (chain_materialize ..
+chain_merge_docs_checksum_v).
 
 Every function takes an explicit leading doc axis ([D, N] / [D, C]
 tensors) where the JAX package vmaps one doc; nothing is jitted.  Per
 doc the merge is:
 
-1. one stable sort of chains by (parent, side) — (peer, counter) order
-   within sibling groups comes from the row-order contract — and the
-   Euler-tour successor ring over two tokens per node (_ring_and_anchors);
-2. list ranking, distance to the ring terminal (_rank_dist: the CUDA
+1. one stable sort of nodes (elements or chains) by (parent, side) —
+   (peer, counter) order within sibling groups comes from the row-order
+   contract, or from explicit sibling keys — and the Euler-tour
+   successor ring over two tokens per node (_ring_and_anchors);
+2. list ranking, distance to the ring terminal (_rank_dist: a CUDA
    kernel of ops/list_rank.py on the card, or a plain torch algorithm);
-3. anchor distances -> chain ranks (_order_core);
-4. placement of all elements by one stable sort (_place_by_chain_sort)
-   or the histogram scatter (_place_by_chain_scatter);
+3. anchor distances -> rank keys (_order_core);
+4. placement: the element path compacts visible rows by a rank
+   histogram (_compact); the chain path places all elements by one
+   stable sort (_place_by_chain_sort) or the histogram scatter
+   (_place_by_chain_scatter);
 5. an order-sensitive per-doc checksum (_weighted_checksum).
 
 Bit-exactness with JAX: int32 results are computed in int64 and
@@ -24,7 +30,7 @@ slots are the only scatter targets that repeat.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -52,6 +58,27 @@ class SeqColumns(NamedTuple):
     parent: torch.Tensor
     side: torch.Tensor
     peer: torch.Tensor
+    counter: torch.Tensor
+    deleted: torch.Tensor
+    content: torch.Tensor
+    valid: torch.Tensor
+
+
+class SeqColumnsU(NamedTuple):
+    """Row-order-free element table, [N] or [D, N]: sibling order comes
+    from explicit (peer_hi, peer_lo, counter) keys, so rows may sit in
+    any order.  peer_hi / peer_lo are uint32 on the host and int64
+    (holding the uint32 values) as tensors.
+
+    parent: int32, side: int32, peer_hi / peer_lo: uint32 halves of the
+    u64 peer id, counter: int32 (non-negative), deleted: bool,
+    content: int32 (-1 = invisible anchor row), valid: bool
+    """
+
+    parent: torch.Tensor
+    side: torch.Tensor
+    peer_hi: torch.Tensor
+    peer_lo: torch.Tensor
     counter: torch.Tensor
     deleted: torch.Tensor
     content: torch.Tensor
@@ -86,6 +113,19 @@ _CHAIN_DTYPES = {
 }
 
 
+_SEQ_DTYPES = {
+    "parent": np.int32,
+    "side": np.int32,
+    "peer": np.int32,
+    "counter": np.int32,
+    "deleted": np.bool_,
+    "content": np.int32,
+    "valid": np.bool_,
+    "peer_hi": np.uint32,
+    "peer_lo": np.uint32,
+}
+
+
 def rank_bound(n: int) -> int:
     """Exclusive upper bound of rank keys for an n-node table: ring
     distances live in [0, 2*(n+1))."""
@@ -98,6 +138,57 @@ def pad_bucket(n: int, floor: int = 64) -> int:
     while b < n:
         b *= 2
     return b
+
+
+def pad_rows(a: np.ndarray, n: int, fill) -> np.ndarray:
+    """`a` padded along its first axis to n rows of `fill`."""
+    if a.shape[0] == n:
+        return a
+    out = np.full((n,) + a.shape[1:], fill, a.dtype)
+    out[: a.shape[0]] = a
+    return out
+
+
+def pad_seq_columns(cols: SeqColumns, n: int) -> SeqColumns:
+    """Pad numpy SeqColumns of one doc to n rows (invalid tail)."""
+    return SeqColumns(
+        parent=pad_rows(cols.parent, n, -1),
+        side=pad_rows(cols.side, n, 0),
+        peer=pad_rows(cols.peer, n, 0),
+        counter=pad_rows(cols.counter, n, 0),
+        deleted=pad_rows(cols.deleted, n, True),
+        content=pad_rows(cols.content, n, -1),
+        valid=pad_rows(cols.valid, n, False),
+    )
+
+
+def seq_columns_to_torch(np_cols, device: DeviceLike = "cuda"):
+    """Carry numpy SeqColumns or SeqColumnsU (one doc [N] or a stacked
+    batch [D, N]) onto `device` as tensors of the same type: int32 and
+    bool keep their dtypes, the uint32 peer halves of SeqColumnsU become
+    int64 holding the same values; one doc gains a leading doc axis of
+    1.  Raises TypeError on any other dtype."""
+    if not isinstance(np_cols, (SeqColumns, SeqColumnsU)):
+        raise TypeError(f"expected SeqColumns or SeqColumnsU, got {type(np_cols).__name__}")
+    dev = resolve_device(device)
+    kind = type(np_cols)
+    out = {}
+    for f in kind._fields:
+        a = np.asarray(getattr(np_cols, f))
+        if a.dtype != _SEQ_DTYPES[f]:
+            raise TypeError(f"{kind.__name__}.{f}: expected {np.dtype(_SEQ_DTYPES[f])}, got {a.dtype}")
+        if a.ndim == 1:
+            a = a[None, :]
+        if a.ndim != 2:
+            raise ValueError(f"{kind.__name__}.{f}: expected [N] or [D, N], got shape {a.shape}")
+        if a.dtype == np.uint32:
+            a = a.astype(np.int64)
+        out[f] = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    shape = tuple(out["parent"].shape)
+    for f, t in out.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{kind.__name__}.{f}: shape {tuple(t.shape)} != {shape}")
+    return kind(**out)
 
 
 def chain_columns_to_torch(np_cols, device: DeviceLike = "cuda") -> ChainColumns:
@@ -194,21 +285,52 @@ def _ruling_dist_from(d0: torch.Tensor, t0: torch.Tensor, k: int = 8) -> torch.T
     return (d + r_d.gather(1, dense(t))).to(torch.int32)
 
 
+def _blocked_dist(succ: torch.Tensor, block: int = list_rank.DEFAULT_BLOCK) -> torch.Tensor:
+    """Blocked two-level ranking, int32 [D, m] -> int32 (the XLA
+    _blocked_dist): phase A doubles each pointer only while its target
+    lies in the same `block`-token block (the block clamped to the
+    lane-padded ring, the ring padded to a whole number of blocks with
+    self-loops), ceil(log2(block)) rounds; then the ruling phases rank
+    the weighted block-exit graph."""
+    n_docs, m = succ.shape
+    dev = succ.device
+    b = min(block, max(128, -(-m // 128) * 128))
+    mp = -(-m // b) * b
+    tok = torch.arange(mp, dtype=torch.int64, device=dev)
+    t = torch.cat([succ.to(torch.int64), tok[m:].expand(n_docs, mp - m)], dim=1)
+    d = (t != tok).to(torch.int64)
+    blk = tok // b
+    for _ in range(list_rank.ceil_log2(b)):
+        active = ((t // b) == blk) & (t != tok)
+        d, t = torch.where(active, d + d.gather(1, t), d), torch.where(active, t.gather(1, t), t)
+    return _ruling_dist_from(d, t)[:, :m]
+
+
 # ---- rank dispatch ----------------------------------------------------------
 
-RANK_SPECS = ("cuda:ruling", "cuda:wyllie", "torch:ruling", "torch:wyllie")
-_NOT_PORTED = {
-    "blocked": "blocked two-level rank (_blocked_dist / _rank_kernel_blocked)",
-    "coalesced": "run-coalesced rank (_coalesced_dist)",
-}
+RANK_SPECS = ("cuda:ruling", "cuda:wyllie", "cuda:blocked", "torch:ruling", "torch:wyllie", "torch:blocked")
+_NOT_PORTED = {"coalesced": "run-coalesced rank (_coalesced_dist)"}
+# Rings the automatic route on a CUDA device sent to the plain torch
+# Wyllie because they are longer than the kernels take (RANK_MAX_M);
+# incremented where that route is chosen.
+RANK_ROUTES: Dict[str, int] = {"torch:wyllie/over_cap": 0}
 
 
-def _resolve_rank_spec(rank_impl: Optional[str], device: torch.device) -> Tuple[str, str]:
-    """(backend, algo).  None picks "cuda:ruling" on a CUDA device (the
-    hand-written kernel; no environment variable overrides it) and
-    "torch:ruling" on the CPU.  "cuda:*" needs CUDA tensors."""
+def _resolve_rank_spec(rank_impl: Optional[str], device: torch.device, m: int) -> Tuple[str, str]:
+    """(backend, algo) for rings of m tokens.  None picks, on a CUDA
+    device, "cuda:ruling" (the hand-written kernels; no environment
+    variable overrides it) when m <= list_rank.RANK_MAX_M and else
+    "torch:wyllie" (the counterpart of the JAX package's XLA route past
+    PALLAS_RANK_MAX_M; a rule on the shape, counted in RANK_ROUTES), and
+    "torch:ruling" on the CPU.  "cuda:*" needs CUDA tensors; on a ring
+    past the cap it raises in list_rank."""
     if rank_impl is None:
-        return ("cuda", "ruling") if device.type == "cuda" else ("torch", "ruling")
+        if device.type != "cuda":
+            return "torch", "ruling"
+        if m <= list_rank.RANK_MAX_M:
+            return "cuda", "ruling"
+        RANK_ROUTES["torch:wyllie/over_cap"] += 1
+        return "torch", "wyllie"
     backend, _, algo = rank_impl.partition(":")
     if backend in ("cuda", "torch") and algo in _NOT_PORTED:
         raise NotImplementedError(
@@ -228,6 +350,8 @@ def _rank_dist(succ: torch.Tensor, backend: str, algo: str) -> torch.Tensor:
         return list_rank.wyllie_rank(succ, algo=algo, device=succ.device)
     if algo == "ruling":
         return _ruling_dist(succ)
+    if algo == "blocked":
+        return _blocked_dist(succ)
     return _wyllie_dist(succ)
 
 
@@ -235,13 +359,19 @@ def _rank_dist(succ: torch.Tensor, backend: str, algo: str) -> torch.Tensor:
 
 
 def _ring_and_anchors(
-    parent_in: torch.Tensor, side_in: torch.Tensor, valid_in: torch.Tensor
+    parent_in: torch.Tensor,
+    side_in: torch.Tensor,
+    valid_in: torch.Tensor,
+    sib_keys: Optional[Sequence[torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(succ int32 [D, 2*(n+1)], anchor int32 [D, n+1]): the Euler-tour
     successor ring over ENTER/EXIT tokens and each node's in-order anchor
     token (the virtual root is node n).  Tokens are numbered by
     sibling-sort slot (ENTER(e) = slot[e], EXIT(e) = m-1-slot[e]) and the
     tokens of invalid nodes are chained by index, as in the JAX package.
+    Without `sib_keys`, sibling order is row order; with them ([D, n]
+    tensors of uint32 values, most significant first) siblings sort by
+    those keys (the JAX lexsort).
 
     Ring: ENTER(e) -> ENTER(first L-child) | ENTER(first R-child) | EXIT(e);
     EXIT(e) -> ENTER(next sibling) | post_L(parent) (last L-sibling) |
@@ -263,7 +393,14 @@ def _ring_and_anchors(
     valid = torch.cat([valid_in, col(0, torch.bool)], dim=1)  # root is not a child
 
     key = torch.where(parent < BIG, parent * 2 + side, BIG)
-    order = torch.sort(key, dim=1, stable=True).indices  # [D, n1] slot -> node
+    if sib_keys is None:
+        order = torch.sort(key, dim=1, stable=True).indices  # [D, n1] slot -> node
+    else:
+        # lexsort by (key, *sib_keys): stable sorts from the most minor
+        # key up to `key`; the root's sibling keys are 0
+        order = torch.arange(n1, dtype=i64, device=dev).expand(n_docs, n1)
+        for k in [torch.cat([sk.to(i64) & _U32, col(0)], dim=1) for sk in reversed(sib_keys)] + [key]:
+            order = order.gather(1, torch.sort(k.gather(1, order), dim=1, stable=True).indices)
     p_s = parent.gather(1, order)
     s_s = side.gather(1, order)
     prev_same = (p_s == p_s.roll(1, 1)) & (s_s == s_s.roll(1, 1))
@@ -328,20 +465,124 @@ def _order_core(
     side_in: torch.Tensor,
     valid_in: torch.Tensor,
     rank_impl: Optional[str] = None,
+    sib_keys: Optional[Sequence[torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Euler-tour in-order rank keys int32 [D, n] (ascending key =
-    traversal order; invalid rows get BIG).  Rows must obey the
-    (peer, counter) order contract."""
+    traversal order; invalid rows get BIG).  Without `sib_keys` rows must
+    obey the (peer, counter) order contract."""
     n = parent_in.shape[1]
-    succ, anchor = _ring_and_anchors(parent_in, side_in, valid_in)
-    backend, algo = _resolve_rank_spec(rank_impl, succ.device)
+    succ, anchor = _ring_and_anchors(parent_in, side_in, valid_in, sib_keys)
+    backend, algo = _resolve_rank_spec(rank_impl, succ.device, succ.shape[1])
     dist = _rank_dist(succ, backend, algo)
     anchor_dist = dist.gather(1, anchor.to(torch.int64))
     rank = anchor_dist[:, n : n + 1] - anchor_dist[:, :n]
     return torch.where(valid_in, rank, BIG).to(torch.int32)
 
 
-# ---- element placement ------------------------------------------------------
+# ---- element-level order and materialization ----------------------------
+
+
+def _on(cols, device: DeviceLike):
+    """The same column tuple with every tensor on `device`."""
+    dev = resolve_device(device)
+    return type(cols)(*[t.to(dev) for t in cols])
+
+
+def fugue_order(cols: SeqColumns, rank_impl: Optional[str] = None, device: DeviceLike = "cuda") -> torch.Tensor:
+    """Rank keys int32 [D, N] whose ascending order is the in-order
+    position of each element in the Fugue traversal (keys may have gaps;
+    pads get BIG).  Rows must be sorted by (peer, counter)."""
+    c = _on(cols, device)
+    return _order_core(c.parent, c.side, c.valid, rank_impl=rank_impl)
+
+
+def visible_order(
+    cols: SeqColumns, rank_impl: Optional[str] = None, device: DeviceLike = "cuda"
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(perm int32 [D, N], count int32 [D]): perm[d, i] is the element
+    at position i in final order, visible elements first in document
+    order."""
+    c = _on(cols, device)
+    rank = _order_core(c.parent, c.side, c.valid, rank_impl=rank_impl)
+    visible = c.valid & ~c.deleted
+    key = torch.where(visible, rank, BIG)
+    perm = torch.sort(key, dim=1, stable=True).indices
+    return perm.to(torch.int32), visible.sum(1).to(torch.int32)
+
+
+def _compact(
+    rank: torch.Tensor, visible: torch.Tensor, content: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sort-free compaction [D, N] -> (codes int32 [D, N] padded with -1,
+    count int32 [D]): ranks of visible rows are distinct and below
+    rank_bound(N), so a rank histogram and its exclusive cumsum give each
+    visible row its final position; invisible rows go to the dump slot N
+    (JAX's mode="drop"), which is sliced away."""
+    n_docs, n = rank.shape
+    dev = rank.device
+    i64 = torch.int64
+    m = rank_bound(n)
+    rk = rank.to(i64).clamp(0, m - 1)
+    vis_i = visible.to(i64)
+    hist = torch.zeros((n_docs, m), dtype=i64, device=dev).scatter_add_(
+        1, torch.where(visible, rk, m - 1), vis_i
+    )
+    pos = (hist.cumsum(1) - hist).gather(1, rk)
+    codes = torch.full((n_docs, n + 1), -1, dtype=torch.int32, device=dev)
+    codes.scatter_(1, torch.where(visible, pos, n), content)
+    return codes[:, :n], vis_i.sum(1).to(torch.int32)
+
+
+def materialize_content(
+    cols: SeqColumns, rank_impl: Optional[str] = None, device: DeviceLike = "cuda"
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Content codes of visible elements in document order: (codes int32
+    [D, N] with tail padding -1, count int32 [D]).  The doc axis is
+    explicit, so this is also the batched form (materialize_content_batch)."""
+    c = _on(cols, device)
+    rank = _order_core(c.parent, c.side, c.valid, rank_impl=rank_impl)
+    return _compact(rank, c.valid & ~c.deleted, c.content)
+
+
+# the JAX package's vmapped batch form and its one-launch fleet entry
+materialize_content_batch = merge_docs = materialize_content
+
+
+def merge_docs_checksum(
+    cols: SeqColumns, rank_impl: Optional[str] = None, device: DeviceLike = "cuda"
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Merge, reduced to a per-doc order-sensitive checksum (int64 [D]
+    holding uint32 values) and counts int32 [D]."""
+    codes, counts = materialize_content(cols, rank_impl, device)
+    return _weighted_checksum(codes), counts
+
+
+def fugue_order_u(cols: SeqColumnsU, rank_impl: Optional[str] = None, device: DeviceLike = "cuda") -> torch.Tensor:
+    """fugue_order for the row-order-free table: siblings ordered by
+    (peer_hi, peer_lo, counter)."""
+    c = _on(cols, device)
+    return _order_u(c, rank_impl)
+
+
+def _order_u(c: SeqColumnsU, rank_impl: Optional[str]) -> torch.Tensor:
+    return _order_core(
+        c.parent, c.side, c.valid, rank_impl=rank_impl, sib_keys=(c.peer_hi, c.peer_lo, c.counter)
+    )
+
+
+def materialize_content_u(
+    cols: SeqColumnsU, rank_impl: Optional[str] = None, device: DeviceLike = "cuda"
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Order + compact for the row-order-free table (content = -1 rows,
+    anchors, are invisible)."""
+    c = _on(cols, device)
+    return _compact(_order_u(c, rank_impl), c.valid & ~c.deleted & (c.content >= 0), c.content)
+
+
+merge_docs_u = materialize_content_u
+
+
+# ---- element placement (chain path) ------------------------------------------
 
 PLACES = ("sort", "scatter")
 
@@ -437,11 +678,6 @@ def _weighted_checksum(codes: torch.Tensor) -> torch.Tensor:
     wgt = ((torch.arange(n, dtype=torch.int64, device=codes.device) * 2654435761) & _U32) % (1 << 30)
     c = torch.where(codes >= 0, codes.to(torch.int64), 0) & _U32
     return ((((c * wgt) & _U32) % (1 << 30)).sum(1)) & _U32
-
-
-def _on(cols: ChainColumns, device: DeviceLike) -> ChainColumns:
-    dev = resolve_device(device)
-    return ChainColumns(*[t.to(dev) for t in cols])
 
 
 def chain_merge_docs(cols: ChainColumns, device: DeviceLike = "cuda"):

@@ -1,18 +1,20 @@
 """List ranking on a successor ring: the hand-written Hopper kernel
 (csrc/list_rank.cu) and its plain torch version.
 
-Counterpart of loro_tpu/ops/pallas_rank.py (wyllie_rank, the packed
-Wyllie kernel _rank_kernel and the ruling-set kernel
-_rank_kernel_ruling/_ruling_from_packed).  The contract of wyllie_rank
-is kept, except that `succ` may carry a leading doc axis ([m] or
-[D, m]; one CTA ranks one ring, so a [D, m] batch is one launch) and
-the algorithm, ruler spacing and device are arguments, not environment
-knobs.
+Counterpart of loro_tpu/ops/pallas_rank.py (wyllie_rank and all four
+of its kernels: packed Wyllie _rank_kernel, ruling set
+_rank_kernel_ruling/_ruling_from_packed, blocked _rank_kernel_blocked
+and the wide dual-table _rank_kernel_wide).  The contract of
+wyllie_rank is kept, except that `succ` may carry a leading doc axis
+([m] or [D, m]; one CTA ranks one ring, so a [D, m] batch is one
+launch) and the algorithm, ruler spacing, block size and device are
+arguments, not environment knobs.
 
-On a CUDA tensor wyllie_rank launches the kernel or raises.  On a CPU
-tensor it runs wyllie_rank_reference, the plain torch version of the
-same packed algorithm (same padding, same rounds, same freeze), which
-chip_smoke.py also holds the kernel against on the card.
+On a CUDA tensor wyllie_rank launches a kernel or raises.  On a CPU
+tensor it runs the plain torch version of the same algorithm (same
+padding, same rounds, same freeze): packed_rank_plain, or
+wide_rank_plain for rings that need the wide kernel.  chip_smoke.py
+holds every kernel against its plain version on the card.
 """
 from __future__ import annotations
 
@@ -30,19 +32,24 @@ ALGOS = ("wyllie", "ruling", "blocked")
 # ring-length ceiling of the JAX package's VMEM ranking (PALLAS_RANK_MAX_M)
 RANK_MAX_M = 1 << 17
 PACKED_MAX_M = 1 << 16  # dist and succ share one u32 as 16 + 16 bits
+DEFAULT_BLOCK = 1024  # blocked phase-A block (RANK_BLOCK's default in JAX)
 _LANES = 128
 _LOW = 0xFFFF
 _HIGH = 0xFFFF0000
 _U32 = 0xFFFFFFFF
 
-# Launches of the CUDA kernel, by algorithm and by where its tables live
+# Launches of the CUDA kernels, by algorithm and by where the tables live
 # (shared memory, or a global scratch buffer above the shared-memory
-# budget).  Incremented only where the kernel is launched.
+# budget; the wide kernel's tables are always global).  Incremented only
+# where a kernel is launched.
 LAUNCHES: Dict[str, int] = {
     "ruling/smem": 0,
     "ruling/global": 0,
     "wyllie/smem": 0,
     "wyllie/global": 0,
+    "blocked/smem": 0,
+    "blocked/global": 0,
+    "wide/global": 0,
 }
 
 
@@ -62,28 +69,48 @@ class RankPlan:
 
     m: int  # ring length as given
     mp: int  # padded ring length
-    algo: str  # "ruling" | "wyllie" (after the k-quantum rule)
-    k: int  # ruler spacing (ruling only)
+    algo: str  # "ruling" | "wyllie" | "blocked" (after the k-quantum rule)
+    k: int  # ruler spacing (ruling and blocked)
     n_steps: int  # round cap, from the unpadded m
+    wide: bool = False  # ranked by the wide kernel (overrides algo and k)
+    block: int = DEFAULT_BLOCK  # phase-A block (blocked only)
+
+    @property
+    def ruling(self) -> bool:
+        """Whether the ruling phases run (ruling and blocked, not wide)."""
+        return self.algo in ("ruling", "blocked") and not self.wide
 
     @property
     def n_steps_dense(self) -> int:
         return ceil_log2(self.mp // self.k)
 
     @property
+    def n_steps_a(self) -> int:
+        """Blocked phase-A round cap, from the padded ring as in JAX."""
+        return ceil_log2(min(self.block, self.mp)) if self.algo == "blocked" and not self.wide else 0
+
+    @property
     def table_words(self) -> int:
         """u32 words of table per ring: packed ring (+ dense ruler ring
-        and sink slot for ruling)."""
-        return self.mp + (self.mp // self.k + 1 if self.algo == "ruling" else 0)
+        and sink slot for the ruling phases); two per token (one u64)
+        for the wide kernel."""
+        if self.wide:
+            return 2 * self.mp
+        return self.mp + (self.mp // self.k + 1 if self.ruling else 0)
 
 
 def plan_rank(m: int, algo: str = "ruling", k: int = 8, weighted: bool = False,
-              dist_bound: Optional[int] = None) -> RankPlan:
+              dist_bound: Optional[int] = None, block: int = DEFAULT_BLOCK) -> RankPlan:
     """Validate arguments and choose padding, as pallas_rank.wyllie_rank
-    does: pad tokens are self-loop terminals; ruling pads to 128*k
-    tokens (the dense ruler ring stays 128-aligned), wyllie to 128."""
+    does: pad tokens are self-loop terminals; ruling and blocked pad to
+    128*k tokens (the dense ruler ring stays 128-aligned), wyllie to 128.
+    A ring whose lane-padded length passes 65536, or a weighted ring
+    with dist_bound > 65536, takes the wide kernel whatever the algo:
+    128-token padding, k ignored, plain Wyllie rounds."""
     if algo not in ALGOS:
         raise ConfigError("list rank algo", algo, "|".join(ALGOS))
+    if not isinstance(block, (int, np.integer)) or not 128 <= block <= 65536 or (block & (block - 1)) != 0:
+        raise ConfigError("rank block", block, "a power of two in [128, 65536]")
     if algo in ("ruling", "blocked"):
         if not isinstance(k, (int, np.integer)) or not 2 <= k <= 512 or (k & (k - 1)) != 0:
             raise ConfigError("ruling k", k, "a power of two in [2, 512]")
@@ -108,20 +135,11 @@ def plan_rank(m: int, algo: str = "ruling", k: int = 8, weighted: bool = False,
         raise ValueError(f"ring too long for the list-rank kernels: {m}")
     if weighted and dist_bound is None:
         raise ValueError("weighted wyllie_rank needs dist_bound (an exclusive bound on any distance)")
-    if algo == "blocked":
-        raise NotImplementedError(
-            "list rank algo 'blocked' is not ported yet (ROADMAP.md, 'TPU kernels to port': _rank_kernel_blocked)"
-        )
-    if needs_wide:
-        raise NotImplementedError(
-            "rings past 65536 lane-padded tokens or dist_bound > 65536 need the wide kernel, "
-            "not ported yet (ROADMAP.md, 'TPU kernels to port': _rank_kernel_wide)"
-        )
-    return RankPlan(m=m, mp=mp, algo=algo, k=k, n_steps=ceil_log2(m))
+    return RankPlan(m=m, mp=mp, algo=algo, k=k, n_steps=ceil_log2(m), wide=needs_wide, block=int(block))
 
 
 def _prepare(succ: torch.Tensor, weights: Optional[torch.Tensor], algo: str, k: int,
-             dist_bound: Optional[int]):
+             dist_bound: Optional[int], block: int = DEFAULT_BLOCK):
     """Checks, plan and the padded int32 [D, mp] (succ, w) pair."""
     if succ.dtype != torch.int32:
         raise TypeError(f"succ must be int32, got {succ.dtype}")
@@ -129,7 +147,7 @@ def _prepare(succ: torch.Tensor, weights: Optional[torch.Tensor], algo: str, k: 
         raise ValueError(f"succ must be [m] or [D, m], got shape {tuple(succ.shape)}")
     s2 = succ.reshape(1, -1) if succ.dim() == 1 else succ
     d, m = s2.shape
-    plan = plan_rank(m, algo, k, weights is not None, dist_bound)
+    plan = plan_rank(m, algo, k, weights is not None, dist_bound, block)
     if s2.numel() and bool(((s2 < 0) | (s2 >= m)).any()):
         raise ValueError("succ entries must lie in [0, m)")
     tok = torch.arange(m, dtype=torch.int32, device=s2.device)
@@ -157,15 +175,35 @@ def _round(p: torch.Tensor) -> torch.Tensor:
     return ((p & _HIGH) + p.gather(1, p & _LOW)) & _U32
 
 
+def wide_rank_plain(succ_p: torch.Tensor, w_p: torch.Tensor, plan: RankPlan) -> torch.Tensor:
+    """Plain torch version of the wide kernel on padded int32 [D, mp]
+    inputs: synchronous dual-table Wyllie in int64, the form of
+    pallas_rank._rank_kernel_wide (d += d[s]; s = s[s], n_steps rounds).
+    Returns int32 [D, mp]."""
+    d = w_p.to(torch.int64)
+    s = succ_p.to(torch.int64)
+    for _ in range(plan.n_steps):
+        d, s = d + d.gather(1, s), s.gather(1, s)
+    return d.to(torch.int32)
+
+
 def packed_rank_plain(succ_p: torch.Tensor, w_p: torch.Tensor, plan: RankPlan) -> torch.Tensor:
-    """Plain torch version of the kernel on padded int32 [D, mp] inputs
-    (the synchronous form of pallas_rank._rank_kernel and
-    _ruling_from_packed).  Returns int32 [D, mp]."""
+    """Plain torch version of the packed kernels on padded int32 [D, mp]
+    inputs (the synchronous form of pallas_rank._rank_kernel,
+    _rank_kernel_blocked and _ruling_from_packed).  Returns int32
+    [D, mp]."""
     p = ((w_p.to(torch.int64) << 16) | (succ_p.to(torch.int64) & _LOW)) & _U32
     if plan.algo == "wyllie":
         for _ in range(plan.n_steps):
             p = _round(p)
         return (p >> 16).to(torch.int32)
+    if plan.algo == "blocked":
+        # phase A: compose only while the target lies in the token's own
+        # block (pallas_rank.py:263-272)
+        shift = plan.block.bit_length() - 1
+        blk = torch.arange(plan.mp, dtype=torch.int64, device=p.device) >> shift
+        for _ in range(plan.n_steps_a):
+            p = torch.where(((p & _LOW) >> shift) == blk, _round(p), p)
     k = plan.k
     # phase 1: freeze at rulers (index % k == 0), absorb at terminals
     done = ((p & _LOW) & (k - 1)) == 0
@@ -195,40 +233,49 @@ def packed_rank_plain(succ_p: torch.Tensor, w_p: torch.Tensor, plan: RankPlan) -
     return out.to(torch.int32)
 
 
+def rank_plain(succ_p: torch.Tensor, w_p: torch.Tensor, plan: RankPlan) -> torch.Tensor:
+    """The plain torch version of whichever kernel `plan` picks."""
+    return (wide_rank_plain if plan.wide else packed_rank_plain)(succ_p, w_p, plan)
+
+
 def wyllie_rank_reference(succ, algo: str = "ruling", k: int = 8, weights=None,
-                          dist_bound: Optional[int] = None) -> torch.Tensor:
+                          dist_bound: Optional[int] = None, block: int = DEFAULT_BLOCK) -> torch.Tensor:
     """Plain torch version with wyllie_rank's contract, run on whatever
     device `succ` lies on (a numpy array is taken as a CPU tensor)."""
     succ_t = torch.as_tensor(succ)
     w_t = None if weights is None else torch.as_tensor(weights, device=succ_t.device)
-    plan, succ_p, w_p = _prepare(succ_t, w_t, algo, k, dist_bound)
-    return _finish(packed_rank_plain(succ_p, w_p, plan), plan, succ_t.dim() == 1)
+    plan, succ_p, w_p = _prepare(succ_t, w_t, algo, k, dist_bound, block)
+    return _finish(rank_plain(succ_p, w_p, plan), plan, succ_t.dim() == 1)
 
 
 def wyllie_rank(succ, algo: str = "ruling", k: int = 8, weights=None,
-                dist_bound: Optional[int] = None, device: DeviceLike = "cuda") -> torch.Tensor:
+                dist_bound: Optional[int] = None, device: DeviceLike = "cuda",
+                block: int = DEFAULT_BLOCK) -> torch.Tensor:
     """dist-to-terminal for a successor ring (terminal = self-loop).
 
     succ: int32 [m] or [D, m] with entries in [0, m); returns int32 of
     the same shape on `device`.  `weights` generalizes to
     dist(i) = weights[i] + dist(succ[i]) (terminals weigh 0) and then
     requires `dist_bound`, an exclusive bound on any distance: the
-    packed kernels carry dist in 16 bits.  algo: "ruling" (default) or
-    "wyllie"; "blocked" and rings needing the wide kernel raise
-    NotImplementedError; k must be a power of two in [2, 512]; rings
-    padding past RANK_MAX_M raise ValueError."""
+    packed kernels carry dist in 16 bits, so a bound past
+    65536 takes the wide kernel.  algo: "ruling" (default), "wyllie" or
+    "blocked" (phase A inside `block`-token blocks, a power of two in
+    [128, 65536], then the ruling phases); k must be a power of two in
+    [2, 512]; rings whose lane-padded length passes 65536 take the wide
+    kernel whatever the algo; rings padding past RANK_MAX_M raise
+    ValueError."""
     dev = resolve_device(device)
     succ_t = torch.as_tensor(succ).to(dev)
     w_t = None if weights is None else torch.as_tensor(weights).to(dev)
-    plan, succ_p, w_p = _prepare(succ_t, w_t, algo, k, dist_bound)
+    plan, succ_p, w_p = _prepare(succ_t, w_t, algo, k, dist_bound, block)
     if succ_p.device.type == "cpu":
-        dist_p = packed_rank_plain(succ_p, w_p, plan)
+        dist_p = rank_plain(succ_p, w_p, plan)
     else:
         dist_p = launch_kernel(succ_p, w_p, plan)
     return _finish(dist_p, plan, succ_t.dim() == 1)
 
 
-# ---- the CUDA kernel ------------------------------------------------------
+# ---- the CUDA kernels ------------------------------------------------------
 
 _lib_handle: Optional[ctypes.CDLL] = None
 _smem_budget: Dict[int, int] = {}
@@ -240,8 +287,10 @@ def _lib() -> ctypes.CDLL:
         from .._build import library
 
         lib = library("list_rank")
-        lib.list_rank_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        lib.list_rank_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         lib.list_rank_launch.restype = ctypes.c_int
+        lib.list_rank_wide_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        lib.list_rank_wide_launch.restype = ctypes.c_int
         lib.list_rank_smem_budget.argtypes = [ctypes.c_int]
         lib.list_rank_smem_budget.restype = ctypes.c_int
         lib.list_rank_error_string.argtypes = [ctypes.c_int]
@@ -263,13 +312,17 @@ def smem_budget(device: torch.device) -> int:
 
 def table_variant(plan: RankPlan, device: torch.device) -> str:
     """"smem" when a ring's tables fit the block's shared memory, else
-    "global" (tables in a scratch buffer in device memory)."""
+    "global" (tables in a scratch buffer in device memory).  The wide
+    kernel always keeps its tables in global memory."""
+    if plan.wide:
+        return "global"
     return "smem" if plan.table_words * 4 <= smem_budget(device) else "global"
 
 
 def launch_kernel(succ_p: torch.Tensor, w_p: torch.Tensor, plan: RankPlan) -> torch.Tensor:
-    """Launch csrc/list_rank.cu on padded int32 [D, mp] CUDA tensors;
-    returns int32 [D, mp] dist.  Raises on any launch error."""
+    """Launch csrc/list_rank.cu (the packed kernel for ruling, wyllie
+    and blocked, or the wide kernel) on padded int32 [D, mp] CUDA
+    tensors; returns int32 [D, mp] dist.  Raises on any launch error."""
     if succ_p.device.type != "cuda" or w_p.device != succ_p.device:
         raise ValueError("launch_kernel needs succ and w on one CUDA device")
     if succ_p.dtype != torch.int32 or w_p.dtype != torch.int32:
@@ -278,33 +331,40 @@ def launch_kernel(succ_p: torch.Tensor, w_p: torch.Tensor, plan: RankPlan) -> to
         raise ValueError(f"launch_kernel needs [D, {plan.mp}] inputs, got {tuple(succ_p.shape)}")
     if not (succ_p.is_contiguous() and w_p.is_contiguous()):
         raise ValueError("launch_kernel needs contiguous inputs")
-    if plan.algo not in ("ruling", "wyllie"):
-        raise ValueError(f"no CUDA kernel for algo {plan.algo!r}")
     dev = succ_p.device
     d = succ_p.shape[0]
     variant = table_variant(plan, dev)
     dist = torch.empty_like(succ_p)
-    scratch = None
-    if variant == "global":
-        scratch = torch.empty(d * plan.table_words, dtype=torch.int32, device=dev)
-    ruling = plan.algo == "ruling"
+    stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = _lib().list_rank_launch(
-            succ_p.data_ptr(),
-            w_p.data_ptr(),
-            dist.data_ptr(),
-            None if scratch is None else scratch.data_ptr(),
-            d,
-            plan.mp,
-            plan.n_steps,
-            plan.n_steps_dense if ruling else 0,
-            int(ruling),
-            plan.k.bit_length() - 1,
-            int(variant == "smem"),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+        if plan.wide:
+            # one u64 (dist:32 | succ:32) word per token
+            scratch = torch.empty(d * plan.mp, dtype=torch.int64, device=dev)
+            err = _lib().list_rank_wide_launch(
+                succ_p.data_ptr(), w_p.data_ptr(), dist.data_ptr(), scratch.data_ptr(),
+                d, plan.mp, plan.n_steps, stream,
+            )
+        else:
+            smem = variant == "smem"
+            scratch = None if smem else torch.empty(d * plan.table_words, dtype=torch.int32, device=dev)
+            err = _lib().list_rank_launch(
+                succ_p.data_ptr(),
+                w_p.data_ptr(),
+                dist.data_ptr(),
+                None if scratch is None else scratch.data_ptr(),
+                d,
+                plan.mp,
+                plan.n_steps,
+                plan.n_steps_dense if plan.ruling else 0,
+                int(plan.ruling),
+                plan.k.bit_length() - 1,
+                plan.n_steps_a,
+                plan.block.bit_length() - 1,
+                int(smem),
+                stream,
+            )
     if err != 0:
         msg = _lib().list_rank_error_string(err).decode()
         raise RuntimeError(f"list_rank kernel launch failed: cudaError {err} ({msg})")
-    LAUNCHES[f"{plan.algo}/{variant}"] += 1
+    LAUNCHES[f"{'wide' if plan.wide else plan.algo}/{variant}"] += 1
     return dist

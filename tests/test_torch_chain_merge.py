@@ -20,6 +20,7 @@ from loro_tpu_torch import tracegen
 from loro_tpu_torch.errors import ConfigError
 from loro_tpu_torch.ops import columnar as pcol
 from loro_tpu_torch.ops import fugue_batch as pfb
+from loro_tpu_torch.ops import list_rank
 
 
 def _to_port_extract(ex) -> pcol.SeqExtract:
@@ -130,7 +131,7 @@ def test_ring_and_anchors_match_jax(datasets, name):
     np.testing.assert_array_equal(anchor.numpy(), np.asarray(ja))
 
 
-@pytest.mark.parametrize("algo", ["wyllie", "ruling"])
+@pytest.mark.parametrize("algo", ["wyllie", "ruling", "blocked"])
 @pytest.mark.parametrize("name", ["tracegen", "loro"])
 def test_order_core_matches_jax(datasets, name, algo):
     np_cols, _, _ = datasets[name]
@@ -191,7 +192,7 @@ def test_scatter_placement_and_positions_match_jax(datasets, name):
 
 
 @pytest.mark.parametrize("place", ["sort", "scatter"])
-@pytest.mark.parametrize("algo", ["wyllie", "ruling"])
+@pytest.mark.parametrize("algo", ["wyllie", "ruling", "blocked"])
 @pytest.mark.parametrize("name", ["tracegen", "loro"])
 def test_chain_merge_matches_jax(datasets, name, algo, place):
     np_cols, texts, _ = datasets[name]
@@ -240,7 +241,7 @@ def test_weighted_checksum_matches_jax():
 
 @pytest.mark.parametrize("m", [5, 64, 257, 1000])
 def test_plain_rank_algorithms_match_jax(m):
-    from loro_tpu.ops.fugue_batch import _ruling_dist, _wyllie_dist
+    from loro_tpu.ops.fugue_batch import _blocked_dist, _ruling_dist, _wyllie_dist
 
     rng = np.random.default_rng(m)
     rings = []
@@ -258,20 +259,41 @@ def test_plain_rank_algorithms_match_jax(m):
     got = pfb._wyllie_dist(batch).numpy()
     for row, s in zip(got, rings):
         np.testing.assert_array_equal(row, np.asarray(jax.jit(_wyllie_dist)(jnp.asarray(s))))
+    for block in (128, 1024):
+        got = pfb._blocked_dist(batch, block).numpy()
+        for row, s in zip(got, rings):
+            want = np.asarray(jax.jit(lambda x: _blocked_dist(x, block))(jnp.asarray(s)))
+            np.testing.assert_array_equal(row, want, err_msg=f"block={block}")
 
 
 def test_rank_spec_contract():
     cpu = torch.device("cpu")
-    assert pfb._resolve_rank_spec(None, cpu) == ("torch", "ruling")
-    assert pfb._resolve_rank_spec("torch:wyllie", cpu) == ("torch", "wyllie")
-    with pytest.raises(ValueError, match="CUDA"):
-        pfb._resolve_rank_spec("cuda:ruling", cpu)
-    for spec in ("torch:blocked", "cuda:coalesced", "torch:coalesced"):
+    cuda = torch.device("cuda")  # a device object needs no card
+    cap = list_rank.RANK_MAX_M
+    assert pfb._resolve_rank_spec(None, cpu, 1000) == ("torch", "ruling")
+    assert pfb._resolve_rank_spec(None, cpu, cap + 2) == ("torch", "ruling")
+    assert pfb._resolve_rank_spec("torch:wyllie", cpu, 1000) == ("torch", "wyllie")
+    assert pfb._resolve_rank_spec("torch:blocked", cpu, 1000) == ("torch", "blocked")
+    # auto route on a CUDA device: the kernels up to the cap, the counted
+    # plain torch Wyllie past it (the JAX package's XLA route)
+    before = pfb.RANK_ROUTES["torch:wyllie/over_cap"]
+    for m in (1000, 65538, cap):
+        assert pfb._resolve_rank_spec(None, cuda, m) == ("cuda", "ruling")
+    assert pfb.RANK_ROUTES["torch:wyllie/over_cap"] == before
+    assert pfb._resolve_rank_spec(None, cuda, cap + 2) == ("torch", "wyllie")
+    assert pfb.RANK_ROUTES["torch:wyllie/over_cap"] == before + 1
+    assert pfb._resolve_rank_spec("cuda:blocked", cuda, cap + 2) == ("cuda", "blocked")
+    with pytest.raises(ValueError, match="too long"):
+        list_rank.wyllie_rank(np.arange(cap + 2, dtype=np.int32), algo="blocked", device="cpu")
+    for spec in ("cuda:ruling", "cuda:blocked"):
+        with pytest.raises(ValueError, match="CUDA"):
+            pfb._resolve_rank_spec(spec, cpu, 1000)
+    for spec in ("cuda:coalesced", "torch:coalesced"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pfb._resolve_rank_spec(spec, cpu)
+            pfb._resolve_rank_spec(spec, cpu, 1000)
     for spec in ("xla:wyllie", "pallas", "torch:bogus"):
         with pytest.raises(ConfigError):
-            pfb._resolve_rank_spec(spec, cpu)
+            pfb._resolve_rank_spec(spec, cpu, 1000)
 
 
 def test_place_validation(datasets):

@@ -42,6 +42,20 @@ _BLOCKED_IMPORT = textwrap.dedent(
     codes, counts = fugue_batch.chain_merge_docs_v(t, device="cpu")
     for i, d in enumerate(docs):
         assert "".join(map(chr, codes[i][: int(counts[i])].tolist())) == d.text
+    seq = fugue_batch.seq_columns_to_torch(
+        columnar.stack_docs([d.extract.to_seq_columns(pad_to=1024) for d in docs]), device="cpu"
+    )
+    for spec in ("torch:ruling", "torch:wyllie", "torch:blocked"):
+        codes, counts = fugue_batch.merge_docs(seq, rank_impl=spec, device="cpu")
+        for i, d in enumerate(docs):
+            assert "".join(map(chr, codes[i][: int(counts[i])].tolist())) == d.text, spec
+
+    # the port's entry point
+    from loro_tpu_torch.entry import entry
+
+    fn, (ex,) = entry()
+    codes, counts = fn(ex, device="cpu")
+    assert codes.shape == (8, 256) and int(counts[0]) == 256 - 256 // 7
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "loro_tpu"))
     assert not leaked, leaked
     print("OK", len(names))
@@ -86,6 +100,16 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
         content=np.array([[97, 98, 99, 100]], np.int32), valid=np.ones((1, 4), bool),
     )
     cpu_cols = fugue_batch.chain_columns_to_torch(np_cols, device="cpu")
+    from loro_tpu_torch.entry import entry, example_cols
+
+    np_seq = example_cols(d=1, n=8)
+    seq = fugue_batch.seq_columns_to_torch(np_seq, device="cpu")
+    u32 = np.zeros((1, 8), np.uint32)
+    np_u = fugue_batch.SeqColumnsU(
+        np_seq.parent, np_seq.side, u32, u32, np_seq.counter, np_seq.deleted, np_seq.content, np_seq.valid
+    )
+    seq_u = fugue_batch.seq_columns_to_torch(np_u, device="cpu")
+    fn, _ = entry()
     calls = [
         lambda: resolve_device(),
         lambda: list_rank.wyllie_rank(np.arange(4, dtype=np.int32)),
@@ -96,6 +120,18 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
         lambda: fugue_batch.chain_merge_docs_v(cpu_cols),
         lambda: fugue_batch.chain_merge_docs_checksum_v(cpu_cols),
         lambda: fugue_batch.chain_rank_checksum_v(cpu_cols),
+        lambda: fugue_batch.seq_columns_to_torch(np_seq),
+        lambda: fugue_batch.fugue_order(seq),
+        lambda: fugue_batch.visible_order(seq),
+        lambda: fugue_batch.materialize_content(seq),
+        lambda: fugue_batch.materialize_content_batch(seq),
+        lambda: fugue_batch.merge_docs(seq),
+        lambda: fugue_batch.merge_docs_checksum(seq),
+        lambda: fn(np_seq),
+        lambda: fugue_batch.seq_columns_to_torch(np_u),
+        lambda: fugue_batch.fugue_order_u(seq_u),
+        lambda: fugue_batch.materialize_content_u(seq_u),
+        lambda: fugue_batch.merge_docs_u(seq_u),
     ]
     for call in calls:
         with pytest.raises(DeviceUnavailable):
@@ -103,3 +139,6 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
     # the same calls run when the CPU is asked for
     codes, counts = fugue_batch.chain_merge_docs_v(cpu_cols, device="cpu")
     assert int(counts[0]) == 4 and codes[0].tolist() == [97, 98, 99, 100]
+    codes, counts = fn(np_seq, device="cpu")
+    assert int(counts[0]) == 7 and codes[0].tolist() == [97, 98, 99, 100, 101, 102, 104, -1]
+    assert torch.equal(fugue_batch.merge_docs_u(seq_u, device="cpu")[0], codes)

@@ -1,5 +1,6 @@
 """The port's list-rank module (loro_tpu_torch/ops/list_rank.py) against
-the JAX package's Pallas kernels (interpret mode) and its XLA reference.
+the JAX package's Pallas kernels (interpret mode) and its XLA references
+(wyllie_rank_xla, fugue_batch._wyllie_dist).
 
 Tolerance: exact — distances are integers and every version must give
 the same int32 values.  Inputs are numpy rings made from fixed seeds.
@@ -8,8 +9,10 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
+from loro_tpu.ops.fugue_batch import _wyllie_dist as jax_wyllie_dist
 from loro_tpu.ops.pallas_rank import wyllie_rank as jax_wyllie_rank
 from loro_tpu.ops.pallas_rank import wyllie_rank_xla
 from loro_tpu_torch.errors import ConfigError
@@ -42,6 +45,21 @@ def _gap_ring(m: int, k: int) -> np.ndarray:
     succ = np.arange(m, dtype=np.int32)
     for a, b in zip(order[:-1], order[1:]):
         succ[a] = b
+    return succ
+
+
+def _runs_ring(m: int, run_len: int, seed: int) -> np.ndarray:
+    """One chain over index-consecutive runs in shuffled run order
+    (tests/test_rank_blocked.py)."""
+    rng = np.random.default_rng(seed)
+    starts = np.arange(0, m, run_len)
+    order = rng.permutation(len(starts))
+    succ = np.arange(1, m + 1, dtype=np.int32)
+    succ[-1] = m - 1
+    for a, b in zip(order[:-1], order[1:]):
+        succ[min(starts[a] + run_len, m) - 1] = starts[b]
+    last = starts[order[-1]]
+    succ[min(last + run_len, m) - 1] = min(last + run_len, m) - 1
     return succ
 
 
@@ -121,6 +139,74 @@ def test_distances_are_list_positions():
     assert sorted(dist.tolist()) == list(range(512))
 
 
+@pytest.mark.parametrize("m", [65537, 65600, 131072])
+def test_wide_matches_pallas_interpret_and_xla(m):
+    """Rings past 65536 lane-padded tokens take the wide kernel."""
+    succ = _random_ring(m, m + 1)
+    want = np.asarray(jax_wyllie_rank(jnp.asarray(succ), interpret=True))
+    np.testing.assert_array_equal(want, np.asarray(jax.jit(jax_wyllie_dist)(jnp.asarray(succ))))
+    assert lr.plan_rank(m).wide
+    np.testing.assert_array_equal(_port(succ), want)
+
+
+def test_weighted_wide_matches_pallas_interpret():
+    """dist_bound past 65536 takes the wide kernel on a short ring; the
+    distances themselves pass 16 bits."""
+    rng = np.random.default_rng(12)
+    succ = _random_ring(3000, 12)
+    # 2999 weighted steps of 22 or 23: the head's distance lies in
+    # (65536, 70000)
+    w = np.where(succ == np.arange(3000), 0, rng.integers(22, 24, 3000)).astype(np.int32)
+    want = np.asarray(
+        jax_wyllie_rank(jnp.asarray(succ), interpret=True, weights=jnp.asarray(w), dist_bound=70_000)
+    )
+    assert 1 << 16 < want.max() < 70_000
+    plan = lr.plan_rank(3000, weighted=True, dist_bound=70_000)
+    assert plan.wide and plan.mp == 3072
+    for algo in ("ruling", "wyllie", "blocked"):
+        np.testing.assert_array_equal(_port(succ, algo=algo, weights=w, dist_bound=70_000), want)
+
+
+@pytest.mark.parametrize("block", [128, 1024, 8192])
+def test_blocked_matches_pallas_interpret(block, monkeypatch):
+    """Blocked plain version vs the Pallas blocked kernel (RANK_BLOCK is
+    the JAX block) on the blocked-rank ring generators at lengths around
+    the lane quantum and the default block."""
+    monkeypatch.setenv("RANK_BLOCK", str(block))
+    for m in (127, 128, 129, 1023, 1024, 1025, 4097):
+        for name, succ in (("random", _subset_ring(np.random.default_rng(m), m)), ("runs", _runs_ring(m, 37, m))):
+            want = np.asarray(jax_wyllie_rank(jnp.asarray(succ), interpret=True, algo="blocked"))
+            got = _port(succ, algo="blocked", block=block)
+            np.testing.assert_array_equal(got, want, err_msg=f"{name} m={m} block={block}")
+
+
+def test_blocked_phase_a_alone_is_exact():
+    """A block as large as the ring collapses every chain in phase A."""
+    succ = _random_ring(2048, 4)
+    want = np.asarray(wyllie_rank_xla(jnp.asarray(succ)))
+    np.testing.assert_array_equal(_port(succ, algo="blocked", block=65536), want)
+    np.testing.assert_array_equal(_port(_gap_ring(2048, 8), algo="blocked", block=128),
+                                  np.asarray(wyllie_rank_xla(jnp.asarray(_gap_ring(2048, 8)))))
+
+
+def test_wide_and_blocked_plans():
+    p = lr.plan_rank(65600, "blocked", 8)  # blocked on a wide ring -> wide, as in JAX
+    assert (p.wide, p.mp, p.n_steps, p.ruling, p.n_steps_a) == (True, 65664, 17, False, 0)
+    assert p.table_words == 2 * 65664
+    p = lr.plan_rank(65600, "ruling", 64)  # k ignored: 128-token padding
+    assert (p.wide, p.mp) == (True, 65664)
+    p = lr.plan_rank(65536, "ruling")  # lane-padded 65536: still packed
+    assert not p.wide and p.mp == 65536
+    p = lr.plan_rank(1000, "blocked", 8, block=128)
+    assert (p.wide, p.mp, p.ruling, p.n_steps_a) == (False, 1024, True, 7)
+    assert p.table_words == 1024 + 128 + 1
+    assert lr.plan_rank(1000, "blocked", 8).n_steps_a == 10  # min(block, mp) = 1024
+    assert lr.plan_rank(1000, "ruling").n_steps_a == 0
+    for bad in (64, 100, 1000, 1 << 17, 0, -128):
+        with pytest.raises(ConfigError):
+            lr.plan_rank(1000, "blocked", block=bad)
+
+
 def test_padding_plan_matches_jax_contract():
     p = lr.plan_rank(1000, "ruling", 8)
     assert (p.mp, p.algo, p.n_steps) == (1024, "ruling", 10)
@@ -139,12 +225,11 @@ def test_contract_errors():
     np.testing.assert_array_equal(_port(succ, algo="wyllie", k=6), _port(succ, algo="ruling"))
     with pytest.raises(ConfigError):
         lr.wyllie_rank(succ, algo="bogus", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lr.wyllie_rank(succ, algo="blocked", device="cpu")
-    with pytest.raises(NotImplementedError, match="wide kernel"):
-        lr.wyllie_rank(_random_ring(65600, 2), device="cpu")
-    with pytest.raises(NotImplementedError, match="wide kernel"):
-        lr.wyllie_rank(succ, weights=np.ones(64, np.int32), dist_bound=70000, device="cpu")
+    np.testing.assert_array_equal(_port(succ, algo="blocked"), _port(succ, algo="ruling"))
+    ring = _random_ring(65600, 2)
+    np.testing.assert_array_equal(_port(ring), np.asarray(wyllie_rank_xla(jnp.asarray(ring))))
+    w = np.where(succ == np.arange(64), 0, 1).astype(np.int32)
+    np.testing.assert_array_equal(_port(succ, weights=w, dist_bound=70000), _port(succ, algo="wyllie"))
     with pytest.raises(ValueError, match="dist_bound"):
         lr.wyllie_rank(succ, weights=np.ones(64, np.int32), device="cpu")
     with pytest.raises(ValueError, match="too long"):
@@ -155,19 +240,42 @@ def test_contract_errors():
         lr.wyllie_rank(np.full(8, 9, np.int32), device="cpu")
 
 
+def test_build_key_covers_included_headers(tmp_path, monkeypatch):
+    """A kernel library is rebuilt when a header its source includes
+    (directly or through another header) changes."""
+    from loro_tpu_torch import _build
+
+    (tmp_path / "inc").mkdir()
+    src = tmp_path / "k.cu"
+    src.write_text('#include <cstdint>\n#include "inc/a.cuh"\n')
+    (tmp_path / "inc" / "a.cuh").write_text('#include "b.cuh"\n')
+    (tmp_path / "inc" / "b.cuh").write_text("// b\n")
+    (tmp_path / "unused.cuh").write_text("// not included\n")
+    monkeypatch.setitem(_build.SOURCES, "k", src)
+    assert sorted(f.name for f in _build._inputs(src)) == ["a.cuh", "b.cuh", "k.cu"]
+    key = _build._target("k")
+    (tmp_path / "unused.cuh").write_text("// changed\n")
+    assert _build._target("k") == key
+    (tmp_path / "inc" / "b.cuh").write_text("// b changed\n")
+    assert _build._target("k") != key
+
+
 def test_cpu_path_never_launches():
     lr.reset_launches()
     _port(_random_ring(300, 5))
+    _port(_random_ring(300, 5), algo="blocked", block=128)
+    _port(_random_ring(65600, 5))
     assert sum(lr.LAUNCHES.values()) == 0
 
 
 @pytest.mark.cuda
 def test_kernel_matches_reference_on_card():
-    """Kernel vs plain version on CUDA tensors (both table variants)."""
+    """Kernel vs plain version on CUDA tensors (both table variants of
+    the packed kernels, and the wide kernel)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU; run on the card")
-    for algo in ("ruling", "wyllie"):
-        for m in (1000, 51200, 52000, 58112, 58200, 65536):
+    for algo in ("ruling", "wyllie", "blocked"):
+        for m in (1000, 51200, 52000, 58112, 58200, 65536, 65537, 131072):
             s = torch.from_numpy(_random_ring(m, m)).cuda()
             got = lr.wyllie_rank(s, algo=algo)
             torch.cuda.synchronize()
