@@ -6,10 +6,12 @@ checks it, end to end:
    power limit as nvidia-smi reports them;
 2. build: compiles every CUDA source of the port with nvcc (in parallel)
    into build/torch_kernels/;
-3. kernels: holds every list-rank kernel (ruling, wyllie and blocked in
-   their shared-memory and global-scratch table variants, and the wide
-   kernel) bit-exact against its plain torch version on the same CUDA
-   tensors;
+3. kernels: holds every list-rank kernel bit-exact against its plain
+   torch version on the same CUDA tensors: ruling, wyllie and blocked on
+   one CTA in their shared-memory and global-scratch table variants, and
+   the wide kernel on its cluster of 8, including a ring whose every
+   pointer crosses a CTA slice; then runs
+   tests/test_torch_list_rank_cuda.py (pytest -m cuda) as a subprocess;
 4. main paths, each with launch counts reset before and read after:
    a. chain merge: a full-size 8-doc chunk of automerge-perf-shaped
       documents (tracegen), chain-contracted, merged with
@@ -19,14 +21,18 @@ checks it, end to end:
       the checksums must equal the plain rank's;
    b. element merge (entry()'s path): an 8-doc chunk at N = 32,768 (a
       40,000-patch prefix of the same trace) merged with merge_docs,
-      which must launch only the wide kernel; texts equal the oracle and
+      which must launch only the wide cluster kernel; texts equal the oracle and
       codes equal the chain path's on the same docs; an N = 16,384 chunk
       through the default, "cuda:blocked" and "cuda:ruling"; one doc at
       N = 65,536, past the kernels' ring cap, through the counted
       torch:wyllie route; the port's entry() once;
 5. timings (CUDA events, warm-up then median): merge ms per chunk and
    ops/s for both paths, rank-only ms, each kernel's ms beside its bound
-   and its plain version's ms, and the device-busy share.
+   and its plain version's ms, and the device-busy share;
+6. the cluster sweep: the wide kernel at C = 4, 8, 16 on the element
+   rings (each checked bit-exact first; a size the card cannot schedule
+   is reported and skipped), one line per C, then at C = 8 on rings of
+   the same length and three localities.
 
 Prints one {"kernels": [...]} line and ends with the line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}.
@@ -40,6 +46,7 @@ import statistics
 import subprocess
 import sys
 import time
+from dataclasses import replace
 from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
@@ -52,6 +59,7 @@ SMALL_N = 16_384
 SPINE_ELEMENTS, SPINE_N = 40_000, 65_536  # ring 131,074 tokens > RANK_MAX_M
 # the TPU kernel each CUDA kernel replaces (loro_tpu/ops/pallas_rank.py)
 REPLACES = {"ruling": 226, "wyllie": 379, "blocked": 237, "wide": 184}
+WIDE_SWEEP = (4, 8, 16)  # wide-kernel cluster sizes timed at the element rings
 
 
 def check(cond: bool, what: str) -> None:
@@ -115,6 +123,16 @@ def random_ring(np, m: int, seed: int):
     return succ
 
 
+def cross_slice_ring(np, m: int, s: int):
+    """One chain whose every pointer leaves its CTA's slice of s tokens
+    (m a multiple of s): succ[i] = (i + s) mod m, plus one where it
+    wraps, ending in the terminal m - 1."""
+    i = np.arange(m, dtype=np.int64)
+    succ = ((i + s) % m + (i + s) // m).astype(np.int32)
+    succ[m - 1] = m - 1
+    return succ
+
+
 def gap_ring(np, m: int, k: int):
     order = [i for i in range(m) if i % k != 0] + [i for i in range(m) if i % k == 0]
     succ = np.arange(m, dtype=np.int32)
@@ -157,6 +175,7 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
     budget = list_rank.smem_budget(dev)
     print(f"shared-memory budget per block: {budget} bytes", flush=True)
+    check(budget >= list_rank.SMEM_LIMIT, f"the card gives {budget} bytes of shared memory a block, below SMEM_LIMIT")
 
     # ---- main-path data (generated here; the flagship ring feeds phase 3)
     t0 = time.perf_counter()
@@ -261,21 +280,40 @@ def main() -> int:
     compare("adversarial ruler gap m=65536", gap_ring(np, 65536, 8), "blocked")
     for k in (2, 8):
         compare(f"ruler spacing k={k} m=32770", random_ring(np, 32770, 300 + k), "blocked", k=k)
-    # wide: rings past 65536 lane-padded tokens, or dist_bound > 65536
-    for m in (65537, 98304, 131072):
-        compare(f"random ring m={m}", random_ring(np, m, 400 + m), "ruling", "wide/global")
-    compare(f"element rings [{CHUNK}, {esucc.shape[1]}]", esucc, "ruling", "wide/global")
+    # wide: rings past 65536 lane-padded tokens, or dist_bound > 65536, on
+    # a cluster of WIDE_CLUSTER CTAs a ring
     rng = np.random.default_rng(8)
-    succ = random_ring(np, 20000, 9)
-    w = np.where(succ == np.arange(20000), 0, 3 + (rng.random(20000) < 0.3)).astype(np.int32)
-    check(int(w.sum()) < 70_000, "weighted wide ring stays under its dist_bound")
-    compare("weighted m=20000 dist_bound=70000", succ, "ruling", "wide/global", weights=w, dist_bound=70_000)
-    compare("blocked on a wide ring m=65600", random_ring(np, 65600, 10), "blocked", "wide/global")
-    for v in ("ruling/smem", "ruling/global", "wyllie/smem", "wyllie/global", "blocked/smem", "blocked/global",
-              "wide/global"):
+    wsucc = random_ring(np, 20000, 9)
+    ww = np.where(wsucc == np.arange(20000), 0, 3 + (rng.random(20000) < 0.3)).astype(np.int32)
+    check(int(ww.sum()) < 70_000, "weighted wide ring stays under its dist_bound")
+    v = "wide/cluster"
+    for m in (65537, 98304, 131072):
+        compare(f"random ring m={m}", random_ring(np, m, 400 + m), "ruling", v)
+    compare(f"element rings [{CHUNK}, {esucc.shape[1]}]", esucc, "ruling", v)
+    compare("weighted m=20000 dist_bound=70000", wsucc, "ruling", v, weights=ww, dist_bound=70_000)
+    compare("blocked on a wide ring m=65600", random_ring(np, 65600, 10), "blocked", v)
+    compare("cross-slice ring m=65664", cross_slice_ring(np, 65664, 65664 // list_rank.WIDE_CLUSTER), "ruling", v)
+    compare("chain m=131072", cross_slice_ring(np, 131072, 131072), "ruling", v)
+    for v in list_rank.LAUNCHES:
         check(v in variants_seen, f"variant {v} was not exercised")
+    t0 = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    test = subprocess.run(
+        [sys.executable, "-m", "pytest", "-q", "-m", "cuda", "--noconftest", "-p", "no:cacheprovider",
+         "-o", "markers=cuda: needs an NVIDIA GPU", "tests/test_torch_list_rank_cuda.py"],
+        cwd=root, capture_output=True, text=True, timeout=600,
+    )
+    summary = (test.stdout.strip().splitlines() or ["(no output)"])[-1]
+    print(f"pytest -m cuda tests/test_torch_list_rank_cuda.py: rc {test.returncode}, {summary} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    check(test.returncode == 0 and " passed" in summary and "skipped" not in summary,
+          "tests/test_torch_list_rank_cuda.py failed on the card:\n" + test.stdout[-4000:] + test.stderr[-2000:])
 
     # ---- 4. main path ----------------------------------------------------
+    def route_key(succ):
+        """The LAUNCHES key the default route takes for these rings."""
+        return list_rank.launch_key(list_rank.plan_rank(succ.shape[1]))
+
     texts = [tracegen.oracle_text(d.extract) for d in docs]
     for d, t in zip(docs, texts):
         check(t == d.text, "host oracle disagrees with the generator's own text")
@@ -293,7 +331,8 @@ def main() -> int:
         for j, i in enumerate(idxs):
             check(np.array_equal(codes_h[j], codes_h[i]), f"{label}: cycled doc {j} differs from doc {i}")
         paths[label] = (ran, codes)
-        print(f"main path {label}: {CHUNK} docs merged, texts == host oracle, launches {ran}", flush=True)
+        print(f"main path {label}: {CHUNK} docs merged, texts == host oracle, launches "
+              f"{ {k: v for k, v in ran.items() if v} }", flush=True)
     def launched(label: str, kernel: str) -> int:
         return sum(v for k, v in paths[label][0].items() if k.startswith(kernel + "/"))
 
@@ -303,6 +342,8 @@ def main() -> int:
         "blocked": launched("cuda:blocked", "blocked"),
     }
     check(launches["ruling"] > 0, "the main path never launched the ruling kernel")
+    check(paths["default (cuda:ruling)"][0][route_key(flag_succ)] == launches["ruling"],
+          f"the chain merge did not take the ruling route {route_key(flag_succ)}")
     check(launches["wyllie"] > 0, "the cuda:wyllie path never launched the wyllie kernel")
     check(launches["blocked"] > 0, "the cuda:blocked path never launched the blocked kernel")
     for label in ("cuda:wyllie", "cuda:blocked"):
@@ -332,8 +373,10 @@ def main() -> int:
     for d, t in zip(edocs + sdocs, etexts + stexts):
         check(t == d.text, "host oracle disagrees with the generator's own text")
     ran, ecodes, ecounts = element_merge("default", ecols, etexts, eidx)
-    check(ran == {"wide/global": 1}, f"the element merge at N={ELEMENT_N} launched {ran}, not only the wide kernel")
-    launches["wide"] = ran["wide/global"]
+    wide_key = route_key(esucc)
+    check(wide_key == "wide/cluster", f"the element rings' default route is {wide_key}")
+    check(ran == {wide_key: 1}, f"the element merge at N={ELEMENT_N} launched {ran}, not only the wide cluster kernel")
+    launches["wide"] = ran[wide_key]
     # the chain path on the same docs, padded to the same rows
     ech = [columnar.contract_chains(d.extract).n_chains for d in edocs]
     epad_c = -(-max(ech) // 1024) * 1024
@@ -343,7 +386,8 @@ def main() -> int:
     print(f"element merge == chain merge on the same docs (pad_c {epad_c})", flush=True)
 
     ran, scodes, scounts = element_merge("default", scols, stexts, sidx)
-    check(set(ran) == {"ruling/smem"}, f"N={SMALL_N} default launched {ran}")
+    ssucc, _ = fugue_batch._ring_and_anchors(scols.parent, scols.side, scols.valid)
+    check(set(ran) == {route_key(ssucc)}, f"N={SMALL_N} default launched {ran}, not {route_key(ssucc)}")
     for spec, kernel in (("cuda:blocked", "blocked/"), ("cuda:ruling", "ruling/")):
         ran, codes, counts = element_merge(spec, scols, stexts, sidx, spec)
         check(ran and all(k.startswith(kernel) for k in ran), f"{spec} at N={SMALL_N} launched {ran}")
@@ -440,16 +484,56 @@ def main() -> int:
     )
     for name, (p, _, _) in plans.items():
         print(
-            f"kernel {name} [{CHUNK}, {p.mp}] ({list_rank.table_variant(p, dev)}): {res[name + '_ms']:.4f} ms, "
+            f"kernel {name} [{CHUNK}, {p.mp}] ({list_rank.launch_key(p)}, C={p.cluster}): {res[name + '_ms']:.4f} ms, "
             f"bound {bounds[name]:.5f} ms (bytes), plain {res[name + '_plain_ms']:.3f} ms",
             flush=True,
         )
+    # ---- 6. cluster sweep at the main-path shape --------------------------
+    # the wide kernel at each cluster size on the element rings, held
+    # bit-exact against its plain version before it is timed
+    sweep = {}
+    wplan, wsucc_p, ww_p = plans["wide"]
+    wide_plain = list_rank.rank_plain(wsucc_p, ww_p, wplan)
+    for c in WIDE_SWEEP:
+        p = replace(wplan, cluster=c)
+        held = list_rank.max_active_clusters(p, dev)
+        if held < 1:
+            print(f"sweep wide C={c} [{CHUNK}, {p.mp}]: the card cannot schedule such a cluster", flush=True)
+            continue
+        got = list_rank.launch_kernel(wsucc_p, ww_p, p)
+        check(torch.equal(got, wide_plain), f"wide kernel at C={c} != plain version on the element rings")
+        sweep[f"wide_C{c}_ms"] = time_ms(torch, lambda: list_rank.launch_kernel(wsucc_p, ww_p, p), inner=20)
+        # pointers that leave their CTA's slice (the kernel's exit tokens)
+        tok = torch.arange(p.mp, device=dev)
+        exits = (wsucc_p.long() // p.slice_tokens != tok // p.slice_tokens).sum(1).float()
+        print(f"sweep wide C={c} [{CHUNK}, {p.mp}] ({held} clusters at once, "
+              f"{100 * float(exits.mean()) / p.mp:.2f} % of pointers leave their slice, "
+              f"{float(exits.mean()):.0f} a ring, {p.smem_bytes} bytes of shared memory a CTA, bit-exact): "
+              f"{sweep[f'wide_C{c}_ms']:.4f} ms", flush=True)
+    check(f"wide_C{list_rank.WIDE_CLUSTER}_ms" in sweep, "the wide route's own cluster size was not timed")
+    # the wide cluster kernel on rings of one shape and three localities:
+    # a chain (every pointer stays in its slice: the exit ring holds 7
+    # exits), a ring whose every pointer leaves its slice and a random
+    # ring (too many exits for the exit ring: cluster-wide rounds of
+    # distributed-shared-memory gathers)
+    n = list_rank.plan_rank(esucc.shape[1]).mp
+    for name, ring in (("chain", cross_slice_ring(np, n, n)),
+                       ("cross_slice", cross_slice_ring(np, n, n // list_rank.WIDE_CLUSTER)),
+                       ("random", random_ring(np, n, 11))):
+        succ = torch.as_tensor(np.stack([ring] * CHUNK)).to(dev)
+        p, succ_p, w_p = list_rank._prepare(succ, None, "ruling", 8, None)
+        sweep[f"wide_{name}_ms"] = time_ms(torch, lambda: list_rank.launch_kernel(succ_p, w_p, p), inner=20)
+        print(f"sweep wide C={p.cluster} on a {name.replace('_', '-')} ring [{CHUNK}, {p.mp}]: "
+              f"{sweep[f'wide_{name}_ms']:.4f} ms", flush=True)
+    best = min((v, k) for k, v in sweep.items() if k.startswith("wide_C"))
+    print(f"sweep wide: route C={list_rank.WIDE_CLUSTER} ({sweep[f'wide_C{list_rank.WIDE_CLUSTER}_ms']:.4f} ms); "
+          f"fastest {best[1]} ({best[0]:.4f} ms)", flush=True)
     print("results " + json.dumps({
         "card": card, "kind": kind, "chunk": CHUNK, "pad_n": pad_n, "pad_c": pad_c, "ring_tokens": ring_m,
         "element_n": ELEMENT_N, "element_ring_tokens": esucc.shape[1],
         "mp": {name: p.mp for name, (p, _, _) in plans.items()}, "chunk_ops": chunk_ops,
         "element_chunk_ops": echunk_ops, "build_s": build_s, "gen_s": gen_s, "element_gen_s": egen_s, **res,
-        "bound_ms": bounds, "total_s": time.perf_counter() - t_start,
+        "bound_ms": bounds, "sweep": sweep, "total_s": time.perf_counter() - t_start,
     }))
     kernels = [
         {

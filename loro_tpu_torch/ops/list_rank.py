@@ -6,9 +6,10 @@ of its kernels: packed Wyllie _rank_kernel, ruling set
 _rank_kernel_ruling/_ruling_from_packed, blocked _rank_kernel_blocked
 and the wide dual-table _rank_kernel_wide).  The contract of
 wyllie_rank is kept, except that `succ` may carry a leading doc axis
-([m] or [D, m]; one CTA ranks one ring, so a [D, m] batch is one
-launch) and the algorithm, ruler spacing, block size and device are
-arguments, not environment knobs.
+([m] or [D, m]; one CTA, or for the wide kernel one thread-block
+cluster, ranks one ring, so a [D, m] batch is one launch) and the
+algorithm, ruler spacing, block size and device are arguments, not
+environment knobs.
 
 On a CUDA tensor wyllie_rank launches a kernel or raises.  On a CPU
 tensor it runs the plain torch version of the same algorithm (same
@@ -20,7 +21,7 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,14 +35,26 @@ RANK_MAX_M = 1 << 17
 PACKED_MAX_M = 1 << 16  # dist and succ share one u32 as 16 + 16 bits
 DEFAULT_BLOCK = 1024  # blocked phase-A block (RANK_BLOCK's default in JAX)
 _LANES = 128
+# opt-in dynamic shared memory of one block on sm_90 (H100, H200)
+SMEM_LIMIT = 232_448
+MAX_CLUSTER = 16  # largest thread-block cluster on sm_90 (non-portable above 8)
+# CTAs ranking one wide ring: a thread-block cluster with the ring split
+# across its shared memories (csrc/list_rank.cu), the size chosen by the
+# sweep in chip_smoke.py at the element rings (PERF.md has its numbers).
+# 16 is slower (only about one 16-CTA cluster fits a GPC, so eight rings
+# run in two waves).  The packed kernels (ruling, wyllie, blocked) rank a
+# ring on one CTA: clusters of 2, 4 and 8 were slower for the ruling
+# kernel on the flagship chain rings, whose pointers mostly leave a slice.
+WIDE_CLUSTER = 8
 _LOW = 0xFFFF
 _HIGH = 0xFFFF0000
 _U32 = 0xFFFFFFFF
 
 # Launches of the CUDA kernels, by algorithm and by where the tables live
-# (shared memory, or a global scratch buffer above the shared-memory
-# budget; the wide kernel's tables are always global).  Incremented only
-# where a kernel is launched.
+# (launch_key): one CTA's shared memory, a global scratch buffer above
+# the shared-memory limit, or split across a thread-block cluster's
+# shared memories (the wide kernel).  Incremented only where a kernel is
+# launched.
 LAUNCHES: Dict[str, int] = {
     "ruling/smem": 0,
     "ruling/global": 0,
@@ -49,7 +62,7 @@ LAUNCHES: Dict[str, int] = {
     "wyllie/global": 0,
     "blocked/smem": 0,
     "blocked/global": 0,
-    "wide/global": 0,
+    "wide/cluster": 0,
 }
 
 
@@ -74,6 +87,22 @@ class RankPlan:
     n_steps: int  # round cap, from the unpadded m
     wide: bool = False  # ranked by the wide kernel (overrides algo and k)
     block: int = DEFAULT_BLOCK  # phase-A block (blocked only)
+    cluster: int = 1  # CTAs ranking one ring: a cluster for wide, else 1
+
+    def __post_init__(self):
+        """A plan no kernel can run raises ConfigError: the wide kernel
+        needs a cluster of 2 to MAX_CLUSTER CTAs (a power of two) whose
+        per-CTA slice fits SMEM_LIMIT, the packed kernels one CTA."""
+        if self.wide and not _is_pow2(self.cluster, 2, MAX_CLUSTER):
+            raise ConfigError("rank cluster", self.cluster, f"a power of two in [2, {MAX_CLUSTER}] for the wide kernel")
+        if not self.wide and not _is_pow2(self.cluster, 1, 1):
+            raise ConfigError("rank cluster", self.cluster, f"1 for the {self.algo} kernel (only the wide kernel runs on a cluster)")
+        if self.smem_bytes > SMEM_LIMIT:
+            raise ConfigError(
+                "rank cluster", self.cluster,
+                f"a cluster whose per-CTA slice fits {SMEM_LIMIT} bytes of shared memory "
+                f"({self.smem_bytes} bytes at mp={self.mp})",
+            )
 
     @property
     def ruling(self) -> bool:
@@ -98,6 +127,39 @@ class RankPlan:
             return 2 * self.mp
         return self.mp + (self.mp // self.k + 1 if self.ruling else 0)
 
+    @property
+    def slice_tokens(self) -> int:
+        """S = mp / cluster: the tokens each CTA holds (token i lives in
+        CTA i // S at slot i % S)."""
+        return self.mp // self.cluster
+
+    @property
+    def exit_ring_slots(self) -> int:
+        """Wide kernel: how many exit tokens (tokens whose successor
+        leaves their CTA's slice) the ring may have for each CTA to rank
+        them in its own shared memory (csrc/list_rank.cu, phase B2):
+        what is left of SMEM_LIMIT after the slice's table (8 bytes a
+        token), its exit numbers (2) and 256 bytes of counters, one slot
+        kept for the terminal.  More exits take the cluster-wide rounds
+        instead."""
+        if not self.wide:
+            return 0
+        return max(0, min(self.mp, (SMEM_LIMIT - 10 * self.slice_tokens - 256) // 8 - 1))
+
+    @property
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory each CTA asks for.  Wide: its slice of
+        the ring (u64 words, u16 exit numbers), the exit ring and 256
+        bytes of counters.  Packed: the whole table when it fits
+        SMEM_LIMIT, else 0 (the global-scratch variant)."""
+        if self.wide:
+            return 10 * self.slice_tokens + 8 * (self.exit_ring_slots + 1) + 256
+        return self.table_words * 4 if self.table_words * 4 <= SMEM_LIMIT else 0
+
+
+def _is_pow2(x, lo: int, hi: int) -> bool:
+    return isinstance(x, (int, np.integer)) and not isinstance(x, bool) and lo <= x <= hi and (x & (x - 1)) == 0
+
 
 def plan_rank(m: int, algo: str = "ruling", k: int = 8, weighted: bool = False,
               dist_bound: Optional[int] = None, block: int = DEFAULT_BLOCK) -> RankPlan:
@@ -106,13 +168,14 @@ def plan_rank(m: int, algo: str = "ruling", k: int = 8, weighted: bool = False,
     128*k tokens (the dense ruler ring stays 128-aligned), wyllie to 128.
     A ring whose lane-padded length passes 65536, or a weighted ring
     with dist_bound > 65536, takes the wide kernel whatever the algo:
-    128-token padding, k ignored, plain Wyllie rounds."""
+    128-token padding, k ignored, plain Wyllie rounds, one cluster of
+    WIDE_CLUSTER CTAs a ring."""
     if algo not in ALGOS:
         raise ConfigError("list rank algo", algo, "|".join(ALGOS))
-    if not isinstance(block, (int, np.integer)) or not 128 <= block <= 65536 or (block & (block - 1)) != 0:
+    if not _is_pow2(block, 128, 65536):
         raise ConfigError("rank block", block, "a power of two in [128, 65536]")
     if algo in ("ruling", "blocked"):
-        if not isinstance(k, (int, np.integer)) or not 2 <= k <= 512 or (k & (k - 1)) != 0:
+        if not _is_pow2(k, 2, 512):
             raise ConfigError("ruling k", k, "a power of two in [2, 512]")
         k = int(k)
         quantum = _LANES * k
@@ -135,7 +198,8 @@ def plan_rank(m: int, algo: str = "ruling", k: int = 8, weighted: bool = False,
         raise ValueError(f"ring too long for the list-rank kernels: {m}")
     if weighted and dist_bound is None:
         raise ValueError("weighted wyllie_rank needs dist_bound (an exclusive bound on any distance)")
-    return RankPlan(m=m, mp=mp, algo=algo, k=k, n_steps=ceil_log2(m), wide=needs_wide, block=int(block))
+    return RankPlan(m=m, mp=mp, algo=algo, k=k, n_steps=ceil_log2(m), wide=needs_wide, block=int(block),
+                    cluster=WIDE_CLUSTER if needs_wide else 1)
 
 
 def _prepare(succ: torch.Tensor, weights: Optional[torch.Tensor], algo: str, k: int,
@@ -279,6 +343,7 @@ def wyllie_rank(succ, algo: str = "ruling", k: int = 8, weights=None,
 
 _lib_handle: Optional[ctypes.CDLL] = None
 _smem_budget: Dict[int, int] = {}
+_max_clusters: Dict[Tuple[int, int, int], int] = {}
 
 
 def _lib() -> ctypes.CDLL:
@@ -286,22 +351,35 @@ def _lib() -> ctypes.CDLL:
     if _lib_handle is None:
         from .._build import library
 
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib = library("list_rank")
-        lib.list_rank_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-        lib.list_rank_launch.restype = ctypes.c_int
-        lib.list_rank_wide_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        lib.list_rank_wide_launch.restype = ctypes.c_int
-        lib.list_rank_smem_budget.argtypes = [ctypes.c_int]
-        lib.list_rank_smem_budget.restype = ctypes.c_int
-        lib.list_rank_error_string.argtypes = [ctypes.c_int]
+        for name, args in (
+            ("list_rank_launch", [ptr] * 4 + [i32] * 9 + [ptr]),
+            ("list_rank_wide_launch", [ptr] * 3 + [i32] * 6 + [ptr]),
+            ("list_rank_wide_occupancy", [i32] * 2 + [ctypes.POINTER(i32)]),
+            ("list_rank_smem_budget", [i32]),
+        ):
+            getattr(lib, name).argtypes = args
+            getattr(lib, name).restype = i32
+        lib.list_rank_error_string.argtypes = [i32]
         lib.list_rank_error_string.restype = ctypes.c_char_p
         _lib_handle = lib
     return _lib_handle
 
 
+def _check(err: int, what: str) -> None:
+    if err != 0:
+        msg = _lib().list_rank_error_string(err).decode()
+        raise RuntimeError(f"list_rank {what} failed: cudaError {err} ({msg})")
+
+
+def _device_index(device: torch.device) -> int:
+    return device.index if device.index is not None else torch.cuda.current_device()
+
+
 def smem_budget(device: torch.device) -> int:
     """Opt-in dynamic shared memory (bytes) one block may use on `device`."""
-    idx = device.index if device.index is not None else torch.cuda.current_device()
+    idx = _device_index(device)
     if idx not in _smem_budget:
         v = _lib().list_rank_smem_budget(idx)
         if v <= 0:
@@ -310,19 +388,41 @@ def smem_budget(device: torch.device) -> int:
     return _smem_budget[idx]
 
 
-def table_variant(plan: RankPlan, device: torch.device) -> str:
-    """"smem" when a ring's tables fit the block's shared memory, else
-    "global" (tables in a scratch buffer in device memory).  The wide
-    kernel always keeps its tables in global memory."""
+def max_active_clusters(plan: RankPlan, device: torch.device) -> int:
+    """How many clusters of plan.cluster CTAs of the wide kernel (each
+    CTA with plan.smem_bytes of shared memory) `device` holds at once
+    (cudaOccupancyMaxActiveClusters); 0 when such a cluster cannot be
+    scheduled.  Cached per (device, C, bytes)."""
+    if not plan.wide:
+        raise ValueError("max_active_clusters needs a wide plan (only the wide kernel runs on a cluster)")
+    key = (_device_index(device), plan.cluster, plan.smem_bytes)
+    if key not in _max_clusters:
+        out = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            err = _lib().list_rank_wide_occupancy(plan.cluster, plan.smem_bytes, ctypes.byref(out))
+        _check(err, f"occupancy query for a cluster of {plan.cluster}")
+        _max_clusters[key] = out.value
+    return _max_clusters[key]
+
+
+def launch_key(plan: RankPlan) -> str:
+    """The LAUNCHES key of the kernel `plan` launches, by where its table
+    lives: "wide/cluster" (split across a cluster's shared memories), or
+    "{algo}/smem" (one CTA's shared memory) and "{algo}/global" (a
+    scratch buffer in device memory, for packed tables past
+    SMEM_LIMIT)."""
     if plan.wide:
-        return "global"
-    return "smem" if plan.table_words * 4 <= smem_budget(device) else "global"
+        return "wide/cluster"
+    return f"{plan.algo}/{'smem' if plan.smem_bytes else 'global'}"
 
 
 def launch_kernel(succ_p: torch.Tensor, w_p: torch.Tensor, plan: RankPlan) -> torch.Tensor:
-    """Launch csrc/list_rank.cu (the packed kernel for ruling, wyllie
-    and blocked, or the wide kernel) on padded int32 [D, mp] CUDA
-    tensors; returns int32 [D, mp] dist.  Raises on any launch error."""
+    """Launch csrc/list_rank.cu on padded int32 [D, mp] CUDA tensors:
+    the wide kernel on a cluster of plan.cluster CTAs a ring, or the
+    one-CTA packed kernel (ruling, wyllie, blocked).  Returns int32
+    [D, mp] dist.  Raises on any launch error, on a shared-memory slice
+    the device cannot give, and on a cluster the device cannot
+    schedule."""
     if succ_p.device.type != "cuda" or w_p.device != succ_p.device:
         raise ValueError("launch_kernel needs succ and w on one CUDA device")
     if succ_p.dtype != torch.int32 or w_p.dtype != torch.int32:
@@ -333,24 +433,26 @@ def launch_kernel(succ_p: torch.Tensor, w_p: torch.Tensor, plan: RankPlan) -> to
         raise ValueError("launch_kernel needs contiguous inputs")
     dev = succ_p.device
     d = succ_p.shape[0]
-    variant = table_variant(plan, dev)
+    if plan.smem_bytes > smem_budget(dev):
+        raise RuntimeError(f"{plan.smem_bytes} bytes of shared memory per CTA exceed {dev}'s {smem_budget(dev)}")
+    if plan.wide and max_active_clusters(plan, dev) < 1:
+        raise RuntimeError(
+            f"a cluster of {plan.cluster} CTAs with {plan.smem_bytes} bytes of shared memory each "
+            f"cannot be scheduled on {dev} ({torch.cuda.get_device_name(dev)})"
+        )
     dist = torch.empty_like(succ_p)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    ptrs = (succ_p.data_ptr(), w_p.data_ptr(), dist.data_ptr())
     with torch.cuda.device(dev):
         if plan.wide:
-            # one u64 (dist:32 | succ:32) word per token
-            scratch = torch.empty(d * plan.mp, dtype=torch.int64, device=dev)
             err = _lib().list_rank_wide_launch(
-                succ_p.data_ptr(), w_p.data_ptr(), dist.data_ptr(), scratch.data_ptr(),
-                d, plan.mp, plan.n_steps, stream,
+                *ptrs, d, plan.mp, plan.n_steps, plan.exit_ring_slots, plan.cluster, plan.smem_bytes, stream
             )
         else:
-            smem = variant == "smem"
+            smem = plan.smem_bytes > 0
             scratch = None if smem else torch.empty(d * plan.table_words, dtype=torch.int32, device=dev)
             err = _lib().list_rank_launch(
-                succ_p.data_ptr(),
-                w_p.data_ptr(),
-                dist.data_ptr(),
+                *ptrs,
                 None if scratch is None else scratch.data_ptr(),
                 d,
                 plan.mp,
@@ -363,8 +465,6 @@ def launch_kernel(succ_p: torch.Tensor, w_p: torch.Tensor, plan: RankPlan) -> to
                 int(smem),
                 stream,
             )
-    if err != 0:
-        msg = _lib().list_rank_error_string(err).decode()
-        raise RuntimeError(f"list_rank kernel launch failed: cudaError {err} ({msg})")
-    LAUNCHES[f"{'wide' if plan.wide else plan.algo}/{variant}"] += 1
+    _check(err, "kernel launch")
+    LAUNCHES[launch_key(plan)] += 1
     return dist

@@ -5,6 +5,8 @@ the JAX package's Pallas kernels (interpret mode) and its XLA references
 Tolerance: exact — distances are integers and every version must give
 the same int32 values.  Inputs are numpy rings made from fixed seeds.
 """
+from dataclasses import replace
+
 import numpy as np
 import pytest
 import torch
@@ -268,15 +270,112 @@ def test_cpu_path_never_launches():
     assert sum(lr.LAUNCHES.values()) == 0
 
 
-@pytest.mark.cuda
-def test_kernel_matches_reference_on_card():
-    """Kernel vs plain version on CUDA tensors (both table variants of
-    the packed kernels, and the wide kernel)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU; run on the card")
-    for algo in ("ruling", "wyllie", "blocked"):
-        for m in (1000, 51200, 52000, 58112, 58200, 65536, 65537, 131072):
-            s = torch.from_numpy(_random_ring(m, m)).cuda()
-            got = lr.wyllie_rank(s, algo=algo)
-            torch.cuda.synchronize()
-            assert torch.equal(got, lr.wyllie_rank_reference(s, algo=algo)), (algo, m)
+def test_default_cluster_plans_fit_shared_memory():
+    """Every padded length from 128 to RANK_MAX_M, on every route: the
+    wide kernel on a cluster of WIDE_CLUSTER, the packed kernels on one
+    CTA, an integral slice S = mp / C, and a per-CTA table within the
+    opt-in shared-memory limit."""
+    for m in range(128, lr.RANK_MAX_M + 1, 128):
+        for algo in lr.ALGOS:
+            p = lr.plan_rank(m, algo)
+            assert p.cluster == (lr.WIDE_CLUSTER if p.wide else 1), (m, algo)
+            assert p.mp % p.cluster == 0 and p.slice_tokens * p.cluster == p.mp
+            assert 0 <= p.smem_bytes <= lr.SMEM_LIMIT, (m, algo, p.smem_bytes)
+            assert lr.launch_key(p) == ("wide/cluster" if p.wide else
+                                        f"{p.algo}/{'smem' if p.smem_bytes else 'global'}")
+            assert lr.launch_key(p) in lr.LAUNCHES
+
+
+@pytest.mark.parametrize("cluster", [2, 4, 8, 16])
+def test_explicit_cluster_plans(cluster):
+    """The packed kernels run on one CTA: a cluster raises.  A wide slice
+    takes 10 bytes a token (u64 word, u16 exit number) and 256 bytes of
+    counters; the exit ring gets what is left, so the wide kernel fits
+    from C = 8 up at the cap (C = 4 up to 92,800 tokens)."""
+    for m in range(1024, lr.PACKED_MAX_M + 1, 8192):
+        with pytest.raises(ConfigError, match="only the wide kernel"):
+            replace(lr.plan_rank(m, "ruling"), cluster=cluster)
+    for m in range(lr.PACKED_MAX_M + 128, lr.RANK_MAX_M + 1, 128):
+        s = m // cluster
+        base = lr.plan_rank(m)
+        if 10 * s + 264 <= lr.SMEM_LIMIT:
+            p = replace(base, cluster=cluster)
+            assert p.wide and p.slice_tokens == s and 0 <= p.exit_ring_slots <= m
+            assert p.smem_bytes == 10 * s + 8 * (p.exit_ring_slots + 1) + 256 <= lr.SMEM_LIMIT
+            assert p.exit_ring_slots == m or p.smem_bytes > lr.SMEM_LIMIT - 8  # the rest goes to the exit ring
+        else:
+            with pytest.raises(ConfigError, match="shared memory"):
+                replace(base, cluster=cluster)
+    if cluster >= 8:
+        p = replace(lr.plan_rank(lr.RANK_MAX_M), cluster=cluster)
+        assert p.smem_bytes <= lr.SMEM_LIMIT and p.exit_ring_slots >= 8000
+    if cluster == 4:
+        assert replace(lr.plan_rank(92800), cluster=4).wide
+        with pytest.raises(ConfigError):
+            replace(lr.plan_rank(92801), cluster=4)
+
+
+@pytest.mark.parametrize("cluster", [2, 4, 8, 16])
+def test_wide_cluster_sizes_accepted(cluster):
+    """Every power-of-two cluster from 2 to MAX_CLUSTER takes a short
+    weighted wide ring whole: its exit ring fits every token."""
+    p = replace(lr.plan_rank(3000, weighted=True, dist_bound=70_000), cluster=cluster)
+    assert p.wide and p.mp == 3072 and p.cluster == cluster
+    assert p.slice_tokens * cluster == p.mp and p.exit_ring_slots == p.mp
+    assert p.smem_bytes == 10 * p.slice_tokens + 8 * (p.mp + 1) + 256 <= lr.SMEM_LIMIT
+    assert lr.launch_key(p) == "wide/cluster"
+
+
+def test_cluster_config_errors():
+    wide = lr.plan_rank(70000)
+    assert wide.cluster == lr.WIDE_CLUSTER
+    for bad in (0, 1, 3, 6, 12, 32, -8, 2.0, True, "8"):
+        with pytest.raises(ConfigError, match="rank cluster"):
+            replace(wide, cluster=bad)
+    for algo in lr.ALGOS:
+        p = lr.plan_rank(1000, algo)
+        assert p.cluster == 1
+        for bad in (2, 8, True, 1.0):
+            with pytest.raises(ConfigError, match="only the wide kernel"):
+                replace(p, cluster=bad)
+        assert lr.plan_rank(70000, algo).cluster == lr.WIDE_CLUSTER  # a wide ring takes the wide cluster
+    for m, c in ((lr.RANK_MAX_M, 2), (lr.RANK_MAX_M, 4), (65664, 2)):
+        with pytest.raises(ConfigError, match="shared memory"):
+            replace(lr.plan_rank(m), cluster=c)
+    with pytest.raises(TypeError):
+        lr.wyllie_rank(_random_ring(64, 1), cluster=8, device="cpu")  # not a user option
+
+
+def test_cpu_route_ignores_cluster_and_matches_pallas():
+    """The CPU route runs the unchanged plain versions, whatever cluster
+    a plan carries: ruling, weighted ruling and wide rings stay
+    bit-exact against the Pallas kernels (interpret mode) and the XLA
+    reference."""
+    succ = _random_ring(1500, 77)
+    want = np.asarray(jax_wyllie_rank(jnp.asarray(succ), interpret=True, algo="ruling"))
+    np.testing.assert_array_equal(_port(succ, algo="ruling"), want)
+    rng = np.random.default_rng(78)
+    w = np.where(succ == np.arange(1500), 0, rng.integers(1, 5, 1500)).astype(np.int32)
+    bound = int(w.sum()) + 1
+    want = np.asarray(
+        jax_wyllie_rank(jnp.asarray(succ), interpret=True, weights=jnp.asarray(w), dist_bound=bound)
+    )
+    np.testing.assert_array_equal(_port(succ, weights=w, dist_bound=bound), want)
+    wide = _random_ring(65600, 79)
+    want = np.asarray(wyllie_rank_xla(jnp.asarray(wide)))
+    np.testing.assert_array_equal(_port(wide), want)
+    plan, succ_p, w_p = lr._prepare(torch.as_tensor(wide), None, "ruling", 8, None)
+    for c in (4, 16):
+        got = lr.rank_plain(succ_p, w_p, replace(plan, cluster=c))[0, :65600]
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_cpu_cluster_route_never_launches():
+    lr.reset_launches()
+    _port(_random_ring(3000, 6))
+    succ = _random_ring(3000, 7)
+    w = np.where(succ == np.arange(3000), 0, 22).astype(np.int32)
+    assert lr.plan_rank(3000, weighted=True, dist_bound=70_000).wide
+    _port(succ, weights=w, dist_bound=70_000)
+    assert sum(lr.LAUNCHES.values()) == 0
+    assert "wide/cluster" in lr.LAUNCHES and not {"ruling/cluster", "wide/global"} & set(lr.LAUNCHES)

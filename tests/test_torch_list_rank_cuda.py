@@ -1,0 +1,101 @@
+"""The port's list-rank kernels on the card, against their plain torch
+versions (ops/list_rank.py) on the same CUDA tensors.
+
+Imports torch, numpy, pytest and loro_tpu_torch only, so it runs on a
+machine without jax:
+    python -m pytest -q -m cuda --noconftest tests/test_torch_list_rank_cuda.py
+Every test is marked `cuda` and skips without a card.
+
+Tolerance: exact — distances are integers and the kernels must give the
+plain versions' int32 values bit for bit.
+"""
+import numpy as np
+import pytest
+import torch
+
+from loro_tpu_torch.ops import list_rank as lr
+
+
+def _random_ring(m: int, seed: int) -> np.ndarray:
+    """One ring through every token."""
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(m).astype(np.int32)
+    succ = np.empty(m, np.int32)
+    succ[perm[:-1]] = perm[1:]
+    succ[perm[-1]] = perm[-1]
+    return succ
+
+
+def _cross_slice_ring(m: int, s: int) -> np.ndarray:
+    """One chain whose every pointer leaves its CTA's slice of s tokens
+    when m is a multiple of s: succ[i] = (i + s) mod m, plus one where
+    it wraps, ending in the terminal m - 1."""
+    i = np.arange(m, dtype=np.int64)
+    succ = ((i + s) % m + (i + s) // m).astype(np.int32)
+    succ[m - 1] = m - 1
+    return succ
+
+
+def _weighted_ring():
+    """20,000 tokens with weights 3 or 4: distances pass 65,536, under
+    dist_bound 70,000, so the ring takes the wide kernel."""
+    rng = np.random.default_rng(8)
+    succ = _random_ring(20000, 9)
+    w = np.where(succ == np.arange(20000), 0, 3 + (rng.random(20000) < 0.3)).astype(np.int32)
+    assert int(w.sum()) < 70_000
+    return succ, w
+
+
+def _needs_card() -> None:
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; run on the card")
+
+
+def _check(succ, expect: str, **kw) -> None:
+    s = torch.as_tensor(succ).cuda()
+    if "weights" in kw:
+        kw["weights"] = torch.as_tensor(kw["weights"]).cuda()
+    before = dict(lr.LAUNCHES)
+    got = lr.wyllie_rank(s, **kw)
+    torch.cuda.synchronize()
+    assert {k for k, v in lr.LAUNCHES.items() if v != before[k]} == {expect}
+    ref = lr.wyllie_rank_reference(s, **kw)
+    assert got.dtype == torch.int32 and got.shape == s.shape
+    assert torch.equal(got, ref), int((got.long() - ref.long()).abs().max())
+
+
+@pytest.mark.cuda
+def test_kernel_matches_reference_on_card():
+    """Kernel vs plain version on CUDA tensors (both table variants of
+    the packed kernels, and the wide kernel)."""
+    _needs_card()
+    for algo in ("ruling", "wyllie", "blocked"):
+        for m in (1000, 51200, 52000, 58112, 58200, 65536, 65537, 131072):
+            s = torch.from_numpy(_random_ring(m, m)).cuda()
+            got = lr.wyllie_rank(s, algo=algo)
+            torch.cuda.synchronize()
+            assert torch.equal(got, lr.wyllie_rank_reference(s, algo=algo)), (algo, m)
+
+
+_CASES = [("ruling", m) for m in (1000, 35840, 65536)]
+_CASES += [("wide", m) for m in (65537, 98304, 131072, "weighted", "cross")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route,m", _CASES, ids=[f"{r}-m{m}" for r, m in _CASES])
+def test_cluster_kernels_match_plain_on_card(route, m):
+    """The ruling route (one CTA a ring) and the wide route (a cluster of
+    WIDE_CLUSTER CTAs a ring) on random rings, the weighted wide ring and
+    a ring whose every pointer crosses CTA slices."""
+    _needs_card()
+    if m == "weighted":
+        succ, w = _weighted_ring()
+        _check(succ, "wide/cluster", weights=w, dist_bound=70_000)
+    elif m == "cross":
+        plan = lr.plan_rank(65664)
+        assert plan.wide and plan.cluster == lr.WIDE_CLUSTER
+        _check(_cross_slice_ring(plan.mp, plan.slice_tokens), "wide/cluster")
+    else:
+        plan = lr.plan_rank(m)
+        assert plan.wide == (route == "wide")
+        _check(np.stack([_random_ring(m, m + i) for i in range(2)]), lr.launch_key(plan))
