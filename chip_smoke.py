@@ -8,9 +8,11 @@ checks it, end to end:
    into build/torch_kernels/;
 3. kernels: holds every list-rank kernel bit-exact against its plain
    torch version on the same CUDA tensors: ruling, wyllie and blocked on
-   one CTA in their shared-memory and global-scratch table variants, and
-   the wide kernel on its cluster of 8, including a ring whose every
-   pointer crosses a CTA slice; then runs
+   one CTA in their shared-memory and global-scratch table variants (on
+   random rings, ruler gaps, every ruler spacing, weights, many short
+   lists, in-trees and index-local runs), and the wide kernel on its
+   cluster of 8, including a ring whose every pointer crosses a CTA
+   slice; then runs
    tests/test_torch_list_rank_cuda.py (pytest -m cuda) as a subprocess;
 4. main paths, each with launch counts reset before and read after:
    a. chain merge: a full-size 8-doc chunk of automerge-perf-shaped
@@ -28,7 +30,10 @@ checks it, end to end:
       torch:wyllie route; the port's entry() once;
 5. timings (CUDA events, warm-up then median): merge ms per chunk and
    ops/s for both paths, rank-only ms, each kernel's ms beside its bound
-   and its plain version's ms, and the device-busy share;
+   and its plain version's ms, and the device-busy share; the ruling and
+   blocked kernels' cycles per phase (their timed instantiation) at the
+   main-path shape, and their ms with one flagship ring per SM (a full
+   wave) beside the bytes bound there;
 6. the cluster sweep: the wide kernel at C = 4, 8, 16 on the element
    rings (each checked bit-exact first; a size the card cannot schedule
    is reported and skipped), one line per C, then at C = 8 on rings of
@@ -137,6 +142,40 @@ def gap_ring(np, m: int, k: int):
     order = [i for i in range(m) if i % k != 0] + [i for i in range(m) if i % k == 0]
     succ = np.arange(m, dtype=np.int32)
     succ[np.asarray(order[:-1])] = np.asarray(order[1:], np.int32)
+    return succ
+
+
+def short_lists(np, m: int, length: int, seed: int):
+    """Many lists of `length` tokens in random order: a head every
+    `length` tokens."""
+    perm = np.random.default_rng(seed).permutation(m).astype(np.int32)
+    succ = np.arange(m, dtype=np.int32)
+    body = np.arange(m) % length != length - 1
+    body[-1] = False
+    succ[perm[:-1][body[:-1]]] = perm[1:][body[:-1]]
+    return succ
+
+
+def in_tree(np, m: int, seed: int):
+    """A random recursive tree: token perm[j] points to a random earlier
+    perm[i] (i < j), so many tokens share a successor; perm[0] is the
+    terminal."""
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(m).astype(np.int32)
+    parent = (rng.random(m) * np.arange(m)).astype(np.int64)
+    succ = np.empty(m, np.int32)
+    succ[perm] = perm[parent]
+    return succ
+
+
+def runs_ring(np, m: int, run_len: int, seed: int):
+    """One chain over index-consecutive runs in shuffled run order."""
+    starts = np.arange(0, m, run_len)
+    order = np.random.default_rng(seed).permutation(len(starts))
+    ends = np.minimum(starts + run_len, m) - 1
+    succ = np.arange(1, m + 1, dtype=np.int32)
+    succ[ends[order[:-1]]] = starts[order[1:]]
+    succ[ends[order[-1]]] = ends[order[-1]]
     return succ
 
 
@@ -250,7 +289,7 @@ def main() -> int:
             mp += quantum
         return mp, mp + 1
 
-    r_under, r_over = under_over(lambda mp: mp + mp // 8 + 1, 1024)
+    r_under, r_over = under_over(lambda mp: list_rank.plan_rank(mp).table_words, 1024)
     w_under, w_over = under_over(lambda mp: mp, 128)
     print("kernel vs plain version (bit-exact):", flush=True)
     for algo in ("ruling", "wyllie"):
@@ -268,18 +307,34 @@ def main() -> int:
         succ = random_ring(np, 20000, 5)
         w = np.where(succ == np.arange(20000), 0, rng.integers(1, 4, 20000)).astype(np.int32)
         compare("weighted m=20000", succ, algo, weights=w, dist_bound=int(w.sum()) + 1)
-    for k in (2, 8, 64):
+    for k in (2, 8, 64, 512):
         compare(f"ruler spacing k={k} m=32770", random_ring(np, 32770, 100 + k), "ruling", k=k)
+    # ring families: many heads, in-trees (many tokens on one successor),
+    # index-local runs, on both table variants
+    for algo in ("ruling", "blocked"):
+        for m in (35000, 65536):
+            compare(f"short lists m={m}", short_lists(np, m, 6, m), algo)
+            compare(f"in-tree m={m}", in_tree(np, m, m + 1), algo)
+            compare(f"runs of 37 m={m}", runs_ring(np, m, 37, m + 2), algo)
+        star = np.full(20000, 7, np.int32)
+        star[7] = 7
+        compare("every token on one terminal m=20000", star, algo)
     # blocked: phase A inside blocks, then the ruling phases
     for m in (1000, 32770, 65536):
         for block in (128, 1024, 65536):
             compare(f"random ring m={m} block={block}", random_ring(np, m, 200 + m + block), "blocked", block=block)
+            compare(f"runs of 37 m={m} block={block}", runs_ring(np, m, 37, 250 + m + block), "blocked", block=block)
     compare(f"flagship rings [{CHUNK}, {ring_m}]", flag_succ, "blocked")
     compare(f"ring under smem budget m={r_under}", random_ring(np, r_under, 6), "blocked", "blocked/smem")
     compare(f"ring over smem budget m={r_over}", random_ring(np, r_over, 7), "blocked", "blocked/global")
+    compare("adversarial ruler gap m=2048", gap_ring(np, 2048, 8), "blocked")
     compare("adversarial ruler gap m=65536", gap_ring(np, 65536, 8), "blocked")
-    for k in (2, 8):
+    for k in (2, 8, 64, 512):
         compare(f"ruler spacing k={k} m=32770", random_ring(np, 32770, 300 + k), "blocked", k=k)
+    rng = np.random.default_rng(12)
+    succ = in_tree(np, 30000, 13)
+    w = np.where(succ == np.arange(30000), 0, rng.integers(1, 3, 30000)).astype(np.int32)
+    compare("weighted in-tree m=30000", succ, "blocked", weights=w, dist_bound=60_000)
     # wide: rings past 65536 lane-padded tokens, or dist_bound > 65536, on
     # a cluster of WIDE_CLUSTER CTAs a ring
     rng = np.random.default_rng(8)
@@ -488,6 +543,40 @@ def main() -> int:
             f"bound {bounds[name]:.5f} ms (bytes), plain {res[name + '_plain_ms']:.3f} ms",
             flush=True,
         )
+    # ---- 5b. the one-CTA packed kernels, per phase and on the full card ---
+    # per-phase cycles from the timed instantiation (thread 0's clock64
+    # after each phase's closing barrier), held bit-exact first
+    phases = {}
+    for name in ("ruling", "blocked"):
+        p, succ_p, w_p = plans[name]
+        want = list_rank.rank_plain(succ_p, w_p, p)
+        samples = []
+        for _ in range(3 + 20):
+            got, stamps = list_rank.launch_timed(succ_p, w_p, p)
+            samples.append(stamps)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"timed {name} kernel != plain version")
+        st = torch.cat(samples[3:]).double()
+        cyc = (st[:, 1:6] - st[:, 0:5]).median(dim=0).values.tolist()
+        phases[name] = {"cycles": dict(zip(list_rank.PHASES, cyc)), "total_cycles": float((st[:, 5] - st[:, 0]).median())}
+        shown = ", ".join(f"{k} {v:.0f}" for k, v in phases[name]["cycles"].items())
+        print(f"phases {name} [{CHUNK}, {p.mp}] on {kind} ({card}): cycles per CTA, median of 20 launches x {CHUNK} "
+              f"CTAs: {shown}; total {phases[name]['total_cycles']:.0f}", flush=True)
+    # the flagship rings cycled over one ring per SM: one full wave
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    full = flag_succ[torch.arange(n_sm, device=dev) % CHUNK].contiguous()
+    full_card = {"rings": n_sm}
+    for name in ("ruling", "blocked"):
+        p, succ_p, w_p = list_rank._prepare(full, None, name, 8, None)
+        check(torch.equal(list_rank.launch_kernel(succ_p, w_p, p), list_rank.rank_plain(succ_p, w_p, p)),
+              f"{name} kernel != plain version on [{n_sm}, {p.mp}]")
+        ms = time_ms(torch, lambda: list_rank.launch_kernel(succ_p, w_p, p), inner=20)
+        bound = 12 * n_sm * p.mp / HBM_BYTES_PER_S * 1e3
+        full_card[name] = {"ms": ms, "bound_ms": bound}
+        print(f"kernel {name} [{n_sm}, {p.mp}] ({list_rank.launch_key(p)}, one ring per SM) on {kind} ({card}): "
+              f"{ms:.4f} ms, bound {bound:.5f} ms (bytes), {100 * bound / ms:.2f} % of it; at [{CHUNK}, {p.mp}] "
+              f"{100 * bounds[name] / res[name + '_ms']:.2f} %", flush=True)
+
     # ---- 6. cluster sweep at the main-path shape --------------------------
     # the wide kernel at each cluster size on the element rings, held
     # bit-exact against its plain version before it is timed
@@ -533,7 +622,8 @@ def main() -> int:
         "element_n": ELEMENT_N, "element_ring_tokens": esucc.shape[1],
         "mp": {name: p.mp for name, (p, _, _) in plans.items()}, "chunk_ops": chunk_ops,
         "element_chunk_ops": echunk_ops, "build_s": build_s, "gen_s": gen_s, "element_gen_s": egen_s, **res,
-        "bound_ms": bounds, "sweep": sweep, "total_s": time.perf_counter() - t_start,
+        "bound_ms": bounds, "phases": phases, "full_card": full_card, "sweep": sweep,
+        "total_s": time.perf_counter() - t_start,
     }))
     kernels = [
         {

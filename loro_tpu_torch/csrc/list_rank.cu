@@ -32,6 +32,16 @@
 // rulers whose phase-1 stop is a non-ruler terminal).  Phase 3:
 // dist = d1 + dense_dist[t1 / k] unless t1 is a non-ruler terminal.
 //
+// Why doubling and not sublist walks.  A work-efficient phase 1 in
+// which each ruler walks its sublist to the next ruler, one hop at a
+// time, then again to write the distances (two hops a token, where
+// doubling gathers ~3 times a token on the flagship chain rings) was
+// built, held bit-exact and measured slower on one SM: a hop of a walk
+// costs some 40-70 instructions of control flow (the next start, the
+// two passes, divergent lanes), a doubling round some 12 a token with
+// no divergence, so the walks lost on every ring measured (PERF.md has
+// the per-phase cycles).  The same held for blocked's phase A.
+//
 // In-place rounds.  The TPU kernels double synchronously (read the whole
 // table, then write it).  Here a round updates the table in place, with
 // no second buffer: each word is read and written as one access of its
@@ -145,6 +155,7 @@ constexpr uint32_t kHigh = 0xFFFF0000u;
 constexpr uint64_t kHigh64 = 0xFFFFFFFF00000000ull;
 constexpr int kClusterBatch = 8;  // wide kernel: remote gathers in flight per thread
 constexpr uint32_t kSliceK = 8;    // wide kernel: ruler spacing inside a slice
+constexpr int kStamps = 8;         // timed packed kernel: clock64 stamps per CTA
 
 // Pointer jumping over tbl[0, len) until every pointer rests on a
 // terminal (no pointer moved in a round) or `cap` rounds have run.
@@ -163,13 +174,25 @@ __device__ void jump_to_terminals(uint32_t* tbl, int len, int cap) {
   }
 }
 
-template <bool kShared>
+// Stamps of the timed instantiation: thread 0 writes clock64() at the
+// start and after each phase's closing barrier (ops/list_rank.py's
+// PHASES names the phases between them).
+template <bool kTimed>
+__device__ __forceinline__ void stamp(long long* stamps, int j) {
+  if (kTimed && threadIdx.x == 0) stamps[(size_t)blockIdx.x * kStamps + j] = clock64();
+}
+
+// The one-CTA packed kernel: ruling, blocked (ruling with n_steps_a >
+// 0) or packed Wyllie (ruling = 0).  kTimed (ruling plans only) writes
+// kStamps clock64 stamps a CTA to `stamps`; it runs the same code.
+template <bool kShared, bool kTimed>
 __global__ void __launch_bounds__(kThreads)
 list_rank_kernel(const int32_t* __restrict__ succ, const int32_t* __restrict__ w,
-                 int32_t* __restrict__ dist, uint32_t* __restrict__ scratch, int mp,
-                 int n_steps, int n_steps_dense, int ruling, int k_log2, int n_steps_a,
+                 int32_t* __restrict__ dist, uint32_t* __restrict__ scratch, long long* stamps,
+                 int mp, int n_steps, int n_steps_dense, int ruling, int k_log2, int n_steps_a,
                  int block_log2) {
   extern __shared__ uint32_t smem[];
+  stamp<kTimed>(stamps, 0);
   const size_t row = (size_t)blockIdx.x * mp;
   const int mr = ruling ? (mp >> k_log2) : 0;
   const int words = mp + (ruling ? mr + 1 : 0);
@@ -178,6 +201,7 @@ list_rank_kernel(const int32_t* __restrict__ succ, const int32_t* __restrict__ w
   for (int i = threadIdx.x; i < mp; i += kThreads)
     ring[i] = ((uint32_t)w[row + i] << 16) | ((uint32_t)succ[row + i] & kLow);
   __syncthreads();
+  stamp<kTimed>(stamps, 1);
 
   if (!ruling) {
     jump_to_terminals(ring, mp, n_steps);
@@ -200,6 +224,7 @@ list_rank_kernel(const int32_t* __restrict__ succ, const int32_t* __restrict__ w
     if (!__syncthreads_or(moved)) break;
   }
 
+  stamp<kTimed>(stamps, 2);
   const uint32_t kmask = (1u << k_log2) - 1u;
   // phase 1: double pointers until each rests on a ruler or a terminal
   for (int r = 0; r < n_steps; ++r) {
@@ -216,6 +241,8 @@ list_rank_kernel(const int32_t* __restrict__ succ, const int32_t* __restrict__ w
     if (!__syncthreads_or(moved)) break;
   }
 
+  stamp<kTimed>(stamps, 3);
+
   // phase 2: dense ruler ring + sink slot mr
   uint32_t* dense = ring + mp;
   for (int r = threadIdx.x; r < mr; r += kThreads) {
@@ -228,6 +255,8 @@ list_rank_kernel(const int32_t* __restrict__ succ, const int32_t* __restrict__ w
   __syncthreads();
   jump_to_terminals(dense, mr + 1, n_steps_dense);
 
+  stamp<kTimed>(stamps, 4);
+
   // phase 3: recombine
   for (int i = threadIdx.x; i < mp; i += kThreads) {
     const uint32_t p = ring[i];
@@ -235,6 +264,10 @@ list_rank_kernel(const int32_t* __restrict__ succ, const int32_t* __restrict__ w
     uint32_t d = p >> 16;
     if ((t & kmask) == 0) d += dense[t >> k_log2] >> 16;
     dist[row + i] = (int32_t)d;
+  }
+  if (kTimed) {
+    __syncthreads();
+    stamp<kTimed>(stamps, 5);
   }
 }
 
@@ -640,6 +673,29 @@ cudaError_t wide_config(int n_docs, int cluster, int smem_bytes, cudaStream_t st
   return e;
 }
 
+// Launches list_rank_kernel<kShared, kTimed> (see list_rank_launch).
+template <bool kTimed>
+int packed_launch(const int32_t* succ, const int32_t* w, int32_t* dist, uint32_t* scratch, long long* stamps,
+                  int n_docs, int mp, int n_steps, int n_steps_dense, int ruling, int k_log2, int n_steps_a,
+                  int block_log2, int use_smem, void* stream) {
+  if (n_docs <= 0) return (int)cudaSuccess;
+  const int mr = ruling ? (mp >> k_log2) : 0;
+  const size_t words = (size_t)mp + (ruling ? (size_t)mr + 1 : 0);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (use_smem) {
+    const size_t bytes = words * sizeof(uint32_t);
+    cudaError_t e = cudaFuncSetAttribute(list_rank_kernel<true, kTimed>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e != cudaSuccess) return (int)e;
+    list_rank_kernel<true, kTimed><<<n_docs, kThreads, bytes, st>>>(
+        succ, w, dist, nullptr, stamps, mp, n_steps, n_steps_dense, ruling, k_log2, n_steps_a, block_log2);
+  } else {
+    list_rank_kernel<false, kTimed><<<n_docs, kThreads, 0, st>>>(
+        succ, w, dist, scratch, stamps, mp, n_steps, n_steps_dense, ruling, k_log2, n_steps_a, block_log2);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -662,22 +718,19 @@ const char* list_rank_error_string(int err) { return cudaGetErrorString((cudaErr
 int list_rank_launch(const int32_t* succ, const int32_t* w, int32_t* dist, uint32_t* scratch,
                      int n_docs, int mp, int n_steps, int n_steps_dense, int ruling,
                      int k_log2, int n_steps_a, int block_log2, int use_smem, void* stream) {
-  if (n_docs <= 0) return (int)cudaSuccess;
-  const int mr = ruling ? (mp >> k_log2) : 0;
-  const size_t words = (size_t)mp + (ruling ? (size_t)mr + 1 : 0);
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (use_smem) {
-    const size_t bytes = words * sizeof(uint32_t);
-    cudaError_t e = cudaFuncSetAttribute(list_rank_kernel<true>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (e != cudaSuccess) return (int)e;
-    list_rank_kernel<true><<<n_docs, kThreads, bytes, st>>>(
-        succ, w, dist, nullptr, mp, n_steps, n_steps_dense, ruling, k_log2, n_steps_a, block_log2);
-  } else {
-    list_rank_kernel<false><<<n_docs, kThreads, 0, st>>>(
-        succ, w, dist, scratch, mp, n_steps, n_steps_dense, ruling, k_log2, n_steps_a, block_log2);
-  }
-  return (int)cudaGetLastError();
+  return packed_launch<false>(succ, w, dist, scratch, nullptr, n_docs, mp, n_steps, n_steps_dense, ruling, k_log2,
+                              n_steps_a, block_log2, use_smem, stream);
+}
+
+// The same kernel, timed (ruling and blocked plans): stamps is int64
+// [n_docs, 8], thread 0's clock64() at the start and after the load,
+// phase A, phase 1, phase 2 and phase 3 (with the store); the last two
+// are unused.
+int list_rank_launch_timed(const int32_t* succ, const int32_t* w, int32_t* dist, uint32_t* scratch,
+                           long long* stamps, int n_docs, int mp, int n_steps, int n_steps_dense,
+                           int k_log2, int n_steps_a, int block_log2, int use_smem, void* stream) {
+  return packed_launch<true>(succ, w, dist, scratch, stamps, n_docs, mp, n_steps, n_steps_dense, 1, k_log2,
+                             n_steps_a, block_log2, use_smem, stream);
 }
 
 // How many clusters of `cluster` CTAs of the wide kernel, each CTA with

@@ -46,6 +46,8 @@ MAX_CLUSTER = 16  # largest thread-block cluster on sm_90 (non-portable above 8)
 # ring on one CTA: clusters of 2, 4 and 8 were slower for the ruling
 # kernel on the flagship chain rings, whose pointers mostly leave a slice.
 WIDE_CLUSTER = 8
+# what each clock64 stamp of the timed packed kernel closes (list_rank_launch_timed)
+PHASES = ("load", "A", "1", "2", "3+store")
 _LOW = 0xFFFF
 _HIGH = 0xFFFF0000
 _U32 = 0xFFFFFFFF
@@ -355,6 +357,7 @@ def _lib() -> ctypes.CDLL:
         lib = library("list_rank")
         for name, args in (
             ("list_rank_launch", [ptr] * 4 + [i32] * 9 + [ptr]),
+            ("list_rank_launch_timed", [ptr] * 5 + [i32] * 8 + [ptr]),
             ("list_rank_wide_launch", [ptr] * 3 + [i32] * 6 + [ptr]),
             ("list_rank_wide_occupancy", [i32] * 2 + [ctypes.POINTER(i32)]),
             ("list_rank_smem_budget", [i32]),
@@ -416,13 +419,11 @@ def launch_key(plan: RankPlan) -> str:
     return f"{plan.algo}/{'smem' if plan.smem_bytes else 'global'}"
 
 
-def launch_kernel(succ_p: torch.Tensor, w_p: torch.Tensor, plan: RankPlan) -> torch.Tensor:
-    """Launch csrc/list_rank.cu on padded int32 [D, mp] CUDA tensors:
-    the wide kernel on a cluster of plan.cluster CTAs a ring, or the
-    one-CTA packed kernel (ruling, wyllie, blocked).  Returns int32
-    [D, mp] dist.  Raises on any launch error, on a shared-memory slice
-    the device cannot give, and on a cluster the device cannot
-    schedule."""
+def _launch(succ_p: torch.Tensor, w_p: torch.Tensor, plan: RankPlan,
+            stamps: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Check the inputs, launch, raise on a launch error; returns dist.
+    `stamps` (int64 [D, 8], ruling plans only) takes the timed packed
+    kernel."""
     if succ_p.device.type != "cuda" or w_p.device != succ_p.device:
         raise ValueError("launch_kernel needs succ and w on one CUDA device")
     if succ_p.dtype != torch.int32 or w_p.dtype != torch.int32:
@@ -451,20 +452,35 @@ def launch_kernel(succ_p: torch.Tensor, w_p: torch.Tensor, plan: RankPlan) -> to
         else:
             smem = plan.smem_bytes > 0
             scratch = None if smem else torch.empty(d * plan.table_words, dtype=torch.int32, device=dev)
-            err = _lib().list_rank_launch(
-                *ptrs,
-                None if scratch is None else scratch.data_ptr(),
-                d,
-                plan.mp,
-                plan.n_steps,
-                plan.n_steps_dense if plan.ruling else 0,
-                int(plan.ruling),
-                plan.k.bit_length() - 1,
-                plan.n_steps_a,
-                plan.block.bit_length() - 1,
-                int(smem),
-                stream,
-            )
+            ptrs += (None if scratch is None else scratch.data_ptr(),)
+            shape = (d, plan.mp, plan.n_steps, plan.n_steps_dense if plan.ruling else 0)
+            rest = (plan.k.bit_length() - 1, plan.n_steps_a, plan.block.bit_length() - 1, int(smem), stream)
+            if stamps is None:
+                err = _lib().list_rank_launch(*ptrs, *shape, int(plan.ruling), *rest)
+            else:
+                err = _lib().list_rank_launch_timed(*ptrs, stamps.data_ptr(), *shape, *rest)
     _check(err, "kernel launch")
+    return dist
+
+
+def launch_kernel(succ_p: torch.Tensor, w_p: torch.Tensor, plan: RankPlan) -> torch.Tensor:
+    """Launch csrc/list_rank.cu on padded int32 [D, mp] CUDA tensors:
+    the wide kernel on a cluster of plan.cluster CTAs a ring, or the
+    one-CTA packed kernel (ruling, wyllie, blocked).  Returns int32
+    [D, mp] dist.  Raises on any launch error, on a shared-memory slice
+    the device cannot give, and on a cluster the device cannot
+    schedule."""
+    dist = _launch(succ_p, w_p, plan)
     LAUNCHES[launch_key(plan)] += 1
     return dist
+
+
+def launch_timed(succ_p: torch.Tensor, w_p: torch.Tensor, plan: RankPlan) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The packed kernel of a ruling or blocked plan, timed inside: (dist,
+    int64 [D, 8] stamps).  Per ring, stamps[:, 1:6] - stamps[:, 0:5]
+    are the cycles (the SM clock, read by clock64) of PHASES.  For
+    measurement only: not counted in LAUNCHES."""
+    if not plan.ruling:
+        raise ValueError("launch_timed needs a ruling or blocked plan")
+    stamps = torch.zeros((succ_p.shape[0], 8), dtype=torch.int64, device=succ_p.device)
+    return _launch(succ_p, w_p, plan, stamps), stamps

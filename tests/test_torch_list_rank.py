@@ -65,6 +65,26 @@ def _runs_ring(m: int, run_len: int, seed: int) -> np.ndarray:
     return succ
 
 
+def _short_lists(m: int, length: int, seed: int) -> np.ndarray:
+    """Many lists of `length` tokens in random order (a head every
+    `length` tokens)."""
+    perm = np.random.default_rng(seed).permutation(m).astype(np.int32)
+    succ = np.arange(m, dtype=np.int32)
+    body = np.arange(m - 1) % length != length - 1
+    succ[perm[:-1][body]] = perm[1:][body]
+    return succ
+
+
+def _in_tree(m: int, seed: int) -> np.ndarray:
+    """A random recursive tree: token perm[j] points to a random earlier
+    perm[i], so many tokens share a successor; perm[0] is the terminal."""
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(m).astype(np.int32)
+    succ = np.empty(m, np.int32)
+    succ[perm] = perm[(rng.random(m) * np.arange(m)).astype(np.int64)]
+    return succ
+
+
 def _port(succ, **kw) -> np.ndarray:
     got = lr.wyllie_rank(succ, device="cpu", **kw).numpy()
     ref = lr.wyllie_rank_reference(succ, **kw).numpy()
@@ -379,3 +399,80 @@ def test_cpu_cluster_route_never_launches():
     _port(succ, weights=w, dist_bound=70_000)
     assert sum(lr.LAUNCHES.values()) == 0
     assert "wide/cluster" in lr.LAUNCHES and not {"ruling/cluster", "wide/global"} & set(lr.LAUNCHES)
+
+
+# The ring families of the card tests (tests/test_torch_list_rank_cuda.py)
+# against the JAX package: many heads, an in-tree, ruler gaps, index-local
+# runs, every ruler spacing, weights, both sides of the ruling table's
+# shared-memory boundary, and blocked phase A at every block size.
+_FAMILIES = {
+    "short-lists": lambda: _short_lists(3000, 6, 1),
+    "in-tree": lambda: _in_tree(3000, 2),
+    "gap-2048": lambda: _gap_ring(2048, 8),
+    "runs": lambda: _runs_ring(3000, 37, 3),
+}
+
+
+@pytest.mark.parametrize("algo", ["ruling", "blocked"])
+@pytest.mark.parametrize("family", sorted(_FAMILIES))
+def test_ring_families_match_pallas(family, algo):
+    succ = _FAMILIES[family]()
+    want = np.asarray(jax_wyllie_rank(jnp.asarray(succ), interpret=True, algo=algo))
+    np.testing.assert_array_equal(want, np.asarray(wyllie_rank_xla(jnp.asarray(succ))))
+    np.testing.assert_array_equal(_port(succ, algo=algo), want)
+
+
+@pytest.mark.parametrize("algo", ["ruling", "blocked"])
+@pytest.mark.parametrize("k", [2, 8, 64, 512])
+def test_ruler_spacings_match_xla(k, algo):
+    """k = 512 pads to 65,536 tokens: the plain version's ruling phases
+    on a whole packed ring."""
+    for succ in (_random_ring(3000, k), _in_tree(3000, k)):
+        np.testing.assert_array_equal(_port(succ, algo=algo, k=k), np.asarray(wyllie_rank_xla(jnp.asarray(succ))))
+
+
+def _smem_edge() -> int:
+    """The longest ring whose ruling table fits one block's shared memory."""
+    m = 1024
+    while lr.plan_rank(m + 1024).smem_bytes:
+        m += 1024
+    return m
+
+
+_LARGE = {
+    "gap-65536": lambda: _gap_ring(65536, 8),
+    "smem-edge": lambda: _random_ring(_smem_edge(), 5),
+    "past-smem-edge": lambda: _random_ring(_smem_edge() + 1, 6),
+}
+
+
+@pytest.mark.parametrize("algo", ["ruling", "blocked"])
+@pytest.mark.parametrize("ring", sorted(_LARGE))
+def test_large_rings_match_xla(ring, algo):
+    """The rings whose tables sit on both sides of the shared-memory
+    boundary, and the longest ruler gap a packed ring can have."""
+    succ = _LARGE[ring]()
+    assert bool(lr.plan_rank(succ.shape[0], algo).smem_bytes) == (ring == "smem-edge")
+    np.testing.assert_array_equal(_port(succ, algo=algo), np.asarray(wyllie_rank_xla(jnp.asarray(succ))))
+
+
+@pytest.mark.parametrize("algo", ["ruling", "blocked"])
+def test_weighted_in_tree_matches_pallas(algo):
+    rng = np.random.default_rng(21)
+    succ = _in_tree(2000, 22)
+    w = np.where(succ == np.arange(2000), 0, rng.integers(1, 5, 2000)).astype(np.int32)
+    bound = int(w.sum()) + 1
+    want = np.asarray(
+        jax_wyllie_rank(jnp.asarray(succ), interpret=True, algo=algo, weights=jnp.asarray(w), dist_bound=bound)
+    )
+    np.testing.assert_array_equal(_port(succ, algo=algo, weights=w, dist_bound=bound), want)
+
+
+@pytest.mark.parametrize("block", [128, 1024, 65536])
+def test_blocked_families_match_pallas(block, monkeypatch):
+    """Blocked phase A on runs, an in-tree and many short lists, at the
+    smallest, the default and the largest block."""
+    monkeypatch.setenv("RANK_BLOCK", str(block))
+    for succ in (_runs_ring(2000, 37, block), _in_tree(2000, block), _short_lists(2000, 6, block)):
+        want = np.asarray(jax_wyllie_rank(jnp.asarray(succ), interpret=True, algo="blocked"))
+        np.testing.assert_array_equal(_port(succ, algo="blocked", block=block), want)

@@ -46,6 +46,45 @@ def _weighted_ring():
     return succ, w
 
 
+def _short_lists(m: int, length: int, seed: int) -> np.ndarray:
+    """Many lists of `length` tokens in random order (a head every
+    `length` tokens)."""
+    perm = np.random.default_rng(seed).permutation(m).astype(np.int32)
+    succ = np.arange(m, dtype=np.int32)
+    body = np.arange(m - 1) % length != length - 1
+    succ[perm[:-1][body]] = perm[1:][body]
+    return succ
+
+
+def _in_tree(m: int, seed: int) -> np.ndarray:
+    """A random recursive tree: many tokens share a successor."""
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(m).astype(np.int32)
+    succ = np.empty(m, np.int32)
+    succ[perm] = perm[(rng.random(m) * np.arange(m)).astype(np.int64)]
+    return succ
+
+
+def _gap_ring(m: int, k: int) -> np.ndarray:
+    """Every non-ruler before any ruler along the ring: the longest ruler
+    gap, m - m/k hops."""
+    order = np.concatenate([np.flatnonzero(np.arange(m) % k != 0), np.flatnonzero(np.arange(m) % k == 0)])
+    succ = np.arange(m, dtype=np.int32)
+    succ[order[:-1]] = order[1:]
+    return succ
+
+
+def _runs_ring(m: int, run_len: int, seed: int) -> np.ndarray:
+    """One chain over index-consecutive runs in shuffled run order."""
+    starts = np.arange(0, m, run_len)
+    order = np.random.default_rng(seed).permutation(len(starts))
+    ends = np.minimum(starts + run_len, m) - 1
+    succ = np.arange(1, m + 1, dtype=np.int32)
+    succ[ends[order[:-1]]] = starts[order[1:]]
+    succ[ends[order[-1]]] = ends[order[-1]]
+    return succ
+
+
 def _needs_card() -> None:
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU; run on the card")
@@ -99,3 +138,58 @@ def test_cluster_kernels_match_plain_on_card(route, m):
         plan = lr.plan_rank(m)
         assert plan.wide == (route == "wide")
         _check(np.stack([_random_ring(m, m + i) for i in range(2)]), lr.launch_key(plan))
+
+
+# Ring families for the ruling phases and blocked's phase A: many heads,
+# an in-tree, the longest ruler gaps, every ruler spacing, weights, both
+# sides of the shared-memory boundary, and phase A on runs at every block.
+_FAMILY_RINGS = {
+    "short-lists": lambda: _short_lists(35000, 6, 1),
+    "in-tree": lambda: _in_tree(35000, 2),
+    "gap-2048": lambda: _gap_ring(2048, 8),
+    "gap-65536": lambda: _gap_ring(65536, 8),
+    "runs": lambda: _runs_ring(40000, 37, 3),
+}
+_FAMILY_CASES = [(algo, ring) for algo in ("ruling", "blocked") for ring in _FAMILY_RINGS]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo,ring", _FAMILY_CASES, ids=[f"{a}-{r}" for a, r in _FAMILY_CASES])
+def test_ring_families_match_plain_on_card(algo, ring):
+    _needs_card()
+    succ = _FAMILY_RINGS[ring]()
+    _check(succ, lr.launch_key(lr.plan_rank(succ.shape[0], algo)), algo=algo)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [2, 8, 64, 512])
+def test_ruler_spacings_match_plain_on_card(k):
+    _needs_card()
+    for algo in ("ruling", "blocked"):
+        succ = np.stack([_random_ring(30000, k), _in_tree(30000, k)])
+        _check(succ, lr.launch_key(lr.plan_rank(30000, algo, k)), algo=algo, k=k)
+
+
+@pytest.mark.cuda
+def test_weighted_and_boundary_rings_match_plain_on_card():
+    """A weighted in-tree, and random rings on the last shared-memory
+    size and the first global-scratch one of the ruling table."""
+    _needs_card()
+    rng = np.random.default_rng(5)
+    succ = _in_tree(30000, 6)
+    w = np.where(succ == np.arange(30000), 0, rng.integers(1, 3, 30000)).astype(np.int32)
+    under = 1024
+    while lr.plan_rank(under + 1024).smem_bytes:
+        under += 1024
+    for algo in ("ruling", "blocked"):
+        _check(succ, f"{algo}/smem", algo=algo, weights=w, dist_bound=60_000)
+        _check(_random_ring(under, 7), f"{algo}/smem", algo=algo)
+        _check(_random_ring(under + 1, 8), f"{algo}/global", algo=algo)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [128, 1024, 65536])
+def test_blocked_runs_match_plain_on_card(block):
+    _needs_card()
+    for m in (1000, 35000, 65536):
+        _check(_runs_ring(m, 37, m + block), lr.launch_key(lr.plan_rank(m, "blocked")), algo="blocked", block=block)
