@@ -7,8 +7,9 @@ checks it, end to end:
 2. build: compiles every CUDA source of the port with nvcc (in parallel)
    into build/torch_kernels/;
 3. kernels: holds every list-rank kernel bit-exact against its plain
-   torch version on the same CUDA tensors: ruling, wyllie and blocked on
-   one CTA in their shared-memory and global-scratch table variants (on
+   torch version on the same CUDA tensors: ruling and blocked on one CTA
+   in their shared-memory and global-scratch table variants, wyllie on
+   one CTA and, past one CTA's shared memory, on its cluster of two (on
    random rings, ruler gaps, every ruler spacing, weights, many short
    lists, in-trees and index-local runs), and the wide kernel on its
    cluster of 8, including a ring whose every pointer crosses a CTA
@@ -28,12 +29,15 @@ checks it, end to end:
       through the default, "cuda:blocked" and "cuda:ruling"; one doc at
       N = 65,536, past the kernels' ring cap, through the counted
       torch:wyllie route; the port's entry() once;
-5. timings (CUDA events, warm-up then median): merge ms per chunk and
+5. timings (CUDA events, warm-up then median; a kernel's ms from a CUDA
+   graph of 20 launches): merge ms per chunk and
    ops/s for both paths, rank-only ms, each kernel's ms beside its bound
    and its plain version's ms, and the device-busy share; the ruling and
-   blocked kernels' cycles per phase (their timed instantiation) at the
-   main-path shape, and their ms with one flagship ring per SM (a full
-   wave) beside the bytes bound there;
+   blocked kernels' cycles per phase and wyllie's rounds taken and
+   cycles per round (their timed instantiations) at the main-path shape,
+   the three kernels' ms with one flagship ring per SM (a full wave)
+   beside the bytes bound there, and wyllie's two-CTA kernel on rings
+   past one CTA's shared memory;
 6. the cluster sweep: the wide kernel at C = 4, 8, 16 on the element
    rings (each checked bit-exact first; a size the card cannot schedule
    is reported and skipped), one line per C, then at C = 8 on rings of
@@ -89,6 +93,20 @@ def time_ms(torch, fn, warmup: int = 3, reps: int = 20, inner: int = 1) -> float
         b.synchronize()
         samples.append(a.elapsed_time(b) / inner)
     return statistics.median(samples)
+
+
+def kernel_ms(torch, fn, calls: int = 20, reps: int = 20) -> float:
+    """Device ms per call of `fn` (one kernel launch and its wrapper):
+    `calls` back-to-back calls captured in a CUDA graph, the graph
+    replayed and timed by time_ms, so the host's cost per launch (the
+    wrapper's checks, ctypes) does not stretch the gaps between kernels."""
+    fn()  # builds, fills the wrapper's caches
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(calls):
+            fn()
+    return time_ms(torch, graph.replay, reps=reps) / calls
 
 
 def device_breakdown(torch, fn, calls: int = 5):
@@ -297,8 +315,9 @@ def main() -> int:
             compare(f"random ring m={m}", random_ring(np, m, m), algo)
         compare(f"flagship rings [{CHUNK}, {ring_m}]", flag_succ, algo)
         under, over = (r_under, r_over) if algo == "ruling" else (w_under, w_over)
-        compare(f"ring under smem budget m={under}", random_ring(np, under, 1), algo)
-        compare(f"ring over smem budget m={over}", random_ring(np, over, 2), algo)
+        compare(f"ring under smem budget m={under}", random_ring(np, under, 1), algo, f"{algo}/smem")
+        compare(f"ring over smem budget m={over}", random_ring(np, over, 2), algo,
+                "wyllie/cluster" if algo == "wyllie" else "ruling/global")
         compare("ring m=65536", random_ring(np, 65536, 3), algo)
         compare("adversarial ruler gap m=2048", gap_ring(np, 2048, 8), algo)
         compare("adversarial ruler gap m=65536", gap_ring(np, 65536, 8), algo)
@@ -309,9 +328,17 @@ def main() -> int:
         compare("weighted m=20000", succ, algo, weights=w, dist_bound=int(w.sum()) + 1)
     for k in (2, 8, 64, 512):
         compare(f"ruler spacing k={k} m=32770", random_ring(np, 32770, 100 + k), "ruling", k=k)
+    # wyllie's 16-bit distances up to their bound, on one CTA and on two
+    for m in (30000, 60000):
+        base = 65_536 // m  # the total weight lands near 64,500
+        w = (base + (np.random.default_rng(m).random(m) < (64_500 - base * m) / m)).astype(np.int32)
+        succ = random_ring(np, m, m + 3)
+        w[succ == np.arange(m)] = 0
+        check(int(w.sum()) < 65_536, "weighted packed ring stays under its dist_bound")
+        compare(f"weighted m={m} dist_bound=65536", succ, "wyllie", weights=w, dist_bound=65_536)
     # ring families: many heads, in-trees (many tokens on one successor),
-    # index-local runs, on both table variants
-    for algo in ("ruling", "blocked"):
+    # index-local runs, on every table variant
+    for algo in ("ruling", "blocked", "wyllie"):
         for m in (35000, 65536):
             compare(f"short lists m={m}", short_lists(np, m, 6, m), algo)
             compare(f"in-tree m={m}", in_tree(np, m, m + 1), algo)
@@ -504,7 +531,7 @@ def main() -> int:
         ),
     }
     for name, (p, succ_p, w_p) in plans.items():
-        res[f"{name}_ms"] = time_ms(torch, lambda: list_rank.launch_kernel(succ_p, w_p, p), inner=20)
+        res[f"{name}_ms"] = kernel_ms(torch, lambda: list_rank.launch_kernel(succ_p, w_p, p))
         res[f"{name}_plain_ms"] = time_ms(torch, lambda: list_rank.rank_plain(succ_p, w_p, p))
     res["ops_per_s"] = chunk_ops / (res["merge_ms"] / 1e3)
     res["element_ops_per_s"] = echunk_ops / (res["element_merge_ms"] / 1e3)
@@ -562,20 +589,55 @@ def main() -> int:
         shown = ", ".join(f"{k} {v:.0f}" for k, v in phases[name]["cycles"].items())
         print(f"phases {name} [{CHUNK}, {p.mp}] on {kind} ({card}): cycles per CTA, median of 20 launches x {CHUNK} "
               f"CTAs: {shown}; total {phases[name]['total_cycles']:.0f}", flush=True)
+    # wyllie: rounds taken, and cycles per round, from its timed instantiation
+    def wyllie_timed(p, succ_p, w_p, label):
+        want = list_rank.rank_plain(succ_p, w_p, p)
+        samples = []
+        for _ in range(3 + 20):
+            got, stamps = list_rank.launch_timed(succ_p, w_p, p)
+            samples.append(stamps)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"timed wyllie kernel != plain version on {label}")
+        info = list_rank.wyllie_rounds(torch.cat(samples[3:]))
+        print(f"rounds wyllie {label} ({list_rank.launch_key(p)}) on {kind} ({card}): cycles per CTA, median of 20 "
+              f"launches x {succ_p.shape[0] * p.cluster} CTAs: rounds taken {info['rounds'][0]}-{info['rounds'][1]}, "
+              f"load {info['load_cycles']:.0f}, rounds {info['rounds_cycles']:.0f}, store {info['store_cycles']:.0f}, "
+              f"total {info['total_cycles']:.0f}; per round "
+              + " ".join(f"{c:.0f}" for c in info["round_cycles"]) + "; moved "
+              + " ".join(f"{m:.0f}" for m in info["moved"]), flush=True)
+        return info
+
+    p, succ_p, w_p = plans["wyllie"]
+    phases["wyllie"] = wyllie_timed(p, succ_p, w_p, f"[{CHUNK}, {p.mp}]")
     # the flagship rings cycled over one ring per SM: one full wave
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     full = flag_succ[torch.arange(n_sm, device=dev) % CHUNK].contiguous()
     full_card = {"rings": n_sm}
-    for name in ("ruling", "blocked"):
+    for name in ("ruling", "blocked", "wyllie"):
         p, succ_p, w_p = list_rank._prepare(full, None, name, 8, None)
         check(torch.equal(list_rank.launch_kernel(succ_p, w_p, p), list_rank.rank_plain(succ_p, w_p, p)),
               f"{name} kernel != plain version on [{n_sm}, {p.mp}]")
-        ms = time_ms(torch, lambda: list_rank.launch_kernel(succ_p, w_p, p), inner=20)
+        ms = kernel_ms(torch, lambda: list_rank.launch_kernel(succ_p, w_p, p))
         bound = 12 * n_sm * p.mp / HBM_BYTES_PER_S * 1e3
         full_card[name] = {"ms": ms, "bound_ms": bound}
         print(f"kernel {name} [{n_sm}, {p.mp}] ({list_rank.launch_key(p)}, one ring per SM) on {kind} ({card}): "
               f"{ms:.4f} ms, bound {bound:.5f} ms (bytes), {100 * bound / ms:.2f} % of it; at [{CHUNK}, {p.mp}] "
               f"{100 * bounds[name] / res[name + '_ms']:.2f} %", flush=True)
+
+    # wyllie on rings past one CTA's shared memory: its cluster of two
+    over_budget = {}
+    for name, rings in (("random", [random_ring(np, w_over, 90 + i) for i in range(CHUNK)]),
+                        ("gap", [gap_ring(np, 65536, 8)] * CHUNK),
+                        ("random_65536", [random_ring(np, 65536, 110 + i) for i in range(CHUNK)])):
+        p, succ_p, w_p = list_rank._prepare(torch.as_tensor(np.stack(rings)).to(dev), None, "wyllie", 8, None)
+        check(torch.equal(list_rank.launch_kernel(succ_p, w_p, p), list_rank.rank_plain(succ_p, w_p, p)),
+              f"wyllie kernel != plain version on the {name} ring [{CHUNK}, {p.mp}]")
+        ms = kernel_ms(torch, lambda: list_rank.launch_kernel(succ_p, w_p, p))
+        bound = 12 * CHUNK * p.mp / HBM_BYTES_PER_S * 1e3
+        over_budget[name] = {"mp": p.mp, "ms": ms, "bound_ms": bound}
+        print(f"kernel wyllie on a {name.replace('_', ' ')} ring [{CHUNK}, {p.mp}] ({list_rank.launch_key(p)}, "
+              f"C={p.cluster}) on {kind} ({card}): {ms:.4f} ms, bound {bound:.5f} ms (bytes)", flush=True)
+    phases["wyllie_cluster"] = wyllie_timed(p, succ_p, w_p, f"random ring [{CHUNK}, {p.mp}]")
 
     # ---- 6. cluster sweep at the main-path shape --------------------------
     # the wide kernel at each cluster size on the element rings, held
@@ -591,7 +653,7 @@ def main() -> int:
             continue
         got = list_rank.launch_kernel(wsucc_p, ww_p, p)
         check(torch.equal(got, wide_plain), f"wide kernel at C={c} != plain version on the element rings")
-        sweep[f"wide_C{c}_ms"] = time_ms(torch, lambda: list_rank.launch_kernel(wsucc_p, ww_p, p), inner=20)
+        sweep[f"wide_C{c}_ms"] = kernel_ms(torch, lambda: list_rank.launch_kernel(wsucc_p, ww_p, p))
         # pointers that leave their CTA's slice (the kernel's exit tokens)
         tok = torch.arange(p.mp, device=dev)
         exits = (wsucc_p.long() // p.slice_tokens != tok // p.slice_tokens).sum(1).float()
@@ -611,7 +673,7 @@ def main() -> int:
                        ("random", random_ring(np, n, 11))):
         succ = torch.as_tensor(np.stack([ring] * CHUNK)).to(dev)
         p, succ_p, w_p = list_rank._prepare(succ, None, "ruling", 8, None)
-        sweep[f"wide_{name}_ms"] = time_ms(torch, lambda: list_rank.launch_kernel(succ_p, w_p, p), inner=20)
+        sweep[f"wide_{name}_ms"] = kernel_ms(torch, lambda: list_rank.launch_kernel(succ_p, w_p, p))
         print(f"sweep wide C={p.cluster} on a {name.replace('_', '-')} ring [{CHUNK}, {p.mp}]: "
               f"{sweep[f'wide_{name}_ms']:.4f} ms", flush=True)
     best = min((v, k) for k, v in sweep.items() if k.startswith("wide_C"))
@@ -622,7 +684,8 @@ def main() -> int:
         "element_n": ELEMENT_N, "element_ring_tokens": esucc.shape[1],
         "mp": {name: p.mp for name, (p, _, _) in plans.items()}, "chunk_ops": chunk_ops,
         "element_chunk_ops": echunk_ops, "build_s": build_s, "gen_s": gen_s, "element_gen_s": egen_s, **res,
-        "bound_ms": bounds, "phases": phases, "full_card": full_card, "sweep": sweep,
+        "bound_ms": bounds, "phases": phases, "full_card": full_card, "wyllie_over_budget": over_budget,
+        "sweep": sweep,
         "total_s": time.perf_counter() - t_start,
     }))
     kernels = [

@@ -3,12 +3,14 @@
 //
 // Replaces all four kernels of loro_tpu/ops/pallas_rank.py.  Two shapes:
 //
-// - one CTA per ring: list_rank_kernel<kShared> (packed Wyllie
-//   _rank_kernel, blocked _rank_kernel_blocked and the ruling route
-//   _rank_kernel_ruling + _ruling_from_packed);
-// - one thread-block cluster of C = 8 CTAs per ring, the ring split
-//   across the CTAs' shared memories: list_rank_wide_cluster_kernel
-//   (_rank_kernel_wide).
+// - one CTA per ring: list_rank_kernel<kShared> (blocked
+//   _rank_kernel_blocked and the ruling route _rank_kernel_ruling +
+//   _ruling_from_packed) and list_rank_wyllie_kernel (packed Wyllie
+//   _rank_kernel);
+// - one thread-block cluster per ring: list_rank_wide_cluster_kernel
+//   (_rank_kernel_wide, C = 8 CTAs, the ring split across their shared
+//   memories) and list_rank_wyllie_cluster_kernel (packed Wyllie on rings
+//   past one CTA's shared memory, C = 2).
 //
 // Packed state, as in the TPU kernels: one u32 per token, dist in the
 // high 16 bits and successor in the low 16, so one 32-bit gather moves a
@@ -67,7 +69,11 @@
 // morally strong and never tear.  A cluster barrier (arrive.release /
 // wait.acquire) separates rounds, and no CTA exits while its shared
 // memory may still be read: the last remote read precedes a barrier that
-// every CTA waits on.
+// every CTA waits on.  The two-CTA Wyllie kernel reads the other half
+// from its mirror in device memory with aligned 32-bit loads that bypass
+// L1 (ld.global.cg), which likewise see one whole word, old or new; the
+// same cluster barrier orders each CTA's mirror stores of a round before
+// the other CTA's gathers of the next.
 //
 // What bounds them on an H100.  The device-memory traffic is tiny (succ
 // and w read once, dist written once: 12 bytes per token), so the bound
@@ -126,6 +132,53 @@
 // only about one a GPC (8 rings run in two waves) and 4 CTAs hold twice
 // the tokens each; chip_smoke.py's sweep times C = 4, 8 and 16.
 //
+// Packed Wyllie (list_rank_wyllie_kernel, _rank_kernel).  What bounds
+// a round on one SM is the work per word visited, not bytes: on the
+// flagship chain rings (34,944 padded tokens, 8 rings, NVIDIA H100 80GB
+// HBM3, 700 W) a round of the strided loop of jump_to_terminals (the
+// kernel before) reads, gathers and stores every word with some 12 SASS
+// instructions, 13-14 rounds, 0.0415-0.0434 ms.  Batching 8 gathers
+// before their stores, with a per-word live mask walked by bit tricks,
+// cost more instructions than it hid (0.0705 ms); so did consecutive
+// ownership with the same batches (0.0928), and lean loops with the own
+// word read from shared memory still lost (0.0522-0.0534).  What lands
+// (0.0377 ms against 0.0415 in one A/B call):
+//   - each thread owns W = ceil(mp / 1024) | 1 consecutive words (W odd,
+//     so the 32 lanes at the same word fall into 32 banks) and holds
+//     them in registers while W < kRegWords (40; mp <= 39,936; 64
+//     registers, no spill).  A round needs no load of the own word, only
+//     the gather and, if the word moved, the store: 9 SASS instructions
+//     a word;
+//   - the words are visited from the last to the first, so a word whose
+//     target is the next own word (43 % of the flagship pointers point 1
+//     ahead, 16 % 2 ahead) reads it already moved this round: 12-13
+//     rounds where the strided order takes 13-14;
+//   - a thread's slots past its last word hold a sentinel, the terminal
+//     word mp appended to the table, so no slot needs a bounds test (a
+//     test per word cost 4 instructions); groups of 8 words of which none
+//     moved in a round are final and skipped in later rounds.  Pointing
+//     each final word at the sentinel as well, so that its gather is a
+//     broadcast, measured 3 % more cycles and was dropped;
+//   - q = p - (p & 0xFFFF) + tbl[p & 0xFFFF] is the same sum as the TPU
+//     kernel's (p & 0xFFFF0000) + g; q == p exactly when the target is a
+//     terminal, which is when a word is final.
+// Rings with W >= kRegWords keep the strided loop.  Early exit and the
+// ceil(log2 m) cap stay.  In-place rounds stay exact although final
+// words are skipped: a skipped word points at a terminal, which never
+// changes, so its value is already the fixpoint's.
+//
+// Packed Wyllie past one CTA's shared memory (58,112 < mp <= 65,536;
+// list_rank_wyllie_cluster_kernel).  The kernel before read the table
+// from device memory on one CTA (~64 L2 gathers a thread a round).  Here
+// two CTAs of a cluster each hold half the ring in shared memory (token i
+// in CTA i / S, S = mp / 2 <= 32,768 words, 128 KB), and a gather into
+// the own half is a shared-memory load.  A gather into the other half
+// reads `mirror`, a copy of the ring in device memory that each CTA
+// writes with every word it stores, and not the other CTA's shared memory:
+// random DSMEM gathers measured 1.7x slower than one CTA's L2 gathers
+// on random rings (0.2723 against 0.1591 ms at 8 rings of 58,240).  Rounds
+// end with the cluster-wide vote below; words are final as above.
+//
 // The ruling route stays on one CTA.  The same split of the packed ring
 // (and of the dense ruler ring with it) over a cluster of 2, 4 or 8
 // CTAs was slower than one CTA at every size on the flagship chain
@@ -182,32 +235,25 @@ __device__ __forceinline__ void stamp(long long* stamps, int j) {
   if (kTimed && threadIdx.x == 0) stamps[(size_t)blockIdx.x * kStamps + j] = clock64();
 }
 
-// The one-CTA packed kernel: ruling, blocked (ruling with n_steps_a >
-// 0) or packed Wyllie (ruling = 0).  kTimed (ruling plans only) writes
-// kStamps clock64 stamps a CTA to `stamps`; it runs the same code.
+// The one-CTA packed kernel of the ruling phases: ruling, or blocked
+// (ruling with n_steps_a > 0).  kTimed writes kStamps clock64 stamps a
+// CTA to `stamps`; it runs the same code.
 template <bool kShared, bool kTimed>
 __global__ void __launch_bounds__(kThreads)
 list_rank_kernel(const int32_t* __restrict__ succ, const int32_t* __restrict__ w,
                  int32_t* __restrict__ dist, uint32_t* __restrict__ scratch, long long* stamps,
-                 int mp, int n_steps, int n_steps_dense, int ruling, int k_log2, int n_steps_a,
-                 int block_log2) {
+                 int mp, int n_steps, int n_steps_dense, int k_log2, int n_steps_a, int block_log2) {
   extern __shared__ uint32_t smem[];
   stamp<kTimed>(stamps, 0);
   const size_t row = (size_t)blockIdx.x * mp;
-  const int mr = ruling ? (mp >> k_log2) : 0;
-  const int words = mp + (ruling ? mr + 1 : 0);
+  const int mr = mp >> k_log2;
+  const int words = mp + mr + 1;
   uint32_t* ring = kShared ? smem : scratch + (size_t)blockIdx.x * words;
 
   for (int i = threadIdx.x; i < mp; i += kThreads)
     ring[i] = ((uint32_t)w[row + i] << 16) | ((uint32_t)succ[row + i] & kLow);
   __syncthreads();
   stamp<kTimed>(stamps, 1);
-
-  if (!ruling) {
-    jump_to_terminals(ring, mp, n_steps);
-    for (int i = threadIdx.x; i < mp; i += kThreads) dist[row + i] = (int32_t)(ring[i] >> 16);
-    return;
-  }
 
   // blocked phase A: double pointers while the target is in the block
   for (int r = 0; r < n_steps_a; ++r) {
@@ -271,6 +317,120 @@ list_rank_kernel(const int32_t* __restrict__ succ, const int32_t* __restrict__ w
   }
 }
 
+// ---- packed Wyllie ------------------------------------------------------
+
+// Stamps of the timed Wyllie kernels, per CTA (ops/list_rank.py's
+// WYLLIE_STAMPS): clock64 at the start, after the load, after round r
+// (kRoundAt + r), after the store; the words that moved in round r
+// (kMovedAt + r) and the rounds taken.  n_steps <= kMaxRounds.
+constexpr int kWyllieStamps = 40;
+constexpr int kMaxRounds = 16;
+constexpr int kRoundAt = 2;
+constexpr int kMovedAt = kRoundAt + kMaxRounds;
+constexpr int kStoreAt = kMovedAt + kMaxRounds;
+constexpr int kRoundsAt = kStoreAt + 1;
+
+template <bool kTimed>
+__device__ __forceinline__ void wstamp(long long* stamps, int j) {
+  if (kTimed && threadIdx.x == 0) stamps[(size_t)blockIdx.x * kWyllieStamps + j] = clock64();
+}
+
+// Round r's moved words, summed over the CTA (timed kernels only).
+template <bool kTimed>
+__device__ __forceinline__ void count_moved(long long* stamps, int r, int n) {
+  if (!kTimed) return;
+  n = __reduce_add_sync(0xFFFFFFFFu, n);
+  if ((threadIdx.x & 31) == 0 && n)
+    atomicAdd(reinterpret_cast<unsigned long long*>(stamps + (size_t)blockIdx.x * kWyllieStamps + kMovedAt + r),
+              (unsigned long long)n);
+}
+
+constexpr int kRegWords = 40;  // words a thread holds in registers (W <= 39: mp <= 39,936)
+
+// Packed Wyllie on one CTA a ring, the table in shared memory.  With
+// kRegs (W = ceil(mp / kThreads) | 1 < kRegWords) each thread holds its W
+// consecutive words in registers and visits them from the last to the
+// first, skipping groups of 8 of which none moved in a round.  Its slots
+// past its last word hold the sentinel, the terminal tbl[mp] = mp, so no
+// slot needs a bounds test.  Otherwise it runs the strided rounds of
+// jump_to_terminals.  kTimed writes kWyllieStamps stamps a CTA to
+// `stamps`.
+template <bool kTimed, bool kRegs>
+__global__ void __launch_bounds__(kThreads)
+list_rank_wyllie_kernel(const int32_t* __restrict__ succ, const int32_t* __restrict__ w,
+                        int32_t* __restrict__ dist, long long* stamps, int mp, int n_steps) {
+  extern __shared__ uint32_t tbl[];
+  wstamp<kTimed>(stamps, 0);
+  const size_t row = (size_t)blockIdx.x * mp;
+  for (int i = threadIdx.x; i < mp; i += kThreads)
+    tbl[i] = ((uint32_t)w[row + i] << 16) | ((uint32_t)succ[row + i] & kLow);
+  if (kRegs && threadIdx.x == 0) tbl[mp] = (uint32_t)mp;  // the sentinel
+  __syncthreads();
+
+  int r = 0;
+  if (kRegs) {
+    const int W = (mp + kThreads - 1) / kThreads | 1;
+    const uint32_t base = threadIdx.x * (uint32_t)W;
+    const int n = max(0, min(W, mp - (int)base));  // own words base .. base + n - 1
+    uint32_t word[kRegWords];
+#pragma unroll
+    for (int u = 0; u < kRegWords; ++u) word[u] = u < n ? tbl[base + u] : (uint32_t)mp;
+    uint32_t live = (1u << kRegWords / 8) - 1;  // bit b: own words 8b .. 8b + 7 may still move
+    wstamp<kTimed>(stamps, 1);
+    while (r < n_steps) {
+      int moved = 0;
+#pragma unroll
+      for (int b = kRegWords / 8 - 1; b >= 0; --b) {
+        if (!((live >> b) & 1u)) continue;
+        int group = 0;  // words of the group that moved (kTimed), or whether any did
+#pragma unroll
+        for (int v = 7; v >= 0; --v) {
+          const int u = 8 * b + v;
+          const uint32_t q = word[u] - (word[u] & kLow) + tbl[word[u] & kLow];
+          if (q != word[u]) {  // else its target is a terminal: final
+            word[u] = q;
+            tbl[base + u] = q;
+            group = kTimed ? group + 1 : 1;
+          }
+        }
+        if (!group) live &= ~(1u << b);
+        moved += group;
+      }
+      count_moved<kTimed>(stamps, r, moved);
+      ++r;
+      const int any = __syncthreads_or(moved);
+      wstamp<kTimed>(stamps, kRoundAt + r - 1);
+      if (!any) break;
+    }
+  } else if (!kTimed) {
+    jump_to_terminals(tbl, mp, n_steps);
+  } else {
+    wstamp<kTimed>(stamps, 1);
+    while (r < n_steps) {  // jump_to_terminals, counted
+      int moved = 0;
+      for (int i = threadIdx.x; i < mp; i += kThreads) {
+        const uint32_t p = tbl[i];
+        const uint32_t s = p & kLow;
+        const uint32_t g = tbl[s];
+        if ((g & kLow) == s) continue;  // target is a terminal: absorbed
+        tbl[i] = (p & kHigh) + g;
+        ++moved;
+      }
+      count_moved<kTimed>(stamps, r, moved);
+      ++r;
+      const int any = __syncthreads_or(moved);
+      wstamp<kTimed>(stamps, kRoundAt + r - 1);
+      if (!any) break;
+    }
+  }
+  for (int i = threadIdx.x; i < mp; i += kThreads) dist[row + i] = (int32_t)(tbl[i] >> 16);
+  if (kTimed) {
+    __syncthreads();
+    wstamp<kTimed>(stamps, kStoreAt);
+    if (threadIdx.x == 0) stamps[(size_t)blockIdx.x * kWyllieStamps + kRoundsAt] = r;
+  }
+}
+
 // ---- the wide kernel: the ring in distributed shared memory -------------
 
 // Relaxed cluster-scope accesses to shared memory.  `a` is a shared::cta
@@ -298,6 +458,9 @@ template <> __device__ __forceinline__ uint64_t ld_remote<uint64_t>(uint32_t a) 
   uint64_t v;
   asm volatile("ld.relaxed.cluster.shared::cluster.b64 %0, [%1];" : "=l"(v) : "r"(a) : "memory");
   return v;
+}
+template <> __device__ __forceinline__ void st_local<uint32_t>(uint32_t a, uint32_t v) {
+  asm volatile("st.relaxed.cluster.shared::cta.b32 [%0], %1;" ::"r"(a), "r"(v) : "memory");
 }
 template <> __device__ __forceinline__ void st_local<uint64_t>(uint32_t a, uint64_t v) {
   asm volatile("st.relaxed.cluster.shared::cta.b64 [%0], %1;" ::"r"(a), "l"(v) : "memory");
@@ -649,16 +812,98 @@ list_rank_wide_cluster_kernel(const int32_t* __restrict__ succ, const int32_t* _
   if (in_ring) cluster_wait();
 }
 
-// Opts the wide kernel into smem_bytes of dynamic shared memory a CTA
+// ---- packed Wyllie on a cluster of two CTAs ------------------------------
+
+constexpr uint32_t kWyllieCluster = 2;
+
+// Packed Wyllie for a ring whose u32 table passes one CTA's shared memory
+// (58,112 < mp <= 65,536): token i lives in CTA i / S at word i % S (S =
+// mp / 2, at most 32,768 words = 128 KB a CTA), a gather into the own
+// half is a shared-memory load.  One into the other half is a load from
+// `mirror`, a copy of the ring in device memory (L2) that each CTA writes
+// with every word it stores, not a DSMEM load (see the note at the top).
+// Shared memory per CTA: tbl u32[S] | vote word u32 | pad.
+template <bool kTimed>
+__global__ void __launch_bounds__(kThreads)
+list_rank_wyllie_cluster_kernel(const int32_t* __restrict__ succ, const int32_t* __restrict__ w,
+                                int32_t* __restrict__ dist, uint32_t* mirror, long long* stamps, int mp,
+                                int n_steps) {
+  extern __shared__ uint32_t wyl_smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  wstamp<kTimed>(stamps, 0);
+  const uint32_t rank = cluster.block_rank();
+  const uint32_t S = (uint32_t)mp / kWyllieCluster;
+  const uint32_t first = rank * S;
+  const size_t ring0 = (size_t)(blockIdx.x / kWyllieCluster) * mp;
+  const size_t row = ring0 + first;
+  uint32_t* const ring_mirror = mirror + ring0;
+  uint32_t* const tbl = wyl_smem;  // only this CTA reads it: the other CTA reads `mirror`
+  const uint32_t vote_at = smem_addr(wyl_smem + S);
+  for (uint32_t j = threadIdx.x; j < S; j += kThreads) {
+    const uint32_t v = ((uint32_t)w[row + j] << 16) | ((uint32_t)succ[row + j] & kLow);
+    tbl[j] = v;
+    __stcg(ring_mirror + first + j, v);
+  }
+  if (threadIdx.x == 0) st_local<uint32_t>(vote_at, 0u);
+  cluster.sync();  // both halves loaded before any gather
+
+  const int n = ((int)S - (int)threadIdx.x + kThreads - 1) / kThreads;  // own words tid + u * kThreads
+  uint64_t live = (1ull << n) - 1;  // bit u: own word u may still move (n <= 32)
+  wstamp<kTimed>(stamps, 1);
+  const int groups = (n + 7) >> 3;
+  int r = 0;
+  while (r < n_steps) {
+    int moved = 0;
+    for (int b = 0; b < groups; ++b) {
+      const uint32_t bits = (uint32_t)(live >> (8 * b)) & 0xFFu;
+      if (!bits) continue;
+      uint32_t p[8], g[8];
+#pragma unroll
+      for (int v = 0; v < 8; ++v) p[v] = (bits >> v) & 1u ? tbl[threadIdx.x + (8 * b + v) * kThreads] : 0u;
+#pragma unroll
+      for (int v = 0; v < 8; ++v) {
+        const uint32_t s = p[v] & kLow;
+        g[v] = !((bits >> v) & 1u) ? 0u : s - first < S ? tbl[s - first] : __ldcg(ring_mirror + s);
+      }
+      uint32_t dead = 0;
+#pragma unroll
+      for (int v = 0; v < 8; ++v) {
+        if (!((bits >> v) & 1u)) continue;
+        const uint32_t j = threadIdx.x + (8 * b + v) * kThreads;
+        const uint32_t q = p[v] - (p[v] & kLow) + g[v];
+        if (q == p[v]) {  // the target is a terminal: final
+          dead |= 1u << v;
+          continue;
+        }
+        tbl[j] = q;
+        __stcg(ring_mirror + first + j, q);
+        ++moved;
+      }
+      live &= ~((uint64_t)dead << (8 * b));
+    }
+    count_moved<kTimed>(stamps, r, moved);
+    ++r;
+    const bool any = cluster_any(cluster, moved, vote_at, (uint32_t)r);
+    wstamp<kTimed>(stamps, kRoundAt + r - 1);
+    if (!any) break;
+  }
+  for (uint32_t j = threadIdx.x; j < S; j += kThreads) dist[row + j] = (int32_t)(tbl[j] >> 16);
+  if (kTimed) {
+    __syncthreads();
+    wstamp<kTimed>(stamps, kStoreAt);
+    if (threadIdx.x == 0) stamps[(size_t)blockIdx.x * kWyllieStamps + kRoundsAt] = r;
+  }
+  // the other CTA's last vote store preceded the last round's cluster barrier
+}
+
+// Opts a cluster kernel into smem_bytes of dynamic shared memory a CTA
 // (and, for clusters past 8, into non-portable cluster sizes) and fills
 // *cfg for n_docs rings, one cluster of `cluster` CTAs each.
-cudaError_t wide_config(int n_docs, int cluster, int smem_bytes, cudaStream_t st,
-                        cudaLaunchAttribute* attr, cudaLaunchConfig_t* cfg) {
-  cudaError_t e = cudaFuncSetAttribute(list_rank_wide_cluster_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  if (e == cudaSuccess && cluster > 8)
-    e = cudaFuncSetAttribute(list_rank_wide_cluster_kernel,
-                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+template <typename K>
+cudaError_t cluster_config(K* kernel, int n_docs, int cluster, int smem_bytes, cudaStream_t st,
+                           cudaLaunchAttribute* attr, cudaLaunchConfig_t* cfg) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (e == cudaSuccess && cluster > 8) e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   attr->id = cudaLaunchAttributeClusterDimension;
   attr->val.clusterDim.x = (unsigned)cluster;
   attr->val.clusterDim.y = 1;
@@ -673,27 +918,55 @@ cudaError_t wide_config(int n_docs, int cluster, int smem_bytes, cudaStream_t st
   return e;
 }
 
-// Launches list_rank_kernel<kShared, kTimed> (see list_rank_launch).
+// Launches list_rank_wyllie_kernel (see list_rank_launch).
+template <bool kTimed>
+cudaError_t wyllie_launch(const int32_t* succ, const int32_t* w, int32_t* dist, long long* stamps, int n_docs,
+                          int mp, int n_steps, cudaStream_t st) {
+  const bool regs = ((mp + kThreads - 1) / kThreads | 1) < kRegWords;
+  const int bytes = (mp + (regs ? 1 : 0)) * (int)sizeof(uint32_t);  // + the sentinel
+  auto kernel = regs ? list_rank_wyllie_kernel<kTimed, true> : list_rank_wyllie_kernel<kTimed, false>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return e;
+  kernel<<<n_docs, kThreads, bytes, st>>>(succ, w, dist, stamps, mp, n_steps);
+  return cudaGetLastError();
+}
+
+// Launches list_rank_kernel<kShared, kTimed> (ruling plans) or the
+// one-CTA Wyllie kernel (ruling = 0) (see list_rank_launch).
 template <bool kTimed>
 int packed_launch(const int32_t* succ, const int32_t* w, int32_t* dist, uint32_t* scratch, long long* stamps,
                   int n_docs, int mp, int n_steps, int n_steps_dense, int ruling, int k_log2, int n_steps_a,
                   int block_log2, int use_smem, void* stream) {
   if (n_docs <= 0) return (int)cudaSuccess;
-  const int mr = ruling ? (mp >> k_log2) : 0;
-  const size_t words = (size_t)mp + (ruling ? (size_t)mr + 1 : 0);
   const cudaStream_t st = (cudaStream_t)stream;
+  if (!ruling)  // packed Wyllie has no global-scratch variant: a longer ring takes the two-CTA kernel
+    return (int)(use_smem ? wyllie_launch<kTimed>(succ, w, dist, stamps, n_docs, mp, n_steps, st)
+                          : cudaErrorInvalidValue);
+  const size_t words = (size_t)mp + (size_t)(mp >> k_log2) + 1;
   if (use_smem) {
     const size_t bytes = words * sizeof(uint32_t);
     cudaError_t e = cudaFuncSetAttribute(list_rank_kernel<true, kTimed>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return (int)e;
     list_rank_kernel<true, kTimed><<<n_docs, kThreads, bytes, st>>>(
-        succ, w, dist, nullptr, stamps, mp, n_steps, n_steps_dense, ruling, k_log2, n_steps_a, block_log2);
+        succ, w, dist, nullptr, stamps, mp, n_steps, n_steps_dense, k_log2, n_steps_a, block_log2);
   } else {
     list_rank_kernel<false, kTimed><<<n_docs, kThreads, 0, st>>>(
-        succ, w, dist, scratch, stamps, mp, n_steps, n_steps_dense, ruling, k_log2, n_steps_a, block_log2);
+        succ, w, dist, scratch, stamps, mp, n_steps, n_steps_dense, k_log2, n_steps_a, block_log2);
   }
   return (int)cudaGetLastError();
+}
+
+template <bool kTimed>
+cudaError_t wyllie_cluster_launch(const int32_t* succ, const int32_t* w, int32_t* dist, uint32_t* mirror,
+                                  long long* stamps, int n_docs, int mp, int n_steps, int smem_bytes, cudaStream_t st) {
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg;
+  cudaError_t e = cluster_config(list_rank_wyllie_cluster_kernel<kTimed>, n_docs, (int)kWyllieCluster, smem_bytes, st,
+                                 &attr, &cfg);
+  if (e == cudaSuccess)
+    e = cudaLaunchKernelEx(&cfg, list_rank_wyllie_cluster_kernel<kTimed>, succ, w, dist, mirror, stamps, mp, n_steps);
+  return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 }  // namespace
@@ -710,11 +983,13 @@ int list_rank_smem_budget(int device) {
 
 const char* list_rank_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
+
 // succ, w, dist: int32 [n_docs, mp] contiguous on the current device.
-// scratch: uint32 [n_docs, mp + (ruling ? mp/k + 1 : 0)] when use_smem
-// is 0, else unused.  n_steps_a > 0 runs the blocked phase A (blocks of
-// 2^block_log2 tokens) before the ruling phases.  Returns the
-// cudaError_t of the launch (0 = ok).
+// ruling = 1 runs the ruling phases (scratch: uint32 [n_docs, mp + mp/k
+// + 1] when use_smem is 0), n_steps_a > 0 the blocked phase A (blocks of
+// 2^block_log2 tokens) before them; ruling = 0 runs packed Wyllie on one
+// CTA a ring (scratch: uint32 [n_docs, mp] when use_smem is 0).  Returns
+// the cudaError_t of the launch (0 = ok).
 int list_rank_launch(const int32_t* succ, const int32_t* w, int32_t* dist, uint32_t* scratch,
                      int n_docs, int mp, int n_steps, int n_steps_dense, int ruling,
                      int k_log2, int n_steps_a, int block_log2, int use_smem, void* stream) {
@@ -733,17 +1008,40 @@ int list_rank_launch_timed(const int32_t* succ, const int32_t* w, int32_t* dist,
                              n_steps_a, block_log2, use_smem, stream);
 }
 
-// How many clusters of `cluster` CTAs of the wide kernel, each CTA with
-// `smem_bytes` of dynamic shared memory, the device can hold at once
-// (*max_clusters; 0 means such a cluster cannot be scheduled).  Returns
-// the cudaError_t.
-int list_rank_wide_occupancy(int cluster, int smem_bytes, int* max_clusters) {
+// Packed Wyllie, timed: the one-CTA kernel (cluster = 1; table in shared
+// memory when use_smem, else in scratch) or the two-CTA cluster kernel
+// (cluster = 2, smem_bytes a CTA).  stamps is int64 [n_docs * cluster,
+// 40] of zeros, one row a CTA: clock64 at the start (0), after the load
+// (1), after round r (2 + r), after the store (34); the words moved in
+// round r (18 + r) and the rounds taken (35).
+int list_rank_wyllie_launch_timed(const int32_t* succ, const int32_t* w, int32_t* dist, uint32_t* scratch,
+                                  long long* stamps, int n_docs, int mp, int n_steps, int use_smem, int cluster,
+                                  int smem_bytes, void* stream) {
+  if (n_docs <= 0) return (int)cudaSuccess;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (cluster == (int)kWyllieCluster)
+    return (int)wyllie_cluster_launch<true>(succ, w, dist, scratch, stamps, n_docs, mp, n_steps, smem_bytes, st);
+  return (int)(use_smem ? wyllie_launch<true>(succ, w, dist, stamps, n_docs, mp, n_steps, st) : cudaErrorInvalidValue);
+}
+
+// How many clusters of `cluster` CTAs, each CTA with `smem_bytes` of
+// dynamic shared memory, the device can hold at once (*max_clusters; 0
+// means such a cluster cannot be scheduled): of the wide kernel, or with
+// wyllie = 1 of the two-CTA Wyllie kernel.  Returns the cudaError_t.
+int list_rank_cluster_occupancy(int wyllie, int cluster, int smem_bytes, int* max_clusters) {
   *max_clusters = 0;
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg;
-  cudaError_t e = wide_config(1, cluster, smem_bytes, nullptr, &attr, &cfg);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaOccupancyMaxActiveClusters(max_clusters, (const void*)list_rank_wide_cluster_kernel, &cfg);
+  cudaError_t e;
+  if (wyllie) {
+    e = cluster_config(list_rank_wyllie_cluster_kernel<false>, 1, cluster, smem_bytes, nullptr, &attr, &cfg);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveClusters(max_clusters, (const void*)list_rank_wyllie_cluster_kernel<false>, &cfg);
+  } else {
+    e = cluster_config(list_rank_wide_cluster_kernel, 1, cluster, smem_bytes, nullptr, &attr, &cfg);
+    if (e == cudaSuccess) e = cudaOccupancyMaxActiveClusters(max_clusters, (const void*)list_rank_wide_cluster_kernel, &cfg);
+  }
+  return (int)e;
 }
 
 // The wide kernel: one cluster of `cluster` CTAs per ring.  succ, w,
@@ -756,9 +1054,21 @@ int list_rank_wide_launch(const int32_t* succ, const int32_t* w, int32_t* dist, 
   if (n_docs <= 0) return (int)cudaSuccess;
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg;
-  cudaError_t e = wide_config(n_docs, cluster, smem_bytes, (cudaStream_t)stream, &attr, &cfg);
+  cudaError_t e = cluster_config(list_rank_wide_cluster_kernel, n_docs, cluster, smem_bytes, (cudaStream_t)stream,
+                                 &attr, &cfg);
   if (e == cudaSuccess) e = cudaLaunchKernelEx(&cfg, list_rank_wide_cluster_kernel, succ, w, dist, mp, n_steps, kcap);
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+// Packed Wyllie on a cluster of two CTAs a ring (58,112 < mp <= 65,536,
+// mp even): succ, w, dist int32 [n_docs, mp] contiguous on the current
+// device; mirror uint32 [n_docs, mp] scratch; smem_bytes = 4 * mp / 2 +
+// 16.  Returns the cudaError_t.
+int list_rank_wyllie_cluster_launch(const int32_t* succ, const int32_t* w, int32_t* dist, uint32_t* mirror,
+                                    int n_docs, int mp, int n_steps, int smem_bytes, void* stream) {
+  if (n_docs <= 0) return (int)cudaSuccess;
+  return (int)wyllie_cluster_launch<false>(succ, w, dist, mirror, nullptr, n_docs, mp, n_steps, smem_bytes,
+                                           (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -42,26 +42,41 @@ MAX_CLUSTER = 16  # largest thread-block cluster on sm_90 (non-portable above 8)
 # across its shared memories (csrc/list_rank.cu), the size chosen by the
 # sweep in chip_smoke.py at the element rings (PERF.md has its numbers).
 # 16 is slower (only about one 16-CTA cluster fits a GPC, so eight rings
-# run in two waves).  The packed kernels (ruling, wyllie, blocked) rank a
-# ring on one CTA: clusters of 2, 4 and 8 were slower for the ruling
-# kernel on the flagship chain rings, whose pointers mostly leave a slice.
+# run in two waves).  The ruling and blocked kernels rank a ring on one
+# CTA: clusters of 2, 4 and 8 were slower for the ruling kernel on the
+# flagship chain rings, whose pointers mostly leave a slice.
 WIDE_CLUSTER = 8
+# CTAs ranking one packed Wyllie ring whose u32 table passes one CTA's
+# shared memory (mp * 4 > SMEM_LIMIT): the two halves of the ring in two
+# CTAs' shared memories, in place of a table in device memory.
+WYLLIE_CLUSTER = 2
+# The one-CTA Wyllie kernel holds each thread's W = ceil(mp / 1024) | 1
+# consecutive words in registers while W < WYLLIE_REG_WORDS (mp <= 39,936;
+# csrc/list_rank.cu kRegWords), its table then one sentinel word longer.
+WYLLIE_REG_WORDS = 40
+_THREADS = 1024
 # what each clock64 stamp of the timed packed kernel closes (list_rank_launch_timed)
 PHASES = ("load", "A", "1", "2", "3+store")
+# the timed Wyllie kernels' stamps, one row of WYLLIE_STAMPS int64 a CTA
+# (list_rank_wyllie_launch_timed): clock64 at the start, after the load,
+# after each round and after the store; the words moved in each round and
+# the rounds taken.  A round cap is at most MAX_ROUNDS (ceil_log2(65536)).
+WYLLIE_STAMPS = 40
+MAX_ROUNDS = 16
 _LOW = 0xFFFF
 _HIGH = 0xFFFF0000
 _U32 = 0xFFFFFFFF
 
 # Launches of the CUDA kernels, by algorithm and by where the tables live
 # (launch_key): one CTA's shared memory, a global scratch buffer above
-# the shared-memory limit, or split across a thread-block cluster's
-# shared memories (the wide kernel).  Incremented only where a kernel is
-# launched.
+# the shared-memory limit (ruling, blocked), or split across a
+# thread-block cluster's shared memories (wide; wyllie above the limit).
+# Incremented only where a kernel is launched.
 LAUNCHES: Dict[str, int] = {
     "ruling/smem": 0,
     "ruling/global": 0,
     "wyllie/smem": 0,
-    "wyllie/global": 0,
+    "wyllie/cluster": 0,
     "blocked/smem": 0,
     "blocked/global": 0,
     "wide/cluster": 0,
@@ -89,22 +104,40 @@ class RankPlan:
     n_steps: int  # round cap, from the unpadded m
     wide: bool = False  # ranked by the wide kernel (overrides algo and k)
     block: int = DEFAULT_BLOCK  # phase-A block (blocked only)
-    cluster: int = 1  # CTAs ranking one ring: a cluster for wide, else 1
+    cluster: int = 1  # CTAs ranking one ring: a cluster for wide and over-budget wyllie, else 1
 
     def __post_init__(self):
         """A plan no kernel can run raises ConfigError: the wide kernel
         needs a cluster of 2 to MAX_CLUSTER CTAs (a power of two) whose
-        per-CTA slice fits SMEM_LIMIT, the packed kernels one CTA."""
+        per-CTA slice fits SMEM_LIMIT; a wyllie ring whose table passes
+        SMEM_LIMIT a cluster of WYLLIE_CLUSTER; the other packed plans
+        one CTA."""
         if self.wide and not _is_pow2(self.cluster, 2, MAX_CLUSTER):
             raise ConfigError("rank cluster", self.cluster, f"a power of two in [2, {MAX_CLUSTER}] for the wide kernel")
-        if not self.wide and not _is_pow2(self.cluster, 1, 1):
-            raise ConfigError("rank cluster", self.cluster, f"1 for the {self.algo} kernel (only the wide kernel runs on a cluster)")
+        if self.wyllie_split and not _is_pow2(self.cluster, WYLLIE_CLUSTER, WYLLIE_CLUSTER):
+            raise ConfigError(
+                "rank cluster", self.cluster,
+                f"{WYLLIE_CLUSTER} for a wyllie ring whose table passes one CTA's shared memory (mp={self.mp})",
+            )
+        if not (self.wide or self.wyllie_split) and not _is_pow2(self.cluster, 1, 1):
+            raise ConfigError(
+                "rank cluster", self.cluster,
+                f"1 for the {self.algo} kernel at mp={self.mp} (only the wide kernel and wyllie rings past "
+                f"{SMEM_LIMIT // 4} tokens run on a cluster)",
+            )
         if self.smem_bytes > SMEM_LIMIT:
             raise ConfigError(
                 "rank cluster", self.cluster,
                 f"a cluster whose per-CTA slice fits {SMEM_LIMIT} bytes of shared memory "
                 f"({self.smem_bytes} bytes at mp={self.mp})",
             )
+
+    @property
+    def wyllie_split(self) -> bool:
+        """A packed Wyllie ring whose u32 table passes SMEM_LIMIT: ranked
+        by WYLLIE_CLUSTER CTAs, each holding half of it (and a mirror of
+        the ring in device memory, table_words a ring)."""
+        return self.algo == "wyllie" and not self.wide and self.mp * 4 > SMEM_LIMIT
 
     @property
     def ruling(self) -> bool:
@@ -123,10 +156,13 @@ class RankPlan:
     @property
     def table_words(self) -> int:
         """u32 words of table per ring: packed ring (+ dense ruler ring
-        and sink slot for the ruling phases); two per token (one u64)
-        for the wide kernel."""
+        and sink slot for the ruling phases; + the sentinel for wyllie's
+        words in registers); two per token (one u64) for the wide
+        kernel."""
         if self.wide:
             return 2 * self.mp
+        if self.algo == "wyllie":
+            return self.mp + ((-(-self.mp // _THREADS) | 1) < WYLLIE_REG_WORDS)
         return self.mp + (self.mp // self.k + 1 if self.ruling else 0)
 
     @property
@@ -152,10 +188,14 @@ class RankPlan:
     def smem_bytes(self) -> int:
         """Dynamic shared memory each CTA asks for.  Wide: its slice of
         the ring (u64 words, u16 exit numbers), the exit ring and 256
-        bytes of counters.  Packed: the whole table when it fits
-        SMEM_LIMIT, else 0 (the global-scratch variant)."""
+        bytes of counters.  Wyllie on a cluster: its half of the ring
+        (u32 words) and 16 bytes for the vote word.  Other packed plans:
+        the whole table when it fits SMEM_LIMIT, else 0 (the
+        global-scratch variant)."""
         if self.wide:
             return 10 * self.slice_tokens + 8 * (self.exit_ring_slots + 1) + 256
+        if self.wyllie_split:
+            return 4 * self.slice_tokens + 16
         return self.table_words * 4 if self.table_words * 4 <= SMEM_LIMIT else 0
 
 
@@ -171,7 +211,8 @@ def plan_rank(m: int, algo: str = "ruling", k: int = 8, weighted: bool = False,
     A ring whose lane-padded length passes 65536, or a weighted ring
     with dist_bound > 65536, takes the wide kernel whatever the algo:
     128-token padding, k ignored, plain Wyllie rounds, one cluster of
-    WIDE_CLUSTER CTAs a ring."""
+    WIDE_CLUSTER CTAs a ring.  A wyllie ring whose table passes
+    SMEM_LIMIT takes a cluster of WYLLIE_CLUSTER CTAs a ring."""
     if algo not in ALGOS:
         raise ConfigError("list rank algo", algo, "|".join(ALGOS))
     if not _is_pow2(block, 128, 65536):
@@ -200,8 +241,9 @@ def plan_rank(m: int, algo: str = "ruling", k: int = 8, weighted: bool = False,
         raise ValueError(f"ring too long for the list-rank kernels: {m}")
     if weighted and dist_bound is None:
         raise ValueError("weighted wyllie_rank needs dist_bound (an exclusive bound on any distance)")
+    cluster = WIDE_CLUSTER if needs_wide else (WYLLIE_CLUSTER if algo == "wyllie" and mp * 4 > SMEM_LIMIT else 1)
     return RankPlan(m=m, mp=mp, algo=algo, k=k, n_steps=ceil_log2(m), wide=needs_wide, block=int(block),
-                    cluster=WIDE_CLUSTER if needs_wide else 1)
+                    cluster=cluster)
 
 
 def _prepare(succ: torch.Tensor, weights: Optional[torch.Tensor], algo: str, k: int,
@@ -345,7 +387,7 @@ def wyllie_rank(succ, algo: str = "ruling", k: int = 8, weights=None,
 
 _lib_handle: Optional[ctypes.CDLL] = None
 _smem_budget: Dict[int, int] = {}
-_max_clusters: Dict[Tuple[int, int, int], int] = {}
+_max_clusters: Dict[Tuple[int, bool, int, int], int] = {}
 
 
 def _lib() -> ctypes.CDLL:
@@ -358,8 +400,10 @@ def _lib() -> ctypes.CDLL:
         for name, args in (
             ("list_rank_launch", [ptr] * 4 + [i32] * 9 + [ptr]),
             ("list_rank_launch_timed", [ptr] * 5 + [i32] * 8 + [ptr]),
+            ("list_rank_wyllie_launch_timed", [ptr] * 5 + [i32] * 6 + [ptr]),
             ("list_rank_wide_launch", [ptr] * 3 + [i32] * 6 + [ptr]),
-            ("list_rank_wide_occupancy", [i32] * 2 + [ctypes.POINTER(i32)]),
+            ("list_rank_wyllie_cluster_launch", [ptr] * 4 + [i32] * 4 + [ptr]),
+            ("list_rank_cluster_occupancy", [i32] * 3 + [ctypes.POINTER(i32)]),
             ("list_rank_smem_budget", [i32]),
         ):
             getattr(lib, name).argtypes = args
@@ -392,17 +436,19 @@ def smem_budget(device: torch.device) -> int:
 
 
 def max_active_clusters(plan: RankPlan, device: torch.device) -> int:
-    """How many clusters of plan.cluster CTAs of the wide kernel (each
-    CTA with plan.smem_bytes of shared memory) `device` holds at once
-    (cudaOccupancyMaxActiveClusters); 0 when such a cluster cannot be
-    scheduled.  Cached per (device, C, bytes)."""
-    if not plan.wide:
-        raise ValueError("max_active_clusters needs a wide plan (only the wide kernel runs on a cluster)")
-    key = (_device_index(device), plan.cluster, plan.smem_bytes)
+    """How many clusters of plan.cluster CTAs of the plan's cluster
+    kernel (wide, or two-CTA Wyllie; each CTA with plan.smem_bytes of
+    shared memory) `device` holds at once (cudaOccupancyMaxActiveClusters);
+    0 when such a cluster cannot be scheduled.  Cached per (device,
+    kernel, C, bytes)."""
+    if plan.cluster == 1:
+        raise ValueError("max_active_clusters needs a plan on a cluster (wide, or wyllie past SMEM_LIMIT)")
+    key = (_device_index(device), plan.wide, plan.cluster, plan.smem_bytes)
     if key not in _max_clusters:
         out = ctypes.c_int(0)
         with torch.cuda.device(device):
-            err = _lib().list_rank_wide_occupancy(plan.cluster, plan.smem_bytes, ctypes.byref(out))
+            err = _lib().list_rank_cluster_occupancy(int(not plan.wide), plan.cluster, plan.smem_bytes,
+                                                     ctypes.byref(out))
         _check(err, f"occupancy query for a cluster of {plan.cluster}")
         _max_clusters[key] = out.value
     return _max_clusters[key]
@@ -410,20 +456,21 @@ def max_active_clusters(plan: RankPlan, device: torch.device) -> int:
 
 def launch_key(plan: RankPlan) -> str:
     """The LAUNCHES key of the kernel `plan` launches, by where its table
-    lives: "wide/cluster" (split across a cluster's shared memories), or
-    "{algo}/smem" (one CTA's shared memory) and "{algo}/global" (a
-    scratch buffer in device memory, for packed tables past
-    SMEM_LIMIT)."""
+    lives: "wide/cluster" and "wyllie/cluster" (split across a cluster's
+    shared memories), or "{algo}/smem" (one CTA's shared memory) and
+    "{algo}/global" (a scratch buffer in device memory, for ruling and
+    blocked tables past SMEM_LIMIT)."""
     if plan.wide:
         return "wide/cluster"
+    if plan.wyllie_split:
+        return "wyllie/cluster"
     return f"{plan.algo}/{'smem' if plan.smem_bytes else 'global'}"
 
 
 def _launch(succ_p: torch.Tensor, w_p: torch.Tensor, plan: RankPlan,
             stamps: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Check the inputs, launch, raise on a launch error; returns dist.
-    `stamps` (int64 [D, 8], ruling plans only) takes the timed packed
-    kernel."""
+    `stamps` takes the timed kernel (launch_timed)."""
     if succ_p.device.type != "cuda" or w_p.device != succ_p.device:
         raise ValueError("launch_kernel needs succ and w on one CUDA device")
     if succ_p.dtype != torch.int32 or w_p.dtype != torch.int32:
@@ -436,7 +483,7 @@ def _launch(succ_p: torch.Tensor, w_p: torch.Tensor, plan: RankPlan,
     d = succ_p.shape[0]
     if plan.smem_bytes > smem_budget(dev):
         raise RuntimeError(f"{plan.smem_bytes} bytes of shared memory per CTA exceed {dev}'s {smem_budget(dev)}")
-    if plan.wide and max_active_clusters(plan, dev) < 1:
+    if plan.cluster > 1 and max_active_clusters(plan, dev) < 1:
         raise RuntimeError(
             f"a cluster of {plan.cluster} CTAs with {plan.smem_bytes} bytes of shared memory each "
             f"cannot be scheduled on {dev} ({torch.cuda.get_device_name(dev)})"
@@ -451,14 +498,21 @@ def _launch(succ_p: torch.Tensor, w_p: torch.Tensor, plan: RankPlan,
             )
         else:
             smem = plan.smem_bytes > 0
-            scratch = None if smem else torch.empty(d * plan.table_words, dtype=torch.int32, device=dev)
+            # a table in device memory, or the two-CTA kernel's mirror of the ring
+            scratch = None if smem and not plan.wyllie_split else torch.empty(
+                d * plan.table_words, dtype=torch.int32, device=dev)
             ptrs += (None if scratch is None else scratch.data_ptr(),)
             shape = (d, plan.mp, plan.n_steps, plan.n_steps_dense if plan.ruling else 0)
             rest = (plan.k.bit_length() - 1, plan.n_steps_a, plan.block.bit_length() - 1, int(smem), stream)
-            if stamps is None:
-                err = _lib().list_rank_launch(*ptrs, *shape, int(plan.ruling), *rest)
-            else:
+            if stamps is not None and not plan.ruling:
+                err = _lib().list_rank_wyllie_launch_timed(*ptrs, stamps.data_ptr(), d, plan.mp, plan.n_steps,
+                                                           int(smem), plan.cluster, plan.smem_bytes, stream)
+            elif stamps is not None:
                 err = _lib().list_rank_launch_timed(*ptrs, stamps.data_ptr(), *shape, *rest)
+            elif plan.wyllie_split:
+                err = _lib().list_rank_wyllie_cluster_launch(*ptrs, d, plan.mp, plan.n_steps, plan.smem_bytes, stream)
+            else:
+                err = _lib().list_rank_launch(*ptrs, *shape, int(plan.ruling), *rest)
     _check(err, "kernel launch")
     return dist
 
@@ -476,11 +530,35 @@ def launch_kernel(succ_p: torch.Tensor, w_p: torch.Tensor, plan: RankPlan) -> to
 
 
 def launch_timed(succ_p: torch.Tensor, w_p: torch.Tensor, plan: RankPlan) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The packed kernel of a ruling or blocked plan, timed inside: (dist,
-    int64 [D, 8] stamps).  Per ring, stamps[:, 1:6] - stamps[:, 0:5]
-    are the cycles (the SM clock, read by clock64) of PHASES.  For
-    measurement only: not counted in LAUNCHES."""
-    if not plan.ruling:
-        raise ValueError("launch_timed needs a ruling or blocked plan")
-    stamps = torch.zeros((succ_p.shape[0], 8), dtype=torch.int64, device=succ_p.device)
+    """The packed kernel of a plan, timed inside: (dist, int64 stamps).
+    Ruling and blocked: stamps [D, 8]; per ring, stamps[:, 1:6] -
+    stamps[:, 0:5] are the cycles (the SM clock, read by clock64) of
+    PHASES.  Wyllie: stamps [D * plan.cluster, WYLLIE_STAMPS], one row a
+    CTA, read by wyllie_rounds.  For measurement only: not counted in
+    LAUNCHES."""
+    if plan.wide:
+        raise ValueError("launch_timed needs a packed plan (ruling, blocked or wyllie)")
+    shape = (succ_p.shape[0], 8) if plan.ruling else (succ_p.shape[0] * plan.cluster, WYLLIE_STAMPS)
+    stamps = torch.zeros(shape, dtype=torch.int64, device=succ_p.device)
     return _launch(succ_p, w_p, plan, stamps), stamps
+
+
+def wyllie_rounds(stamps: torch.Tensor) -> Dict[str, object]:
+    """Reads the stamps of timed Wyllie launches (rows of WYLLIE_STAMPS,
+    one a CTA, any number of launches stacked): the median over rows of
+    the load's cycles, the store's, each round's cycles and moved words
+    (rounds that every row ran), and the rounds taken (min, max)."""
+    st = stamps.to(torch.float64).cpu()
+    rounds = st[:, 2 * MAX_ROUNDS + 3].to(torch.int64)
+    lo, hi = int(rounds.min()), int(rounds.max())
+    clock = torch.cat([st[:, 1:2], st[:, 2:2 + lo]], dim=1)
+    end = st.gather(1, (rounds + 1).view(-1, 1)).view(-1)  # the clock after the last round
+    return {
+        "rounds": (lo, hi),
+        "load_cycles": float((st[:, 1] - st[:, 0]).median()),
+        "round_cycles": (clock[:, 1:] - clock[:, :-1]).median(dim=0).values.tolist(),
+        "moved": st[:, 2 + MAX_ROUNDS:2 + MAX_ROUNDS + lo].median(dim=0).values.tolist(),
+        "rounds_cycles": float((end - st[:, 1]).median()),
+        "store_cycles": float((st[:, 2 * MAX_ROUNDS + 2] - end).median()),
+        "total_cycles": float((st[:, 2 * MAX_ROUNDS + 2] - st[:, 0]).median()),
+    }

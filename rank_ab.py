@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Compares the one-CTA packed list-rank kernels of several source trees
-on one NVIDIA GPU, in turns, in one process.
+"""Compares the packed list-rank kernels of several source trees on one
+NVIDIA GPU, in turns, in one process.
 
 Each TREE is a checkout of this repository (for instance the parent
 commit unpacked with `git archive` under build/).  Its
@@ -13,18 +13,27 @@ bit-exact against the plain version first:
 
 - ruling, blocked and packed Wyllie on the flagship chain rings
   [8, 35,840] (the chain merge's main-path shape);
-- ruling and blocked on the flagship rings cycled over one ring per SM;
+- ruling, blocked and Wyllie on the flagship rings cycled over one ring
+  per SM;
 - ruling and blocked on the adversarial ruler-gap ring (m = 65,536) and
   on a random ring just over the ruling table's shared-memory budget, 8
   rings each, both in the global-scratch table variant;
+- Wyllie on rings past its own table's shared-memory budget, 8 rings
+  each: a random ring of m = 58,113, the gap ring and a random ring of
+  m = 65,536, each tree on its own route for them: the two-CTA cluster
+  kernel where the tree has one (list_rank_wyllie_cluster_launch), else
+  its global-scratch variant;
 - per-phase cycles (thread 0's clock64 after each phase's barrier) of
   ruling and blocked on the flagship rings: the tree's timed entry point
   (list_rank_launch_timed) where it has one, else a copy of its source
   with stamps written in after the phase barriers (the packed kernel as
-  it stood before that entry point existed; `instrument` finds them).
+  it stood before that entry point existed; `instrument` finds them);
+  and Wyllie's rounds taken and cycles per round on the flagship rings,
+  for a tree with list_rank_wyllie_launch_timed.
 
-Times: CUDA events over 20 back-to-back launches, median of 20 samples
-after 3 warm-ups (chip_smoke.time_ms).  Prints one line per case and a
+Times: 20 back-to-back launches captured in a CUDA graph, the replay
+timed with CUDA events, median of 20 samples after 3 warm-ups
+(chip_smoke.kernel_ms).  Prints one line per case and a
 final `rank_ab {...}` JSON line, with the card's name and power limit.
 Usage:
     python3 rank_ab.py TREE [TREE ...]
@@ -96,6 +105,12 @@ def build(tag: str, source: str) -> ctypes.CDLL:
     if hasattr(lib, "list_rank_launch_timed"):
         lib.list_rank_launch_timed.argtypes = [ptr] * 5 + [i32] * 8 + [ptr]
         lib.list_rank_launch_timed.restype = i32
+    if hasattr(lib, "list_rank_wyllie_cluster_launch"):
+        lib.list_rank_wyllie_cluster_launch.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
+        lib.list_rank_wyllie_cluster_launch.restype = i32
+    if hasattr(lib, "list_rank_wyllie_launch_timed"):
+        lib.list_rank_wyllie_launch_timed.argtypes = [ptr] * 5 + [i32] * 6 + [ptr]
+        lib.list_rank_wyllie_launch_timed.restype = i32
     if hasattr(lib, "list_rank_read_stamps"):
         lib.list_rank_read_stamps.argtypes = [ptr, i32]
         lib.list_rank_read_stamps.restype = i32
@@ -132,13 +147,32 @@ def main() -> int:
     def has_timed(lib) -> bool:
         return hasattr(lib, "list_rank_launch_timed")
 
+    def own_route(lib, plan, smem) -> str:
+        """The table variant a tree runs: "smem" or "global" as asked, or
+        for a Wyllie ring past one CTA's shared memory the tree's own
+        route ("cluster" where it has the two-CTA kernel, else
+        "global")."""
+        if plan.wyllie_split:
+            return "cluster" if hasattr(lib, "list_rank_wyllie_cluster_launch") else "global"
+        return "smem" if smem else "global"
+
     def launch(lib, plan, succ_p, w_p, smem, stamps=None):
         """One launch of a tree's packed kernel in the given table
         variant (each tree sizes its own table; scratch of 2 mp words a
         ring covers every layout)."""
         d = succ_p.shape[0]
-        scratch = None if smem else torch.empty(d * 2 * plan.mp, dtype=torch.int32, device=dev)
         dist = torch.empty_like(succ_p)
+        route = own_route(lib, plan, smem)
+        if route == "cluster":
+            mirror = torch.empty(d * plan.mp, dtype=torch.int32, device=dev)
+            err = lib.list_rank_wyllie_cluster_launch(succ_p.data_ptr(), w_p.data_ptr(), dist.data_ptr(),
+                                                      mirror.data_ptr(), d, plan.mp, plan.n_steps, plan.smem_bytes,
+                                                      torch.cuda.current_stream(dev).cuda_stream)
+            if err:
+                raise RuntimeError(f"launch failed: cudaError {err}")
+            return dist
+        smem = route == "smem"
+        scratch = None if smem else torch.empty(d * 2 * plan.mp, dtype=torch.int32, device=dev)
         args = [succ_p.data_ptr(), w_p.data_ptr(), dist.data_ptr(), None if scratch is None else scratch.data_ptr()]
         shape = [d, plan.mp, plan.n_steps, plan.n_steps_dense if plan.ruling else 0]
         rest = [plan.k.bit_length() - 1, plan.n_steps_a, plan.block.bit_length() - 1, int(smem),
@@ -181,11 +215,17 @@ def main() -> int:
     over += 1  # the first ring past the ruling table's shared-memory budget
     gap = torch.as_tensor(np.stack([chip_smoke.gap_ring(np, 65536, 8)] * CHUNK)).to(dev)
     rand_over = torch.as_tensor(np.stack([chip_smoke.random_ring(np, over, 70 + i) for i in range(CHUNK)])).to(dev)
+    w_over = list_rank.SMEM_LIMIT // 4 + 1  # the first ring past the wyllie table's budget
+    wrand_over = torch.as_tensor(np.stack([chip_smoke.random_ring(np, w_over, 90 + i) for i in range(CHUNK)])).to(dev)
+    rand_full = torch.as_tensor(np.stack([chip_smoke.random_ring(np, 65536, 110 + i) for i in range(CHUNK)])).to(dev)
     cases = [(f"flagship [{CHUNK}, {flag.shape[1]}]", flag, algo, True) for algo in ("ruling", "blocked", "wyllie")]
-    cases += [(f"flagship cycled [{n_sm}, {flag.shape[1]}]", full, algo, True) for algo in ("ruling", "blocked")]
+    cases += [(f"flagship cycled [{n_sm}, {flag.shape[1]}]", full, algo, True) for algo in ("ruling", "blocked", "wyllie")]
     cases += [(f"gap ring [{CHUNK}, 65536]", gap, algo, False) for algo in ("ruling", "blocked")]
     cases += [(f"random ring over the smem budget [{CHUNK}, {over}]", rand_over, algo, False)
               for algo in ("ruling", "blocked")]
+    cases += [(f"random ring over the smem budget [{CHUNK}, {w_over}]", wrand_over, "wyllie", False),
+              (f"gap ring [{CHUNK}, 65536]", gap, "wyllie", False),
+              (f"random ring [{CHUNK}, 65536]", rand_full, "wyllie", False)]
 
     out = {"card": card, "kind": torch.cuda.get_device_name(0), "trees": [str(t) for t in trees], "cases": {}}
     for label, succ, algo, smem in cases:
@@ -196,12 +236,12 @@ def main() -> int:
             torch.cuda.synchronize()
             if not torch.equal(got, want):
                 raise RuntimeError(f"{label} {algo}: {tree} kernel != plain version")
-        times = [chip_smoke.time_ms(torch, lambda: launch(libs[tree], plan, succ_p, w_p, smem), inner=20)
-                 for tree in trees]
+        times = [chip_smoke.kernel_ms(torch, lambda: launch(libs[tree], plan, succ_p, w_p, smem)) for tree in trees]
+        routes = [own_route(libs[tree], plan, smem) for tree in trees]
         bound = 12 * succ_p.shape[0] * plan.mp / HBM_BYTES_PER_S * 1e3
         key = f"{algo} {label}"
-        out["cases"][key] = {"ms": times, "table": "smem" if smem else "global", "bound_ms": bound}
-        print(f"{key} ({'smem' if smem else 'global'} table): ms " + ", ".join(f"{t:.4f}" for t in times)
+        out["cases"][key] = {"ms": times, "table": routes, "bound_ms": bound}
+        print(f"{key} (tables {', '.join(dict.fromkeys(routes))}): ms " + ", ".join(f"{t:.4f}" for t in times)
               + f"; bound {bound:.5f} ms (bytes)", flush=True)
     fplan = {algo: list_rank._prepare(flag, None, algo, 8, None) for algo in ("ruling", "blocked")}
     for algo, (plan, succ_p, w_p) in fplan.items():
@@ -211,6 +251,28 @@ def main() -> int:
             print(f"phases {algo} [{CHUNK}, {plan.mp}] {tree}: cycles per CTA (median of 20 x {CHUNK}): "
                   + ", ".join(f"{n} {c:.0f}" for n, c in zip(list_rank.PHASES, cyc)) + f"; total {sum(cyc):.0f}",
                   flush=True)
+    # Wyllie's rounds on the flagship rings, for trees with the timed entry
+    plan, succ_p, w_p = list_rank._prepare(flag, None, "wyllie", 8, None)
+    for tree in trees:
+        lib = libs[tree]
+        if not hasattr(lib, "list_rank_wyllie_launch_timed"):
+            continue
+        rows = []
+        for _ in range(3 + 20):
+            stamps = torch.zeros((CHUNK, list_rank.WYLLIE_STAMPS), dtype=torch.int64, device=dev)
+            dist = torch.empty_like(succ_p)
+            err = lib.list_rank_wyllie_launch_timed(succ_p.data_ptr(), w_p.data_ptr(), dist.data_ptr(), None,
+                                                    stamps.data_ptr(), CHUNK, plan.mp, plan.n_steps, 1, 1, 0,
+                                                    torch.cuda.current_stream(dev).cuda_stream)
+            if err:
+                raise RuntimeError(f"timed wyllie launch failed: cudaError {err}")
+            rows.append(stamps)
+        torch.cuda.synchronize()
+        info = list_rank.wyllie_rounds(torch.cat(rows[3:]))
+        out["cases"].setdefault("wyllie rounds", []).append({"tree": str(tree), **info})
+        print(f"wyllie rounds [{CHUNK}, {plan.mp}] {tree}: rounds {info['rounds']}, load {info['load_cycles']:.0f}, "
+              f"rounds {info['rounds_cycles']:.0f}, store {info['store_cycles']:.0f} cycles; per round "
+              + " ".join(f"{c:.0f}" for c in info["round_cycles"]), flush=True)
     print("rank_ab " + json.dumps(out))
     return 0
 

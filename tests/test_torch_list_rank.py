@@ -292,18 +292,22 @@ def test_cpu_path_never_launches():
 
 def test_default_cluster_plans_fit_shared_memory():
     """Every padded length from 128 to RANK_MAX_M, on every route: the
-    wide kernel on a cluster of WIDE_CLUSTER, the packed kernels on one
-    CTA, an integral slice S = mp / C, and a per-CTA table within the
-    opt-in shared-memory limit."""
+    wide kernel on a cluster of WIDE_CLUSTER, wyllie past one CTA's
+    shared memory on a cluster of WYLLIE_CLUSTER, the other packed plans
+    on one CTA, an integral slice S = mp / C, and a per-CTA table within
+    the opt-in shared-memory limit."""
     for m in range(128, lr.RANK_MAX_M + 1, 128):
         for algo in lr.ALGOS:
             p = lr.plan_rank(m, algo)
-            assert p.cluster == (lr.WIDE_CLUSTER if p.wide else 1), (m, algo)
+            split = p.algo == "wyllie" and not p.wide and p.mp * 4 > lr.SMEM_LIMIT
+            assert p.wyllie_split == split
+            assert p.cluster == (lr.WIDE_CLUSTER if p.wide else lr.WYLLIE_CLUSTER if split else 1), (m, algo)
             assert p.mp % p.cluster == 0 and p.slice_tokens * p.cluster == p.mp
             assert 0 <= p.smem_bytes <= lr.SMEM_LIMIT, (m, algo, p.smem_bytes)
-            assert lr.launch_key(p) == ("wide/cluster" if p.wide else
+            assert lr.launch_key(p) == ("wide/cluster" if p.wide else "wyllie/cluster" if split else
                                         f"{p.algo}/{'smem' if p.smem_bytes else 'global'}")
             assert lr.launch_key(p) in lr.LAUNCHES
+            assert p.algo != "wyllie" or p.wide or p.smem_bytes  # wyllie never takes a global table
 
 
 @pytest.mark.parametrize("cluster", [2, 4, 8, 16])
@@ -397,8 +401,83 @@ def test_cpu_cluster_route_never_launches():
     w = np.where(succ == np.arange(3000), 0, 22).astype(np.int32)
     assert lr.plan_rank(3000, weighted=True, dist_bound=70_000).wide
     _port(succ, weights=w, dist_bound=70_000)
+    assert lr.plan_rank(60000, "wyllie").wyllie_split
+    _port(_random_ring(60000, 8), algo="wyllie")
     assert sum(lr.LAUNCHES.values()) == 0
-    assert "wide/cluster" in lr.LAUNCHES and not {"ruling/cluster", "wide/global"} & set(lr.LAUNCHES)
+    assert {"wide/cluster", "wyllie/cluster"} <= set(lr.LAUNCHES)
+    assert not {"ruling/cluster", "blocked/cluster", "wide/global", "wyllie/global"} & set(lr.LAUNCHES)
+
+
+# The two-CTA Wyllie plan: a packed wyllie ring whose u32 table passes
+# SMEM_LIMIT (58,112 < mp <= 65,536) is split over WYLLIE_CLUSTER CTAs.
+_WYLLIE_EDGE = lr.SMEM_LIMIT // 4  # 58,112: the last mp one CTA holds
+
+
+@pytest.mark.parametrize("m", [1, 1000, 34818, 39936, 39937, _WYLLIE_EDGE, _WYLLIE_EDGE + 1, 60000, 65535, 65536])
+def test_wyllie_cluster_plan(m):
+    """cluster = WYLLIE_CLUSTER is taken, and accepted, only past the
+    budget; its shared memory is per CTA (half the table and the vote
+    word); its key is wyllie/cluster; ruling and blocked plans of the
+    same ring stay on one CTA and reject every cluster above 1."""
+    p = lr.plan_rank(m, "wyllie")
+    over = p.mp > _WYLLIE_EDGE
+    w = -(-p.mp // 1024) | 1  # words a thread owns on one CTA; in registers below WYLLIE_REG_WORDS
+    assert not p.wide and p.wyllie_split == over
+    assert p.table_words == p.mp + (w < lr.WYLLIE_REG_WORDS)  # the sentinel of words held in registers
+    if over:
+        assert p.cluster == lr.WYLLIE_CLUSTER == 2 and p.slice_tokens == p.mp // 2
+        assert p.smem_bytes == 4 * (p.mp // 2) + 16 <= 131_088
+        assert lr.launch_key(p) == "wyllie/cluster"
+        for bad in (1, 4, 8, 16, True, 2.0):
+            with pytest.raises(ConfigError, match="wyllie ring whose table passes"):
+                replace(p, cluster=bad)
+    else:
+        assert p.cluster == 1 and p.smem_bytes == 4 * p.table_words <= lr.SMEM_LIMIT
+        assert lr.launch_key(p) == "wyllie/smem"
+        for bad in (2, 4, 8):
+            with pytest.raises(ConfigError, match="only the wide kernel and wyllie rings"):
+                replace(p, cluster=bad)
+    for algo in ("ruling", "blocked"):
+        q = lr.plan_rank(m, algo)
+        assert q.cluster == 1 and not q.wyllie_split
+        for bad in (2, 4, 8, 16):
+            with pytest.raises(ConfigError, match="only the wide kernel"):
+                replace(q, cluster=bad)
+
+
+def test_wyllie_rounds_reads_stamps():
+    """wyllie_rounds on stamps laid out as the timed Wyllie kernels write
+    them (list_rank_wyllie_launch_timed): two CTAs, 3 and 4 rounds."""
+    st = torch.zeros((2, lr.WYLLIE_STAMPS), dtype=torch.int64)
+    for row, (rounds, per_round) in enumerate(((3, 100), (4, 200))):
+        st[row, 0], st[row, 1] = 1000, 1500  # start, after the load
+        for r in range(rounds):
+            st[row, 2 + r] = 1500 + per_round * (r + 1)
+            st[row, 2 + lr.MAX_ROUNDS + r] = 50 - r
+        st[row, 2 * lr.MAX_ROUNDS + 2] = 1500 + per_round * rounds + 70  # after the store
+        st[row, 2 * lr.MAX_ROUNDS + 3] = rounds
+    info = lr.wyllie_rounds(st)
+    assert info["rounds"] == (3, 4) and info["load_cycles"] == 500 and info["store_cycles"] == 70
+    # torch's median of two rows is the lower one
+    assert info["round_cycles"] == [100.0] * 3 and info["moved"] == [50.0, 49.0, 48.0]
+    assert info["rounds_cycles"] == 300 and info["total_cycles"] == 870
+
+
+def test_wyllie_cluster_plan_errors():
+    """A weighted ring past the packed dist range takes the wide kernel,
+    not the two-CTA one; launch_timed refuses wide plans only; the
+    two-CTA plan has no other cluster size."""
+    assert lr.plan_rank(60000, "wyllie", weighted=True, dist_bound=65_536).wyllie_split
+    wide = lr.plan_rank(60000, "wyllie", weighted=True, dist_bound=65_537)
+    assert wide.wide and not wide.wyllie_split and wide.cluster == lr.WIDE_CLUSTER
+    assert lr.launch_key(wide) == "wide/cluster"
+    plan, succ_p, w_p = lr._prepare(torch.as_tensor(_random_ring(60000, 3)), None, "wyllie", 8, None)
+    with pytest.raises(ValueError, match="CUDA"):
+        lr.launch_kernel(succ_p, w_p, plan)
+    with pytest.raises(ValueError, match="packed plan"):
+        lr.launch_timed(succ_p, w_p, wide)
+    with pytest.raises(ValueError, match="needs a plan on a cluster"):
+        lr.max_active_clusters(lr.plan_rank(1000, "wyllie"), torch.device("cpu"))
 
 
 # The ring families of the card tests (tests/test_torch_list_rank_cuda.py)
@@ -413,7 +492,7 @@ _FAMILIES = {
 }
 
 
-@pytest.mark.parametrize("algo", ["ruling", "blocked"])
+@pytest.mark.parametrize("algo", ["ruling", "blocked", "wyllie"])
 @pytest.mark.parametrize("family", sorted(_FAMILIES))
 def test_ring_families_match_pallas(family, algo):
     succ = _FAMILIES[family]()
@@ -431,8 +510,11 @@ def test_ruler_spacings_match_xla(k, algo):
         np.testing.assert_array_equal(_port(succ, algo=algo, k=k), np.asarray(wyllie_rank_xla(jnp.asarray(succ))))
 
 
-def _smem_edge() -> int:
-    """The longest ring whose ruling table fits one block's shared memory."""
+def _smem_edge(algo: str = "ruling") -> int:
+    """The longest ring whose table fits one block's shared memory: the
+    ruling table's (in steps of 1024), or the wyllie table's (58,112)."""
+    if algo == "wyllie":
+        return lr.SMEM_LIMIT // 4
     m = 1024
     while lr.plan_rank(m + 1024).smem_bytes:
         m += 1024
@@ -440,19 +522,22 @@ def _smem_edge() -> int:
 
 
 _LARGE = {
-    "gap-65536": lambda: _gap_ring(65536, 8),
-    "smem-edge": lambda: _random_ring(_smem_edge(), 5),
-    "past-smem-edge": lambda: _random_ring(_smem_edge() + 1, 6),
+    "gap-65536": lambda algo: _gap_ring(65536, 8),
+    "smem-edge": lambda algo: _random_ring(_smem_edge(algo), 5),
+    "past-smem-edge": lambda algo: _random_ring(_smem_edge(algo) + 1, 6),
 }
 
 
-@pytest.mark.parametrize("algo", ["ruling", "blocked"])
+@pytest.mark.parametrize("algo", ["ruling", "blocked", "wyllie"])
 @pytest.mark.parametrize("ring", sorted(_LARGE))
 def test_large_rings_match_xla(ring, algo):
     """The rings whose tables sit on both sides of the shared-memory
-    boundary, and the longest ruler gap a packed ring can have."""
-    succ = _LARGE[ring]()
-    assert bool(lr.plan_rank(succ.shape[0], algo).smem_bytes) == (ring == "smem-edge")
+    boundary, and the longest ruler gap a packed ring can have; past the
+    boundary ruling and blocked take a global table, wyllie a cluster of
+    two CTAs."""
+    succ = _LARGE[ring](algo)
+    past = "wyllie/cluster" if algo == "wyllie" else f"{algo}/global"
+    assert lr.launch_key(lr.plan_rank(succ.shape[0], algo)) == (f"{algo}/smem" if ring == "smem-edge" else past)
     np.testing.assert_array_equal(_port(succ, algo=algo), np.asarray(wyllie_rank_xla(jnp.asarray(succ))))
 
 

@@ -46,6 +46,17 @@ def _weighted_ring():
     return succ, w
 
 
+def _weighted_packed_ring(m: int, seed: int):
+    """A random ring whose weights (1 to 3) bring the distances near
+    dist_bound = 65,536, the packed kernels' limit."""
+    succ = _random_ring(m, seed)
+    base = 65_536 // m
+    w = (base + (np.random.default_rng(seed).random(m) < (64_500 - base * m) / m)).astype(np.int32)
+    w[succ == np.arange(m)] = 0
+    assert 60_000 < int(w.sum()) < 65_536
+    return succ, w
+
+
 def _short_lists(m: int, length: int, seed: int) -> np.ndarray:
     """Many lists of `length` tokens in random order (a head every
     `length` tokens)."""
@@ -118,16 +129,30 @@ def test_kernel_matches_reference_on_card():
 
 _CASES = [("ruling", m) for m in (1000, 35840, 65536)]
 _CASES += [("wide", m) for m in (65537, 98304, 131072, "weighted", "cross")]
+# wyllie: one CTA (words in registers up to 39,936 tokens), then past
+# 58,112 tokens (one CTA's shared memory) a cluster of WYLLIE_CLUSTER
+_CASES += [("wyllie", m) for m in (1, 1000, 34944, 39936, 39937, 58112, 58113, 65536, "weighted", "weighted-split")]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("route,m", _CASES, ids=[f"{r}-m{m}" for r, m in _CASES])
 def test_cluster_kernels_match_plain_on_card(route, m):
-    """The ruling route (one CTA a ring) and the wide route (a cluster of
+    """The ruling route (one CTA a ring), the wide route (a cluster of
     WIDE_CLUSTER CTAs a ring) on random rings, the weighted wide ring and
-    a ring whose every pointer crosses CTA slices."""
+    a ring whose every pointer crosses CTA slices, and the wyllie route on
+    both sides of its register and shared-memory edges and on weighted
+    rings whose distances come near dist_bound = 65,536."""
     _needs_card()
-    if m == "weighted":
+    if route == "wyllie" and str(m).startswith("weighted"):
+        succ, w = _weighted_packed_ring(60000 if m == "weighted-split" else 30000, 11)
+        plan = lr.plan_rank(succ.shape[0], "wyllie", weighted=True, dist_bound=65_536)
+        assert not plan.wide and plan.wyllie_split == (m == "weighted-split")
+        _check(succ, lr.launch_key(plan), algo="wyllie", weights=w, dist_bound=65_536)
+    elif route == "wyllie":
+        plan = lr.plan_rank(m, "wyllie")
+        assert plan.wyllie_split == (plan.mp > lr.SMEM_LIMIT // 4)
+        _check(np.stack([_random_ring(m, m + i) for i in range(2)]), lr.launch_key(plan), algo="wyllie")
+    elif m == "weighted":
         succ, w = _weighted_ring()
         _check(succ, "wide/cluster", weights=w, dist_bound=70_000)
     elif m == "cross":
@@ -140,9 +165,10 @@ def test_cluster_kernels_match_plain_on_card(route, m):
         _check(np.stack([_random_ring(m, m + i) for i in range(2)]), lr.launch_key(plan))
 
 
-# Ring families for the ruling phases and blocked's phase A: many heads,
-# an in-tree, the longest ruler gaps, every ruler spacing, weights, both
-# sides of the shared-memory boundary, and phase A on runs at every block.
+# Ring families for the ruling phases, blocked's phase A and wyllie's
+# rounds: many heads, an in-tree, the longest ruler gaps, every ruler
+# spacing, weights, both sides of the shared-memory boundary, and phase A
+# on runs at every block.
 _FAMILY_RINGS = {
     "short-lists": lambda: _short_lists(35000, 6, 1),
     "in-tree": lambda: _in_tree(35000, 2),
@@ -150,7 +176,7 @@ _FAMILY_RINGS = {
     "gap-65536": lambda: _gap_ring(65536, 8),
     "runs": lambda: _runs_ring(40000, 37, 3),
 }
-_FAMILY_CASES = [(algo, ring) for algo in ("ruling", "blocked") for ring in _FAMILY_RINGS]
+_FAMILY_CASES = [(algo, ring) for algo in ("ruling", "blocked", "wyllie") for ring in _FAMILY_RINGS]
 
 
 @pytest.mark.cuda
