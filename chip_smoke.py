@@ -29,8 +29,9 @@ checks it, end to end:
       through the default, "cuda:blocked" and "cuda:ruling"; one doc at
       N = 65,536, past the kernels' ring cap, through the counted
       torch:wyllie route; the port's entry() once;
-5. timings (CUDA events, warm-up then median; a kernel's ms from a CUDA
-   graph of 20 launches): merge ms per chunk and
+5. timings (CUDA events, warm-up then median; a kernel's ms over 20
+   back-to-back calls of its wrapper, and beside it graph_ms, the same
+   20 calls replayed from a CUDA graph): merge ms per chunk and
    ops/s for both paths, rank-only ms, each kernel's ms beside its bound
    and its plain version's ms, and the device-busy share; the ruling and
    blocked kernels' cycles per phase and wyllie's rounds taken and
@@ -107,6 +108,14 @@ def kernel_ms(torch, fn, calls: int = 20, reps: int = 20) -> float:
         for _ in range(calls):
             fn()
     return time_ms(torch, graph.replay, reps=reps) / calls
+
+
+def both_ms(torch, fn) -> tuple:
+    """(ms, graph_ms) per call of `fn`, one kernel launch and its
+    wrapper: CUDA events over 20 back-to-back calls (time_ms, the
+    kernels' yardstick since the port began), and the same 20 calls
+    replayed from a CUDA graph (kernel_ms)."""
+    return time_ms(torch, fn, inner=20), kernel_ms(torch, fn)
 
 
 def device_breakdown(torch, fn, calls: int = 5):
@@ -531,7 +540,7 @@ def main() -> int:
         ),
     }
     for name, (p, succ_p, w_p) in plans.items():
-        res[f"{name}_ms"] = kernel_ms(torch, lambda: list_rank.launch_kernel(succ_p, w_p, p))
+        res[f"{name}_ms"], res[f"{name}_graph_ms"] = both_ms(torch, lambda: list_rank.launch_kernel(succ_p, w_p, p))
         res[f"{name}_plain_ms"] = time_ms(torch, lambda: list_rank.rank_plain(succ_p, w_p, p))
     res["ops_per_s"] = chunk_ops / (res["merge_ms"] / 1e3)
     res["element_ops_per_s"] = echunk_ops / (res["element_merge_ms"] / 1e3)
@@ -566,8 +575,9 @@ def main() -> int:
     )
     for name, (p, _, _) in plans.items():
         print(
-            f"kernel {name} [{CHUNK}, {p.mp}] ({list_rank.launch_key(p)}, C={p.cluster}): {res[name + '_ms']:.4f} ms, "
-            f"bound {bounds[name]:.5f} ms (bytes), plain {res[name + '_plain_ms']:.3f} ms",
+            f"kernel {name} [{CHUNK}, {p.mp}] ({list_rank.launch_key(p)}, C={p.cluster}): {res[name + '_ms']:.4f} ms "
+            f"(graph {res[name + '_graph_ms']:.4f} ms), bound {bounds[name]:.5f} ms (bytes), "
+            f"plain {res[name + '_plain_ms']:.3f} ms",
             flush=True,
         )
     # ---- 5b. the one-CTA packed kernels, per phase and on the full card ---
@@ -617,12 +627,13 @@ def main() -> int:
         p, succ_p, w_p = list_rank._prepare(full, None, name, 8, None)
         check(torch.equal(list_rank.launch_kernel(succ_p, w_p, p), list_rank.rank_plain(succ_p, w_p, p)),
               f"{name} kernel != plain version on [{n_sm}, {p.mp}]")
-        ms = kernel_ms(torch, lambda: list_rank.launch_kernel(succ_p, w_p, p))
+        ms, graph_ms = both_ms(torch, lambda: list_rank.launch_kernel(succ_p, w_p, p))
         bound = 12 * n_sm * p.mp / HBM_BYTES_PER_S * 1e3
-        full_card[name] = {"ms": ms, "bound_ms": bound}
+        full_card[name] = {"ms": ms, "graph_ms": graph_ms, "bound_ms": bound}
         print(f"kernel {name} [{n_sm}, {p.mp}] ({list_rank.launch_key(p)}, one ring per SM) on {kind} ({card}): "
-              f"{ms:.4f} ms, bound {bound:.5f} ms (bytes), {100 * bound / ms:.2f} % of it; at [{CHUNK}, {p.mp}] "
-              f"{100 * bounds[name] / res[name + '_ms']:.2f} %", flush=True)
+              f"{ms:.4f} ms (graph {graph_ms:.4f} ms), bound {bound:.5f} ms (bytes), {100 * bound / ms:.2f} % of it "
+              f"({100 * bound / graph_ms:.2f} % by graph); at [{CHUNK}, {p.mp}] {100 * bounds[name] / res[name + '_ms']:.2f} "
+              f"% ({100 * bounds[name] / res[name + '_graph_ms']:.2f} %)", flush=True)
 
     # wyllie on rings past one CTA's shared memory: its cluster of two
     over_budget = {}
@@ -632,17 +643,18 @@ def main() -> int:
         p, succ_p, w_p = list_rank._prepare(torch.as_tensor(np.stack(rings)).to(dev), None, "wyllie", 8, None)
         check(torch.equal(list_rank.launch_kernel(succ_p, w_p, p), list_rank.rank_plain(succ_p, w_p, p)),
               f"wyllie kernel != plain version on the {name} ring [{CHUNK}, {p.mp}]")
-        ms = kernel_ms(torch, lambda: list_rank.launch_kernel(succ_p, w_p, p))
+        ms, graph_ms = both_ms(torch, lambda: list_rank.launch_kernel(succ_p, w_p, p))
         bound = 12 * CHUNK * p.mp / HBM_BYTES_PER_S * 1e3
-        over_budget[name] = {"mp": p.mp, "ms": ms, "bound_ms": bound}
+        over_budget[name] = {"mp": p.mp, "ms": ms, "graph_ms": graph_ms, "bound_ms": bound}
         print(f"kernel wyllie on a {name.replace('_', ' ')} ring [{CHUNK}, {p.mp}] ({list_rank.launch_key(p)}, "
-              f"C={p.cluster}) on {kind} ({card}): {ms:.4f} ms, bound {bound:.5f} ms (bytes)", flush=True)
+              f"C={p.cluster}) on {kind} ({card}): {ms:.4f} ms (graph {graph_ms:.4f} ms), bound {bound:.5f} ms "
+              "(bytes)", flush=True)
     phases["wyllie_cluster"] = wyllie_timed(p, succ_p, w_p, f"random ring [{CHUNK}, {p.mp}]")
 
     # ---- 6. cluster sweep at the main-path shape --------------------------
     # the wide kernel at each cluster size on the element rings, held
     # bit-exact against its plain version before it is timed
-    sweep = {}
+    sweep, sweep_graph = {}, {}
     wplan, wsucc_p, ww_p = plans["wide"]
     wide_plain = list_rank.rank_plain(wsucc_p, ww_p, wplan)
     for c in WIDE_SWEEP:
@@ -653,14 +665,15 @@ def main() -> int:
             continue
         got = list_rank.launch_kernel(wsucc_p, ww_p, p)
         check(torch.equal(got, wide_plain), f"wide kernel at C={c} != plain version on the element rings")
-        sweep[f"wide_C{c}_ms"] = kernel_ms(torch, lambda: list_rank.launch_kernel(wsucc_p, ww_p, p))
+        sweep[f"wide_C{c}_ms"], sweep_graph[f"wide_C{c}_ms"] = both_ms(
+            torch, lambda: list_rank.launch_kernel(wsucc_p, ww_p, p))
         # pointers that leave their CTA's slice (the kernel's exit tokens)
         tok = torch.arange(p.mp, device=dev)
         exits = (wsucc_p.long() // p.slice_tokens != tok // p.slice_tokens).sum(1).float()
         print(f"sweep wide C={c} [{CHUNK}, {p.mp}] ({held} clusters at once, "
               f"{100 * float(exits.mean()) / p.mp:.2f} % of pointers leave their slice, "
               f"{float(exits.mean()):.0f} a ring, {p.smem_bytes} bytes of shared memory a CTA, bit-exact): "
-              f"{sweep[f'wide_C{c}_ms']:.4f} ms", flush=True)
+              f"{sweep[f'wide_C{c}_ms']:.4f} ms (graph {sweep_graph[f'wide_C{c}_ms']:.4f} ms)", flush=True)
     check(f"wide_C{list_rank.WIDE_CLUSTER}_ms" in sweep, "the wide route's own cluster size was not timed")
     # the wide cluster kernel on rings of one shape and three localities:
     # a chain (every pointer stays in its slice: the exit ring holds 7
@@ -673,9 +686,10 @@ def main() -> int:
                        ("random", random_ring(np, n, 11))):
         succ = torch.as_tensor(np.stack([ring] * CHUNK)).to(dev)
         p, succ_p, w_p = list_rank._prepare(succ, None, "ruling", 8, None)
-        sweep[f"wide_{name}_ms"] = kernel_ms(torch, lambda: list_rank.launch_kernel(succ_p, w_p, p))
+        sweep[f"wide_{name}_ms"], sweep_graph[f"wide_{name}_ms"] = both_ms(
+            torch, lambda: list_rank.launch_kernel(succ_p, w_p, p))
         print(f"sweep wide C={p.cluster} on a {name.replace('_', '-')} ring [{CHUNK}, {p.mp}]: "
-              f"{sweep[f'wide_{name}_ms']:.4f} ms", flush=True)
+              f"{sweep[f'wide_{name}_ms']:.4f} ms (graph {sweep_graph[f'wide_{name}_ms']:.4f} ms)", flush=True)
     best = min((v, k) for k, v in sweep.items() if k.startswith("wide_C"))
     print(f"sweep wide: route C={list_rank.WIDE_CLUSTER} ({sweep[f'wide_C{list_rank.WIDE_CLUSTER}_ms']:.4f} ms); "
           f"fastest {best[1]} ({best[0]:.4f} ms)", flush=True)
@@ -685,7 +699,7 @@ def main() -> int:
         "mp": {name: p.mp for name, (p, _, _) in plans.items()}, "chunk_ops": chunk_ops,
         "element_chunk_ops": echunk_ops, "build_s": build_s, "gen_s": gen_s, "element_gen_s": egen_s, **res,
         "bound_ms": bounds, "phases": phases, "full_card": full_card, "wyllie_over_budget": over_budget,
-        "sweep": sweep,
+        "sweep": sweep, "sweep_graph": sweep_graph,
         "total_s": time.perf_counter() - t_start,
     }))
     kernels = [
@@ -697,6 +711,7 @@ def main() -> int:
             "launches": launches[name],
             "max_abs_err": max_err[name],
             "ms": res[f"{name}_ms"],
+            "graph_ms": res[f"{name}_graph_ms"],
             "plain_ms": res[f"{name}_plain_ms"],
             "bound_ms": bounds[name],
             "bound_by": "bytes",

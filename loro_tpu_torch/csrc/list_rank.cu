@@ -210,10 +210,40 @@ constexpr int kClusterBatch = 8;  // wide kernel: remote gathers in flight per t
 constexpr uint32_t kSliceK = 8;    // wide kernel: ruler spacing inside a slice
 constexpr int kStamps = 8;         // timed packed kernel: clock64 stamps per CTA
 
+// Stamps of the timed Wyllie kernels, per CTA (ops/list_rank.py's
+// WYLLIE_STAMPS): clock64 at the start, after the load, after round r
+// (kRoundAt + r), after the store; the words that moved in round r
+// (kMovedAt + r) and the rounds taken.  n_steps <= kMaxRounds.
+constexpr int kWyllieStamps = 40;
+constexpr int kMaxRounds = 16;
+constexpr int kRoundAt = 2;
+constexpr int kMovedAt = kRoundAt + kMaxRounds;
+constexpr int kStoreAt = kMovedAt + kMaxRounds;
+constexpr int kRoundsAt = kStoreAt + 1;
+
+template <bool kTimed>
+__device__ __forceinline__ void wstamp(long long* stamps, int j) {
+  if (kTimed && threadIdx.x == 0) stamps[(size_t)blockIdx.x * kWyllieStamps + j] = clock64();
+}
+
+// Round r's moved words, summed over the CTA (timed kernels only).
+template <bool kTimed>
+__device__ __forceinline__ void count_moved(long long* stamps, int r, int n) {
+  if (!kTimed) return;
+  n = __reduce_add_sync(0xFFFFFFFFu, n);
+  if ((threadIdx.x & 31) == 0 && n)
+    atomicAdd(reinterpret_cast<unsigned long long*>(stamps + (size_t)blockIdx.x * kWyllieStamps + kMovedAt + r),
+              (unsigned long long)n);
+}
+
 // Pointer jumping over tbl[0, len) until every pointer rests on a
-// terminal (no pointer moved in a round) or `cap` rounds have run.
-__device__ void jump_to_terminals(uint32_t* tbl, int len, int cap) {
-  for (int r = 0; r < cap; ++r) {
+// terminal (no pointer moved in a round) or `cap` rounds have run;
+// returns the rounds run.  kTimed (the timed Wyllie kernel only) also
+// stamps each round and counts the words it moved.
+template <bool kTimed = false>
+__device__ int jump_to_terminals(uint32_t* tbl, int len, int cap, long long* stamps = nullptr) {
+  int r = 0;
+  while (r < cap) {
     int moved = 0;
     for (int i = threadIdx.x; i < len; i += kThreads) {
       const uint32_t p = tbl[i];
@@ -221,10 +251,15 @@ __device__ void jump_to_terminals(uint32_t* tbl, int len, int cap) {
       const uint32_t g = tbl[s];
       if ((g & kLow) == s) continue;  // target is a terminal: absorbed
       tbl[i] = (p & kHigh) + g;
-      moved = 1;
+      moved = kTimed ? moved + 1 : 1;
     }
-    if (!__syncthreads_or(moved)) break;
+    count_moved<kTimed>(stamps, r, moved);
+    ++r;
+    const int any = __syncthreads_or(moved);
+    wstamp<kTimed>(stamps, kRoundAt + r - 1);
+    if (!any) break;
   }
+  return r;
 }
 
 // Stamps of the timed instantiation: thread 0 writes clock64() at the
@@ -319,32 +354,6 @@ list_rank_kernel(const int32_t* __restrict__ succ, const int32_t* __restrict__ w
 
 // ---- packed Wyllie ------------------------------------------------------
 
-// Stamps of the timed Wyllie kernels, per CTA (ops/list_rank.py's
-// WYLLIE_STAMPS): clock64 at the start, after the load, after round r
-// (kRoundAt + r), after the store; the words that moved in round r
-// (kMovedAt + r) and the rounds taken.  n_steps <= kMaxRounds.
-constexpr int kWyllieStamps = 40;
-constexpr int kMaxRounds = 16;
-constexpr int kRoundAt = 2;
-constexpr int kMovedAt = kRoundAt + kMaxRounds;
-constexpr int kStoreAt = kMovedAt + kMaxRounds;
-constexpr int kRoundsAt = kStoreAt + 1;
-
-template <bool kTimed>
-__device__ __forceinline__ void wstamp(long long* stamps, int j) {
-  if (kTimed && threadIdx.x == 0) stamps[(size_t)blockIdx.x * kWyllieStamps + j] = clock64();
-}
-
-// Round r's moved words, summed over the CTA (timed kernels only).
-template <bool kTimed>
-__device__ __forceinline__ void count_moved(long long* stamps, int r, int n) {
-  if (!kTimed) return;
-  n = __reduce_add_sync(0xFFFFFFFFu, n);
-  if ((threadIdx.x & 31) == 0 && n)
-    atomicAdd(reinterpret_cast<unsigned long long*>(stamps + (size_t)blockIdx.x * kWyllieStamps + kMovedAt + r),
-              (unsigned long long)n);
-}
-
 constexpr int kRegWords = 40;  // words a thread holds in registers (W <= 39: mp <= 39,936)
 
 // Packed Wyllie on one CTA a ring, the table in shared memory.  With
@@ -402,26 +411,9 @@ list_rank_wyllie_kernel(const int32_t* __restrict__ succ, const int32_t* __restr
       wstamp<kTimed>(stamps, kRoundAt + r - 1);
       if (!any) break;
     }
-  } else if (!kTimed) {
-    jump_to_terminals(tbl, mp, n_steps);
   } else {
     wstamp<kTimed>(stamps, 1);
-    while (r < n_steps) {  // jump_to_terminals, counted
-      int moved = 0;
-      for (int i = threadIdx.x; i < mp; i += kThreads) {
-        const uint32_t p = tbl[i];
-        const uint32_t s = p & kLow;
-        const uint32_t g = tbl[s];
-        if ((g & kLow) == s) continue;  // target is a terminal: absorbed
-        tbl[i] = (p & kHigh) + g;
-        ++moved;
-      }
-      count_moved<kTimed>(stamps, r, moved);
-      ++r;
-      const int any = __syncthreads_or(moved);
-      wstamp<kTimed>(stamps, kRoundAt + r - 1);
-      if (!any) break;
-    }
+    r = jump_to_terminals<kTimed>(tbl, mp, n_steps, stamps);
   }
   for (int i = threadIdx.x; i < mp; i += kThreads) dist[row + i] = (int32_t)(tbl[i] >> 16);
   if (kTimed) {
@@ -988,8 +980,10 @@ const char* list_rank_error_string(int err) { return cudaGetErrorString((cudaErr
 // ruling = 1 runs the ruling phases (scratch: uint32 [n_docs, mp + mp/k
 // + 1] when use_smem is 0), n_steps_a > 0 the blocked phase A (blocks of
 // 2^block_log2 tokens) before them; ruling = 0 runs packed Wyllie on one
-// CTA a ring (scratch: uint32 [n_docs, mp] when use_smem is 0).  Returns
-// the cudaError_t of the launch (0 = ok).
+// CTA a ring and needs use_smem = 1 (mp * 4 within one block's shared
+// memory; a longer ring takes list_rank_wyllie_cluster_launch, and
+// use_smem = 0 returns cudaErrorInvalidValue).  Returns the cudaError_t
+// of the launch (0 = ok).
 int list_rank_launch(const int32_t* succ, const int32_t* w, int32_t* dist, uint32_t* scratch,
                      int n_docs, int mp, int n_steps, int n_steps_dense, int ruling,
                      int k_log2, int n_steps_a, int block_log2, int use_smem, void* stream) {
@@ -1008,9 +1002,9 @@ int list_rank_launch_timed(const int32_t* succ, const int32_t* w, int32_t* dist,
                              n_steps_a, block_log2, use_smem, stream);
 }
 
-// Packed Wyllie, timed: the one-CTA kernel (cluster = 1; table in shared
-// memory when use_smem, else in scratch) or the two-CTA cluster kernel
-// (cluster = 2, smem_bytes a CTA).  stamps is int64 [n_docs * cluster,
+// Packed Wyllie, timed: the one-CTA kernel (cluster = 1; needs use_smem =
+// 1, as list_rank_launch) or the two-CTA cluster kernel (cluster = 2,
+// scratch its mirror, smem_bytes a CTA).  stamps is int64 [n_docs * cluster,
 // 40] of zeros, one row a CTA: clock64 at the start (0), after the load
 // (1), after round r (2 + r), after the store (34); the words moved in
 // round r (18 + r) and the rounds taken (35).

@@ -50,11 +50,6 @@ WIDE_CLUSTER = 8
 # shared memory (mp * 4 > SMEM_LIMIT): the two halves of the ring in two
 # CTAs' shared memories, in place of a table in device memory.
 WYLLIE_CLUSTER = 2
-# The one-CTA Wyllie kernel holds each thread's W = ceil(mp / 1024) | 1
-# consecutive words in registers while W < WYLLIE_REG_WORDS (mp <= 39,936;
-# csrc/list_rank.cu kRegWords), its table then one sentinel word longer.
-WYLLIE_REG_WORDS = 40
-_THREADS = 1024
 # what each clock64 stamp of the timed packed kernel closes (list_rank_launch_timed)
 PHASES = ("load", "A", "1", "2", "3+store")
 # the timed Wyllie kernels' stamps, one row of WYLLIE_STAMPS int64 a CTA
@@ -156,13 +151,10 @@ class RankPlan:
     @property
     def table_words(self) -> int:
         """u32 words of table per ring: packed ring (+ dense ruler ring
-        and sink slot for the ruling phases; + the sentinel for wyllie's
-        words in registers); two per token (one u64) for the wide
-        kernel."""
+        and sink slot for the ruling phases); two per token (one u64) for
+        the wide kernel."""
         if self.wide:
             return 2 * self.mp
-        if self.algo == "wyllie":
-            return self.mp + ((-(-self.mp // _THREADS) | 1) < WYLLIE_REG_WORDS)
         return self.mp + (self.mp // self.k + 1 if self.ruling else 0)
 
     @property
@@ -191,7 +183,10 @@ class RankPlan:
         bytes of counters.  Wyllie on a cluster: its half of the ring
         (u32 words) and 16 bytes for the vote word.  Other packed plans:
         the whole table when it fits SMEM_LIMIT, else 0 (the
-        global-scratch variant)."""
+        global-scratch variant).  The one-CTA Wyllie kernel sizes its own
+        launch: where it holds a thread's words in registers it asks for
+        one word more, a sentinel (csrc/list_rank.cu, wyllie_launch), far
+        inside SMEM_LIMIT."""
         if self.wide:
             return 10 * self.slice_tokens + 8 * (self.exit_ring_slots + 1) + 256
         if self.wyllie_split:

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Compares the packed list-rank kernels of several source trees on one
+"""Compares the list-rank kernels of several source trees on one
 NVIDIA GPU, in turns, in one process.
 
 Each TREE is a checkout of this repository (for instance the parent
@@ -23,6 +23,8 @@ bit-exact against the plain version first:
   m = 65,536, each tree on its own route for them: the two-CTA cluster
   kernel where the tree has one (list_rank_wyllie_cluster_launch), else
   its global-scratch variant;
+- the wide kernel (list_rank_wide_launch, its cluster of 8) on the
+  element rings [8, 65,664] (the element merge's main-path shape);
 - per-phase cycles (thread 0's clock64 after each phase's barrier) of
   ruling and blocked on the flagship rings: the tree's timed entry point
   (list_rank_launch_timed) where it has one, else a copy of its source
@@ -31,10 +33,12 @@ bit-exact against the plain version first:
   and Wyllie's rounds taken and cycles per round on the flagship rings,
   for a tree with list_rank_wyllie_launch_timed.
 
-Times: 20 back-to-back launches captured in a CUDA graph, the replay
-timed with CUDA events, median of 20 samples after 3 warm-ups
-(chip_smoke.kernel_ms).  Prints one line per case and a
-final `rank_ab {...}` JSON line, with the card's name and power limit.
+Times, two for each tree and case (chip_smoke.both_ms): CUDA events
+over 20 back-to-back launches ("eager_ms", the yardstick of
+chip_smoke.py's kernels line), and the same 20 launches captured in a
+CUDA graph and replayed ("ms"), each the median of 20 samples after 3
+warm-ups.  Prints one line per case and a final `rank_ab {...}` JSON
+line, with the card's name and power limit.
 Usage:
     python3 rank_ab.py TREE [TREE ...]
 """
@@ -105,6 +109,8 @@ def build(tag: str, source: str) -> ctypes.CDLL:
     if hasattr(lib, "list_rank_launch_timed"):
         lib.list_rank_launch_timed.argtypes = [ptr] * 5 + [i32] * 8 + [ptr]
         lib.list_rank_launch_timed.restype = i32
+    lib.list_rank_wide_launch.argtypes = [ptr] * 3 + [i32] * 6 + [ptr]
+    lib.list_rank_wide_launch.restype = i32
     if hasattr(lib, "list_rank_wyllie_cluster_launch"):
         lib.list_rank_wyllie_cluster_launch.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
         lib.list_rank_wyllie_cluster_launch.restype = i32
@@ -151,7 +157,9 @@ def main() -> int:
         """The table variant a tree runs: "smem" or "global" as asked, or
         for a Wyllie ring past one CTA's shared memory the tree's own
         route ("cluster" where it has the two-CTA kernel, else
-        "global")."""
+        "global"); "wide" for the wide kernel."""
+        if plan.wide:
+            return "wide"
         if plan.wyllie_split:
             return "cluster" if hasattr(lib, "list_rank_wyllie_cluster_launch") else "global"
         return "smem" if smem else "global"
@@ -163,6 +171,13 @@ def main() -> int:
         d = succ_p.shape[0]
         dist = torch.empty_like(succ_p)
         route = own_route(lib, plan, smem)
+        if route == "wide":
+            err = lib.list_rank_wide_launch(succ_p.data_ptr(), w_p.data_ptr(), dist.data_ptr(), d, plan.mp,
+                                            plan.n_steps, plan.exit_ring_slots, plan.cluster, plan.smem_bytes,
+                                            torch.cuda.current_stream(dev).cuda_stream)
+            if err:
+                raise RuntimeError(f"launch failed: cudaError {err}")
+            return dist
         if route == "cluster":
             mirror = torch.empty(d * plan.mp, dtype=torch.int32, device=dev)
             err = lib.list_rank_wyllie_cluster_launch(succ_p.data_ptr(), w_p.data_ptr(), dist.data_ptr(),
@@ -218,6 +233,11 @@ def main() -> int:
     w_over = list_rank.SMEM_LIMIT // 4 + 1  # the first ring past the wyllie table's budget
     wrand_over = torch.as_tensor(np.stack([chip_smoke.random_ring(np, w_over, 90 + i) for i in range(CHUNK)])).to(dev)
     rand_full = torch.as_tensor(np.stack([chip_smoke.random_ring(np, 65536, 110 + i) for i in range(CHUNK)])).to(dev)
+    edocs = tracegen.fleet_docs(2, n_patches=chip_smoke.ELEMENT_PATCHES, seed=chip_smoke.SEED)
+    eseq = columnar.stack_docs([edocs[j % len(edocs)].extract.to_seq_columns(pad_to=chip_smoke.ELEMENT_N)
+                                for j in range(CHUNK)])
+    ecols = fugue_batch.seq_columns_to_torch(eseq, device=dev)
+    element, _ = fugue_batch._ring_and_anchors(ecols.parent, ecols.side, ecols.valid)
     cases = [(f"flagship [{CHUNK}, {flag.shape[1]}]", flag, algo, True) for algo in ("ruling", "blocked", "wyllie")]
     cases += [(f"flagship cycled [{n_sm}, {flag.shape[1]}]", full, algo, True) for algo in ("ruling", "blocked", "wyllie")]
     cases += [(f"gap ring [{CHUNK}, 65536]", gap, algo, False) for algo in ("ruling", "blocked")]
@@ -225,24 +245,28 @@ def main() -> int:
               for algo in ("ruling", "blocked")]
     cases += [(f"random ring over the smem budget [{CHUNK}, {w_over}]", wrand_over, "wyllie", False),
               (f"gap ring [{CHUNK}, 65536]", gap, "wyllie", False),
-              (f"random ring [{CHUNK}, 65536]", rand_full, "wyllie", False)]
+              (f"random ring [{CHUNK}, 65536]", rand_full, "wyllie", False),
+              (f"element rings [{CHUNK}, {element.shape[1]}]", element, "wide", True)]
 
     out = {"card": card, "kind": torch.cuda.get_device_name(0), "trees": [str(t) for t in trees], "cases": {}}
     for label, succ, algo, smem in cases:
-        plan, succ_p, w_p = list_rank._prepare(succ, None, algo, 8, None)
+        plan, succ_p, w_p = list_rank._prepare(succ, None, "ruling" if algo == "wide" else algo, 8, None)
+        if plan.wide != (algo == "wide"):
+            raise RuntimeError(f"{label}: {algo} case on a plan with wide={plan.wide}")
         want = list_rank.rank_plain(succ_p, w_p, plan)
         for tree in dict.fromkeys(trees):
             got = launch(libs[tree], plan, succ_p, w_p, smem)
             torch.cuda.synchronize()
             if not torch.equal(got, want):
                 raise RuntimeError(f"{label} {algo}: {tree} kernel != plain version")
-        times = [chip_smoke.kernel_ms(torch, lambda: launch(libs[tree], plan, succ_p, w_p, smem)) for tree in trees]
+        eager, times = zip(*[chip_smoke.both_ms(torch, lambda: launch(libs[tree], plan, succ_p, w_p, smem))
+                             for tree in trees])
         routes = [own_route(libs[tree], plan, smem) for tree in trees]
         bound = 12 * succ_p.shape[0] * plan.mp / HBM_BYTES_PER_S * 1e3
         key = f"{algo} {label}"
-        out["cases"][key] = {"ms": times, "table": routes, "bound_ms": bound}
-        print(f"{key} (tables {', '.join(dict.fromkeys(routes))}): ms " + ", ".join(f"{t:.4f}" for t in times)
-              + f"; bound {bound:.5f} ms (bytes)", flush=True)
+        out["cases"][key] = {"ms": list(times), "eager_ms": list(eager), "table": routes, "bound_ms": bound}
+        print(f"{key} (tables {', '.join(dict.fromkeys(routes))}): ms (graph) " + ", ".join(f"{t:.4f}" for t in times)
+              + "; eager ms " + ", ".join(f"{t:.4f}" for t in eager) + f"; bound {bound:.5f} ms (bytes)", flush=True)
     fplan = {algo: list_rank._prepare(flag, None, algo, 8, None) for algo in ("ruling", "blocked")}
     for algo, (plan, succ_p, w_p) in fplan.items():
         per_tree = [phase_cycles(timed[tree], plan, succ_p, w_p) for tree in trees]

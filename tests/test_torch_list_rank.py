@@ -421,9 +421,8 @@ def test_wyllie_cluster_plan(m):
     same ring stay on one CTA and reject every cluster above 1."""
     p = lr.plan_rank(m, "wyllie")
     over = p.mp > _WYLLIE_EDGE
-    w = -(-p.mp // 1024) | 1  # words a thread owns on one CTA; in registers below WYLLIE_REG_WORDS
     assert not p.wide and p.wyllie_split == over
-    assert p.table_words == p.mp + (w < lr.WYLLIE_REG_WORDS)  # the sentinel of words held in registers
+    assert p.table_words == p.mp
     if over:
         assert p.cluster == lr.WYLLIE_CLUSTER == 2 and p.slice_tokens == p.mp // 2
         assert p.smem_bytes == 4 * (p.mp // 2) + 16 <= 131_088
