@@ -29,9 +29,20 @@ checks it, end to end:
       through the default, "cuda:blocked" and "cuda:ruling"; one doc at
       N = 65,536, past the kernels' ring cap, through the counted
       torch:wyllie route; the port's entry() once;
-5. timings (CUDA events, warm-up then median; a kernel's ms over 20
-   back-to-back calls of its wrapper, and beside it graph_ms, the same
-   20 calls replayed from a CUDA graph): merge ms per chunk and
+   c. ingest (bench.py's e2e phase): tracegen's payloads of the flagship
+      docs decoded by the port's native codec (the tables must equal the
+      generator's), contracted, packed one uint8 row a doc; the packed
+      merge must equal the column merge for the default rank,
+      cuda:wyllie, cuda:blocked and cuda:coalesced (at a ring budget
+      from the host ring statistics, checked against every doc's run
+      count), each launching its kernel; one packed upload timed against
+      the eight column uploads; then the pipelined loop (decode threads,
+      two pinned staging buffers, one upload and one packed merge a
+      chunk, every chunk's checksums checked), with and without the
+      merge and once under the profiler (device-busy share);
+5. timings (CUDA events, warm-up then median; a kernel's ms is 20
+   back-to-back calls of its wrapper replayed from a CUDA graph, and
+   beside it eager_ms, the same 20 calls eager): merge ms per chunk and
    ops/s for both paths, rank-only ms, each kernel's ms beside its bound
    and its plain version's ms, and the device-busy share; the ruling and
    blocked kernels' cycles per phase and wyllie's rounds taken and
@@ -52,6 +63,8 @@ Any failed check raises, so the script exits non-zero.  Usage:
 from __future__ import annotations
 
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -70,6 +83,7 @@ SPINE_ELEMENTS, SPINE_N = 40_000, 65_536  # ring 131,074 tokens > RANK_MAX_M
 # the TPU kernel each CUDA kernel replaces (loro_tpu/ops/pallas_rank.py)
 REPLACES = {"ruling": 226, "wyllie": 379, "blocked": 237, "wide": 184}
 WIDE_SWEEP = (4, 8, 16)  # wide-kernel cluster sizes timed at the element rings
+INGEST_CHUNKS, INGEST_S = 64, 20.0  # the pipelined ingest loop: chunks, or seconds if sooner
 
 
 def check(cond: bool, what: str) -> None:
@@ -111,10 +125,11 @@ def kernel_ms(torch, fn, calls: int = 20, reps: int = 20) -> float:
 
 
 def both_ms(torch, fn) -> tuple:
-    """(ms, graph_ms) per call of `fn`, one kernel launch and its
+    """(eager ms, graph ms) per call of `fn`, one kernel launch and its
     wrapper: CUDA events over 20 back-to-back calls (time_ms, the
-    kernels' yardstick since the port began), and the same 20 calls
-    replayed from a CUDA graph (kernel_ms)."""
+    `kernels` line's yardstick until the graph timer replaced it), and
+    the same 20 calls replayed from a CUDA graph (kernel_ms, the
+    yardstick now)."""
     return time_ms(torch, fn, inner=20), kernel_ms(torch, fn)
 
 
@@ -144,6 +159,27 @@ def device_breakdown(torch, fn, calls: int = 5):
             rows.append((us / 1e3 / calls, e.key, e.count // calls))
     rows.sort(reverse=True)
     return sum(r[0] for r in rows), wall_ms, rows[:8]
+
+
+def ptxas_lines(log: str):
+    """(kernel, line) for each ptxas line on registers, stack or spills:
+    the kernel is the entry function that the last "Compiling entry
+    function" or "Function properties for" line named, demangled by
+    c++filt where the machine has it."""
+    cur, out = "?", []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'|Function properties for (\S+)", line)
+        if m:
+            cur = m.group(1) or m.group(2)
+        elif "registers" in line or "spill" in line or "stack frame" in line:
+            out.append((cur, line.strip()))
+    names = sorted({k for k, _ in out})
+    try:
+        res = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True, text=True, timeout=30)
+        plain = dict(zip(names, res.stdout.splitlines())) if res.returncode == 0 else {}
+    except OSError:
+        plain = {}
+    return [(plain.get(k, k), line) for k, line in out]
 
 
 def random_ring(np, m: int, seed: int):
@@ -217,7 +253,7 @@ def main() -> int:
     import numpy as np
 
     from loro_tpu_torch import _build, entry, tracegen
-    from loro_tpu_torch.ops import columnar, fugue_batch, list_rank
+    from loro_tpu_torch.ops import columnar, fugue_batch, list_rank, rank_model
 
     # ---- 1. device ------------------------------------------------------
     smi = subprocess.run(
@@ -236,9 +272,8 @@ def main() -> int:
     per_src = ", ".join("%s %.2f s" % (k, v["seconds"]) for k, v in built.items())
     print(f"build: {build_s:.2f} s ({per_src})")
     for name, rep in built.items():
-        for line in (rep["log"] or "").splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+        for kernel, line in ptxas_lines(rep["log"] or ""):
+            print(f"  {name}: {kernel}: {line}")
     budget = list_rank.smem_budget(dev)
     print(f"shared-memory budget per block: {budget} bytes", flush=True)
     check(budget >= list_rank.SMEM_LIMIT, f"the card gives {budget} bytes of shared memory a block, below SMEM_LIMIT")
@@ -505,6 +540,207 @@ def main() -> int:
     check(codes.device.type == "cuda" and counts.tolist() == [256 - 256 // 7] * 8, "entry() on the card")
     print("entry(): example batch merged on the card", flush=True)
 
+    # ---- 4c. ingest: payload bytes -> merge on the card -------------------
+    # (a) decode each distinct doc's payload with the port's native codec
+    t0 = time.perf_counter()
+    payloads = [tracegen.trace_payload(d) for d in docs]
+    payload_s = time.perf_counter() - t0
+    row_w = fugue_batch.packed_row_bytes(pad_c, pad_n)
+    rows = np.empty((len(docs), row_w), np.uint8)
+    host_ms = {"explode": [], "contract_chains": [], "chain_columns": [], "pack": []}
+    for k, (d, pl) in enumerate(zip(docs, payloads)):
+        for _ in range(5):
+            t0 = time.perf_counter()
+            ex = columnar.extract_seq_from_payload(pl, tracegen.TEXT_CID)
+            t1 = time.perf_counter()
+            columnar.contract_chains(ex)
+            t2 = time.perf_counter()
+            cc = columnar.chain_columns(ex, pad_n=pad_n, pad_c=pad_c)
+            t3 = time.perf_counter()
+            fugue_batch.pack_chain_doc_into(cc, rows[k])
+            t4 = time.perf_counter()
+            for key, a, b in (("explode", t0, t1), ("contract_chains", t1, t2), ("chain_columns", t2, t3),
+                              ("pack", t3, t4)):
+                host_ms[key].append((b - a) * 1e3)
+        for f in ("parent", "side", "peer", "counter", "deleted", "content", "valid"):
+            want, got = getattr(d.extract, f), getattr(ex, f)
+            check(got.dtype == want.dtype and np.array_equal(got, want), f"payload {k}: decoded {f} != generator's")
+        check(ex.peers == d.extract.peers, f"payload {k}: peers")
+        for f in fugue_batch.ChainColumns._fields:
+            check(np.array_equal(getattr(cc, f), getattr(per_doc[k], f)), f"payload {k}: chain column {f}")
+    host_ms = {k: statistics.median(v) for k, v in host_ms.items()}
+    print(f"ingest (a) on {kind} ({card}) host: {len(docs)} payloads of {[len(p) for p in payloads]} bytes "
+          f"(encoded in {payload_s:.1f} s, cached under build/tracegen) decode to the generator's tables; host ms "
+          "per doc, median of 5 x 3 docs: " + ", ".join(f"{k} {v:.3f}" for k, v in host_ms.items())
+          + " (chain_columns contracts again inside)", flush=True)
+
+    # (b) the packed chunk against the column merge, for every rank spec;
+    # the coalesced budget from the host ring statistics of every doc
+    packed_np = rows[idxs]
+    stats = [rank_model.ring_stats(rank_model.build_ring(c.c_parent, c.c_side, c.c_valid)) for c in per_doc]
+    n_runs_max = max(st["n_runs"] for st in stats)
+    budget = rank_model.coalesce_budget(n_runs_max)
+    check(all(st["n_runs"] <= budget for st in stats), "a doc's run count passes the coalesced budget")
+    _, dev_runs = fugue_batch.ring_run_heads(flag_succ)
+    check(dev_runs.tolist() == [stats[i]["n_runs"] for i in idxs], "device run counts != host ring statistics")
+    packed = torch.from_numpy(packed_np).to(dev)
+    specs = (("default (cuda:ruling)", None, "ruling/"), ("cuda:wyllie", "cuda:wyllie", "wyllie/"),
+             ("cuda:blocked", "cuda:blocked", "blocked/"), ("cuda:coalesced", "cuda:coalesced", "ruling/"))
+    packed_cs = {}
+    for label, spec, kernel in specs:
+        rb = budget if spec == "cuda:coalesced" else None
+        list_rank.reset_launches()
+        cs_p, n_p = fugue_batch.chain_merge_docs_packed_checksum(packed, pad_c, pad_n, spec, rb, device=dev)
+        torch.cuda.synchronize()
+        ran = {k: v for k, v in list_rank.LAUNCHES.items() if v}
+        check(ran and all(k.startswith(kernel) for k in ran), f"packed {label} launched {ran}, not the {kernel} kernel")
+        cs_c, n_c = fugue_batch.chain_merge_docs_checksum_v(cols, spec, rb, device=dev)
+        check(torch.equal(cs_p, cs_c) and torch.equal(n_p, n_c), f"packed {label} merge != column merge")
+        check(torch.equal(cs_p, cs_kernel) and torch.equal(n_p, n_kernel), f"packed {label} != the default merge")
+        packed_cs[label] = ran
+    codes, counts = fugue_batch.chain_merge_docs_packed(packed, pad_c, pad_n, device=dev)
+    codes_h, counts_h = codes.cpu().numpy(), counts.cpu().numpy()
+    for j, i in enumerate(idxs):
+        check("".join(map(chr, codes_h[j][: int(counts_h[j])].tolist())) == texts[i], f"packed doc {j} != oracle")
+    print(f"ingest (b): packed [{CHUNK}, {row_w}] merge == column merge for " + ", ".join(
+        f"{label} {ran}" for label, ran in packed_cs.items()) + f"; texts == host oracle; coalesced budget {budget} "
+        f"(n_runs {[st['n_runs'] for st in stats]}, mean run {[round(st['mean_run'], 3) for st in stats]})",
+        flush=True)
+
+    # (c) one packed upload against the eight column uploads
+    pinned = [torch.empty((CHUNK, row_w), dtype=torch.uint8, pin_memory=True) for _ in range(2)]
+    pinned[0].numpy()[:] = packed_np
+    dev_bufs = [torch.empty((CHUNK, row_w), dtype=torch.uint8, device=dev) for _ in range(2)]
+
+    def host_ms_of(fn, reps: int = 20) -> float:
+        fn()
+        torch.cuda.synchronize()
+        samples = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            samples.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(samples)
+
+    col_bytes = sum(getattr(np_batch, f).nbytes for f in fugue_batch.ChainColumns._fields)
+    upload = {
+        "packed_bytes": packed_np.nbytes, "columns_bytes": col_bytes,
+        "packed_pinned_ms": host_ms_of(lambda: dev_bufs[0].copy_(pinned[0], non_blocking=True)),
+        "packed_pageable_ms": host_ms_of(lambda: torch.from_numpy(packed_np).to(dev)),
+        "columns_ms": host_ms_of(lambda: fugue_batch.chain_columns_to_torch(np_batch, device=dev)),
+    }
+    print(f"ingest (c) on {kind} ({card}): one packed upload {upload['packed_bytes']} B: pinned "
+          f"{upload['packed_pinned_ms']:.3f} ms, pageable {upload['packed_pageable_ms']:.3f} ms; eight column uploads "
+          f"(chain_columns_to_torch) {upload['columns_bytes']} B: {upload['columns_ms']:.3f} ms (host clock to "
+          "synchronize, median of 20)", flush=True)
+    check(upload["packed_bytes"] == CHUNK * row_w, "packed bytes")
+
+    # (d) the pipelined loop: decode threads feed pack, one upload a chunk
+    # through two pinned staging buffers, and the packed merge
+    from concurrent.futures import ThreadPoolExecutor
+
+    n_workers = min(8, os.cpu_count() or 1)
+    doc_cs = {i: int(cs_kernel[j]) for j, i in enumerate(idxs)}
+
+    def decode_one(i: int):
+        ex = columnar.extract_seq_from_payload(payloads[i % len(docs)], tracegen.TEXT_CID)
+        row = np.empty(row_w, np.uint8)
+        fugue_batch.pack_chain_doc_into(columnar.chain_columns(ex, pad_n=pad_n, pad_c=pad_c), row)
+        return row, docs[i % len(docs)].n_ops
+
+    def ingest_loop(n_chunks: int, merge: bool = True):
+        """(chunks, ops, seconds): decode, pack, upload and (with
+        `merge`) merge n_chunks chunks, or as many as INGEST_S allows;
+        every merged chunk's checksums are checked at the end."""
+        events = [None, None]
+        outs, ops, done = [], 0, 0
+        pool = ThreadPoolExecutor(max_workers=n_workers)
+        try:
+            t0 = time.perf_counter()
+            futs = [pool.submit(decode_one, i) for i in range(min(3 * CHUNK, n_chunks * CHUNK))]
+            while done < n_chunks and time.perf_counter() - t0 < INGEST_S:
+                b = done % 2
+                if events[b] is not None:
+                    events[b].synchronize()  # the buffer's last upload has finished
+                stage = pinned[b].numpy()
+                for j in range(CHUNK):
+                    row, n_ops = futs[done * CHUNK + j].result()
+                    futs[done * CHUNK + j] = None
+                    stage[j] = row
+                    ops += n_ops
+                nxt = len(futs)
+                futs += [pool.submit(decode_one, i) for i in range(nxt, min((done + 4) * CHUNK, n_chunks * CHUNK))]
+                dev_bufs[b].copy_(pinned[b], non_blocking=True)
+                events[b] = torch.cuda.Event()
+                events[b].record()
+                if merge:
+                    outs.append((done, fugue_batch.chain_merge_docs_packed_checksum(dev_bufs[b], pad_c, pad_n,
+                                                                                    device=dev)))
+                done += 1
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        finally:
+            pool.shutdown(wait=True, cancel_futures=True)
+        for c, (cs, n) in outs:
+            want = [doc_cs[(c * CHUNK + j) % len(docs)] for j in range(CHUNK)]
+            check(cs.tolist() == want, f"pipelined chunk {c}: checksums {cs.tolist()} != {want}")
+        return done, ops, seconds
+
+    ingest_loop(2)  # warm-up: threads, allocator
+    list_rank.reset_launches()
+    chunks, ops, secs = ingest_loop(INGEST_CHUNKS)
+    ingest_launches = dict(list_rank.LAUNCHES)
+    check(ingest_launches[route_key(flag_succ)] == chunks and sum(ingest_launches.values()) == chunks,
+          f"the ingest loop launched {ingest_launches} for {chunks} chunks")
+    chunks_nm, ops_nm, secs_nm = ingest_loop(INGEST_CHUNKS, merge=False)
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        chunks_pr, _, secs_pr = ingest_loop(16)
+    busy_ms = sum(
+        getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+        for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+    ) / 1e3
+    ingest = {
+        "threads": n_workers, "chunks": chunks, "docs": chunks * CHUNK, "ops": ops, "seconds": secs,
+        "ops_per_s": ops / secs, "chunk_ms": secs * 1e3 / chunks,
+        "no_merge_chunks": chunks_nm, "no_merge_chunk_ms": secs_nm * 1e3 / chunks_nm,
+        "no_merge_ops_per_s": ops_nm / secs_nm,
+        "profiled_chunks": chunks_pr, "profiled_chunk_ms": secs_pr * 1e3 / chunks_pr,
+        "device_busy_ms_per_chunk": busy_ms / chunks_pr, "device_busy_share": busy_ms / (secs_pr * 1e3),
+        "payload_bytes": [len(p) for p in payloads], "payload_s": payload_s, "host_ms_per_doc": host_ms,
+        "upload": upload, "coalesce_budget": budget, "n_runs": [st["n_runs"] for st in stats],
+        "mean_run": [st["mean_run"] for st in stats],
+    }
+    print(f"ingest (d) on {kind} ({card}): payload -> merge {ingest['ops_per_s'] / 1e6:.2f}M ops/s, {chunks} chunks "
+          f"({chunks * CHUNK} docs) in {secs:.3f} s = {ingest['chunk_ms']:.3f} ms a chunk, {n_workers} decode threads "
+          f"on {os.cpu_count()} cores; without the merge {ingest['no_merge_chunk_ms']:.3f} ms a chunk "
+          f"({ingest['no_merge_ops_per_s'] / 1e6:.2f}M ops/s); profiled {chunks_pr} chunks: device busy "
+          f"{ingest['device_busy_ms_per_chunk']:.3f} ms a chunk = {100 * ingest['device_busy_share']:.1f} % of "
+          f"{ingest['profiled_chunk_ms']:.3f} ms; launches {ingest_launches}", flush=True)
+    launches["ruling"] = ingest_launches[route_key(flag_succ)]
+
+    # (e) the coalesced rank at the budget, beside the default
+    p_co = list_rank.plan_rank(budget + 1, weighted=True, dist_bound=ring_m)
+    ingest["merge_coalesced_ms"] = time_ms(
+        torch, lambda: fugue_batch.chain_merge_docs_checksum_v(cols, "cuda:coalesced", budget, device=dev))
+    ingest["rank_coalesced_ms"] = time_ms(
+        torch, lambda: fugue_batch.chain_rank_checksum_v(cols, "cuda:coalesced", budget, device=dev))
+    ingest["merge_default_ms"] = time_ms(torch, lambda: fugue_batch.chain_merge_docs_checksum_v(cols, device=dev))
+    ingest["rank_default_ms"] = time_ms(torch, lambda: fugue_batch.chain_rank_checksum_v(cols, device=dev))
+    ingest["coalesced_ring_tokens"] = budget + 1
+    ingest["coalesced_mp"] = p_co.mp
+    ingest["merge_coalesced_device_busy_ms"], _, top = device_breakdown(
+        torch, lambda: fugue_batch.chain_merge_docs_checksum_v(cols, "cuda:coalesced", budget, device=dev))
+    print("profile merge cuda:coalesced: device busy {:.3f} ms per call; top: {}".format(
+        ingest["merge_coalesced_device_busy_ms"], "; ".join(f"{n[:60]} x{c} {ms:.4f} ms" for ms, n, c in top)))
+    print(f"ingest (e) on {kind} ({card}): cuda:coalesced at ring_budget {budget} (contracted ring {budget + 1} "
+          f"tokens, mp {p_co.mp}, {list_rank.launch_key(p_co)}; ring {ring_m} tokens, mean run "
+          f"{statistics.mean(ingest['mean_run']):.3f}): merge {ingest['merge_coalesced_ms']:.3f} ms, rank "
+          f"{ingest['rank_coalesced_ms']:.3f} ms; default merge {ingest['merge_default_ms']:.3f} ms, rank "
+          f"{ingest['rank_default_ms']:.3f} ms", flush=True)
+
     # ---- 5. timings -------------------------------------------------------
     # each kernel at its main-path shape: the flagship chain rings for the
     # packed kernels, the element rings for the wide kernel
@@ -575,8 +811,8 @@ def main() -> int:
     )
     for name, (p, _, _) in plans.items():
         print(
-            f"kernel {name} [{CHUNK}, {p.mp}] ({list_rank.launch_key(p)}, C={p.cluster}): {res[name + '_ms']:.4f} ms "
-            f"(graph {res[name + '_graph_ms']:.4f} ms), bound {bounds[name]:.5f} ms (bytes), "
+            f"kernel {name} [{CHUNK}, {p.mp}] ({list_rank.launch_key(p)}, C={p.cluster}): graph "
+            f"{res[name + '_graph_ms']:.4f} ms (eager {res[name + '_ms']:.4f} ms), bound {bounds[name]:.5f} ms (bytes), "
             f"plain {res[name + '_plain_ms']:.3f} ms",
             flush=True,
         )
@@ -699,7 +935,7 @@ def main() -> int:
         "mp": {name: p.mp for name, (p, _, _) in plans.items()}, "chunk_ops": chunk_ops,
         "element_chunk_ops": echunk_ops, "build_s": build_s, "gen_s": gen_s, "element_gen_s": egen_s, **res,
         "bound_ms": bounds, "phases": phases, "full_card": full_card, "wyllie_over_budget": over_budget,
-        "sweep": sweep, "sweep_graph": sweep_graph,
+        "sweep": sweep, "sweep_graph": sweep_graph, "ingest": ingest,
         "total_s": time.perf_counter() - t_start,
     }))
     kernels = [
@@ -710,8 +946,8 @@ def main() -> int:
             "replaces": f"loro_tpu/ops/pallas_rank.py:{REPLACES[name]}",
             "launches": launches[name],
             "max_abs_err": max_err[name],
-            "ms": res[f"{name}_ms"],
-            "graph_ms": res[f"{name}_graph_ms"],
+            "ms": res[f"{name}_graph_ms"],
+            "eager_ms": res[f"{name}_ms"],
             "plain_ms": res[f"{name}_plain_ms"],
             "bound_ms": bounds[name],
             "bound_by": "bytes",

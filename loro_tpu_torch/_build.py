@@ -1,12 +1,14 @@
-"""Builds the port's CUDA sources with nvcc into shared libraries with a
-plain C interface, loaded with ctypes.
+"""Builds the port's native sources into shared libraries with a plain C
+interface, loaded with ctypes: the CUDA kernels (``.cu``) with nvcc, the
+host payload codec (``.cpp``) with g++.
 
-Each source compiles on its own (one nvcc process per source, all
+Each source compiles on its own (one compiler process per source, all
 started together) into ``build/torch_kernels/`` at the repository root,
 named by a hash of the source, every local header it includes
 (``#include "..."``, followed recursively) and the flags, so an
 unchanged source is not rebuilt and ``python3 chip_smoke.py`` alone
-builds everything it runs.  Nothing here runs at import time.
+builds everything it runs.  A library is built at its first use
+(``library``) or by ``build_all``; nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -16,19 +18,25 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, Iterable, List, Optional
 
 PKG_DIR = Path(__file__).resolve().parent
 BUILD_DIR = PKG_DIR.parent / "build" / "torch_kernels"
-SOURCES: Dict[str, Path] = {"list_rank": PKG_DIR / "csrc" / "list_rank.cu"}
+SOURCES: Dict[str, Path] = {
+    "list_rank": PKG_DIR / "csrc" / "list_rank.cu",
+    "seq_codec": PKG_DIR / "native" / "seq_codec.cpp",
+}
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+GXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_load_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -39,6 +47,18 @@ def _nvcc() -> str:
     if os.path.exists(fallback):
         return fallback
     raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin): cannot build the CUDA kernels")
+
+
+def _gxx() -> str:
+    found = shutil.which("g++")
+    if found:
+        return found
+    raise RuntimeError("g++ not found on PATH: cannot build the host codec")
+
+
+def _flags(name: str) -> List[str]:
+    """Compiler flags of one source, by its suffix (.cu: nvcc, else g++)."""
+    return NVCC_FLAGS if SOURCES[name].suffix == ".cu" else GXX_FLAGS
 
 
 _LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
@@ -65,23 +85,25 @@ def _target(name: str) -> Path:
     h = hashlib.sha256()
     for f in _inputs(SOURCES[name]):
         h.update(f.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(_flags(name)).encode())
     return BUILD_DIR / f"lib{name}.{h.hexdigest()[:16]}.so"
 
 
-def build_all() -> Dict[str, Dict[str, object]]:
-    """Compile every source whose library is missing, in parallel.
-    Returns {name: {"path", "seconds", "log"}}; raises RuntimeError with
-    the compiler's output when a build fails."""
+def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, Dict[str, object]]:
+    """Compile every source (or those of `names`) whose library is
+    missing, in parallel.  Returns {name: {"path", "seconds", "log"}};
+    raises RuntimeError with the compiler's output when a build fails."""
+    names = list(SOURCES) if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     t0 = time.perf_counter()
-    for name, src in SOURCES.items():
+    for name in names:
         out = _target(name)
         if out.exists():
             continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+        compiler = _nvcc() if SOURCES[name].suffix == ".cu" else _gxx()
+        cmd = [compiler, *_flags(name), "-o", str(tmp), str(SOURCES[name])]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp, out)
     report: Dict[str, Dict[str, object]] = {}
     failed = []
@@ -90,13 +112,13 @@ def build_all() -> Dict[str, Dict[str, object]]:
         seconds = time.perf_counter() - t0
         (BUILD_DIR / f"{name}.log").write_text(log)
         if proc.returncode != 0:
-            failed.append(f"{name} (nvcc rc={proc.returncode}):\n{log}")
+            failed.append(f"{name} ({Path(proc.args[0]).name} rc={proc.returncode}):\n{log}")
             continue
         os.replace(tmp, out)
         report[name] = {"path": str(out), "seconds": seconds, "log": log}
     if failed:
-        raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
-    for name in SOURCES:
+        raise RuntimeError("native build failed: " + "\n".join(failed))
+    for name in names:
         report.setdefault(name, {"path": str(_target(name)), "seconds": 0.0, "log": _cached_log(name)})
     return report
 
@@ -107,11 +129,13 @@ def _cached_log(name: str) -> Optional[str]:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded shared library for one source, built at first use."""
-    lib = _loaded.get(name)
-    if lib is None:
-        if not _target(name).exists():
-            build_all()
-        lib = ctypes.CDLL(str(_target(name)))
-        _loaded[name] = lib
+    """The loaded shared library for one source, built at first use
+    (thread-safe: decode threads may ask for it at once)."""
+    with _load_lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            if not _target(name).exists():
+                build_all([name])
+            lib = ctypes.CDLL(str(_target(name)))
+            _loaded[name] = lib
     return lib

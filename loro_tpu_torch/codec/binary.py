@@ -1,0 +1,278 @@
+"""The binary updates payload: the subset of loro_tpu/codec/binary.py
+that text ingest needs.
+
+Layout (after the doc-level envelope, which is not handled here):
+  [peer table]   varint n, then n u64 LE peer ids (ops name peers by
+                 their index in this table)
+  [key table]    varint n, n length-prefixed utf8 strings
+  [cid table]    varint n, n encoded ContainerIDs
+  [change meta]  varint n_changes, then per change: peer index (varint),
+                 counter (zigzag), lamport (zigzag), timestamp delta
+                 (zigzag), n_deps + deps (peer index, zigzag counter),
+                 message (tag + utf8), n_ops
+  [ops]          per change, per op: container index varint, kind byte,
+                 kind-specific payload
+
+read_tables parses the prelude dictionaries (the native explode parses
+the rest).  encode_text_changes writes a payload of text inserts and
+deletes, byte for byte what the JAX package's encode_changes writes for
+the same changes.
+"""
+from __future__ import annotations
+
+import struct
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
+
+from ..core.ids import ContainerID, ContainerType
+from ..errors import CodecDecodeError
+
+# op kind tags
+K_MAP_SET = 0
+K_MAP_DEL = 1
+K_INSERT_TEXT = 2
+K_INSERT_VALUES = 3
+K_INSERT_ANCHOR = 4
+K_DELETE = 5
+K_TREE = 6
+K_COUNTER = 7
+K_MSET = 8
+K_MMOVE = 9
+K_UNKNOWN = 10
+
+# value tags
+VNULL, VTRUE, VFALSE, VINT, VF64, VSTR, VBYTES, VLIST, VMAP, VCID = range(10)
+
+# parent encoding of a sequence insert: none (the root), an id, or the
+# previous counter of the op's own peer
+PT_NONE, PT_ID, RUN_CONT_TAG = 0, 1, 2
+
+
+class Writer:
+    __slots__ = ("buf",)
+
+    def __init__(self) -> None:
+        self.buf = bytearray()
+
+    def u8(self, v: int) -> None:
+        self.buf.append(v & 0xFF)
+
+    def varint(self, v: int) -> None:
+        """LEB128 unsigned."""
+        if v < 0:
+            raise ValueError(f"varint of a negative value {v}")
+        while True:
+            b = v & 0x7F
+            v >>= 7
+            if v:
+                self.buf.append(b | 0x80)
+            else:
+                self.buf.append(b)
+                return
+
+    def zigzag(self, v: int) -> None:
+        self.varint((v << 1) ^ (v >> 63) if v >= 0 else ((-v) << 1) - 1)
+
+    def u64le(self, v: int) -> None:
+        self.buf += struct.pack("<Q", v)
+
+    def bytes_(self, b: bytes) -> None:
+        self.varint(len(b))
+        self.buf += b
+
+    def str_(self, s: str) -> None:
+        self.bytes_(s.encode())
+
+
+class Reader:
+    __slots__ = ("buf", "i")
+
+    def __init__(self, buf: bytes):
+        self.buf = buf
+        self.i = 0
+
+    def u8(self) -> int:
+        v = self.buf[self.i]
+        self.i += 1
+        return v
+
+    def varint(self) -> int:
+        v = 0
+        shift = 0
+        while True:
+            b = self.buf[self.i]
+            self.i += 1
+            v |= (b & 0x7F) << shift
+            if not (b & 0x80):
+                return v
+            shift += 7
+            if shift > 70:
+                raise ValueError("varint overflow")
+
+    def zigzag(self) -> int:
+        v = self.varint()
+        return (v >> 1) if not (v & 1) else -((v + 1) >> 1)
+
+    def u64le(self) -> int:
+        v = struct.unpack_from("<Q", self.buf, self.i)[0]
+        self.i += 8
+        return v
+
+    def bytes_(self) -> bytes:
+        n = self.varint()
+        if self.i + n > len(self.buf):
+            raise ValueError("truncated bytes")
+        b = self.buf[self.i : self.i + n]
+        self.i += n
+        return bytes(b)
+
+    def str_(self) -> str:
+        return self.bytes_().decode()
+
+
+def _write_cid(w: Writer, peer_index, c: ContainerID) -> None:
+    if c.is_root:
+        w.u8(int(c.ctype) | 0x80)
+        w.str_(c.name)
+    else:
+        w.u8(int(c.ctype))
+        w.varint(peer_index(c.peer))
+        w.zigzag(c.counter)
+
+
+def _read_cid(r: Reader, peers: List[int]) -> ContainerID:
+    b = r.u8()
+    ctype = ContainerType(b & 0x7F)
+    if b & 0x80:
+        return ContainerID.root(r.str_(), ctype)
+    pi = r.varint()
+    if pi >= len(peers):
+        raise ValueError(f"cid peer index {pi} out of table ({len(peers)} peers)")
+    return ContainerID.normal(peers[pi], r.zigzag(), ctype)
+
+
+def read_tables(buf: bytes):
+    """Parse the payload prelude dictionaries: (peers, keys, cids,
+    reader positioned after the tables).  Truncated or corrupt preludes
+    raise CodecDecodeError."""
+    r = Reader(buf)
+    try:
+        peers = [r.u64le() for _ in range(r.varint())]
+        keys = [r.str_() for _ in range(r.varint())]
+        cids = [_read_cid(r, peers) for _ in range(r.varint())]
+    except (IndexError, struct.error, UnicodeDecodeError, ValueError, OverflowError) as e:
+        raise CodecDecodeError(f"malformed payload tables ({type(e).__name__}: {e})") from e
+    return peers, keys, cids, r
+
+
+# ---- text trace encoder -------------------------------------------------------
+
+Id = Tuple[int, int]  # (peer id, counter)
+
+
+class TextInsert(NamedTuple):
+    """Insert `text`, one element per codepoint, as a right spine: the
+    first element's Fugue parent is `parent` (None = the root) on `side`
+    (0 left, 1 right), each later one the element before it, on the
+    right.  The op consumes len(text) counters."""
+
+    parent: Optional[Id]
+    side: int
+    text: str
+
+
+class TextDelete(NamedTuple):
+    """Tombstone the elements of `spans`, (peer id, start, end) counter
+    ranges.  The op consumes one counter."""
+
+    spans: Tuple[Tuple[int, int, int], ...]
+
+
+class TextChange(NamedTuple):
+    """One change: ops of one peer at consecutive counters from
+    `ctr_start`; `deps` are the ids it depends on, in the order they are
+    written (the JAX package's Frontiers sorts them by (peer, counter))."""
+
+    peer: int
+    ctr_start: int
+    lamport: int
+    timestamp: int
+    deps: Tuple[Id, ...]
+    ops: Tuple[Union[TextInsert, TextDelete], ...]
+
+
+def encode_text_changes(changes: Sequence[TextChange], cid: ContainerID) -> bytes:
+    """Payload of text changes whose every op targets `cid`: the bytes
+    the JAX package's encode_changes writes for the same changes
+    (dictionaries in first-use order: each change's peer, its deps'
+    peers, then per op the container and the peers it names)."""
+    peers: List[int] = []
+    peer_idx: Dict[int, int] = {}
+
+    def peer(p: int) -> int:
+        i = peer_idx.get(p)
+        if i is None:
+            i = peer_idx[p] = len(peers)
+            peers.append(p)
+        return i
+
+    for ch in changes:
+        peer(ch.peer)
+        for p, _ in ch.deps:
+            peer(p)
+        for op in ch.ops:
+            if isinstance(op, TextInsert):
+                if op.parent is not None:
+                    peer(op.parent[0])
+            else:
+                for p, _, _ in op.spans:
+                    peer(p)
+    used = any(ch.ops for ch in changes)  # the cid table lists used containers only
+    if used and not cid.is_root:
+        peer(cid.peer)
+
+    ops_w = Writer()
+    for ch in changes:
+        for op in ch.ops:
+            ops_w.varint(0)  # the container's index: the only cid
+            if isinstance(op, TextInsert):
+                ops_w.u8(K_INSERT_TEXT)
+                if op.parent is None:
+                    ops_w.u8(PT_NONE)
+                else:
+                    ops_w.u8(PT_ID)
+                    ops_w.varint(peer(op.parent[0]))
+                    ops_w.zigzag(op.parent[1])
+                ops_w.u8(op.side)
+                ops_w.str_(op.text)
+            else:
+                ops_w.u8(K_DELETE)
+                ops_w.varint(len(op.spans))
+                for p, start, end in op.spans:
+                    ops_w.varint(peer(p))
+                    ops_w.zigzag(start)
+                    ops_w.varint(end - start)
+
+    w = Writer()
+    w.varint(len(peers))
+    for p in peers:
+        w.u64le(p)
+    w.varint(0)  # no keys
+    w.varint(int(used))
+    if used:
+        _write_cid(w, peer, cid)
+    w.varint(len(changes))
+    prev_ts = 0
+    for ch in changes:
+        w.varint(peer(ch.peer))
+        w.zigzag(ch.ctr_start)
+        w.zigzag(ch.lamport)
+        w.zigzag(ch.timestamp - prev_ts)
+        prev_ts = ch.timestamp
+        w.varint(len(ch.deps))
+        for p, c in ch.deps:
+            w.varint(peer(p))
+            w.zigzag(c)
+        w.u8(0)  # no message
+        w.varint(len(ch.ops))
+    w.buf += ops_w.buf
+    return bytes(w.buf)

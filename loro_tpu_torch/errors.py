@@ -6,6 +6,18 @@ class LoroError(Exception):
     pass
 
 
+class DecodeError(LoroError):
+    pass
+
+
+class CodecDecodeError(DecodeError, ValueError):
+    """Truncated, bit-flipped or otherwise malformed wire bytes.
+
+    Subclasses ValueError so ``except ValueError`` guards keep working;
+    callers that want the typed contract catch CodecDecodeError (or
+    DecodeError)."""
+
+
 class ConfigError(LoroError, ValueError):
     """Invalid tuning value (rank spec, ruler spacing k, placement,
     device name, ...), raised at first use with the accepted values

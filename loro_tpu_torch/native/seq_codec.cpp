@@ -1,0 +1,505 @@
+// Native payload -> element-table explode for the port's text ingest:
+// parses a binary updates payload (loro_tpu_torch/codec/binary.py has
+// the layout: LEB128/zigzag varints, peer/key/container dictionaries,
+// change meta, per-op payloads) and writes the element columns of one
+// sequence container (parent row, side, peer index, counter, deleted,
+// codepoint) straight into caller-owned arrays.
+//
+// The sequence part of the JAX package's native decoder, copied: Reader,
+// skip_value, the (peer, counter) -> row maps (RowTable, and IdMap when
+// RowTable's budget is exceeded), strict UTF-8, the prelude and op
+// skipping, and the two-pass explode.  Map, tree, movable-list, order
+// and id-map code stay behind.
+//
+// C ABI only (ctypes binding in loro_tpu_torch/native/__init__.py);
+// built with g++ -O3 -shared -fPIC -std=c++17.
+
+#include <cstdint>
+#include <cstring>
+#include <unordered_map>
+#include <vector>
+
+namespace {
+
+struct Reader {
+  const uint8_t* p;
+  const uint8_t* end;
+  bool ok = true;
+
+  uint8_t u8() {
+    if (p >= end) { ok = false; return 0; }
+    return *p++;
+  }
+  uint64_t varint() {
+    uint64_t v = 0; int shift = 0;
+    while (true) {
+      if (p >= end || shift > 63) { ok = false; return 0; }
+      uint8_t b = *p++;
+      v |= (uint64_t)(b & 0x7f) << shift;
+      if (!(b & 0x80)) return v;
+      shift += 7;
+    }
+  }
+  int64_t zigzag() {
+    uint64_t v = varint();
+    return (v & 1) ? -(int64_t)((v + 1) >> 1) : (int64_t)(v >> 1);
+  }
+  uint64_t u64le() {
+    if (end - p < 8) { ok = false; return 0; }
+    uint64_t v; std::memcpy(&v, p, 8); p += 8; return v;
+  }
+  double f64() {
+    if (end - p < 8) { ok = false; return 0; }
+    double v; std::memcpy(&v, p, 8); p += 8; return v;
+  }
+  bool skip_bytes() {
+    uint64_t n = varint();
+    // compare against remaining length, never `p + n` (pointer overflow
+    // on crafted huge lengths would wrap past `end`)
+    if (!ok || n > (uint64_t)(end - p)) { ok = false; return false; }
+    p += n; return true;
+  }
+  const uint8_t* bytes(uint64_t* n_out) {
+    uint64_t n = varint();
+    if (!ok || n > (uint64_t)(end - p)) { ok = false; return nullptr; }
+    const uint8_t* q = p; p += n; *n_out = n; return q;
+  }
+};
+
+// op kind tags (binary.py)
+enum { K_MAP_SET = 0, K_MAP_DEL, K_INSERT_TEXT, K_INSERT_VALUES,
+       K_INSERT_ANCHOR, K_DELETE, K_TREE, K_COUNTER, K_MSET, K_MMOVE,
+       K_UNKNOWN };
+// value tags
+enum { VNULL = 0, VTRUE, VFALSE, VINT, VF64, VSTR, VBYTES, VLIST, VMAP, VCID };
+enum { PT_NONE = 0, PT_ID = 1, PT_RUNCONT = 2 };
+
+bool skip_value(Reader& r) {
+  switch (r.u8()) {
+    case VNULL: case VTRUE: case VFALSE: return r.ok;
+    case VINT: r.zigzag(); return r.ok;
+    case VF64: r.f64(); return r.ok;
+    case VSTR: case VBYTES: return r.skip_bytes();
+    case VLIST: {
+      uint64_t n = r.varint();
+      for (uint64_t i = 0; i < n && r.ok; i++) skip_value(r);
+      return r.ok;
+    }
+    case VMAP: {
+      uint64_t n = r.varint();
+      for (uint64_t i = 0; i < n && r.ok; i++) { r.skip_bytes(); skip_value(r); }
+      return r.ok;
+    }
+    case VCID: r.varint(); return r.ok;
+    default: r.ok = false; return false;
+  }
+}
+
+struct ChangeMeta;
+
+// open-addressing hash map: (peer_idx, counter) -> element row
+struct IdMap {
+  std::vector<uint64_t> keys;
+  std::vector<int32_t> vals;
+  uint64_t mask;
+  explicit IdMap(size_t n) {
+    size_t cap = 16;
+    while (cap < n * 2) cap <<= 1;
+    keys.assign(cap, ~0ull);
+    vals.assign(cap, -1);
+    mask = cap - 1;
+  }
+  IdMap(uint64_t, const std::vector<ChangeMeta>&, size_t n)
+      : IdMap(n > 16 ? n : 16) {}
+  static uint64_t mix(uint64_t k) {
+    k ^= k >> 33; k *= 0xff51afd7ed558ccdULL; k ^= k >> 33;
+    k *= 0xc4ceb9fe1a85ec53ULL; k ^= k >> 33; return k;
+  }
+  void put(uint64_t k, int32_t v) {
+    uint64_t i = mix(k) & mask;
+    while (keys[i] != ~0ull && keys[i] != k) i = (i + 1) & mask;
+    keys[i] = k; vals[i] = v;
+  }
+  int32_t get(uint64_t k) const {
+    uint64_t i = mix(k) & mask;
+    while (keys[i] != ~0ull) {
+      if (keys[i] == k) return vals[i];
+      i = (i + 1) & mask;
+    }
+    return -1;
+  }
+  bool overflow() const { return false; }
+};
+
+inline uint64_t idkey(uint32_t peer_idx, int64_t counter) {
+  return ((uint64_t)peer_idx << 40) | (uint64_t)(counter & 0xffffffffffLL);
+}
+
+struct ChangeMeta {
+  uint32_t peer_idx;
+  int64_t ctr;
+  int64_t lamport;
+  uint64_t n_ops;
+};
+
+// Direct-address (peer, counter) -> row table: causal payloads have
+// near-dense insert counters per peer, so idkey lookups become plain
+// array loads (~2x on the 182k-row trace vs the open-addressing map,
+// whose random probes miss cache).  Per-peer vectors grow on demand;
+// a global entry budget guards against adversarial sparse counters
+// (huge delete spans between inserts) — on overflow the caller falls
+// back to the IdMap path, so behavior is identical on any input.
+struct RowTable {
+  std::vector<std::vector<int32_t>> t;
+  std::vector<uint64_t> base;  // 40-bit masked, matching idkey()
+  size_t total = 0, budget;
+  bool over = false;
+  RowTable(uint64_t n_peers, const std::vector<ChangeMeta>& metas,
+           size_t n_elems);
+  // index math in uint64: crafted payloads can carry counters anywhere
+  // in the zigzag range, and signed subtraction would be UB; a wrapped
+  // huge index simply trips the budget -> IdMap fallback
+  void put(uint64_t key, int32_t row) {
+    uint32_t p = (uint32_t)(key >> 40);
+    uint64_t i = (key & 0xffffffffffULL) - base[p];
+    auto& v = t[p];
+    if (i >= v.size()) {
+      if (i >= budget) { over = true; return; }
+      size_t ns = (size_t)i + 1 + ((size_t)i >> 1) + 64;
+      if (total + (ns - v.size()) > budget) { over = true; return; }
+      total += ns - v.size();
+      v.resize(ns, -1);
+    }
+    v[(size_t)i] = row;
+  }
+  int32_t get(uint64_t key) const {
+    uint32_t p = (uint32_t)(key >> 40);
+    if (p >= t.size()) return -1;
+    uint64_t i = (key & 0xffffffffffULL) - base[p];
+    if (i >= t[p].size()) return -1;
+    return t[p][(size_t)i];
+  }
+  bool overflow() const { return over; }
+};
+
+// test hook: force a tiny budget so the IdMap fallback path is
+// exercisable from the differential suite (0 = no override)
+long long g_rowtable_budget_override = 0;
+
+inline RowTable::RowTable(uint64_t n_peers,
+                          const std::vector<ChangeMeta>& metas,
+                          size_t n_elems)
+    : budget(g_rowtable_budget_override > 0
+                 ? (size_t)g_rowtable_budget_override
+                 : n_elems * 8 + (1u << 20)) {
+  t.resize(n_peers);
+  base.assign(n_peers, ~0ull);
+  for (auto& m : metas) {
+    uint64_t c = (uint64_t)m.ctr & 0xffffffffffULL;
+    if (c < base[m.peer_idx]) base[m.peer_idx] = c;
+  }
+}
+
+// Strict UTF-8: validates continuation prefixes, rejects overlong
+// encodings, surrogates, and > U+10FFFF (a corrupted-but-CRC-valid
+// payload must fail decode, not produce wrong codepoints).  Returns
+// bytes consumed, or -1 on malformed input.
+inline int decode_utf8_cp(const uint8_t* s, uint64_t nb, uint64_t i, uint32_t* out) {
+  uint8_t b0 = s[i];
+  uint32_t cp; int extra;
+  if (b0 < 0x80) { cp = b0; extra = 0; }
+  else if ((b0 & 0xe0) == 0xc0) { cp = b0 & 0x1f; extra = 1; }
+  else if ((b0 & 0xf0) == 0xe0) { cp = b0 & 0x0f; extra = 2; }
+  else if ((b0 & 0xf8) == 0xf0) { cp = b0 & 0x07; extra = 3; }
+  else return -1;
+  if (i + (uint64_t)extra >= nb && extra > 0) return -1;
+  for (int e = 1; e <= extra; e++) {
+    if ((s[i + e] & 0xc0) != 0x80) return -1;
+    cp = (cp << 6) | (s[i + e] & 0x3f);
+  }
+  static const uint32_t min_cp[4] = {0, 0x80, 0x800, 0x10000};
+  if (extra > 0 && cp < min_cp[extra]) return -1;          // overlong
+  if (cp >= 0xd800 && cp <= 0xdfff) return -1;             // surrogate
+  if (cp > 0x10ffff) return -1;
+  *out = cp;
+  return extra + 1;
+}
+
+// Parse header tables + change meta.  Returns false on malformed input.
+bool parse_prelude(Reader& r, uint64_t* n_peers, std::vector<int32_t>& cid_types,
+                   std::vector<ChangeMeta>& metas, uint64_t* n_keys_out = nullptr) {
+  *n_peers = r.varint();
+  if (!r.ok || *n_peers > 1u << 24) return false;
+  for (uint64_t i = 0; i < *n_peers; i++) r.u64le();
+  uint64_t n_keys = r.varint();
+  if (!r.ok || n_keys > 1u << 26) return false;
+  if (n_keys_out) *n_keys_out = n_keys;
+  for (uint64_t i = 0; i < n_keys; i++)
+    if (!r.skip_bytes()) return false;
+  uint64_t n_cids = r.varint();
+  if (!r.ok || n_cids > 1u << 26) return false;
+  cid_types.resize(n_cids);
+  for (uint64_t i = 0; i < n_cids; i++) {
+    uint8_t b = r.u8();
+    cid_types[i] = b & 0x7f;
+    if (b & 0x80) {
+      if (!r.skip_bytes()) return false;  // root name
+    } else {
+      r.varint(); r.zigzag();  // peer idx + counter
+    }
+  }
+  uint64_t n_changes = r.varint();
+  if (!r.ok || n_changes > 1u << 28) return false;
+  metas.resize(n_changes);
+  for (uint64_t i = 0; i < n_changes; i++) {
+    uint64_t pidx = r.varint();
+    if (!r.ok || pidx >= *n_peers) return false;  // wire index must hit the peer table
+    metas[i].peer_idx = (uint32_t)pidx;
+    metas[i].ctr = r.zigzag();
+    metas[i].lamport = r.zigzag();
+    r.zigzag();  // timestamp delta
+    uint64_t nd = r.varint();
+    if (!r.ok || nd > 1u << 20) return false;
+    for (uint64_t j = 0; j < nd; j++) { r.varint(); r.zigzag(); }
+    if (r.u8()) { if (!r.skip_bytes()) return false; }  // message
+    metas[i].n_ops = r.varint();
+    if (!r.ok) return false;
+  }
+  return r.ok;
+}
+
+// Skip one op payload (after container idx + kind already consumed),
+// for ops not on the target container.  `atoms` receives the counter
+// span the op consumes.
+bool skip_op(Reader& r, uint8_t kind, int64_t* atoms) {
+  *atoms = 1;
+  switch (kind) {
+    case K_MAP_SET: r.varint(); return skip_value(r);
+    case K_MAP_DEL: r.varint(); return r.ok;
+    case K_INSERT_TEXT: {
+      uint8_t tag = r.u8();
+      if (tag == PT_ID) { r.varint(); r.zigzag(); }
+      r.u8();  // side
+      uint64_t n; const uint8_t* s = r.bytes(&n);
+      if (!r.ok) return false;
+      // count codepoints for atom length
+      int64_t cp = 0;
+      for (uint64_t i = 0; i < n; i++) if ((s[i] & 0xc0) != 0x80) cp++;
+      *atoms = cp;
+      return true;
+    }
+    case K_INSERT_VALUES: {
+      uint8_t tag = r.u8();
+      if (tag == PT_ID) { r.varint(); r.zigzag(); }
+      r.u8();
+      uint64_t n = r.varint();
+      for (uint64_t i = 0; i < n && r.ok; i++) skip_value(r);
+      *atoms = (int64_t)n;
+      return r.ok;
+    }
+    case K_INSERT_ANCHOR: {
+      uint8_t tag = r.u8();
+      if (tag == PT_ID) { r.varint(); r.zigzag(); }
+      r.u8();
+      r.varint();  // key
+      if (!skip_value(r)) return false;
+      r.u8(); r.varint();
+      return r.ok;
+    }
+    case K_DELETE: {
+      uint64_t n = r.varint();
+      for (uint64_t i = 0; i < n && r.ok; i++) { r.varint(); r.zigzag(); r.varint(); }
+      return r.ok;
+    }
+    case K_TREE: {
+      r.varint(); r.zigzag();
+      uint8_t flags = r.u8();
+      if (flags & 4) { r.varint(); r.zigzag(); }
+      if (flags & 8) { if (!r.skip_bytes()) return false; }
+      return r.ok;
+    }
+    case K_COUNTER: r.f64(); return r.ok;
+    case K_MSET: r.varint(); r.zigzag(); return skip_value(r);
+    case K_MMOVE: {
+      r.varint(); r.zigzag();
+      uint8_t tag = r.u8();
+      if (tag == PT_ID) { r.varint(); r.zigzag(); }
+      r.u8();
+      return r.ok;
+    }
+    case K_UNKNOWN: r.varint(); return r.skip_bytes();
+    default: return false;
+  }
+}
+
+struct DelSpan { uint32_t peer_idx; int64_t start, end; };
+
+}  // namespace
+
+template <class MapT>
+static long long explode_seq_impl(const uint8_t* buf, long long len,
+                                  int target_cid,
+                                  int32_t* out_parent, int32_t* out_side,
+                                  int32_t* out_peer, int32_t* out_counter,
+                                  uint8_t* out_deleted, int32_t* out_content,
+                                  long long n_elems) {
+  Reader r{buf, buf + len};
+  uint64_t n_peers; std::vector<int32_t> cid_types; std::vector<ChangeMeta> metas;
+  if (!parse_prelude(r, &n_peers, cid_types, metas)) return -1;
+  MapT map(n_peers, metas, (size_t)(n_elems > 0 ? n_elems : 0));
+  std::vector<DelSpan> dels;
+  long long row = 0;
+  int32_t value_base = 0;
+  for (auto& m : metas) {
+    int64_t ctr = m.ctr;
+    for (uint64_t k = 0; k < m.n_ops; k++) {
+      uint64_t cidx = r.varint();
+      uint8_t kind = r.u8();
+      if (!r.ok) return -1;
+      if ((long long)cidx != target_cid) {
+        int64_t atoms;
+        if (!skip_op(r, kind, &atoms)) return -1;
+        ctr += atoms;
+        continue;
+      }
+      if (kind == K_INSERT_TEXT || kind == K_INSERT_VALUES) {
+        uint8_t ptag = r.u8();
+        uint32_t p_peer = 0; int64_t p_ctr = 0;
+        if (ptag == PT_ID) {
+          uint64_t pi = r.varint();
+          if (!r.ok || pi >= n_peers) return -1;
+          p_peer = (uint32_t)pi; p_ctr = r.zigzag();
+        }
+        uint8_t side = r.u8();
+        // resolve first element's parent
+        int32_t parent_row;
+        if (ptag == PT_NONE) parent_row = -1;
+        else if (ptag == PT_RUNCONT) {
+          parent_row = map.get(idkey(m.peer_idx, ctr - 1));
+          if (parent_row < 0) return map.overflow() ? -2 : -1;
+        } else {
+          parent_row = map.get(idkey(p_peer, p_ctr));
+          if (parent_row < 0) return map.overflow() ? -2 : -1;
+        }
+        if (kind == K_INSERT_TEXT) {
+          uint64_t nb; const uint8_t* s = r.bytes(&nb);
+          if (!r.ok) return -1;
+          // utf8 -> codepoints, one element per codepoint
+          uint64_t i = 0; int64_t j = 0;
+          while (i < nb) {
+            uint32_t cp;
+            int used = decode_utf8_cp(s, nb, i, &cp);
+            if (used < 0) return -1;
+            i += used;
+            if (row >= n_elems) return -1;
+            out_parent[row] = (j == 0) ? parent_row : (int32_t)(row - 1);
+            out_side[row] = (j == 0) ? side : 1;
+            out_peer[row] = (int32_t)m.peer_idx;
+            out_counter[row] = (int32_t)(ctr + j);
+            out_deleted[row] = 0;
+            out_content[row] = (int32_t)cp;
+            map.put(idkey(m.peer_idx, ctr + j), (int32_t)row);
+            row++; j++;
+          }
+          ctr += j;
+        } else {
+          uint64_t n = r.varint();
+          for (uint64_t j = 0; j < n; j++) {
+            if (!skip_value(r)) return -1;
+            if (row >= n_elems) return -1;
+            out_parent[row] = (j == 0) ? parent_row : (int32_t)(row - 1);
+            out_side[row] = (j == 0) ? side : 1;
+            out_peer[row] = (int32_t)m.peer_idx;
+            out_counter[row] = (int32_t)(ctr + (int64_t)j);
+            out_deleted[row] = 0;
+            out_content[row] = value_base++;
+            map.put(idkey(m.peer_idx, ctr + (int64_t)j), (int32_t)row);
+            row++;
+          }
+          ctr += (int64_t)n;
+        }
+      } else if (kind == K_DELETE) {
+        uint64_t n = r.varint();
+        for (uint64_t i = 0; i < n && r.ok; i++) {
+          DelSpan d;
+          uint64_t dpi = r.varint();
+          if (!r.ok || dpi >= n_peers) return -1;
+          d.peer_idx = (uint32_t)dpi;
+          d.start = r.zigzag();
+          d.end = d.start + (int64_t)r.varint();
+          dels.push_back(d);
+        }
+        if (!r.ok) return -1;
+        ctr += 1;
+      } else {
+        int64_t atoms;
+        if (!skip_op(r, kind, &atoms)) return -1;
+        ctr += atoms;
+      }
+    }
+  }
+  for (auto& d : dels) {
+    for (int64_t c = d.start; c < d.end; c++) {
+      int32_t i = map.get(idkey(d.peer_idx, c));
+      if (i >= 0) out_deleted[i] = 1;
+    }
+  }
+  if (map.overflow()) return -2;  // direct table blew its budget
+  return row;
+}
+
+
+extern "C" {
+
+// test-only: force a tiny RowTable budget (0 = default) so the
+// IdMap fallback is exercisable from the differential suite
+void loro_set_rowtable_budget(long long b) { g_rowtable_budget_override = b; }
+
+
+// Pass 1: count elements of the target container (by cid index).
+// Returns element count, or -1 on malformed input.
+long long loro_count_seq_elements(const uint8_t* buf, long long len,
+                                  int target_cid) {
+  Reader r{buf, buf + len};
+  uint64_t n_peers; std::vector<int32_t> cid_types; std::vector<ChangeMeta> metas;
+  if (!parse_prelude(r, &n_peers, cid_types, metas)) return -1;
+  long long total = 0;
+  for (auto& m : metas) {
+    for (uint64_t k = 0; k < m.n_ops; k++) {
+      uint64_t cidx = r.varint();
+      uint8_t kind = r.u8();
+      if (!r.ok) return -1;
+      int64_t atoms = 1;
+      if (!skip_op(r, kind, &atoms)) return -1;
+      if ((long long)cidx == target_cid &&
+          (kind == K_INSERT_TEXT || kind == K_INSERT_VALUES)) {
+        total += atoms;
+      }
+    }
+  }
+  return total;
+}
+
+// Pass 2: fill element columns for the target container.
+// out_* arrays must hold n_elems entries (from pass 1).
+// out_content: codepoints for text inserts; value ops get ascending ids
+// starting at `value_base` (caller resolves values Python-side).
+// Returns number of elements written, or -1 on malformed input /
+// unresolvable parent reference.
+long long loro_explode_seq(const uint8_t* buf, long long len, int target_cid,
+                           int32_t* out_parent, int32_t* out_side,
+                           int32_t* out_peer, int32_t* out_counter,
+                           uint8_t* out_deleted, int32_t* out_content,
+                           long long n_elems) {
+  long long rc = explode_seq_impl<RowTable>(
+      buf, len, target_cid, out_parent, out_side, out_peer, out_counter,
+      out_deleted, out_content, n_elems);
+  if (rc != -2) return rc;
+  // sparse-counter payload blew the direct table's budget: redo with
+  // the open-addressing map — outputs are fully rewritten
+  return explode_seq_impl<IdMap>(
+      buf, len, target_cid, out_parent, out_side, out_peer, out_counter,
+      out_deleted, out_content, n_elems);
+}
+
+}  // extern "C"

@@ -1,18 +1,23 @@
-"""Host-side columnar extraction: numpy element tables -> padded
+"""Host-side columnar extraction: binary payloads -> numpy element
+tables (extract_seq_from_payload, through the native explode) -> padded
 SeqColumns (the element-level merge) or ChainColumns (the
 chain-contracted merge).
 
 Numpy only, exactly as in the JAX package (loro_tpu/ops/columnar.py):
 this stage runs on the host and its output is carried to the device by
-fugue_batch.seq_columns_to_torch / chain_columns_to_torch.
+fugue_batch.seq_columns_to_torch / chain_columns_to_torch, or packed
+into one uint8 row a doc (fugue_batch.pack_chain_doc_into).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 
+from ..codec.binary import read_tables
+from ..core.ids import ContainerID
+from ..native import explode_seq_payload
 from .fugue_batch import ChainColumns, SeqColumns, pad_bucket, pad_rows, pad_seq_columns
 
 
@@ -82,6 +87,40 @@ def peer_counter_perm(peer: np.ndarray, counter: np.ndarray, parent: np.ndarray)
     mask = out_parent >= 0
     out_parent[mask] = inv[out_parent[mask]]
     return perm, inv, out_parent.astype(np.int32)
+
+
+def wire_peer_ranks(peers_wire: Sequence[int]) -> np.ndarray:
+    """rank_of[wire index] -> rank of the peer id among the sorted u64
+    peer ids (the sibling tie-break contract: the wire's registration
+    order must not leak into the merge)."""
+    rank_of = np.empty(len(peers_wire), np.int64)
+    rank_of[np.argsort(np.asarray(peers_wire, np.uint64), kind="stable")] = np.arange(len(peers_wire))
+    return rank_of
+
+
+def extract_seq_from_payload(payload: bytes, cid: ContainerID) -> SeqExtract:
+    """The (peer, counter)-sorted element table of container `cid` in a
+    binary updates payload, exploded by the native codec (no Python
+    change objects).  Peers are ranked among every peer of the payload's
+    table, and `peers` lists those ids sorted.  A container the payload
+    does not name gives an empty table.  Raises CodecDecodeError on
+    malformed payloads, and RuntimeError when the codec cannot be
+    built: there is no Python fallback."""
+    peers, _keys, cids, _r = read_tables(payload)
+    if cid not in cids:
+        z = np.zeros(0, np.int32)
+        return SeqExtract(z, z, z, z, np.zeros(0, bool), z, np.zeros(0, bool), peers=[])
+    parent, side, peer_idx, counter, deleted, content = explode_seq_payload(payload, cids.index(cid))
+    return SeqExtract(
+        parent=parent,
+        side=side,
+        peer=wire_peer_ranks(peers)[peer_idx].astype(np.int32),
+        counter=counter,
+        deleted=deleted,
+        content=content,
+        valid=np.ones(parent.shape[0], bool),
+        peers=sorted(peers),
+    ).sort_by_peer_counter()
 
 
 @dataclass

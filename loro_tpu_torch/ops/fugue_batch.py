@@ -2,7 +2,8 @@
 counterpart of loro_tpu/ops/fugue_batch.py: the element-level merge
 (fugue_order .. merge_docs, and the row-order-free SeqColumnsU
 variants) and the chain-contracted merge (chain_materialize ..
-chain_merge_docs_checksum_v).
+chain_merge_docs_checksum_v), and the packed uint8 transport of a chunk
+(pack_chain_doc_into .. chain_merge_docs_packed_checksum).
 
 Every function takes an explicit leading doc axis ([D, N] / [D, C]
 tensors) where the JAX package vmaps one doc; nothing is jitted.  Per
@@ -13,7 +14,8 @@ doc the merge is:
    contract, or from explicit sibling keys — and the Euler-tour
    successor ring over two tokens per node (_ring_and_anchors);
 2. list ranking, distance to the ring terminal (_rank_dist: a CUDA
-   kernel of ops/list_rank.py on the card, or a plain torch algorithm);
+   kernel of ops/list_rank.py on the card, or a plain torch algorithm;
+   the coalesced rank contracts index-consecutive runs first);
 3. anchor distances -> rank keys (_order_core);
 4. placement: the element path compacts visible rows by a rank
    histogram (_compact); the chain path places all elements by one
@@ -306,14 +308,101 @@ def _blocked_dist(succ: torch.Tensor, block: int = list_rank.DEFAULT_BLOCK) -> t
     return _ruling_dist_from(d, t)[:, :m]
 
 
+def _wrap_i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values reduced mod 2^32 and read as int32 (the JAX int32
+    wraparound)."""
+    return (((x + 2**31) & _U32) - 2**31).to(torch.int32)
+
+
+def ring_run_heads(succ: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(is_head bool [D, m], n_runs int32 [D]): maximal index-consecutive
+    successor runs.  Token j joins its predecessor's run iff
+    succ[j-1] == j, j is j's only predecessor and j is not a terminal
+    self-loop, so runs are index intervals and a run's tail points at
+    some run's head."""
+    n_docs, m = succ.shape
+    s = succ.to(torch.int64)
+    tok = torch.arange(m, dtype=torch.int64, device=succ.device)
+    indeg = torch.zeros((n_docs, m), dtype=torch.int64, device=succ.device).scatter_add_(1, s, torch.ones_like(s))
+    absorbed = torch.zeros((n_docs, m), dtype=torch.bool, device=succ.device)
+    absorbed[:, 1:] = s[:, :-1] == tok[1:]
+    is_head = ~(absorbed & (indeg == 1) & (s != tok))
+    return is_head, is_head.sum(1).to(torch.int32)
+
+
+def _coalesced_dist(succ: torch.Tensor, r_pad: Optional[int] = None, use_kernel: bool = False) -> torch.Tensor:
+    """Run-coalesced ranking [D, m] int32 -> int32: contract the maximal
+    successor runs into super-nodes, rank the contracted ring (the plain
+    weighted ruling, or with `use_kernel` the weighted CUDA kernel with
+    dist_bound = m), then expand to tokens with one scatter at head
+    tokens and one cumsum.
+
+    `r_pad` is the contracted-ring budget, rounded up to 128 (None: m,
+    always safe).  Overflow is not detected: with r_pad below a doc's
+    n_runs the result is garbage, and callers that pass a tight budget
+    own the check (ring_run_heads, or rank_model.ring_stats on the host).
+    Past the budget, run ids are clamped into the ring so that garbage
+    is all it can give.  A contracted ring whose r + 1 tokens pad past
+    list_rank.RANK_MAX_M ranks with the plain weighted ruling even with
+    `use_kernel`, counted in RANK_ROUTES["torch:coalesced/over_cap"]."""
+    n_docs, m = succ.shape
+    dev = succ.device
+    i64 = torch.int64
+    r = max(128, -(-(m if r_pad is None else r_pad) // 128) * 128)
+    s = succ.to(i64)
+    tok = torch.arange(m, dtype=i64, device=dev)
+    is_head, n_runs = ring_run_heads(succ)
+    run_id = is_head.to(i64).cumsum(1) - 1
+    # head token of each run [D, r]; slot r is the dump of non-heads and
+    # of heads past the budget
+    rid_clip = torch.where(is_head, run_id.clamp(max=r), r)
+    head_tok = torch.zeros((n_docs, r + 1), dtype=i64, device=dev).scatter_(1, rid_clip, tok.expand(n_docs, m))[:, :r]
+    ridx = torch.arange(r, dtype=i64, device=dev)
+    nr = n_runs.to(i64)[:, None]
+    valid_run = ridx < nr
+    nxt_head = torch.cat([head_tok[:, 1:], torch.full((n_docs, 1), m, dtype=i64, device=dev)], dim=1)
+    tail_tok = torch.where(ridx + 1 < nr, nxt_head, m) - 1
+    tail_tok = torch.where(valid_run, tail_tok, head_tok)
+    succ_tail = s.gather(1, tail_tok.clamp(0, m - 1))
+    is_term_run = succ_tail == tail_tok
+    w = torch.where(valid_run, tail_tok - head_tok + (~is_term_run).to(i64), 0)
+    # terminal runs edge to the sink slot r; pad slots are self-loops
+    t = torch.where(
+        valid_run & ~is_term_run, run_id.gather(1, succ_tail.clamp(0, m - 1)), torch.where(valid_run, r, ridx)
+    ).clamp(max=r)
+    w1 = torch.cat([w, torch.zeros((n_docs, 1), dtype=i64, device=dev)], dim=1)
+    t1 = torch.cat([t, torch.full((n_docs, 1), r, dtype=i64, device=dev)], dim=1)  # sink self-loop
+    if use_kernel and -(-(r + 1) // 128) * 128 > list_rank.RANK_MAX_M:
+        RANK_ROUTES["torch:coalesced/over_cap"] += 1
+        use_kernel = False
+    if use_kernel:
+        # dist_bound = m: contracted distances count pre-contraction steps
+        d = list_rank.wyllie_rank(
+            t1.to(torch.int32), weights=w1.to(torch.int32), dist_bound=m, device=dev
+        )[:, :r].to(i64)
+    else:
+        d = _ruling_dist_from(w1, t1)[:, :r].to(i64)
+    # expansion: dist[tok] = D[run] - (tok - head_tok[run]); runs are
+    # index intervals with ascending ids, so a telescoped scatter at head
+    # tokens and one cumsum give D[run] + head_tok[run] at every token
+    val = torch.where(valid_run, d + head_tok, 0)
+    prev = torch.cat([torch.zeros((n_docs, 1), dtype=i64, device=dev), val[:, :-1]], dim=1)
+    delta = torch.where(valid_run, val - prev, 0)
+    seg = torch.zeros((n_docs, m + 1), dtype=i64, device=dev).scatter_add_(
+        1, torch.where(valid_run, head_tok, m), delta
+    )[:, :m]
+    return _wrap_i32(seg.cumsum(1) - tok)
+
+
 # ---- rank dispatch ----------------------------------------------------------
 
-RANK_SPECS = ("cuda:ruling", "cuda:wyllie", "cuda:blocked", "torch:ruling", "torch:wyllie", "torch:blocked")
-_NOT_PORTED = {"coalesced": "run-coalesced rank (_coalesced_dist)"}
-# Rings the automatic route on a CUDA device sent to the plain torch
-# Wyllie because they are longer than the kernels take (RANK_MAX_M);
-# incremented where that route is chosen.
-RANK_ROUTES: Dict[str, int] = {"torch:wyllie/over_cap": 0}
+RANK_SPECS = tuple(f"{b}:{a}" for b in ("cuda", "torch") for a in ("ruling", "wyllie", "blocked", "coalesced"))
+# Rings sent to a plain torch rank because they are longer than the
+# kernels take (RANK_MAX_M), incremented where that route is chosen: the
+# automatic route on a CUDA device sends them to torch:wyllie, and
+# cuda:coalesced ranks a contracted ring that pads past the cap with the
+# plain weighted ruling (the JAX package's fallback, fugue_batch.py:438).
+RANK_ROUTES: Dict[str, int] = {"torch:wyllie/over_cap": 0, "torch:coalesced/over_cap": 0}
 
 
 def _resolve_rank_spec(rank_impl: Optional[str], device: torch.device, m: int) -> Tuple[str, str]:
@@ -323,7 +412,9 @@ def _resolve_rank_spec(rank_impl: Optional[str], device: torch.device, m: int) -
     "torch:wyllie" (the counterpart of the JAX package's XLA route past
     PALLAS_RANK_MAX_M; a rule on the shape, counted in RANK_ROUTES), and
     "torch:ruling" on the CPU.  "cuda:*" needs CUDA tensors; on a ring
-    past the cap it raises in list_rank."""
+    past the cap it raises in list_rank, except "cuda:coalesced", which
+    ranks a contracted ring past the cap with the plain weighted ruling
+    (_coalesced_dist)."""
     if rank_impl is None:
         if device.type != "cuda":
             return "torch", "ruling"
@@ -332,11 +423,6 @@ def _resolve_rank_spec(rank_impl: Optional[str], device: torch.device, m: int) -
         RANK_ROUTES["torch:wyllie/over_cap"] += 1
         return "torch", "wyllie"
     backend, _, algo = rank_impl.partition(":")
-    if backend in ("cuda", "torch") and algo in _NOT_PORTED:
-        raise NotImplementedError(
-            f"rank_impl {rank_impl!r}: the {_NOT_PORTED[algo]} is not ported yet "
-            "(ROADMAP.md, 'Modules to port' / 'TPU kernels to port')"
-        )
     if rank_impl not in RANK_SPECS:
         raise ConfigError("rank_impl", rank_impl, "|".join(RANK_SPECS) + " or None")
     if backend == "cuda" and device.type != "cuda":
@@ -344,8 +430,11 @@ def _resolve_rank_spec(rank_impl: Optional[str], device: torch.device, m: int) -
     return backend, algo
 
 
-def _rank_dist(succ: torch.Tensor, backend: str, algo: str) -> torch.Tensor:
-    """Distance-to-terminal [D, m] int32 under a resolved spec."""
+def _rank_dist(succ: torch.Tensor, backend: str, algo: str, ring_budget: Optional[int] = None) -> torch.Tensor:
+    """Distance-to-terminal [D, m] int32 under a resolved spec;
+    `ring_budget` is read by the coalesced rank only."""
+    if algo == "coalesced":
+        return _coalesced_dist(succ, ring_budget, use_kernel=backend == "cuda")
     if backend == "cuda":
         return list_rank.wyllie_rank(succ, algo=algo, device=succ.device)
     if algo == "ruling":
@@ -466,14 +555,16 @@ def _order_core(
     valid_in: torch.Tensor,
     rank_impl: Optional[str] = None,
     sib_keys: Optional[Sequence[torch.Tensor]] = None,
+    ring_budget: Optional[int] = None,
 ) -> torch.Tensor:
     """Euler-tour in-order rank keys int32 [D, n] (ascending key =
     traversal order; invalid rows get BIG).  Without `sib_keys` rows must
-    obey the (peer, counter) order contract."""
+    obey the (peer, counter) order contract.  `ring_budget` is the
+    coalesced rank's contracted-ring budget (see _coalesced_dist)."""
     n = parent_in.shape[1]
     succ, anchor = _ring_and_anchors(parent_in, side_in, valid_in, sib_keys)
     backend, algo = _resolve_rank_spec(rank_impl, succ.device, succ.shape[1])
-    dist = _rank_dist(succ, backend, algo)
+    dist = _rank_dist(succ, backend, algo, ring_budget)
     anchor_dist = dist.gather(1, anchor.to(torch.int64))
     rank = anchor_dist[:, n : n + 1] - anchor_dist[:, :n]
     return torch.where(valid_in, rank, BIG).to(torch.int32)
@@ -655,15 +746,18 @@ def _place_by_chain_sort(crank, c_valid, head_row, visible, content):
 
 
 def chain_materialize(
-    cols: ChainColumns, rank_impl: Optional[str] = None, place: str = "sort"
+    cols: ChainColumns, rank_impl: Optional[str] = None, ring_budget: Optional[int] = None, *, place: str = "sort"
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Merge a doc batch via chain contraction: rank the C chains, then
-    place all N elements.  Returns (codes int32 [D, N] padded with -1,
-    visible count int32 [D]).  Works on the tensors' own device."""
+    place all N elements.  `ring_budget` is the coalesced rank's
+    contracted-ring budget (callers passing a tight one own the n_runs
+    check; None is always safe).  Returns (codes int32 [D, N] padded
+    with -1, visible count int32 [D]).  Works on the tensors' own
+    device."""
     if place not in PLACES:
         raise ConfigError("place", place, "|".join(PLACES))
     c = cols.c_parent.shape[1]
-    crank = _order_core(cols.c_parent, cols.c_side, cols.c_valid, rank_impl=rank_impl)
+    crank = _order_core(cols.c_parent, cols.c_side, cols.c_valid, rank_impl=rank_impl, ring_budget=ring_budget)
     visible = cols.valid & ~cols.deleted
     if place == "sort":
         return _place_by_chain_sort(crank, cols.c_valid, cols.head_row, visible, cols.content)
@@ -693,31 +787,143 @@ def chain_merge_docs_checksum(cols: ChainColumns, device: DeviceLike = "cuda"):
 def chain_merge_docs_v(
     cols: ChainColumns,
     rank_impl: Optional[str] = None,
+    ring_budget: Optional[int] = None,
+    *,
     place: str = "sort",
     device: DeviceLike = "cuda",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """chain_merge_docs with an explicit rank spec ("cuda:ruling",
-    "cuda:wyllie", "torch:ruling", "torch:wyllie"; None = default) and
-    placement ("sort" | "scatter").  (codes [D, N], counts [D])."""
-    return chain_materialize(_on(cols, device), rank_impl, place)
+    """chain_merge_docs with an explicit rank spec (one of RANK_SPECS;
+    None = default), the coalesced rank's `ring_budget` (in the JAX
+    package's position) and placement ("sort" | "scatter").
+    (codes [D, N], counts [D])."""
+    return chain_materialize(_on(cols, device), rank_impl, ring_budget, place=place)
 
 
 def chain_merge_docs_checksum_v(
     cols: ChainColumns,
     rank_impl: Optional[str] = None,
+    ring_budget: Optional[int] = None,
+    *,
     place: str = "sort",
     device: DeviceLike = "cuda",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(checksum int64 [D] holding uint32 values, counts [D])."""
-    codes, counts = chain_materialize(_on(cols, device), rank_impl, place)
+    codes, counts = chain_materialize(_on(cols, device), rank_impl, ring_budget, place=place)
     return _weighted_checksum(codes), counts
 
 
 def chain_rank_checksum_v(
-    cols: ChainColumns, rank_impl: Optional[str] = None, device: DeviceLike = "cuda"
+    cols: ChainColumns, rank_impl: Optional[str] = None, ring_budget: Optional[int] = None, *,
+    device: DeviceLike = "cuda",
 ) -> torch.Tensor:
     """Ranking phase only, reduced per doc to sum(uint32(crank)) mod 2^32
     (int64 [D])."""
     c = _on(cols, device)
-    crank = _order_core(c.c_parent, c.c_side, c.c_valid, rank_impl=rank_impl)
+    crank = _order_core(c.c_parent, c.c_side, c.c_valid, rank_impl=rank_impl, ring_budget=ring_budget)
     return (crank.to(torch.int64) & _U32).sum(1) & _U32
+
+
+# ---- packed u8 transport -----------------------------------------------------
+# One chunk travels as one uint8 [D, 8C + 8N] buffer (one host-to-device
+# copy) instead of the eight columns of ChainColumns.  Layout of a doc's
+# row, little-endian, byte for byte the JAX package's
+# (fugue_batch.py:739-755):
+#   [0    : 2C)     c_parent  u16 (0xFFFF = -1, the root)
+#   [2C   : 2C+2N)  chain_id  u16 (pad rows carry 0)
+#   [..   : +4C)    head_row  i32
+#   [..   : +4N)    content   i32 (-1 = invisible)
+#   [..   : +C)     c_side    u8
+#   [..   : +C)     c_valid   u8
+#   [..   : +N)     deleted   u8
+#   [..   : +N)     valid     u8
+
+
+def packed_row_bytes(pad_c: int, pad_n: int) -> int:
+    """Bytes of one doc's packed row; u16 chain ids need pad_c < 0xFFFF."""
+    if pad_c >= 0xFFFF:
+        raise ValueError(f"packed transport needs pad_c < 65535 (u16 chain ids), got {pad_c}")
+    return 8 * pad_c + 8 * pad_n
+
+
+def _packed_sections(pad_c: int, pad_n: int):
+    """Byte offsets of the eight sections, in layout order."""
+    offs = [0]
+    for nbytes in (2 * pad_c, 2 * pad_n, 4 * pad_c, 4 * pad_n, pad_c, pad_c, pad_n, pad_n):
+        offs.append(offs[-1] + nbytes)
+    return offs
+
+
+def pack_chain_doc_into(cols: ChainColumns, out_row: np.ndarray) -> None:
+    """Serialize one doc's numpy ChainColumns ([C] / [N] arrays) into a
+    packed uint8 row of packed_row_bytes(C, N) bytes; the inverse of
+    _unpack_chain_batch."""
+    c = cols.c_parent.shape[0]
+    n = cols.chain_id.shape[0]
+    if out_row.dtype != np.uint8 or out_row.shape != (packed_row_bytes(c, n),):
+        raise ValueError(f"out_row must be uint8 [{packed_row_bytes(c, n)}], got {out_row.dtype} {out_row.shape}")
+    o = _packed_sections(c, n)
+    out_row[o[0]:o[1]].view("<u2")[:] = cols.c_parent.astype(np.int32).astype(np.uint16)
+    out_row[o[1]:o[2]].view("<u2")[:] = cols.chain_id.astype(np.int32).astype(np.uint16)
+    out_row[o[2]:o[3]].view("<i4")[:] = cols.head_row
+    out_row[o[3]:o[4]].view("<i4")[:] = cols.content
+    out_row[o[4]:o[5]] = cols.c_side
+    out_row[o[5]:o[6]] = cols.c_valid
+    out_row[o[6]:o[7]] = cols.deleted
+    out_row[o[7]:o[8]] = cols.valid
+
+
+def _unpack_chain_batch(packed: torch.Tensor, pad_c: int, pad_n: int) -> ChainColumns:
+    """uint8 [D, W] -> ChainColumns on the buffer's device.  Each word
+    section is copied out before it is viewed as int16 / int32: a view
+    in place needs a storage offset divisible by the word size, and the
+    JAX layout puts the i32 sections at 2C + 2N bytes, odd in 2 whenever
+    C + N is odd."""
+    o = _packed_sections(pad_c, pad_n)
+
+    def sec(i: int) -> torch.Tensor:
+        return packed[:, o[i]:o[i + 1]]
+
+    def u16(i: int) -> torch.Tensor:
+        return sec(i).clone().view(torch.int16).to(torch.int32) & 0xFFFF
+
+    cp = u16(0)
+    return ChainColumns(
+        c_parent=torch.where(cp == 0xFFFF, -1, cp),
+        c_side=sec(4).to(torch.int32),
+        c_valid=sec(5).to(torch.bool),
+        head_row=sec(2).clone().view(torch.int32),
+        chain_id=u16(1),
+        deleted=sec(6).to(torch.bool),
+        content=sec(3).clone().view(torch.int32),
+        valid=sec(7).to(torch.bool),
+    )
+
+
+def _packed_on(packed, pad_c: int, pad_n: int, device: DeviceLike) -> torch.Tensor:
+    """The packed buffer (numpy or tensor, [D, W] uint8) on `device`."""
+    p = torch.as_tensor(packed).to(resolve_device(device))
+    if p.dtype != torch.uint8 or p.dim() != 2 or p.shape[1] != packed_row_bytes(pad_c, pad_n):
+        raise ValueError(
+            f"packed must be uint8 [D, {packed_row_bytes(pad_c, pad_n)}], got {p.dtype} {tuple(p.shape)}"
+        )
+    return p
+
+
+def chain_merge_docs_packed(
+    packed, pad_c: int, pad_n: int, rank_impl: Optional[str] = None, ring_budget: Optional[int] = None, *,
+    device: DeviceLike = "cuda",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Unpack the uint8 transport buffer and merge: (codes int32 [D, N],
+    counts int32 [D]), as chain_merge_docs_v on the same columns."""
+    cols = _unpack_chain_batch(_packed_on(packed, pad_c, pad_n, device), pad_c, pad_n)
+    return chain_materialize(cols, rank_impl, ring_budget)
+
+
+def chain_merge_docs_packed_checksum(
+    packed, pad_c: int, pad_n: int, rank_impl: Optional[str] = None, ring_budget: Optional[int] = None, *,
+    device: DeviceLike = "cuda",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(checksum int64 [D] holding uint32 values, counts [D]) of the
+    packed buffer's merge."""
+    codes, counts = chain_merge_docs_packed(packed, pad_c, pad_n, rank_impl, ring_budget, device=device)
+    return _weighted_checksum(codes), counts

@@ -20,29 +20,46 @@ Concurrent siblings arise exactly as between real replicas.
 element tree, siblings in (peer, counter) order, left subtrees before
 the node and right subtrees after it.
 
-Generated tables are cached under ``build/tracegen/`` keyed by the
-generator version and every parameter.
+``concurrent_doc`` also keeps its event log in apply order, and
+``trace_payload`` turns it into the binary updates payload a server
+would receive for the document (one change a peer's window, encoded by
+``codec.binary.encode_text_changes``), so the ingest path can start
+from payload bytes.
+
+Generated tables and payloads are cached under ``build/tracegen/``,
+tables keyed by the generator version and every parameter, payloads by
+the version and the event log.
 """
 from __future__ import annotations
 
 import bisect
 import hashlib
 import json
+import os
 import random
 import zipfile
 from dataclasses import dataclass
 from pathlib import Path
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .codec.binary import TextChange, TextDelete, TextInsert, encode_text_changes
+from .core.ids import ContainerID, ContainerType
 from .ops.columnar import SeqExtract
 
 AUTOMERGE_PERF_INSERTS = 182_315
 AUTOMERGE_PERF_DELETES = 77_463
 AUTOMERGE_PERF_PATCHES = AUTOMERGE_PERF_INSERTS + AUTOMERGE_PERF_DELETES  # 259,778
 CACHE_DIR = Path(__file__).resolve().parent.parent / "build" / "tracegen"
-GENERATOR_VERSION = 1
+GENERATOR_VERSION = 2  # 2: the event log (trace_payload)
+# the container a generated document's text lives in
+TEXT_CID = ContainerID.root("text", ContainerType.Text)
+# event log columns, one row per applied patch in apply order: window and
+# epoch (syncs before it), the peer's rank and the op's counter, insert
+# or delete, then the insert's parent id or the deleted element's id
+# (peer rank, counter; -1, -1 = the root), the insert's side and char
+EVENT_FIELDS = ("window", "epoch", "peer", "counter", "insert", "ref_peer", "ref_counter", "side", "char")
 
 _CHARS = "eeeeetttaaooiinnsshhrrddllu   cmfwypvbgkjqxz,.\n"
 _BLOCK = 128  # view block size (elements, tombstones included)
@@ -185,12 +202,14 @@ def _walk(root_children: List[int], lch: List[Optional[list]], rch: List[Optiona
 @dataclass
 class TraceDoc:
     """One generated document: its (peer, counter)-sorted element table,
-    its text by the host oracle, and the patches applied to produce it."""
+    its text by the host oracle, the patches applied to produce it, and
+    their event log (EVENT_FIELDS -> int32 [n_ops], apply order)."""
 
     extract: SeqExtract
     text: str
     n_ops: int
     n_peers: int
+    events: Dict[str, np.ndarray]
 
 
 def concurrent_doc(patches, n_peers: int = 4, sync_every: int = 4000, seed: int = 0,
@@ -229,12 +248,16 @@ def concurrent_doc(patches, n_peers: int = 4, sync_every: int = 4000, seed: int 
             views[i] = _View(order, bytearray(vis), list(g_rcount))
 
     cur = window_left = 0
+    window = -1
     n_applied = 0
+    log: List[Tuple[int, ...]] = []
     for i in range(len(pos_a)):
         if window_left == 0:
             cur = rng.randrange(n_peers)
             window_left = rng.randint(32, 256)
+            window += 1
         window_left -= 1
+        epoch = i // sync_every
         v = views[cur]
         p = min(int(pos_a[i]), v.nvis)
         if ins_a[i]:
@@ -253,6 +276,8 @@ def concurrent_doc(patches, n_peers: int = 4, sync_every: int = 4000, seed: int 
                 else:
                     par, sd = v.successor(bi, j), 0
                 j += 1
+            log.append((window, epoch, cur, ctr[cur], 1, peer[par] if par >= 0 else -1,
+                        counter[par] if par >= 0 else -1, sd, int(ch_a[i])))
             parent.append(par)
             side.append(sd)
             peer.append(cur)
@@ -272,24 +297,109 @@ def concurrent_doc(patches, n_peers: int = 4, sync_every: int = 4000, seed: int 
             n_applied += 1
         elif p < v.nvis:
             bi, j = v.find(p)
-            deleted[v.delete_at(bi, j)] = 1
+            e = v.delete_at(bi, j)
+            deleted[e] = 1
+            log.append((window, epoch, cur, ctr[cur], 0, peer[e], counter[e], 0, 0))
             ctr[cur] += 1
             n_applied += 1
         if (i + 1) % sync_every == 0:
             sync()
     order = _walk(root_ch, lch, rch)
     text = "".join(chr(content[e]) for e in order if not deleted[e])
+    # peer ranks among the peers that applied a patch (a payload's peer
+    # table holds those only); routing draws every peer on a long trace
+    ev = np.asarray(log, np.int32).reshape(-1, len(EVENT_FIELDS))
+    active = np.unique(ev[:, EVENT_FIELDS.index("peer")])
+    rank = np.full(n_peers + 1, -1, np.int32)  # rank[-1] = -1: the root
+    rank[active] = np.arange(len(active), dtype=np.int32)
+    for f in ("peer", "ref_peer"):
+        ev[:, EVENT_FIELDS.index(f)] = rank[ev[:, EVENT_FIELDS.index(f)]]
+    events = {f: np.ascontiguousarray(ev[:, k]) for k, f in enumerate(EVENT_FIELDS)}
     ex = SeqExtract(
         parent=np.asarray(parent, np.int32),
         side=np.asarray(side, np.int32),
-        peer=np.asarray(peer, np.int32),
+        peer=rank[np.asarray(peer, np.int64)],
         counter=np.asarray(counter, np.int32),
         deleted=np.frombuffer(bytes(deleted), np.uint8)[: len(parent)].astype(bool),
         content=np.asarray(content, np.int32),
         valid=np.ones(len(parent), bool),
-        peers=[peer_base + 1 + i for i in range(n_peers)],
+        peers=[peer_base + 1 + int(i) for i in active],
     ).sort_by_peer_counter()
-    return TraceDoc(extract=ex, text=text, n_ops=n_applied, n_peers=n_peers)
+    return TraceDoc(extract=ex, text=text, n_ops=n_applied, n_peers=n_peers, events=events)
+
+
+def trace_changes(doc: TraceDoc) -> List[TextChange]:
+    """The document's event log as changes, in apply order: a change is
+    the run of one window's events within one sync epoch (so a change
+    never spans a sync), and a same-peer right-spine typing run in it (an
+    insert whose parent is the peer's previous insert, on the right)
+    becomes one multi-character insert.  Deps are causally sound: the
+    peer's own last op when it already changed in this epoch, else the
+    last op of every peer before the epoch's sync (all the peer's view
+    held).  Lamport = 1 + the largest lamport among the deps."""
+    ev = {f: doc.events[f].tolist() for f in EVENT_FIELDS}
+    ids = doc.extract.peers  # peer rank -> peer id
+    n_peers = len(ids)
+    last_ctr, last_lam = [-1] * n_peers, [-1] * n_peers
+    snap_ctr, snap_lam = list(last_ctr), list(last_lam)
+    snap_epoch = 0
+    changed_in_epoch = [False] * n_peers
+    out: List[TextChange] = []
+    n = len(ev["window"])
+    i = 0
+    while i < n:
+        w, epoch, p = ev["window"][i], ev["epoch"][i], ev["peer"][i]
+        j = i + 1
+        while j < n and ev["window"][j] == w and ev["epoch"][j] == epoch:
+            j += 1
+        if epoch != snap_epoch:  # every event so far came before this epoch's sync
+            snap_ctr, snap_lam = list(last_ctr), list(last_lam)
+            snap_epoch = epoch
+            changed_in_epoch = [False] * n_peers
+        if changed_in_epoch[p]:
+            dep_ranks = [(p, last_ctr[p], last_lam[p])]
+        else:
+            dep_ranks = [(q, snap_ctr[q], snap_lam[q]) for q in range(n_peers) if snap_ctr[q] >= 0]
+        deps = tuple(sorted((ids[q], c) for q, c, _ in dep_ranks))
+        lamport = 1 + max((lam for _, _, lam in dep_ranks), default=-1)
+        ops: List = []
+        for k in range(i, j):
+            ref = (ids[ev["ref_peer"][k]], ev["ref_counter"][k]) if ev["ref_peer"][k] >= 0 else None
+            if not ev["insert"][k]:
+                ops.append(TextDelete(((ref[0], ref[1], ref[1] + 1),)))
+            elif (k > i and ev["insert"][k - 1] and ev["side"][k] == 1 and ev["ref_peer"][k] == p
+                  and ev["ref_counter"][k] == ev["counter"][k - 1]):
+                ops[-1] = ops[-1]._replace(text=ops[-1].text + chr(ev["char"][k]))
+            else:
+                ops.append(TextInsert(ref, ev["side"][k], chr(ev["char"][k])))
+        ctr_start = ev["counter"][i]
+        out.append(TextChange(ids[p], ctr_start, lamport, 0, deps, tuple(ops)))
+        last_ctr[p] = ev["counter"][j - 1]
+        last_lam[p] = lamport + last_ctr[p] - ctr_start
+        changed_in_epoch[p] = True
+        i = j
+    return out
+
+
+def trace_payload(doc: TraceDoc, use_cache: bool = True) -> bytes:
+    """The binary updates payload of the document's history in container
+    TEXT_CID (trace_changes encoded by encode_text_changes); decoded, its
+    element table equals doc.extract column for column.  Cached under
+    build/tracegen/ by the generator version and the event log."""
+    h = hashlib.sha256(str(GENERATOR_VERSION).encode())
+    for f in EVENT_FIELDS:
+        h.update(doc.events[f].tobytes())
+    h.update(np.asarray(doc.extract.peers, np.uint64).tobytes())
+    path = CACHE_DIR / f"payload_{h.hexdigest()[:16]}.bin"
+    if use_cache and path.exists():
+        return path.read_bytes()
+    payload = encode_text_changes(trace_changes(doc), TEXT_CID)
+    if use_cache:
+        path.parent.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        tmp.write_bytes(payload)
+        tmp.replace(path)
+    return payload
 
 
 def oracle_text(ex: SeqExtract) -> str:
@@ -335,7 +445,8 @@ def _load(path: Path, params: dict) -> Optional[TraceDoc]:
             peers=[int(p) for p in z["peers"]],
         )
         text = "".join(map(chr, z["text"].tolist()))
-        return TraceDoc(ex, text, int(z["n_ops"]), params["n_peers"])
+        events = {f: z["ev_" + f] for f in EVENT_FIELDS}
+        return TraceDoc(ex, text, int(z["n_ops"]), params["n_peers"], events)
     except (OSError, KeyError, ValueError, EOFError, zipfile.BadZipFile):
         return None  # stale or truncated cache: regenerate
 
@@ -349,6 +460,7 @@ def _save(path: Path, params: dict, doc: TraceDoc) -> None:
         deleted=ex.deleted, content=ex.content, valid=ex.valid,
         peers=np.asarray(ex.peers, np.uint64), text=np.asarray([ord(c) for c in doc.text], np.int32),
         n_ops=np.int64(doc.n_ops), params=np.asarray(json.dumps(params, sort_keys=True)),
+        **{"ev_" + f: a for f, a in doc.events.items()},
     )
     tmp.replace(path)
 

@@ -288,9 +288,10 @@ def test_rank_spec_contract():
     for spec in ("cuda:ruling", "cuda:blocked"):
         with pytest.raises(ValueError, match="CUDA"):
             pfb._resolve_rank_spec(spec, cpu, 1000)
-    for spec in ("cuda:coalesced", "torch:coalesced"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pfb._resolve_rank_spec(spec, cpu, 1000)
+    assert pfb._resolve_rank_spec("torch:coalesced", cpu, 1000) == ("torch", "coalesced")
+    assert pfb._resolve_rank_spec("cuda:coalesced", cuda, cap + 2) == ("cuda", "coalesced")
+    with pytest.raises(ValueError, match="CUDA"):
+        pfb._resolve_rank_spec("cuda:coalesced", cpu, 1000)
     for spec in ("xla:wyllie", "pallas", "torch:bogus"):
         with pytest.raises(ConfigError):
             pfb._resolve_rank_spec(spec, cpu, 1000)

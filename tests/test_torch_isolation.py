@@ -50,6 +50,21 @@ _BLOCKED_IMPORT = textwrap.dedent(
         for i, d in enumerate(docs):
             assert "".join(map(chr, codes[i][: int(counts[i])].tolist())) == d.text, spec
 
+    # payload ingest: the port's encoder and native codec, the packed
+    # transport and the coalesced rank
+    import numpy as np
+    from loro_tpu_torch.ops import rank_model
+
+    payloads = [tracegen.trace_payload(d, use_cache=False) for d in docs]
+    exs = [columnar.extract_seq_from_payload(p, tracegen.TEXT_CID) for p in payloads]
+    packed = np.empty((len(exs), fugue_batch.packed_row_bytes(257, 515)), np.uint8)
+    for ex, row in zip(exs, packed):
+        fugue_batch.pack_chain_doc_into(columnar.chain_columns(ex, pad_n=515, pad_c=257), row)
+    budget = rank_model.coalesce_budget(600)
+    codes, counts = fugue_batch.chain_merge_docs_packed(packed, 257, 515, "torch:coalesced", budget, device="cpu")
+    for i, d in enumerate(docs):
+        assert "".join(map(chr, codes[i][: int(counts[i])].tolist())) == d.text
+
     # the port's entry point
     from loro_tpu_torch.entry import entry
 
@@ -74,15 +89,34 @@ def test_imports_with_jax_and_loro_tpu_blocked():
 _IMPORT_RE = re.compile(r"^\s*(?:import|from)\s+(jax|jaxlib|loro_tpu)(?:[.\s]|$)", re.M)
 
 
+_INCLUDE_RE = re.compile(r'^\s*#\s*include\s*[<"]([^>"]*)[>"]', re.M)
+
+
 def test_source_scan_finds_no_jax_or_loro_tpu_import():
+    """Every Python file of the port (its subpackages included) and
+    chip_smoke.py import neither jax nor loro_tpu, and no C++ or CUDA
+    source of the port includes anything of loro_tpu/."""
     files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 5
+    for sub in ("codec", "core", "native", "ops"):
+        assert any(f.parent == PKG / sub for f in files), sub
     offenders = [
         f"{f.relative_to(REPO)}: {m.group(0).strip()}" for f in files for m in _IMPORT_RE.finditer(f.read_text())
     ]
     assert not offenders, offenders
     assert _IMPORT_RE.search("import jax.numpy as jnp") and _IMPORT_RE.search("from loro_tpu.ops import x")
     assert not _IMPORT_RE.search("from loro_tpu_torch.ops import x")
+    native = sorted(PKG.rglob("*.cpp")) + sorted(PKG.rglob("*.cu")) + sorted(PKG.rglob("*.cuh"))
+    assert {f.name for f in native} >= {"seq_codec.cpp", "list_rank.cu"}
+    includes = [(f, inc) for f in native for inc in _INCLUDE_RE.findall(f.read_text())]
+    assert includes
+    bad = [
+        f"{f.relative_to(REPO)}: {inc}" for f, inc in includes
+        if re.search(r"(^|/)loro_tpu/", inc)
+        or ((f.parent / inc).exists() and not (f.parent / inc).resolve().is_relative_to(PKG))
+    ]
+    assert not bad, bad
+    assert re.search(r"(^|/)loro_tpu/", "../../loro_tpu/native/x.h") and not re.search(r"(^|/)loro_tpu/", "loro_tpu_torch/x.h")
 
 
 def test_entry_points_default_to_cuda_and_raise_without_a_card():

@@ -219,3 +219,96 @@ def test_blocked_runs_match_plain_on_card(block):
     _needs_card()
     for m in (1000, 35000, 65536):
         _check(_runs_ring(m, 37, m + block), lr.launch_key(lr.plan_rank(m, "blocked")), algo="blocked", block=block)
+
+
+# ---- the coalesced rank and the packed transport ------------------------------
+
+
+_COALESCED_RINGS = {
+    **_FAMILY_RINGS,
+    "random-35000": lambda: _random_ring(35000, 4),
+    "random-65536": lambda: _random_ring(65536, 5),
+    "one-chain": lambda: np.minimum(np.arange(1, 40001), 39999).astype(np.int32),
+    "over-cap": lambda: _runs_ring(131072, 4096, 6),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ring", list(_COALESCED_RINGS))
+def test_coalesced_matches_plain_on_card(ring):
+    """cuda:coalesced (the weighted kernel on the contracted ring,
+    dist_bound = m) against torch:coalesced (the plain weighted ruling),
+    at the default budget and at a tight one from the run counts; a
+    contracted ring that pads past RANK_MAX_M takes the plain ruling and
+    is counted in RANK_ROUTES."""
+    _needs_card()
+    from loro_tpu_torch.ops import fugue_batch as fb
+    from loro_tpu_torch.ops import rank_model as rm
+
+    succ = np.stack([_COALESCED_RINGS[ring]()] * 2)
+    m = succ.shape[1]
+    s = torch.from_numpy(succ).cuda()
+    _, n_runs = fb.ring_run_heads(s)
+    assert n_runs.tolist() == [int(rm.run_heads(row).sum()) for row in succ]
+    for r_pad in (None, rm.coalesce_budget(int(n_runs.max()))):
+        r = max(128, -(-(m if r_pad is None else r_pad) // 128) * 128)
+        over_cap = -(-(r + 1) // 128) * 128 > lr.RANK_MAX_M
+        before, routes = dict(lr.LAUNCHES), fb.RANK_ROUTES["torch:coalesced/over_cap"]
+        got = fb._coalesced_dist(s, r_pad, use_kernel=True)
+        torch.cuda.synchronize()
+        ran = {k for k, v in lr.LAUNCHES.items() if v != before[k]}
+        if over_cap:
+            assert ran == set() and fb.RANK_ROUTES["torch:coalesced/over_cap"] == routes + 1
+        else:
+            assert ran == {lr.launch_key(lr.plan_rank(r + 1, weighted=True, dist_bound=m))}
+        want = fb._coalesced_dist(s.cpu(), r_pad)
+        assert got.dtype == torch.int32 and torch.equal(got.cpu(), want), (ring, r_pad)
+        assert torch.equal(want, fb._wyllie_dist(s.cpu()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pads", [(64, 256), (61, 256), (64, 253), (3000, 20001)], ids=lambda p: f"C{p[0]}-N{p[1]}")
+def test_packed_unpack_on_card_matches_cpu(pads):
+    """The packed buffer unpacked on the card equals the unpack on the
+    CPU, field for field, with aligned and unaligned pads (C + N odd puts
+    the int32 sections off a 4-byte boundary)."""
+    _needs_card()
+    from loro_tpu_torch.ops import fugue_batch as fb
+
+    c, n = pads
+    rng = np.random.default_rng(c + n)
+    packed = np.empty((3, fb.packed_row_bytes(c, n)), np.uint8)
+    for row in packed:
+        cols = fb.ChainColumns(
+            c_parent=rng.integers(-1, c, c).astype(np.int32), c_side=rng.integers(0, 2, c).astype(np.int32),
+            c_valid=rng.random(c) < 0.8, head_row=rng.integers(-(2**31), 2**31 - 1, c, dtype=np.int64).astype(np.int32),
+            chain_id=rng.integers(0, c, n).astype(np.int32), deleted=rng.random(n) < 0.3,
+            content=rng.integers(-(2**31), 2**31 - 1, n, dtype=np.int64).astype(np.int32), valid=rng.random(n) < 0.9,
+        )
+        fb.pack_chain_doc_into(cols, row)
+    on_card = fb._unpack_chain_batch(torch.from_numpy(packed).cuda(), c, n)
+    on_cpu = fb._unpack_chain_batch(torch.from_numpy(packed), c, n)
+    for f in fb.ChainColumns._fields:
+        a, b = getattr(on_card, f), getattr(on_cpu, f)
+        assert a.device.type == "cuda" and a.dtype == b.dtype and torch.equal(a.cpu(), b), f
+
+
+@pytest.mark.cuda
+def test_packed_merge_on_card_matches_cpu():
+    """A packed chunk of generated docs (unaligned pads) merges on the card
+    as on the CPU, for every rank spec."""
+    _needs_card()
+    from loro_tpu_torch import tracegen
+    from loro_tpu_torch.ops import columnar
+    from loro_tpu_torch.ops import fugue_batch as fb
+
+    docs = tracegen.fleet_docs(2, n_patches=3000, seed=3, use_cache=False)
+    pad_n = max(d.extract.n for d in docs) + 7
+    pad_c = max(columnar.contract_chains(d.extract).n_chains for d in docs) + 4
+    packed = np.empty((len(docs), fb.packed_row_bytes(pad_c, pad_n)), np.uint8)
+    for d, row in zip(docs, packed):
+        fb.pack_chain_doc_into(columnar.chain_columns(d.extract, pad_n=pad_n, pad_c=pad_c), row)
+    want = fb.chain_merge_docs_packed_checksum(packed, pad_c, pad_n, device="cpu")
+    for spec in (None, "cuda:ruling", "cuda:wyllie", "cuda:blocked", "cuda:coalesced"):
+        got = fb.chain_merge_docs_packed_checksum(packed, pad_c, pad_n, spec, device="cuda")
+        assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want)), spec
