@@ -14,7 +14,8 @@ checks it, end to end:
    lists, in-trees and index-local runs), and the wide kernel on its
    cluster of 8, including a ring whose every pointer crosses a CTA
    slice; then runs
-   tests/test_torch_list_rank_cuda.py (pytest -m cuda) as a subprocess;
+   tests/test_torch_list_rank_cuda.py and tests/test_torch_fleet_cuda.py
+   (pytest -m cuda) as a subprocess;
 4. main paths, each with launch counts reset before and read after:
    a. chain merge: a full-size 8-doc chunk of automerge-perf-shaped
       documents (tracegen), chain-contracted, merged with
@@ -40,6 +41,16 @@ checks it, end to end:
       two pinned staging buffers, one upload and one packed merge a
       chunk, every chunk's checksums checked), with and without the
       merge and once under the profiler (device-busy share);
+   d. fleet: Fleet.merge_text_payloads on 1,024 payloads cycled over 8
+      distinct docs, at N = 32,768 (the wide cluster kernel) and at
+      N = 16,384 (the ruling kernel), one launch a call, every text
+      checked, timed whole and split stage by stage, with device busy
+      and peak device memory; the flagship payloads through the counted
+      over-cap route; merge_text_changes on decode_changes' output; and
+      the resident ops on the flagship docs in apply order:
+      chain_merge_docs_u through DeviceDocBatch's budget loop (from
+      c_pad 256) against chain_merge_docs_checksum_v, and
+      materialize_by_key on standing keys from a rank solve;
 5. timings (CUDA events, warm-up then median; a kernel's ms is 20
    back-to-back calls of its wrapper replayed from a CUDA graph, and
    beside it eager_ms, the same 20 calls eager): merge ms per chunk and
@@ -84,6 +95,12 @@ SPINE_ELEMENTS, SPINE_N = 40_000, 65_536  # ring 131,074 tokens > RANK_MAX_M
 REPLACES = {"ruling": 226, "wyllie": 379, "blocked": 237, "wide": 184}
 WIDE_SWEEP = (4, 8, 16)  # wide-kernel cluster sizes timed at the element rings
 INGEST_CHUNKS, INGEST_S = 64, 20.0  # the pipelined ingest loop: chunks, or seconds if sooner
+# the fleet phase: one-shot merges of FLEET_DOCS payloads cycled over
+# FLEET_DISTINCT distinct docs (timed FLEET_REPS times), and the
+# resident ops on the flagship docs padded to FLAGSHIP_N rows, from the
+# chain budget DeviceDocBatch starts at
+FLEET_DOCS, FLEET_DISTINCT, FLEET_REPS = 1024, 8, 2
+FLAGSHIP_N, C_PAD_START = 262_144, 256
 
 
 def check(cond: bool, what: str) -> None:
@@ -306,7 +323,7 @@ def main() -> int:
         edocs = tracegen.fleet_docs(2, n_patches=n_patches, seed=SEED)
         check(all(fugue_batch.pad_bucket(d.extract.n) == n for d in edocs), f"{n_patches}-patch docs bucket to {n}")
         eidx = [j % len(edocs) for j in range(CHUNK)]
-        np_seq = columnar.stack_docs([edocs[i].extract.to_seq_columns(pad_to=n) for i in eidx])
+        np_seq = fugue_batch.stack_seq_columns([edocs[i].extract for i in eidx], n)
         return edocs, eidx, fugue_batch.seq_columns_to_torch(np_seq, device=dev), sum(edocs[i].n_ops for i in eidx)
 
     t0 = time.perf_counter()
@@ -426,14 +443,16 @@ def main() -> int:
     root = Path(__file__).resolve().parent
     test = subprocess.run(
         [sys.executable, "-m", "pytest", "-q", "-m", "cuda", "--noconftest", "-p", "no:cacheprovider",
-         "-o", "markers=cuda: needs an NVIDIA GPU", "tests/test_torch_list_rank_cuda.py"],
+         "-o", "markers=cuda: needs an NVIDIA GPU", "tests/test_torch_list_rank_cuda.py",
+         "tests/test_torch_fleet_cuda.py"],
         cwd=root, capture_output=True, text=True, timeout=600,
     )
     summary = (test.stdout.strip().splitlines() or ["(no output)"])[-1]
-    print(f"pytest -m cuda tests/test_torch_list_rank_cuda.py: rc {test.returncode}, {summary} "
+    print(f"pytest -m cuda tests/test_torch_list_rank_cuda.py tests/test_torch_fleet_cuda.py: rc {test.returncode}, "
+          f"{summary} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     check(test.returncode == 0 and " passed" in summary and "skipped" not in summary,
-          "tests/test_torch_list_rank_cuda.py failed on the card:\n" + test.stdout[-4000:] + test.stderr[-2000:])
+          "the card tests failed on the card:\n" + test.stdout[-4000:] + test.stderr[-2000:])
 
     # ---- 4. main path ----------------------------------------------------
     def route_key(succ):
@@ -741,6 +760,207 @@ def main() -> int:
           f"{ingest['rank_coalesced_ms']:.3f} ms; default merge {ingest['merge_default_ms']:.3f} ms, rank "
           f"{ingest['rank_default_ms']:.3f} ms", flush=True)
 
+    # ---- 4d. fleet: one-shot merges of a fleet of payloads -----------------
+    from loro_tpu_torch.codec.binary import decode_changes
+    from loro_tpu_torch.parallel import fleet as fleet_mod
+
+    t0 = time.perf_counter()
+    fdocs = {n: tracegen.fleet_docs(FLEET_DISTINCT - 1, n_patches=p, seed=SEED)
+             for n, p in ((ELEMENT_N, ELEMENT_PATCHES), (SMALL_N, SMALL_PATCHES))}
+    fpayloads = {n: [tracegen.trace_payload(d) for d in ds] for n, ds in fdocs.items()}
+    fleet_gen_s = time.perf_counter() - t0
+    fl = fleet_mod.Fleet(device=dev)
+    fleet = {"docs": FLEET_DOCS, "distinct": FLEET_DISTINCT, "gen_s": fleet_gen_s}
+    fleet_launches = {}
+    fleet_texts = {}
+    for n, ds in fdocs.items():
+        want = [tracegen.oracle_text(d.extract) for d in ds]
+        check(want == [d.text for d in ds], "host oracle disagrees with the generator's own text")
+        check(all(fugue_batch.pad_bucket(d.extract.n) == n for d in ds), f"fleet docs bucket to {n}")
+        pls = [fpayloads[n][j % FLEET_DISTINCT] for j in range(FLEET_DOCS)]
+        patches = sum(ds[j % FLEET_DISTINCT].n_ops for j in range(FLEET_DOCS))
+        key = list_rank.launch_key(list_rank.plan_rank(fugue_batch.rank_bound(n)))
+        # the call, checked: every text, and one launch of the route's kernel
+        list_rank.reset_launches()
+        t0 = time.perf_counter()
+        out = fl.merge_text_payloads(pls, tracegen.TEXT_CID)
+        first_s = time.perf_counter() - t0
+        ran = {k: v for k, v in list_rank.LAUNCHES.items() if v}
+        check(ran == {key: 1}, f"fleet N={n}: launched {ran}, not one {key}")
+        check(len(out.texts) == FLEET_DOCS, f"fleet N={n}: {len(out.texts)} texts")
+        for j, t in enumerate(out.texts):
+            check(t == want[j % FLEET_DISTINCT], f"fleet N={n}: doc {j} text != host oracle")
+        fleet_launches[n] = ran
+        fleet_texts[n] = want
+        # the whole call, by the host clock (it ends in a fetch)
+        walls = []
+        for _ in range(FLEET_REPS):
+            t0 = time.perf_counter()
+            fl.merge_text_payloads(pls, tracegen.TEXT_CID)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        wall_ms = statistics.median(walls)
+        # its split, stage by stage, with the functions the call runs
+        t0 = time.perf_counter()
+        extracts = [columnar.extract_seq_from_payload(p, tracegen.TEXT_CID) for p in pls]
+        t1 = time.perf_counter()
+        batched = fugue_batch.stack_seq_columns(extracts, n)
+        t2 = time.perf_counter()
+        # the JAX package's construction, per-doc padded copies then one
+        # np.stack a column, timed beside it once
+        t_pd = time.perf_counter()
+        columnar.stack_docs([e.to_seq_columns(pad_to=n) for e in extracts])
+        stack_per_doc_ms = (time.perf_counter() - t_pd) * 1e3
+        t_up = time.perf_counter()
+        fcols = fugue_batch.seq_columns_to_torch(batched, device=dev)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        merge_ms = time_ms(torch, lambda: fugue_batch.materialize_content_batch(fcols, device=dev), warmup=1, reps=5)
+        codes, counts = fugue_batch.materialize_content_batch(fcols, device=dev)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        codes_h, counts_h = codes.cpu().numpy(), counts.cpu().numpy()
+        texts_ = fleet_mod.texts_of(codes_h, counts_h, FLEET_DOCS)
+        t5 = time.perf_counter()
+        check(texts_ == out.texts, f"fleet N={n}: staged merge != the call")
+        # the JAX package's texts, chr over each row, timed beside the decode
+        t_chr = time.perf_counter()
+        texts_chr = ["".join(map(chr, codes_h[i, : int(counts_h[i])].tolist())) for i in range(FLEET_DOCS)]
+        texts_chr_ms = (time.perf_counter() - t_chr) * 1e3
+        t_dec = time.perf_counter()
+        fleet_mod.texts_of(codes_h, counts_h, FLEET_DOCS)
+        texts_decode_ms = (time.perf_counter() - t_dec) * 1e3
+        check(texts_chr == texts_, f"fleet N={n}: texts_of != chr join")
+        # the route's kernel alone on the call's rings, held against its
+        # plain version there: kernel time per doc at fleet depth
+        fsucc, _ = fugue_batch._ring_and_anchors(fcols.parent, fcols.side, fcols.valid)
+        kp, ksucc, kw = list_rank._prepare(fsucc, None, "ruling", 8, None)
+        check(list_rank.launch_key(kp) == key, f"fleet N={n}: kernel plan {list_rank.launch_key(kp)}")
+        check(torch.equal(list_rank.launch_kernel(ksucc, kw, kp), list_rank.rank_plain(ksucc, kw, kp)),
+              f"fleet N={n}: {key} kernel != plain version on [{FLEET_DOCS}, {kp.mp}]")
+        kernel = {"mp": kp.mp, "graph_ms": kernel_ms(torch, lambda: list_rank.launch_kernel(ksucc, kw, kp), reps=5),
+                  "bound_ms": 12 * FLEET_DOCS * kp.mp / HBM_BYTES_PER_S * 1e3}
+        kernel["per_doc_us"] = kernel["graph_ms"] * 1e3 / FLEET_DOCS
+        del fsucc, ksucc, kw
+        docs_ms = time_ms(torch, lambda: fl.merge_text_docs(extracts), warmup=1, reps=FLEET_REPS)
+        busy_ms, busy_wall_ms, busy_top = device_breakdown(
+            torch, lambda: fl.merge_text_payloads(pls, tracegen.TEXT_CID), calls=1)
+        torch.cuda.reset_peak_memory_stats(dev)
+        fl.merge_text_payloads(pls, tracegen.TEXT_CID)
+        peak = torch.cuda.max_memory_allocated(dev)
+        host_bytes = sum(a.nbytes for a in batched)
+        del fcols, codes, counts, batched, codes_h, counts_h, texts_chr
+        fleet[f"N{n}"] = {
+            "route": key, "patches": patches, "payload_bytes": sum(len(p) for p in pls), "first_call_s": first_s,
+            "wall_ms": wall_ms, "walls_ms": walls,
+            "split_ms": {"decode_extract": (t1 - t0) * 1e3, "stack_pad": (t2 - t1) * 1e3,
+                         "upload": (t3 - t_up) * 1e3, "device_merge": merge_ms, "fetch_texts": (t5 - t4) * 1e3},
+            "kernel": kernel, "stack_pad_per_doc_ms": stack_per_doc_ms,
+            "texts_decode_ms": texts_decode_ms, "texts_chr_ms": texts_chr_ms,
+            "merge_text_docs_ms": docs_ms, "device_busy_ms": busy_ms,
+            "device_busy_top": [[ms, name[:80], cnt] for ms, name, cnt in busy_top],
+            "device_busy_wall_ms": busy_wall_ms, "device_busy_share": busy_ms / busy_wall_ms,
+            "payload_ops_per_s": patches / (wall_ms / 1e3), "merge_only_ops_per_s": patches / (docs_ms / 1e3),
+            "peak_device_bytes": peak, "stacked_host_bytes": host_bytes,
+        }
+        r = fleet[f"N{n}"]
+        print(f"fleet N={n} on {kind} ({card}): merge_text_payloads of {FLEET_DOCS} docs ({FLEET_DISTINCT} distinct, "
+              f"{patches} patches, {r['payload_bytes']} payload bytes) in {wall_ms:.1f} ms wall (median of "
+              f"{FLEET_REPS}; first call {first_s:.2f} s) = {r['payload_ops_per_s'] / 1e6:.2f}M payload ops/s; split: "
+              + ", ".join(f"{k} {v:.1f}" for k, v in r["split_ms"].items())
+              + f" ms (stack_pad as the JAX package builds it, per-doc padded copies then np.stack: "
+              f"{stack_per_doc_ms:.1f} ms; texts by one decode a row {texts_decode_ms:.1f} ms, by the JAX package's "
+              f"chr join {texts_chr_ms:.1f} ms); merge_text_docs {docs_ms:.1f} ms = "
+              f"{r['merge_only_ops_per_s'] / 1e6:.2f}M merge-only ops/s; "
+              f"device busy {busy_ms:.2f} ms = {100 * r['device_busy_share']:.2f} % of one profiled call "
+              f"({busy_wall_ms:.1f} ms wall); peak device memory "
+              f"{peak / 2**30:.2f} GiB; launches {ran}; texts == host oracle; {key} kernel alone on the call's rings "
+              f"[{FLEET_DOCS}, {kernel['mp']}] (bit-exact): graph {kernel['graph_ms']:.3f} ms = "
+              f"{kernel['per_doc_us']:.2f} us a doc, bound {kernel['bound_ms']:.4f} ms (bytes); busy top: "
+              + "; ".join(f"{name[:50]} x{cnt} {ms:.2f} ms" for ms, name, cnt in busy_top), flush=True)
+
+    # the flagship payloads: their rings pass the kernels' cap
+    over0 = fugue_batch.RANK_ROUTES["torch:wyllie/over_cap"]
+    list_rank.reset_launches()
+    t0 = time.perf_counter()
+    out = fl.merge_text_payloads(payloads, tracegen.TEXT_CID)
+    flag_s = time.perf_counter() - t0
+    check(out.texts == texts, "fleet flagship payloads: texts != host oracle")
+    check(sum(list_rank.LAUNCHES.values()) == 0, "fleet flagship payloads launched a kernel")
+    check(fugue_batch.RANK_ROUTES["torch:wyllie/over_cap"] == over0 + 1, "fleet flagship payloads: not torch:wyllie")
+    fleet["flagship"] = {"docs": len(payloads), "n": fugue_batch.pad_bucket(max(d.extract.n for d in docs)),
+                         "route": "torch:wyllie/over_cap", "wall_s": flag_s}
+    print(f"fleet flagship on {kind} ({card}): {len(payloads)} payloads, N {fleet['flagship']['n']} (ring "
+          f"{fugue_batch.rank_bound(fleet['flagship']['n'])} tokens): torch:wyllie/over_cap route, texts == host "
+          f"oracle ({flag_s:.2f} s, not timed against a kernel)", flush=True)
+
+    # merge_text_changes on the distinct 40,000-patch docs
+    t0 = time.perf_counter()
+    changes = [decode_changes(p) for p in fpayloads[ELEMENT_N]]
+    decode_s = time.perf_counter() - t0
+    list_rank.reset_launches()
+    out = fl.merge_text_changes(changes, tracegen.TEXT_CID)
+    check(out.texts == fleet_texts[ELEMENT_N], "merge_text_changes: texts != merge_text_payloads'")
+    check({k: v for k, v in list_rank.LAUNCHES.items() if v} == fleet_launches[ELEMENT_N],
+          f"merge_text_changes launched {list_rank.LAUNCHES}")
+    fleet["changes"] = {"docs": len(changes), "decode_changes_s": decode_s,
+                        "changes": sum(len(c) for c in changes)}
+    print(f"fleet merge_text_changes on {kind} ({card}): {len(changes)} docs decoded by decode_changes in "
+          f"{decode_s:.2f} s "
+          f"({fleet['changes']['changes']} changes), texts == merge_text_payloads'", flush=True)
+
+    # resident device ops on the flagship docs, rows in apply order
+    t0 = time.perf_counter()
+    np_u = [tracegen.seq_columns_u(docs[i], "apply", pad_to=FLAGSHIP_N) for i in idxs]
+    np_u = fugue_batch.SeqColumnsU(*[np.stack([getattr(c, f) for c in np_u]) for f in fugue_batch.SeqColumnsU._fields])
+    ucols = fugue_batch.seq_columns_to_torch(np_u, device=dev)
+    u_build_s = time.perf_counter() - t0
+    c_pad, calls = C_PAD_START, []
+    while True:  # DeviceDocBatch._materialize's budget loop
+        list_rank.reset_launches()
+        over0 = fugue_batch.RANK_ROUTES["torch:wyllie/over_cap"]
+        ucodes, ucounts, un = fugue_batch.chain_merge_docs_u(ucols, c_pad, device=dev)
+        max_chains = int(un.max())
+        calls.append({"c_pad": c_pad, "ring_tokens": fugue_batch.rank_bound(c_pad), "max_n_chains": max_chains,
+                      "launches": {k: v for k, v in list_rank.LAUNCHES.items() if v},
+                      "over_cap": fugue_batch.RANK_ROUTES["torch:wyllie/over_cap"] - over0})
+        if max_chains <= c_pad:
+            break
+        while c_pad < max_chains:
+            c_pad *= 2
+    final = calls[-1]
+    if fugue_batch.rank_bound(c_pad) <= list_rank.RANK_MAX_M:
+        check(sum(final["launches"].values()) == 1, f"chain_merge_docs_u at c_pad {c_pad} launched {final['launches']}")
+    else:  # found, not changed: the ring passes the kernels' cap
+        check(final["over_cap"] == 1, f"chain_merge_docs_u at c_pad {c_pad}: no kernel and no counted route")
+    check(torch.equal(fugue_batch._weighted_checksum(ucodes), cs_kernel) and torch.equal(ucounts, n_kernel),
+          "chain_merge_docs_u != chain_merge_docs_checksum_v on the flagship docs")
+    ucodes_h, ucounts_h = ucodes.cpu().numpy(), ucounts.cpu().numpy()
+    for j, i in enumerate(idxs):
+        check("".join(map(chr, ucodes_h[j][: int(ucounts_h[j])].tolist())) == texts[i], f"resident doc {j} != oracle")
+    rank = fugue_batch.fugue_order_u(ucols, device=dev).to(torch.int64)
+    key_hi, key_lo = 0x80000000 + (rank >> 10), rank & 0x3FF
+    check(bool((key_hi[ucols.valid] >= 2**31).all()), "standing keys: key_hi below 2^31")
+    kcodes, kcounts = fugue_batch.materialize_by_key(ucols, key_hi, key_lo, device=dev)
+    check(torch.equal(kcodes, ucodes) and torch.equal(kcounts, ucounts), "materialize_by_key != chain_merge_docs_u")
+    resident = {
+        "docs": CHUNK, "n": FLAGSHIP_N, "build_s": u_build_s, "calls": calls, "final_c_pad": c_pad,
+        "n_chains": un.tolist(), "host_contract_chains": [n_chains[i] for i in idxs],
+        "chain_merge_docs_u_ms": time_ms(torch, lambda: fugue_batch.chain_merge_docs_u(ucols, c_pad, device=dev),
+                                         warmup=2, reps=10),
+        "materialize_by_key_ms": time_ms(
+            torch, lambda: fugue_batch.materialize_by_key(ucols, key_hi, key_lo, device=dev), warmup=2, reps=10),
+    }
+    fleet["resident"] = resident
+    check(fleet_mod.FLEET_FALLBACKS["payload_extract"] == 0, f"fleet fallbacks {fleet_mod.FLEET_FALLBACKS}")
+    print(f"resident ops on {kind} ({card}): [{CHUNK}, {FLAGSHIP_N}] flagship docs in apply order; budget loop "
+          + " -> ".join(f"c_pad {c['c_pad']} (max n_chains {c['max_n_chains']}, launches {c['launches']}, over_cap "
+                        f"{c['over_cap']})" for c in calls)
+          + f"; n_chains {resident['n_chains']} (host contract_chains {resident['host_contract_chains']}); codes == "
+          f"chain_merge_docs_checksum_v and the oracle; materialize_by_key == it; chain_merge_docs_u "
+          f"{resident['chain_merge_docs_u_ms']:.3f} ms at c_pad {c_pad}, materialize_by_key "
+          f"{resident['materialize_by_key_ms']:.3f} ms; fallbacks {fleet_mod.FLEET_FALLBACKS}", flush=True)
+    del ucols, ucodes, kcodes, rank, key_hi, key_lo
+
     # ---- 5. timings -------------------------------------------------------
     # each kernel at its main-path shape: the flagship chain rings for the
     # packed kernels, the element rings for the wide kernel
@@ -935,9 +1155,12 @@ def main() -> int:
         "mp": {name: p.mp for name, (p, _, _) in plans.items()}, "chunk_ops": chunk_ops,
         "element_chunk_ops": echunk_ops, "build_s": build_s, "gen_s": gen_s, "element_gen_s": egen_s, **res,
         "bound_ms": bounds, "phases": phases, "full_card": full_card, "wyllie_over_budget": over_budget,
-        "sweep": sweep, "sweep_graph": sweep_graph, "ingest": ingest,
+        "sweep": sweep, "sweep_graph": sweep_graph, "ingest": ingest, "fleet": fleet,
         "total_s": time.perf_counter() - t_start,
     }))
+    # launches in the fleet phase's checked one-shot calls, one a call
+    fleet_by_kernel = {name: sum(v for ran in fleet_launches.values() for k, v in ran.items()
+                                 if k.split("/")[0] == name) for name in REPLACES}
     kernels = [
         {
             "name": f"list_rank_{name}",
@@ -945,6 +1168,7 @@ def main() -> int:
             "source": "loro_tpu_torch/csrc/list_rank.cu",
             "replaces": f"loro_tpu/ops/pallas_rank.py:{REPLACES[name]}",
             "launches": launches[name],
+            "launches_fleet": fleet_by_kernel[name],
             "max_abs_err": max_err[name],
             "ms": res[f"{name}_graph_ms"],
             "eager_ms": res[f"{name}_ms"],

@@ -2,11 +2,17 @@
 
 The JAX package ``loro_tpu`` stays the reference; this package imports
 nothing of it (and never imports jax).  It covers the fleet text merge,
-element-level and chain-contracted:
+element-level and chain-contracted, from payload bytes:
 
+    core              ids, the op/change model, Frontiers
+    codec.binary      the payload decoder (decode_changes) and a text encoder
+    native            the native payload explode (seq_codec.cpp)
     ops.columnar      host numpy element tables -> SeqColumns / ChainColumns
     ops.fugue_batch   Euler-tour ring, list-rank dispatch, placement,
-                      batch entry points (explicit leading doc axis)
+                      batch entry points (explicit leading doc axis), the
+                      resident path's device ops on SeqColumnsU
+    parallel.fleet    Fleet: one-shot batched text merges of docs, change
+                      lists or payloads
     ops.list_rank     hand-written Hopper list-ranking kernels
                       (csrc/list_rank.cu) + their plain torch versions
     entry             entry(): the element merge of an example batch

@@ -1,2 +1,2 @@
-"""The port's copy of the wire codec it needs: the payload prelude reader
-and an encoder for text traces (codec/binary.py)."""
+"""The port's copy of the wire codec (codec/binary.py): the payload
+decoder and an encoder for text traces."""

@@ -1,5 +1,5 @@
-"""The binary updates payload: the subset of loro_tpu/codec/binary.py
-that text ingest needs.
+"""The binary updates payload: the port's copy of loro_tpu/codec/binary.py
+(its decoder, and an encoder for text traces).
 
 Layout (after the doc-level envelope, which is not handled here):
   [peer table]   varint n, then n u64 LE peer ids (ops name peers by
@@ -14,16 +14,33 @@ Layout (after the doc-level envelope, which is not handled here):
                  kind-specific payload
 
 read_tables parses the prelude dictionaries (the native explode parses
-the rest).  encode_text_changes writes a payload of text inserts and
-deletes, byte for byte what the JAX package's encode_changes writes for
-the same changes.
+the rest).  decode_changes decodes a whole payload, every op kind and
+value tag, into Change objects (core/change.py).  encode_text_changes
+writes a payload of text inserts and deletes, byte for byte what the JAX
+package's encode_changes writes for the same changes.
 """
 from __future__ import annotations
 
 import struct
-from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
-from ..core.ids import ContainerID, ContainerType
+from ..core.change import (
+    _RUN_CONT,
+    Change,
+    CounterIncr,
+    MapSet,
+    MovableMove,
+    MovableSet,
+    Op,
+    SeqDelete,
+    SeqInsert,
+    Side,
+    StyleAnchor,
+    TreeMove,
+    UnknownContent,
+)
+from ..core.ids import ID, ContainerID, ContainerType, IdSpan, TreeID
+from ..core.version import Frontiers
 from ..errors import CodecDecodeError
 
 # op kind tags
@@ -117,6 +134,11 @@ class Reader:
         self.i += 8
         return v
 
+    def f64(self) -> float:
+        v = struct.unpack_from("<d", self.buf, self.i)[0]
+        self.i += 8
+        return v
+
     def bytes_(self) -> bytes:
         n = self.varint()
         if self.i + n > len(self.buf):
@@ -162,6 +184,135 @@ def read_tables(buf: bytes):
     except (IndexError, struct.error, UnicodeDecodeError, ValueError, OverflowError) as e:
         raise CodecDecodeError(f"malformed payload tables ({type(e).__name__}: {e})") from e
     return peers, keys, cids, r
+
+
+# ---- decoder -------------------------------------------------------------------
+
+
+def _read_value(r: Reader, cids: List[ContainerID]) -> Any:
+    t = r.u8()
+    if t == VNULL:
+        return None
+    if t == VTRUE:
+        return True
+    if t == VFALSE:
+        return False
+    if t == VINT:
+        return r.zigzag()
+    if t == VF64:
+        return r.f64()
+    if t == VSTR:
+        return r.str_()
+    if t == VBYTES:
+        return r.bytes_()
+    if t == VLIST:
+        return [_read_value(r, cids) for _ in range(r.varint())]
+    if t == VMAP:
+        return {r.str_(): _read_value(r, cids) for _ in range(r.varint())}
+    if t == VCID:
+        return cids[r.varint()]
+    raise ValueError(f"bad value tag {t}")
+
+
+def _read_parent(r: Reader, peers: List[int]):
+    t = r.u8()
+    if t == PT_NONE:
+        return None
+    if t == RUN_CONT_TAG:
+        return _RUN_CONT
+    return ID(peers[r.varint()], r.zigzag())
+
+
+def decode_changes(buf: bytes) -> List[Change]:
+    """Decode a bare (envelope-stripped) updates payload into its
+    changes, every op of every container.  Truncated or bit-flipped
+    input raises CodecDecodeError (a ValueError), never an IndexError
+    or struct.error from the reader."""
+    try:
+        return _decode_changes_inner(buf)
+    except CodecDecodeError:
+        raise
+    except (IndexError, struct.error, UnicodeDecodeError, ValueError, KeyError, OverflowError) as e:
+        raise CodecDecodeError(f"malformed updates payload ({type(e).__name__}: {e})") from e
+
+
+def _decode_changes_inner(buf: bytes) -> List[Change]:
+    peers, keys, cids, r = read_tables(buf)
+    n_changes = r.varint()
+    metas = []
+    prev_ts = 0
+    for _ in range(n_changes):
+        peer = peers[r.varint()]
+        ctr = r.zigzag()
+        lamport = r.zigzag()
+        ts = prev_ts + r.zigzag()
+        prev_ts = ts
+        deps = Frontiers(ID(peers[r.varint()], r.zigzag()) for _ in range(r.varint()))
+        msg = r.str_() if r.u8() else None
+        n_ops = r.varint()
+        metas.append((peer, ctr, lamport, ts, deps, msg, n_ops))
+    out: List[Change] = []
+    for peer, ctr, lamport, ts, deps, msg, n_ops in metas:
+        ops: List[Op] = []
+        counter = ctr
+        for _ in range(n_ops):
+            op = _read_op(r, peers, keys, cids, counter)
+            ops.append(op)
+            counter = op.ctr_end
+        out.append(Change(ID(peer, ctr), lamport, deps, ops, ts, msg))
+    return out
+
+
+def _read_op(r: Reader, peers: List[int], keys: List[str], cids: List[ContainerID], counter: int) -> Op:
+    cid = cids[r.varint()]
+    kind = r.u8()
+    if kind == K_MAP_SET:
+        content: Any = MapSet(keys[r.varint()], _read_value(r, cids))
+    elif kind == K_MAP_DEL:
+        content = MapSet(keys[r.varint()], None, True)
+    elif kind == K_INSERT_TEXT:
+        parent = _read_parent(r, peers)
+        side = Side(r.u8())
+        content = SeqInsert(parent, side, r.str_())
+    elif kind == K_INSERT_VALUES:
+        parent = _read_parent(r, peers)
+        side = Side(r.u8())
+        content = SeqInsert(parent, side, tuple(_read_value(r, cids) for _ in range(r.varint())))
+    elif kind == K_INSERT_ANCHOR:
+        parent = _read_parent(r, peers)
+        side = Side(r.u8())
+        key = keys[r.varint()]
+        value = _read_value(r, cids)
+        is_start = bool(r.u8())
+        info = r.varint()
+        content = SeqInsert(parent, side, StyleAnchor(key, value, is_start, info))
+    elif kind == K_DELETE:
+        spans = []
+        for _ in range(r.varint()):
+            p = peers[r.varint()]
+            s = r.zigzag()
+            ln = r.varint()
+            spans.append(IdSpan(p, s, s + ln))
+        content = SeqDelete(tuple(spans))
+    elif kind == K_TREE:
+        target = TreeID(peers[r.varint()], r.zigzag())
+        flags = r.u8()
+        parent_t = TreeID(peers[r.varint()], r.zigzag()) if flags & 4 else None
+        position = r.bytes_() if flags & 8 else None
+        content = TreeMove(target, parent_t, position, bool(flags & 1), bool(flags & 2))
+    elif kind == K_COUNTER:
+        content = CounterIncr(r.f64())
+    elif kind == K_MSET:
+        content = MovableSet(ID(peers[r.varint()], r.zigzag()), _read_value(r, cids))
+    elif kind == K_MMOVE:
+        elem = ID(peers[r.varint()], r.zigzag())
+        parent = _read_parent(r, peers)
+        content = MovableMove(elem, parent, Side(r.u8()))
+    elif kind == K_UNKNOWN:
+        content = UnknownContent(r.varint(), r.bytes_())
+    else:
+        raise ValueError(f"bad op kind {kind}")
+    return Op(counter, cid, content)
 
 
 # ---- text trace encoder -------------------------------------------------------

@@ -1,1 +1,1 @@
-"""Core identifiers the port's codec reads (its own copies)."""
+"""Core identifiers and the op/change model (the port's own copies)."""

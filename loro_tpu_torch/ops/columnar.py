@@ -1,7 +1,7 @@
 """Host-side columnar extraction: binary payloads -> numpy element
-tables (extract_seq_from_payload, through the native explode) -> padded
-SeqColumns (the element-level merge) or ChainColumns (the
-chain-contracted merge).
+tables (extract_seq_from_payload, through the native explode; or
+extract_seq_container over decoded Change objects) -> padded SeqColumns
+(the element-level merge) or ChainColumns (the chain-contracted merge).
 
 Numpy only, exactly as in the JAX package (loro_tpu/ops/columnar.py):
 this stage runs on the host and its output is carried to the device by
@@ -11,11 +11,12 @@ into one uint8 row a doc (fugue_batch.pack_chain_doc_into).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from ..codec.binary import read_tables
+from ..core.change import Change, SeqDelete, SeqInsert, StyleAnchor, _RunCont
 from ..core.ids import ContainerID
 from ..native import explode_seq_payload
 from .fugue_batch import ChainColumns, SeqColumns, pad_bucket, pad_rows, pad_seq_columns
@@ -87,6 +88,81 @@ def peer_counter_perm(peer: np.ndarray, counter: np.ndarray, parent: np.ndarray)
     mask = out_parent >= 0
     out_parent[mask] = inv[out_parent[mask]]
     return perm, inv, out_parent.astype(np.int32)
+
+
+def extract_seq_container(changes: Sequence[Change], cid: ContainerID, as_text: bool = True) -> SeqExtract:
+    """The (peer, counter)-sorted element table of container `cid` from
+    decoded changes in causal order: every SeqInsert element of the
+    container (style anchors skipped) and its SeqDelete tombstones;
+    deletes of ids the changes never inserted are ignored.  Peers are
+    ranked among the changes' peers.  content is the codepoint with
+    `as_text`, else an index into `values` (the inserted values in
+    order).  Raises KeyError when an insert's parent is not an element
+    inserted before it (a payload that is not self-contained)."""
+    peers_seen = sorted({ch.peer for ch in changes})
+    peer_rank = {p: i for i, p in enumerate(peers_seen)}
+    parents: List[int] = []
+    sides: List[int] = []
+    peers: List[int] = []
+    counters: List[int] = []
+    contents: List[int] = []
+    values: List = []
+    id2idx: Dict[Tuple[int, int], int] = {}
+    deletes: List[Tuple[int, int, int]] = []  # (peer, start, end)
+
+    for ch in changes:
+        for op in ch.ops:
+            if op.container != cid:
+                continue
+            c = op.content
+            if isinstance(c, SeqInsert):
+                if isinstance(c.content, StyleAnchor):
+                    continue
+                body = c.content
+                for j in range(len(body)):
+                    if j == 0:
+                        if isinstance(c.parent, _RunCont):
+                            pidx = id2idx[(ch.peer, op.counter - 1)]
+                        elif c.parent is None:
+                            pidx = -1
+                        else:
+                            pidx = id2idx[(c.parent.peer, c.parent.counter)]
+                        side = int(c.side)
+                    else:
+                        pidx = len(parents) - 1
+                        side = 1
+                    id2idx[(ch.peer, op.counter + j)] = len(parents)
+                    parents.append(pidx)
+                    sides.append(side)
+                    peers.append(peer_rank[ch.peer])
+                    counters.append(op.counter + j)
+                    if as_text:
+                        contents.append(ord(body[j]))
+                    else:
+                        contents.append(len(values))
+                        values.append(body[j])
+            elif isinstance(c, SeqDelete):
+                for s in c.spans:
+                    deletes.append((s.peer, s.start, s.end))
+
+    n = len(parents)
+    deleted = np.zeros(n, bool)
+    for peer, start, end in deletes:
+        for ctr in range(start, end):
+            idx = id2idx.get((peer, ctr))
+            if idx is not None:
+                deleted[idx] = True
+    return SeqExtract(
+        parent=np.asarray(parents, np.int32),
+        side=np.asarray(sides, np.int32),
+        peer=np.asarray(peers, np.int32),
+        counter=np.asarray(counters, np.int32),
+        deleted=deleted,
+        content=np.asarray(contents, np.int32),
+        valid=np.ones(n, bool),
+        peers=peers_seen,
+        values=values if not as_text else None,
+    ).sort_by_peer_counter()
 
 
 def wire_peer_ranks(peers_wire: Sequence[int]) -> np.ndarray:

@@ -2,8 +2,10 @@
 counterpart of loro_tpu/ops/fugue_batch.py: the element-level merge
 (fugue_order .. merge_docs, and the row-order-free SeqColumnsU
 variants) and the chain-contracted merge (chain_materialize ..
-chain_merge_docs_checksum_v), and the packed uint8 transport of a chunk
-(pack_chain_doc_into .. chain_merge_docs_packed_checksum).
+chain_merge_docs_checksum_v), the packed uint8 transport of a chunk
+(pack_chain_doc_into .. chain_merge_docs_packed_checksum), and the
+resident text path's device ops on SeqColumnsU (chain_merge_docs_u,
+materialize_by_key).
 
 Every function takes an explicit leading doc axis ([D, N] / [D, C]
 tensors) where the JAX package vmaps one doc; nothing is jitted.  Per
@@ -151,17 +153,31 @@ def pad_rows(a: np.ndarray, n: int, fill) -> np.ndarray:
     return out
 
 
+# fill of pad rows and of all-invalid filler docs: invalid, deleted, no content
+SEQ_FILL = SeqColumns(parent=-1, side=0, peer=0, counter=0, deleted=True, content=-1, valid=False)
+
+
 def pad_seq_columns(cols: SeqColumns, n: int) -> SeqColumns:
     """Pad numpy SeqColumns of one doc to n rows (invalid tail)."""
-    return SeqColumns(
-        parent=pad_rows(cols.parent, n, -1),
-        side=pad_rows(cols.side, n, 0),
-        peer=pad_rows(cols.peer, n, 0),
-        counter=pad_rows(cols.counter, n, 0),
-        deleted=pad_rows(cols.deleted, n, True),
-        content=pad_rows(cols.content, n, -1),
-        valid=pad_rows(cols.valid, n, False),
-    )
+    return SeqColumns(*[pad_rows(a, n, fill) for a, fill in zip(cols, SEQ_FILL)])
+
+
+def stack_seq_columns(per_doc, n: int, d_pad: Optional[int] = None) -> SeqColumns:
+    """Numpy SeqColumns [d_pad, n] of a batch of docs, each given by
+    SeqColumns' fields (SeqColumns, columnar.SeqExtract): a doc's rows
+    then pad rows, then all-invalid filler docs up to d_pad (default: the
+    batch size).  The same arrays as padding each doc (pad_seq_columns)
+    and stacking, written into one array a column: at fleet depth the
+    per-doc padded copies cost several times the stack."""
+    d_pad = max(d_pad or 0, len(per_doc))
+    out = []
+    for f, fill in zip(SeqColumns._fields, SEQ_FILL):
+        a = np.full((d_pad, n), fill, getattr(per_doc[0], f).dtype)
+        for i, c in enumerate(per_doc):
+            col = getattr(c, f)
+            a[i, : col.shape[0]] = col
+        out.append(a)
+    return SeqColumns(*out)
 
 
 def seq_columns_to_torch(np_cols, device: DeviceLike = "cuda"):
@@ -671,6 +687,111 @@ def materialize_content_u(
 
 
 merge_docs_u = materialize_content_u
+
+
+# ---- resident text path: device ops on SeqColumnsU -----------------------------
+
+
+def chain_contract_materialize_u(
+    cols: SeqColumnsU, c_pad: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Chain contraction on the device, order and placement for the
+    row-order-free table [D, N]: (codes int32 [D, N] padded with -1,
+    count int32 [D], n_chains int32 [D]).
+
+    Row i links to row i - 1 (columnar.contract_chains' conditions) iff
+    both are valid, parent == i - 1, side is Right, row i - 1 has exactly
+    one child and no Left child, and row i has no Left child; chains are
+    the runs of linked rows, numbered in row order.  Chain attributes are
+    scattered from head rows into `c_pad` slots, chains are ranked with
+    sibling keys (peer_hi, peer_lo, counter) of their head rows, and
+    elements placed by the sort placement.
+
+    When n_chains > c_pad the codes are garbage and the caller retries
+    with a larger budget; n_chains is right either way.  Chain ids past
+    the budget go to the dump slot c_pad of every scatter, and chain
+    parents are clipped to [-1, c_pad - 1] (JAX clamps the gathers that
+    read them), so such a call indexes nothing out of range."""
+    if c_pad < 1:
+        raise ConfigError("c_pad", c_pad, "a chain budget >= 1")
+    dev = cols.parent.device
+    n_docs, n = cols.parent.shape
+    i64 = torch.int64
+    valid = cols.valid
+    parent = cols.parent.to(i64)
+    side = cols.side.to(i64)
+    pgt = parent.clamp(0, n - 1)
+    has_parent = valid & (parent >= 0)
+    zeros = torch.zeros((n_docs, n), dtype=i64, device=dev)
+    cc = zeros.scatter_add(1, torch.where(has_parent, pgt, n - 1), has_parent.to(i64))
+    is_l = has_parent & (side == 0)
+    lc = zeros.scatter_add(1, torch.where(is_l, pgt, n - 1), is_l.to(i64))
+    idx = torch.arange(n, dtype=i64, device=dev)
+    prev_ok = torch.cat([torch.zeros((n_docs, 1), dtype=torch.bool, device=dev), valid[:, :-1]], dim=1)
+    link = valid & prev_ok & (parent == idx - 1) & (side == 1) & (cc.roll(1, 1) == 1) & (lc.roll(1, 1) == 0) & (lc == 0)
+    link[:, 0] = False
+    is_head = valid & ~link
+    chain_id = torch.where(valid, is_head.to(i64).cumsum(1) - 1, c_pad)
+    n_chains = is_head.sum(1).to(torch.int32)
+    tgt = torch.where(is_head, chain_id.clamp(0, c_pad), c_pad)  # c_pad = dump slot
+
+    def head_scatter(src: torch.Tensor, fill: int) -> torch.Tensor:
+        out = torch.full((n_docs, c_pad + 1), fill, dtype=i64, device=dev)
+        return out.scatter_(1, tgt, src.to(i64).expand(n_docs, n))[:, :c_pad]
+
+    head_row = head_scatter(idx, 0)
+    c_parent_row = head_scatter(torch.where(parent >= 0, parent, -1), -1)
+    c_parent = torch.where(c_parent_row >= 0, chain_id.gather(1, c_parent_row.clamp(0, n - 1)), -1)
+    c_parent = c_parent.clamp(max=c_pad - 1)
+    c_valid = torch.arange(c_pad, device=dev) < n_chains[:, None]
+    sib_keys = (head_scatter(cols.peer_hi, 0), head_scatter(cols.peer_lo, 0), head_scatter(cols.counter.to(i64) & _U32, 0))
+    crank = _order_core(c_parent, head_scatter(side, 0), c_valid, sib_keys=sib_keys)
+    visible = valid & ~cols.deleted & (cols.content >= 0)
+    codes, count = _place_by_chain_sort(crank, c_valid, head_row, visible, cols.content)
+    return codes, count, n_chains
+
+
+def chain_merge_docs_u(
+    cols: SeqColumnsU, c_pad: int, *, device: DeviceLike = "cuda"
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The chain-contracted merge of a resident batch at chain budget
+    `c_pad`: (codes [D, N], counts [D], n_chains [D]); the codes are
+    valid only where max(n_chains) <= c_pad (chain_contract_materialize_u)."""
+    return chain_contract_materialize_u(_on(cols, device), c_pad)
+
+
+def _u32_tensor(x, dev: torch.device) -> torch.Tensor:
+    """int64 tensor on `dev` holding the uint32 values of `x` (numpy
+    uint32, or a tensor holding them or their int32 bit patterns)."""
+    t = x.to(dev) if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x).astype(np.int64)).to(dev)
+    return t.to(torch.int64) & _U32
+
+
+def materialize_by_key(
+    cols: SeqColumnsU, key_hi, key_lo, *, device: DeviceLike = "cuda"
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Visible content ordered by standing order keys: one sort by the
+    uint32 pair (key_hi, key_lo) [D, N] in place of a rank solve (the
+    keys' ascending order must be the Fugue traversal order, and unique
+    among valid rows).  (codes int32 [D, N] padded with -1, counts int32
+    [D]), the contract of chain_merge_docs_u.  The pair sorts as one
+    int64, (key_hi - 2^31) * 2^32 + key_lo, which keeps its order;
+    invalid rows get the largest pair."""
+    c = _on(cols, device)
+    dev = c.parent.device
+    n_docs, n = c.content.shape
+    hi, lo = _u32_tensor(key_hi, dev), _u32_tensor(key_lo, dev)
+    if hi.shape != c.content.shape or lo.shape != c.content.shape:
+        raise ValueError(f"key_hi {tuple(hi.shape)} and key_lo {tuple(lo.shape)} must be [D, N] = {(n_docs, n)}")
+    hi = torch.where(c.valid, hi, _U32)
+    lo = torch.where(c.valid, lo, _U32)
+    perm = torch.sort((hi - 2**31) * 2**32 + lo, dim=1, stable=True).indices
+    content_s = c.content.gather(1, perm)
+    vis_s = (c.valid & ~c.deleted & (c.content >= 0)).gather(1, perm)
+    pos = vis_s.to(torch.int64).cumsum(1) - 1
+    out = torch.full((n_docs, n + 1), -1, dtype=c.content.dtype, device=dev)
+    out.scatter_(1, torch.where(vis_s, pos, n), content_s)
+    return out[:, :n], vis_s.sum(1).to(torch.int32)
 
 
 # ---- element placement (chain path) ------------------------------------------

@@ -24,7 +24,9 @@ the node and right subtrees after it.
 ``trace_payload`` turns it into the binary updates payload a server
 would receive for the document (one change a peer's window, encoded by
 ``codec.binary.encode_text_changes``), so the ingest path can start
-from payload bytes.
+from payload bytes.  ``seq_columns_u`` lays a document out as the
+row-order-free table of the resident path, rows in apply order (as a
+resident batch appends them) or in (peer, counter) order.
 
 Generated tables and payloads are cached under ``build/tracegen/``,
 tables keyed by the generator version and every parameter, payloads by
@@ -47,6 +49,7 @@ import numpy as np
 from .codec.binary import TextChange, TextDelete, TextInsert, encode_text_changes
 from .core.ids import ContainerID, ContainerType
 from .ops.columnar import SeqExtract
+from .ops.fugue_batch import SeqColumnsU, pad_rows
 
 AUTOMERGE_PERF_INSERTS = 182_315
 AUTOMERGE_PERF_DELETES = 77_463
@@ -400,6 +403,43 @@ def trace_payload(doc: TraceDoc, use_cache: bool = True) -> bytes:
         tmp.write_bytes(payload)
         tmp.replace(path)
     return payload
+
+
+def seq_columns_u(doc: TraceDoc, order: str = "apply", pad_to: Optional[int] = None) -> SeqColumnsU:
+    """Numpy SeqColumnsU of the document: rows in the event log's insert
+    order (order="apply") or in (peer, counter) order ("peer"), parents
+    remapped to those rows, peer ids split into uint32 halves, padded
+    with invalid rows to `pad_to` rows when given."""
+    ex = doc.extract
+    if order == "peer":
+        perm = np.arange(ex.n)
+    elif order == "apply":
+        ins = doc.events["insert"].astype(bool)
+        want = (doc.events["peer"][ins].astype(np.int64) << 32) | doc.events["counter"][ins].astype(np.int64)
+        have = (ex.peer.astype(np.int64) << 32) | ex.counter.astype(np.int64)  # ascending: the extract's order
+        perm = np.searchsorted(have, want)
+        if perm.shape[0] != ex.n or not np.array_equal(have[np.minimum(perm, ex.n - 1)], want):
+            raise ValueError("the event log's inserts are not the extract's elements")
+    else:
+        raise ValueError(f"order must be 'apply' or 'peer', got {order!r}")
+    inv = np.empty(ex.n, np.int64)
+    inv[perm] = np.arange(ex.n)
+    parent = ex.parent[perm].astype(np.int64)
+    parent = np.where(parent >= 0, inv[np.maximum(parent, 0)], -1).astype(np.int32)
+    peer_id = np.asarray(ex.peers, np.uint64)[ex.peer[perm]]
+    n = ex.n if pad_to is None else pad_to
+    if n < ex.n:
+        raise ValueError(f"pad_to {pad_to} < {ex.n} rows")
+    return SeqColumnsU(
+        parent=pad_rows(parent, n, -1),
+        side=pad_rows(ex.side[perm], n, 0),
+        peer_hi=pad_rows((peer_id >> np.uint64(32)).astype(np.uint32), n, 0),
+        peer_lo=pad_rows((peer_id & np.uint64(0xFFFFFFFF)).astype(np.uint32), n, 0),
+        counter=pad_rows(ex.counter[perm], n, 0),
+        deleted=pad_rows(ex.deleted[perm], n, True),
+        content=pad_rows(ex.content[perm], n, -1),
+        valid=pad_rows(ex.valid[perm], n, False),
+    )
 
 
 def oracle_text(ex: SeqExtract) -> str:

@@ -234,8 +234,7 @@ def main() -> int:
     wrand_over = torch.as_tensor(np.stack([chip_smoke.random_ring(np, w_over, 90 + i) for i in range(CHUNK)])).to(dev)
     rand_full = torch.as_tensor(np.stack([chip_smoke.random_ring(np, 65536, 110 + i) for i in range(CHUNK)])).to(dev)
     edocs = tracegen.fleet_docs(2, n_patches=chip_smoke.ELEMENT_PATCHES, seed=chip_smoke.SEED)
-    eseq = columnar.stack_docs([edocs[j % len(edocs)].extract.to_seq_columns(pad_to=chip_smoke.ELEMENT_N)
-                                for j in range(CHUNK)])
+    eseq = fugue_batch.stack_seq_columns([edocs[j % len(edocs)].extract for j in range(CHUNK)], chip_smoke.ELEMENT_N)
     ecols = fugue_batch.seq_columns_to_torch(eseq, device=dev)
     element, _ = fugue_batch._ring_and_anchors(ecols.parent, ecols.side, ecols.valid)
     cases = [(f"flagship [{CHUNK}, {flag.shape[1]}]", flag, algo, True) for algo in ("ruling", "blocked", "wyllie")]

@@ -53,6 +53,7 @@ _BLOCKED_IMPORT = textwrap.dedent(
     # payload ingest: the port's encoder and native codec, the packed
     # transport and the coalesced rank
     import numpy as np
+    from torch import equal as torch_equal
     from loro_tpu_torch.ops import rank_model
 
     payloads = [tracegen.trace_payload(d, use_cache=False) for d in docs]
@@ -64,6 +65,27 @@ _BLOCKED_IMPORT = textwrap.dedent(
     codes, counts = fugue_batch.chain_merge_docs_packed(packed, 257, 515, "torch:coalesced", budget, device="cpu")
     for i, d in enumerate(docs):
         assert "".join(map(chr, codes[i][: int(counts[i])].tolist())) == d.text
+
+    # the one-shot fleet merge, the decoder and the new core modules,
+    # and the resident path's device ops
+    from loro_tpu_torch.codec.binary import decode_changes
+    from loro_tpu_torch.core import change, ids, version
+    from loro_tpu_torch.parallel.fleet import FLEET_FALLBACKS, Fleet
+
+    fleet = Fleet(device="cpu")
+    assert fleet.merge_text_payloads(payloads, tracegen.TEXT_CID).texts == [d.text for d in docs]
+    changes = [decode_changes(p) for p in payloads]
+    assert all(isinstance(ch, change.Change) and isinstance(ch.deps, version.Frontiers) for chs in changes for ch in chs)
+    assert fleet.merge_text_changes(changes, tracegen.TEXT_CID).texts == [d.text for d in docs]
+    assert FLEET_FALLBACKS["payload_extract"] == 0 and ids.ID.parse("3@7") == ids.ID(7, 3)
+    u = [tracegen.seq_columns_u(d, pad_to=1024) for d in docs]
+    u = fugue_batch.seq_columns_to_torch(
+        fugue_batch.SeqColumnsU(*[np.stack([getattr(c, f) for c in u]) for f in fugue_batch.SeqColumnsU._fields]),
+        device="cpu")
+    codes_u, counts_u, _ = fugue_batch.chain_merge_docs_u(u, 1024, device="cpu")
+    rank = fugue_batch.fugue_order_u(u, device="cpu").long()
+    by_key = fugue_batch.materialize_by_key(u, rank >> 10, rank & 0x3FF, device="cpu")
+    assert torch_equal(codes_u, by_key[0]) and torch_equal(counts_u, by_key[1])
 
     # the port's entry point
     from loro_tpu_torch.entry import entry
@@ -98,7 +120,9 @@ def test_source_scan_finds_no_jax_or_loro_tpu_import():
     source of the port includes anything of loro_tpu/."""
     files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 5
-    for sub in ("codec", "core", "native", "ops"):
+    for name in ("parallel/fleet.py", "core/change.py", "core/version.py", "core/ids.py"):
+        assert PKG / name in files, name
+    for sub in ("codec", "core", "native", "ops", "parallel"):
         assert any(f.parent == PKG / sub for f in files), sub
     offenders = [
         f"{f.relative_to(REPO)}: {m.group(0).strip()}" for f in files for m in _IMPORT_RE.finditer(f.read_text())
@@ -135,6 +159,7 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
     )
     cpu_cols = fugue_batch.chain_columns_to_torch(np_cols, device="cpu")
     from loro_tpu_torch.entry import entry, example_cols
+    from loro_tpu_torch.parallel.fleet import Fleet
 
     np_seq = example_cols(d=1, n=8)
     seq = fugue_batch.seq_columns_to_torch(np_seq, device="cpu")
@@ -166,6 +191,9 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
         lambda: fugue_batch.fugue_order_u(seq_u),
         lambda: fugue_batch.materialize_content_u(seq_u),
         lambda: fugue_batch.merge_docs_u(seq_u),
+        lambda: fugue_batch.chain_merge_docs_u(seq_u, 8),
+        lambda: fugue_batch.materialize_by_key(seq_u, u32, u32),
+        lambda: Fleet(),
     ]
     for call in calls:
         with pytest.raises(DeviceUnavailable):
