@@ -4,8 +4,9 @@ checks it, end to end:
 
 1. device: requires torch.cuda.is_available(); prints the card's name and
    power limit as nvidia-smi reports them;
-2. build: compiles every CUDA source of the port with nvcc (in parallel)
-   into build/torch_kernels/;
+2. build: compiles every native source of the port in parallel (the
+   CUDA kernels with nvcc, the host codec and the resident batch's order
+   engine and id map with g++) into build/torch_kernels/;
 3. kernels: holds every list-rank kernel bit-exact against its plain
    torch version on the same CUDA tensors: ruling and blocked on one CTA
    in their shared-memory and global-scratch table variants, wyllie on
@@ -13,8 +14,8 @@ checks it, end to end:
    random rings, ruler gaps, every ruler spacing, weights, many short
    lists, in-trees and index-local runs), and the wide kernel on its
    cluster of 8, including a ring whose every pointer crosses a CTA
-   slice; then runs
-   tests/test_torch_list_rank_cuda.py and tests/test_torch_fleet_cuda.py
+   slice; then runs tests/test_torch_list_rank_cuda.py,
+   tests/test_torch_fleet_cuda.py and tests/test_torch_resident_cuda.py
    (pytest -m cuda) as a subprocess;
 4. main paths, each with launch counts reset before and read after:
    a. chain merge: a full-size 8-doc chunk of automerge-perf-shaped
@@ -51,6 +52,20 @@ checks it, end to end:
       chain_merge_docs_u through DeviceDocBatch's budget loop (from
       c_pad 256) against chain_merge_docs_checksum_v, and
       materialize_by_key on standing keys from a rank solve;
+   e. resident: DeviceDocBatch fed one sync epoch of payloads a round
+      (tracegen.epoch_payloads), at fleet depth (1,024 docs cycled over
+      the fleet phase's 8 distinct 40,000-patch docs, 10 rounds, grown
+      once from 16,384 to 32,768 rows) and at document depth (the
+      flagship docs over 8 docs, 65 rounds, grown four times to 262,144
+      rows, checkpointed after round 32 and the restored batch fed the
+      rest, both ending in equal state); texts() by the standing keys and
+      texts(use_solver=True) checked against the host oracle, the
+      solver's final call checked to launch the ruling kernel (fleet
+      depth) or the wide kernel (document depth), and that kernel held
+      bit-exact against its plain version on the settled call's rings
+      ([1,024, 8,194] and [8, 65,538]); rows/s per round split
+      stage by stage, one round under the profiler, read and checkpoint
+      times and bytes, peak device memory;
 5. timings (CUDA events, warm-up then median; a kernel's ms is 20
    back-to-back calls of its wrapper replayed from a CUDA graph, and
    beside it eager_ms, the same 20 calls eager): merge ms per chunk and
@@ -101,6 +116,13 @@ INGEST_CHUNKS, INGEST_S = 64, 20.0  # the pipelined ingest loop: chunks, or seco
 # chain budget DeviceDocBatch starts at
 FLEET_DOCS, FLEET_DISTINCT, FLEET_REPS = 1024, 8, 2
 FLAGSHIP_N, C_PAD_START = 262_144, 256
+# the resident phase: DeviceDocBatch fed one sync epoch a round, at fleet
+# depth (RES_FLEET_DOCS docs cycled over the fleet phase's distinct docs)
+# and at document depth (the flagship docs over CHUNK docs, checkpointed
+# after RES_CKPT_ROUND rounds, texts checked against the solver every
+# RES_CHECK_EVERY rounds); both start at RES_CAP rows and grow
+RES_FLEET_DOCS, RES_FLEET_EPOCHS, RES_CAP = 1024, 10, 16_384
+RES_DOC_EPOCHS, RES_DOC_CAP, RES_DOC_C_PAD, RES_CKPT_ROUND, RES_CHECK_EVERY = 65, 262_144, 32_768, 32, 16
 
 
 def check(cond: bool, what: str) -> None:
@@ -150,13 +172,16 @@ def both_ms(torch, fn) -> tuple:
     return time_ms(torch, fn, inner=20), kernel_ms(torch, fn)
 
 
-def device_breakdown(torch, fn, calls: int = 5):
+def device_breakdown(torch, fn, calls: int = 5, warm: bool = True):
     """(device-busy ms per call, wall ms per call, top kernels) from
-    torch.profiler over `calls` back-to-back calls.  Busy time is the sum
-    of kernel durations, so busy / wall is the share the device worked."""
+    torch.profiler over `calls` back-to-back calls, after one unprofiled
+    call unless warm=False (for a call that changes state).  Busy time is
+    the sum of kernel durations, so busy / wall is the share the device
+    worked."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -257,6 +282,233 @@ def runs_ring(np, m: int, run_len: int, seed: int):
     succ[ends[order[:-1]]] = starts[order[1:]]
     succ[ends[order[-1]]] = ends[order[-1]]
     return succ
+
+
+def resident_phase(torch, dev, kind: str, card: str, fleet_docs, fleet_want, flag_docs, flag_idxs, flag_texts) -> dict:
+    """Phase 4e, the resident text path: DeviceDocBatch fed one sync epoch
+    of payloads a round (tracegen.epoch_payloads), at fleet depth
+    (RES_FLEET_DOCS docs cycled over `fleet_docs`) and at document depth
+    (`flag_docs` over `flag_idxs`, checkpointed after RES_CKPT_ROUND
+    rounds, the restored batch fed the rest); every read checked against
+    the host oracle and the solver, the solver's kernel checked in
+    list_rank.LAUNCHES and held bit-exact against its plain version on
+    the settled call's rings.  Returns the phase's results; its kernel
+    launches (all of them the solver's) under "launches", the kernel
+    checks' max abs errors under "max_abs_err"."""
+    from loro_tpu_torch import tracegen
+    from loro_tpu_torch.ops import fugue_batch, list_rank
+    from loro_tpu_torch.parallel import fleet as fleet_mod
+    from loro_tpu_torch.parallel.fleet import DeviceDocBatch
+
+    distinct = len(fleet_docs)
+    # DeviceDocBatch.stage_ms()'s stages of an append
+    STAGES = ("explode", "stage", "commit", "block", "order", "upload_scatter", "renumber_keys", "tombstone")
+    # every kernel launch of this phase is the resident main path's (the
+    # solver reads); checks diff the counts around each call
+    list_rank.reset_launches()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    r_docs = {"fleet": fleet_docs, "document": flag_docs}
+    r_epochs = {k: [tracegen.epoch_payloads(d) for d in ds] for k, ds in r_docs.items()}
+    r_gen_s = time.perf_counter() - t0
+    check([len(e) for e in r_epochs["fleet"]] == [RES_FLEET_EPOCHS] * distinct, f"fleet docs: {RES_FLEET_EPOCHS} sync epochs")
+    check([len(e) for e in r_epochs["document"]] == [RES_DOC_EPOCHS] * len(flag_docs), f"flagship docs: {RES_DOC_EPOCHS} sync epochs")
+    resident4e = {"gen_s": r_gen_s, "max_abs_err": {}}
+
+    def since(before: dict) -> dict:
+        return {k: v - before[k] for k, v in list_rank.LAUNCHES.items() if v != before[k]}
+
+    def ingest_round(batch, payloads) -> dict:
+        """One append_payloads round, ended on a device sync so its wall
+        holds the scatter; its rows, wall and stage split."""
+        before_rows, cap0 = int(batch.counts.sum()), batch.cap
+        t0 = time.perf_counter()
+        batch.append_payloads(payloads, tracegen.TEXT_CID)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        rows = int(batch.counts.sum()) - before_rows
+        return {"rows": rows, "wall_ms": wall, "rows_per_s": rows / (wall / 1e3), "cap": batch.cap,
+                "grew": batch.cap != cap0, "stage_ms": batch.stage_ms()}
+
+    def read_both(batch, want, label: str) -> dict:
+        """texts() by the standing keys and by the solver (its budget loop
+        first, then the settled call), each checked against `want`, with
+        the settled solver call's launches and the reads' stage splits."""
+        out = {}
+        t0 = time.perf_counter()
+        got = batch.texts()
+        out["texts_ms"] = (time.perf_counter() - t0) * 1e3
+        out["texts_split_ms"] = batch.stage_ms()
+        check(got == want, f"resident {label}: texts() != host oracle")
+        c0 = batch._c_pad
+        before = dict(list_rank.LAUNCHES)
+        t0 = time.perf_counter()
+        check(batch.texts(use_solver=True) == got, f"resident {label}: texts(use_solver=True) != texts()")
+        out["solver_first_ms"] = (time.perf_counter() - t0) * 1e3
+        out["budget"] = [c0, batch._c_pad]
+        out["solver_loop_launches"] = since(before)
+        before = dict(list_rank.LAUNCHES)
+        t0 = time.perf_counter()
+        check(batch.texts(use_solver=True) == got, f"resident {label}: settled solver != texts()")
+        out["solver_ms"] = (time.perf_counter() - t0) * 1e3
+        out["solver_split_ms"] = batch.stage_ms()
+        out["solver_launches"] = since(before)
+        key = list_rank.launch_key(list_rank.plan_rank(fugue_batch.rank_bound(batch._c_pad)))
+        check(out["solver_launches"] == {key: 1},
+              f"resident {label}: the solver at c_pad {batch._c_pad} launched {out['solver_launches']}, not one {key}")
+        out["solver_kernel"] = key
+        # the settled call's rings, rebuilt at its c_pad: the route's kernel
+        # alone on them, held bit-exact against its plain version (the
+        # comparison's launch is taken back out of LAUNCHES)
+        c_parent, c_side, c_valid, sib_keys, _, _ = fugue_batch._contract_u(batch.cols, batch._c_pad)
+        ring, _ = fugue_batch._ring_and_anchors(c_parent, c_side, c_valid, sib_keys)
+        before = dict(list_rank.LAUNCHES)
+        got_k = list_rank.wyllie_rank(ring, device=dev)
+        ran = since(before)
+        ref = list_rank.wyllie_rank_reference(ring)
+        torch.cuda.synchronize()
+        list_rank.LAUNCHES.update(before)
+        err = int((got_k.to(torch.int64) - ref.to(torch.int64)).abs().max())
+        check(ran == {key: 1}, f"resident {label}: the kernel check on the solver's rings launched {ran}, not one {key}")
+        check(torch.equal(got_k, ref), f"resident {label}: {key} kernel != plain version on the solver's rings "
+                                       f"{list(ring.shape)} (max abs err {err})")
+        name = key.split("/")[0]
+        resident4e["max_abs_err"][name] = max(resident4e["max_abs_err"].get(name, 0), err)
+        out["solver_kernel_check"] = {"ring": list(ring.shape), "max_abs_err": err}
+        del c_parent, c_side, c_valid, sib_keys, ring, got_k, ref
+        return out
+
+    def round_stats(rounds) -> dict:
+        steady = [r["rows_per_s"] for r in rounds if not r["grew"] and not r.get("profiled")]
+        return {"median_rows_per_s": statistics.median(steady), "best_rows_per_s": max(steady),
+                "grow_rounds": [{"round": i, "rows_per_s": r["rows_per_s"], "wall_ms": r["wall_ms"],
+                                 "grow_ms": r["stage_ms"].get("grow"), "cap": r["cap"]}
+                                for i, r in enumerate(rounds) if r["grew"]]}
+
+    # (a) fleet depth: 1,024 docs cycled over the 8 distinct 40,000-patch docs
+    eps = r_epochs["fleet"]
+    want = [fleet_want[j % distinct] for j in range(RES_FLEET_DOCS)]
+    batch = DeviceDocBatch(RES_FLEET_DOCS, capacity=RES_CAP, device=dev, auto_grow=True)
+    rounds = []
+    for e in range(RES_FLEET_EPOCHS):
+        pls = [eps[j % distinct][e] for j in range(RES_FLEET_DOCS)]
+        if e < RES_FLEET_EPOCHS - 1:
+            rounds.append(ingest_round(batch, pls))
+            continue
+        # the last round under the profiler: the device-busy share of a round
+        box = {}
+        busy_ms, busy_wall_ms, busy_top = device_breakdown(
+            torch, lambda: box.update(ingest_round(batch, pls)), calls=1, warm=False)
+        rounds.append({**box, "profiled": True, "device_busy_ms": busy_ms, "device_busy_wall_ms": busy_wall_ms,
+                       "device_busy_share": busy_ms / busy_wall_ms,
+                       "device_busy_top": [[ms, name[:80], cnt] for ms, name, cnt in busy_top]})
+    grew = [(i, r["cap"]) for i, r in enumerate(rounds) if r["grew"]]
+    check(len(grew) == 1 and grew[0][1] == 2 * RES_CAP and batch.cap == 2 * RES_CAP,
+          f"fleet batch: grew {grew}, not once to {2 * RES_CAP}")
+    fleet_reads = read_both(batch, want, f"[{RES_FLEET_DOCS}, {batch.cap}]")
+    check(fleet_reads["solver_kernel"].startswith("ruling/"), f"fleet solver kernel {fleet_reads['solver_kernel']}")
+    check(fleet_mod.FLEET_FALLBACKS["payload_decode"] == 0, f"resident fallbacks {fleet_mod.FLEET_FALLBACKS}")
+    resident4e["fleet"] = {
+        "docs": RES_FLEET_DOCS, "distinct": distinct, "epochs": RES_FLEET_EPOCHS, "cap": batch.cap,
+        "rows": int(batch.counts.sum()), "rounds": rounds, **round_stats(rounds), **fleet_reads,
+        "host_entries": sum(len(m) for m in batch.id2row) + sum(o.n for o in batch.order),
+        "renumbers_per_doc": [o.renumbers for o in batch.order[:distinct]],
+        "device_bytes": sum(t.numel() * t.element_size() for t in (*batch.cols, batch.key_hi, batch.key_lo)),
+    }
+    r = resident4e["fleet"]
+    prof = rounds[-1]
+    print(f"resident fleet on {kind} ({card}): DeviceDocBatch [{RES_FLEET_DOCS}, {batch.cap}] ({r['rows']} rows, "
+          f"{r['device_bytes'] / 2**30:.2f} GiB of columns and keys, {r['host_entries']} host order and id-map "
+          f"entries), {RES_FLEET_EPOCHS} rounds of {RES_FLEET_DOCS} payloads: rows/s median "
+          f"{r['median_rows_per_s'] / 1e6:.3f}M, best {r['best_rows_per_s'] / 1e6:.3f}M; grow round "
+          + ", ".join(f"{g['round']} ({g['rows_per_s'] / 1e6:.3f}M rows/s, grow {g['grow_ms']:.1f} ms)"
+                      for g in r["grow_rounds"])
+          + "; round split ms (median): "
+          + ", ".join(f"{k} {statistics.median(x['stage_ms'].get(k, 0.0) for x in rounds[:-1]):.1f}"
+                      for k in STAGES)
+          + f"; profiled round {prof['wall_ms']:.1f} ms wall, device busy {prof['device_busy_ms']:.2f} ms = "
+          f"{100 * prof['device_busy_share']:.2f} %; texts() {r['texts_ms']:.1f} ms ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in r["texts_split_ms"].items())
+          + f"); solver from c_pad {r['budget'][0]} to {r['budget'][1]} {r['solver_first_ms']:.1f} ms (launches "
+          f"{r['solver_loop_launches']}), settled {r['solver_ms']:.1f} ms ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in r["solver_split_ms"].items())
+          + f", {r['solver_kernel']}; the kernel alone on its rings {r['solver_kernel_check']['ring']} bit-exact); "
+          f"texts == host oracle == solver; renumbers {r['renumbers_per_doc']}", flush=True)
+    del batch
+    torch.cuda.empty_cache()
+
+    # (b) document depth: the flagship docs over CHUNK docs, 65 epochs,
+    # a checkpoint after round 32 restored and fed the rest
+    eps = r_epochs["document"]
+    want = [flag_texts[i] for i in flag_idxs]
+    batch = DeviceDocBatch(len(flag_idxs), capacity=RES_CAP, device=dev, auto_grow=True)
+    rounds, checks, restored, ckpt = [], [], None, {}
+    for e in range(RES_DOC_EPOCHS):
+        pls = [eps[i][e] for i in flag_idxs]
+        rounds.append(ingest_round(batch, pls))
+        if restored is not None:
+            restored.append_payloads(pls, tracegen.TEXT_CID)
+        if (e + 1) % RES_CHECK_EVERY == 0:
+            got = batch.texts()
+            check(batch.texts(use_solver=True) == got, f"resident document depth round {e + 1}: texts != solver")
+            checks.append(e + 1)
+        if e + 1 == RES_CKPT_ROUND:
+            t0 = time.perf_counter()
+            blob = batch.export_state()
+            t1 = time.perf_counter()
+            restored = DeviceDocBatch.import_state(blob, device=dev)
+            t2 = time.perf_counter()
+            check(restored.export_state() == blob, "checkpoint: the restored batch exports other bytes")
+            ckpt = {"round": e + 1, "cap": batch.cap, "bytes": len(blob), "export_ms": (t1 - t0) * 1e3,
+                    "import_ms": (t2 - t1) * 1e3}
+    grew = [r["cap"] for r in rounds if r["grew"]]
+    doublings = []
+    while RES_CAP << (len(doublings) + 1) <= RES_DOC_CAP:
+        doublings.append(RES_CAP << (len(doublings) + 1))
+    check(grew == doublings and batch.cap == RES_DOC_CAP,
+          f"document batch grew {grew}, not {doublings}")
+    doc_reads = read_both(batch, want, f"[{len(flag_idxs)}, {batch.cap}]")
+    check(doc_reads["budget"][1] == RES_DOC_C_PAD and doc_reads["solver_kernel"].startswith("wide/"),
+          f"document solver at c_pad {doc_reads['budget'][1]} on {doc_reads['solver_kernel']}")
+    check(restored.texts() == want and restored.texts(use_solver=True) == want, "restored batch: texts != oracle")
+    t0 = time.perf_counter()
+    blob = batch.export_state()
+    t1 = time.perf_counter()
+    again = DeviceDocBatch.import_state(blob, device=dev)
+    t2 = time.perf_counter()
+    check(restored.export_state() == blob, "the restored batch fed rounds 33-65 exports other bytes")
+    check(again.export_state() == blob, "final checkpoint: the restored batch exports other bytes")
+    check(fleet_mod.FLEET_FALLBACKS["payload_decode"] == 0, f"resident fallbacks {fleet_mod.FLEET_FALLBACKS}")
+    resident4e["document"] = {
+        "docs": len(flag_idxs), "epochs": RES_DOC_EPOCHS, "cap": batch.cap, "rows": int(batch.counts.sum()),
+        "rounds": rounds, **round_stats(rounds), **doc_reads, "checked_rounds": checks,
+        "renumbers_per_doc": [o.renumbers for o in batch.order], "checkpoint_round": ckpt,
+        "checkpoint": {"cap": batch.cap, "bytes": len(blob), "export_ms": (t1 - t0) * 1e3, "import_ms": (t2 - t1) * 1e3},
+    }
+    del batch, restored, again
+    resident4e["launches"] = {k: v for k, v in list_rank.LAUNCHES.items() if v}
+    resident4e["peak_device_bytes"] = torch.cuda.max_memory_allocated(dev)
+    r = resident4e["document"]
+    print(f"resident document depth on {kind} ({card}): DeviceDocBatch [{len(flag_idxs)}, {r['cap']}] ({r['rows']} rows), "
+          f"{RES_DOC_EPOCHS} rounds, grew to {r['cap']} at rounds {[g['round'] for g in r['grow_rounds']]}; rows/s "
+          f"median {r['median_rows_per_s'] / 1e6:.3f}M, best {r['best_rows_per_s'] / 1e6:.3f}M; round split ms (median): "
+          + ", ".join(f"{k} {statistics.median(x['stage_ms'].get(k, 0.0) for x in rounds):.2f}" for k in STAGES)
+          + "; renumbers a doc "
+          f"{r['renumbers_per_doc']}; texts == solver at rounds {checks}; texts() {r['texts_ms']:.1f} ms ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in r["texts_split_ms"].items())
+          + f"); solver from c_pad {r['budget'][0]} to {r['budget'][1]} {r['solver_first_ms']:.1f} ms (launches "
+          f"{r['solver_loop_launches']}), settled {r['solver_ms']:.1f} ms ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in r["solver_split_ms"].items())
+          + f", {r['solver_kernel']}; the kernel alone on its rings {r['solver_kernel_check']['ring']} bit-exact); "
+          f"checkpoint after round {ckpt['round']} at cap {ckpt['cap']}: {ckpt['bytes']} "
+          f"bytes, export {ckpt['export_ms']:.1f} ms, import {ckpt['import_ms']:.1f} ms, restored batch fed rounds "
+          f"{RES_CKPT_ROUND + 1}-{RES_DOC_EPOCHS}: equal texts and state; final checkpoint at [{len(flag_idxs)}, {r['cap']}]: "
+          f"{r['checkpoint']['bytes']} bytes, export {r['checkpoint']['export_ms']:.1f} ms, import "
+          f"{r['checkpoint']['import_ms']:.1f} ms; phase launches {resident4e['launches']}; peak device memory "
+          f"{resident4e['peak_device_bytes'] / 2**30:.2f} GiB", flush=True)
+    torch.cuda.empty_cache()
+    return resident4e
 
 
 def main() -> int:
@@ -444,11 +696,11 @@ def main() -> int:
     test = subprocess.run(
         [sys.executable, "-m", "pytest", "-q", "-m", "cuda", "--noconftest", "-p", "no:cacheprovider",
          "-o", "markers=cuda: needs an NVIDIA GPU", "tests/test_torch_list_rank_cuda.py",
-         "tests/test_torch_fleet_cuda.py"],
+         "tests/test_torch_fleet_cuda.py", "tests/test_torch_resident_cuda.py"],
         cwd=root, capture_output=True, text=True, timeout=600,
     )
     summary = (test.stdout.strip().splitlines() or ["(no output)"])[-1]
-    print(f"pytest -m cuda tests/test_torch_list_rank_cuda.py tests/test_torch_fleet_cuda.py: rc {test.returncode}, "
+    print(f"pytest -m cuda tests/test_torch_{{list_rank,fleet,resident}}_cuda.py: rc {test.returncode}, "
           f"{summary} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     check(test.returncode == 0 and " passed" in summary and "skipped" not in summary,
@@ -961,6 +1213,11 @@ def main() -> int:
           f"{resident['materialize_by_key_ms']:.3f} ms; fallbacks {fleet_mod.FLEET_FALLBACKS}", flush=True)
     del ucols, ucodes, kcodes, rank, key_hi, key_lo
 
+    # ---- 4e. resident: DeviceDocBatch, sync epoch by sync epoch -----------
+    resident4e = resident_phase(torch, dev, kind, card, fdocs[ELEMENT_N], fleet_texts[ELEMENT_N], docs, idxs, texts)
+    for name, err in resident4e["max_abs_err"].items():
+        max_err[name] = max(max_err[name], err)
+
     # ---- 5. timings -------------------------------------------------------
     # each kernel at its main-path shape: the flagship chain rings for the
     # packed kernels, the element rings for the wide kernel
@@ -1155,7 +1412,7 @@ def main() -> int:
         "mp": {name: p.mp for name, (p, _, _) in plans.items()}, "chunk_ops": chunk_ops,
         "element_chunk_ops": echunk_ops, "build_s": build_s, "gen_s": gen_s, "element_gen_s": egen_s, **res,
         "bound_ms": bounds, "phases": phases, "full_card": full_card, "wyllie_over_budget": over_budget,
-        "sweep": sweep, "sweep_graph": sweep_graph, "ingest": ingest, "fleet": fleet,
+        "sweep": sweep, "sweep_graph": sweep_graph, "ingest": ingest, "fleet": fleet, "resident": resident4e,
         "total_s": time.perf_counter() - t_start,
     }))
     # launches in the fleet phase's checked one-shot calls, one a call
@@ -1169,6 +1426,7 @@ def main() -> int:
             "replaces": f"loro_tpu/ops/pallas_rank.py:{REPLACES[name]}",
             "launches": launches[name],
             "launches_fleet": fleet_by_kernel[name],
+            "launches_resident": sum(v for k, v in resident4e["launches"].items() if k.split("/")[0] == name),
             "max_abs_err": max_err[name],
             "ms": res[f"{name}_graph_ms"],
             "eager_ms": res[f"{name}_ms"],

@@ -2,17 +2,24 @@
 
 The JAX package ``loro_tpu`` stays the reference; this package imports
 nothing of it (and never imports jax).  It covers the fleet text merge,
-element-level and chain-contracted, from payload bytes:
+element-level and chain-contracted, from payload bytes, and the resident
+text batch:
 
     core              ids, the op/change model, Frontiers
     codec.binary      the payload decoder (decode_changes) and a text encoder
-    native            the native payload explode (seq_codec.cpp)
+    native            the native payload explode and delta explode
+                      (seq_codec.cpp), order engine and id map
+                      (order_idmap.cpp)
     ops.columnar      host numpy element tables -> SeqColumns / ChainColumns
     ops.fugue_batch   Euler-tour ring, list-rank dispatch, placement,
                       batch entry points (explicit leading doc axis), the
                       resident path's device ops on SeqColumnsU
     parallel.fleet    Fleet: one-shot batched text merges of docs, change
-                      lists or payloads
+                      lists or payloads; DeviceDocBatch: the resident
+                      text batch (appends, reads, checkpoints)
+    parallel.order_maintenance, parallel.idmap
+                      the resident batch's host order engine and id maps
+    storage           the LTKV key-value store of its checkpoints
     ops.list_rank     hand-written Hopper list-ranking kernels
                       (csrc/list_rank.cu) + their plain torch versions
     entry             entry(): the element merge of an example batch

@@ -1,6 +1,7 @@
 """Builds the port's native sources into shared libraries with a plain C
 interface, loaded with ctypes: the CUDA kernels (``.cu``) with nvcc, the
-host payload codec (``.cpp``) with g++.
+host payload codec and the resident batch's order engine and id map
+(``.cpp``) with g++.
 
 Each source compiles on its own (one compiler process per source, all
 started together) into ``build/torch_kernels/`` at the repository root,
@@ -28,6 +29,7 @@ BUILD_DIR = PKG_DIR.parent / "build" / "torch_kernels"
 SOURCES: Dict[str, Path] = {
     "list_rank": PKG_DIR / "csrc" / "list_rank.cu",
     "seq_codec": PKG_DIR / "native" / "seq_codec.cpp",
+    "order_idmap": PKG_DIR / "native" / "order_idmap.cpp",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",

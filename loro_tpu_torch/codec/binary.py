@@ -92,6 +92,12 @@ class Writer:
     def u64le(self, v: int) -> None:
         self.buf += struct.pack("<Q", v)
 
+    def u32le(self, v: int) -> None:
+        self.buf += struct.pack("<I", v)
+
+    def f64(self, v: float) -> None:
+        self.buf += struct.pack("<d", v)
+
     def bytes_(self, b: bytes) -> None:
         self.varint(len(b))
         self.buf += b
@@ -149,6 +155,76 @@ class Reader:
 
     def str_(self) -> str:
         return self.bytes_().decode()
+
+    def eof(self) -> bool:
+        return self.i >= len(self.buf)
+
+
+class _Dicts:
+    """Encoding dictionaries (the peer and container tables; the JAX
+    package's also has the key table, which no writer here needs),
+    indexes in first-use order."""
+
+    def __init__(self) -> None:
+        self.peers: List[int] = []
+        self._peer_idx: Dict[int, int] = {}
+        self.cids: List[ContainerID] = []
+        self._cid_idx: Dict[ContainerID, int] = {}
+
+    def peer(self, p: int) -> int:
+        i = self._peer_idx.get(p)
+        if i is None:
+            i = len(self.peers)
+            self.peers.append(p)
+            self._peer_idx[p] = i
+        return i
+
+    def cid(self, c: ContainerID) -> int:
+        i = self._cid_idx.get(c)
+        if i is None:
+            i = len(self.cids)
+            self.cids.append(c)
+            self._cid_idx[c] = i
+        return i
+
+
+def _write_value(w: Writer, d: _Dicts, v: Any) -> None:
+    """One tagged value, the inverse of _read_value (dict keys sorted;
+    a ContainerID by its index in d's container table)."""
+    if v is None:
+        w.u8(VNULL)
+    elif v is True:
+        w.u8(VTRUE)
+    elif v is False:
+        w.u8(VFALSE)
+    elif isinstance(v, int):
+        w.u8(VINT)
+        w.zigzag(v)
+    elif isinstance(v, float):
+        w.u8(VF64)
+        w.f64(v)
+    elif isinstance(v, str):
+        w.u8(VSTR)
+        w.str_(v)
+    elif isinstance(v, bytes):
+        w.u8(VBYTES)
+        w.bytes_(v)
+    elif isinstance(v, (list, tuple)):
+        w.u8(VLIST)
+        w.varint(len(v))
+        for x in v:
+            _write_value(w, d, x)
+    elif isinstance(v, dict):
+        w.u8(VMAP)
+        w.varint(len(v))
+        for k in sorted(v):
+            w.str_(k)
+            _write_value(w, d, v[k])
+    elif isinstance(v, ContainerID):
+        w.u8(VCID)
+        w.varint(d.cid(v))
+    else:
+        raise TypeError(f"cannot encode value {type(v)}")
 
 
 def _write_cid(w: Writer, peer_index, c: ContainerID) -> None:

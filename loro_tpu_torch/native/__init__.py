@@ -1,22 +1,28 @@
-"""ctypes binding of the port's native payload codec (seq_codec.cpp).
+"""ctypes bindings of the port's native host code: the payload codec
+(seq_codec.cpp: the one-shot explode, and the resident batch's delta
+explode and anchor metadata) and the resident batch's engines
+(order_idmap.cpp: NativeShadowOrder, NativeIdMap).
 
-The library is built with g++ at its first use (``_build.library``:
+Each library is built with g++ at its first use (``_build.library``:
 ``build/torch_kernels/``, keyed by the source hash) and loaded with
 ``ctypes.CDLL``, which releases the interpreter lock for the length of
-each call, so decode threads explode payloads in parallel.  There is no
-Python fallback: a codec that cannot be built raises, and a malformed
-payload raises CodecDecodeError.
+each call, so decode threads explode payloads, and ingest threads
+append to different docs' order engines, in parallel.  There is no
+Python fallback: a library that cannot be built raises RuntimeError,
+and a malformed payload raises CodecDecodeError.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
 from ..errors import CodecDecodeError
 
 _lib_handle: Optional[ctypes.CDLL] = None
+_engines_handle: Optional[ctypes.CDLL] = None
+_P = ctypes.c_void_p
 
 
 def _lib() -> ctypes.CDLL:
@@ -33,6 +39,14 @@ def _lib() -> ctypes.CDLL:
         lib.loro_explode_seq.argtypes = (
             [ctypes.c_char_p, ctypes.c_longlong, ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_longlong]
         )
+        head = [ctypes.c_char_p, ctypes.c_longlong, ctypes.c_int]
+        for name in ("loro_count_seq_delta_rows", "loro_count_seq_deletes"):
+            getattr(lib, name).restype = ctypes.c_longlong
+            getattr(lib, name).argtypes = head
+        lib.loro_explode_seq_delta.restype = ctypes.c_longlong
+        lib.loro_explode_seq_delta.argtypes = head + [_P] * 7 + [ctypes.c_longlong] + [_P] * 3 + [ctypes.c_longlong, _P]
+        lib.loro_explode_seq_anchor_meta.restype = ctypes.c_longlong
+        lib.loro_explode_seq_anchor_meta.argtypes = head + [_P] * 5 + [ctypes.c_longlong]
         _lib_handle = lib
     return _lib_handle
 
@@ -72,3 +86,224 @@ def explode_seq_payload(
     if wrote != n:
         raise CodecDecodeError("native decode failed (unresolvable references or count mismatch)")
     return parent, side, peer, counter, deleted.astype(bool), content
+
+
+def _ptr(a: np.ndarray) -> ctypes.c_void_p:
+    return a.ctypes.data_as(ctypes.c_void_p)
+
+
+def explode_seq_delta_payload(payload: bytes, target_cid_index: int) -> Dict[str, np.ndarray]:
+    """The resident batch's incremental explode of one sequence container
+    of a payload: its new rows in payload order, with parents inside the
+    payload as row ordinals (-1 = the root) and parents in earlier
+    payloads as -2 with their (ext_peer_idx, ext_counter) for the
+    caller's id map; deletes as raw (del_peer_idx, del_start, del_end)
+    spans; style anchors as rows of content -1.  Peer indexes are into
+    the payload's peer table.  Raises CodecDecodeError on malformed
+    payloads."""
+    lib = _lib()
+    payload = bytes(payload)
+    n = lib.loro_count_seq_delta_rows(payload, len(payload), target_cid_index)
+    nd = lib.loro_count_seq_deletes(payload, len(payload), target_cid_index)
+    if n < 0 or nd < 0:
+        raise CodecDecodeError("native delta decode failed (malformed payload)")
+    out = {f: np.empty(n, np.int32) for f in ("parent", "side", "peer_idx", "counter", "content", "ext_peer_idx")}
+    out["ext_counter"] = np.empty(n, np.int64)
+    dels = {"del_peer_idx": np.empty(nd, np.int32), "del_start": np.empty(nd, np.int64),
+            "del_end": np.empty(nd, np.int64)}
+    n_del = ctypes.c_longlong(0)
+    wrote = lib.loro_explode_seq_delta(
+        payload, len(payload), target_cid_index,
+        *[_ptr(out[f]) for f in ("parent", "side", "peer_idx", "counter", "content", "ext_peer_idx", "ext_counter")],
+        n, *[_ptr(a) for a in dels.values()], nd, ctypes.byref(n_del),
+    )
+    if wrote != n:
+        raise CodecDecodeError("native delta decode failed")
+    out.update({f: a[: n_del.value] for f, a in dels.items()})
+    return out
+
+
+def explode_seq_anchor_meta(payload: bytes, target_cid_index: int) -> Dict[str, np.ndarray]:
+    """Style-anchor metadata in explode_seq_delta_payload's row numbering:
+    row ordinal, wire key index, the value's byte offset into the
+    payload (for decode_value_at), lamport and flags (bit 0: is_start).
+    Raises CodecDecodeError on malformed payloads."""
+    lib = _lib()
+    payload = bytes(payload)
+    n = lib.loro_explode_seq_anchor_meta(payload, len(payload), target_cid_index, None, None, None, None, None, 0)
+    if n < 0:
+        raise CodecDecodeError("native anchor decode failed (malformed payload)")
+    out = {"row": np.empty(n, np.int64), "key_idx": np.empty(n, np.int32), "voffset": np.empty(n, np.int64),
+           "lamport": np.empty(n, np.int32), "flags": np.empty(n, np.int32)}
+    wrote = lib.loro_explode_seq_anchor_meta(payload, len(payload), target_cid_index, *map(_ptr, out.values()), n)
+    if wrote != n:
+        raise CodecDecodeError("native anchor decode failed")
+    return out
+
+
+def decode_value_at(payload: bytes, offset: int, cids):
+    """Decode one tagged value at a byte offset the native code reported
+    (an anchor's value)."""
+    from ..codec.binary import Reader, _read_value
+
+    r = Reader(payload)
+    r.i = offset
+    return _read_value(r, cids)
+
+
+def _engines() -> ctypes.CDLL:
+    global _engines_handle
+    if _engines_handle is None:
+        from .._build import library
+
+        lib = library("order_idmap")
+        for name, res, args in (
+            ("loro_order_new", _P, []),
+            ("loro_order_free", None, [_P]),
+            ("loro_order_nrows", ctypes.c_longlong, [_P]),
+            ("loro_order_renumbers", ctypes.c_longlong, [_P]),
+            ("loro_order_all_keys", None, [_P, _P]),
+            ("loro_order_append", ctypes.c_longlong, [_P, ctypes.c_longlong] + [_P] * 4 + [ctypes.c_longlong, _P]),
+            ("loro_idmap_new", _P, []),
+            ("loro_idmap_free", None, [_P]),
+            ("loro_idmap_len", ctypes.c_longlong, [_P]),
+            ("loro_idmap_insert", None, [_P, ctypes.c_longlong] + [_P] * 3),
+            ("loro_idmap_stage", None, [_P, ctypes.c_longlong, _P, _P, ctypes.c_int]),
+            ("loro_idmap_commit", None, [_P]),
+            ("loro_idmap_abort", None, [_P]),
+            ("loro_idmap_lookup", None, [_P, ctypes.c_longlong] + [_P] * 3),
+            ("loro_idmap_get", ctypes.c_longlong, [_P, ctypes.c_uint64, ctypes.c_longlong]),
+        ):
+            getattr(lib, name).restype = res
+            getattr(lib, name).argtypes = args
+        _engines_handle = lib
+    return _engines_handle
+
+
+class NativeShadowOrder:
+    """C++ twin of parallel.order_maintenance.ShadowOrder: the same
+    algorithm, so the keys are bit-identical (the Python engine is the
+    differential oracle).  Build one with native_order()."""
+
+    __slots__ = ("_lib", "_h")
+
+    def __init__(self, lib: ctypes.CDLL):
+        self._lib = lib
+        self._h = lib.loro_order_new()
+
+    def __del__(self):
+        h = getattr(self, "_h", None)
+        if h:
+            self._lib.loro_order_free(h)
+            self._h = None
+
+    @property
+    def renumbers(self) -> int:
+        return int(self._lib.loro_order_renumbers(self._h))
+
+    @property
+    def n(self) -> int:
+        return int(self._lib.loro_order_nrows(self._h))
+
+    def append_arrays(self, parent, side, peer, ctr, base_row: int) -> Optional[np.ndarray]:
+        """Place rows (parent row, side, peer, counter) at rows base_row..:
+        their int64 keys, or None after a renumber (the caller re-reads
+        all_keys()).  Raises ValueError unless base_row is the row count."""
+        parent = np.ascontiguousarray(parent, np.int32)
+        side = np.ascontiguousarray(side, np.int32)
+        peer = np.ascontiguousarray(peer, np.uint64)
+        ctr = np.ascontiguousarray(ctr, np.int64)
+        out = np.empty(len(parent), np.int64)
+        rc = self._lib.loro_order_append(
+            self._h, len(parent), _ptr(parent), _ptr(side), _ptr(peer), _ptr(ctr), base_row, _ptr(out)
+        )
+        if rc < 0:
+            raise ValueError("native order append: non-contiguous base row")
+        return None if rc == 1 else out
+
+    def all_keys(self) -> np.ndarray:
+        out = np.empty(self.n, np.int64)
+        self._lib.loro_order_all_keys(self._h, _ptr(out))
+        return out
+
+
+def native_order() -> NativeShadowOrder:
+    """A new native order engine; RuntimeError if the library cannot be
+    built."""
+    return NativeShadowOrder(_engines())
+
+
+class NativeIdMap:
+    """C++ (peer, counter) -> row map of one doc with the staging contract
+    of parallel.idmap.PyIdMap (stage, staged-first lookup, commit or
+    abort) and its dict-like subset."""
+
+    __slots__ = ("_lib", "_h")
+
+    def __init__(self, lib: ctypes.CDLL):
+        self._lib = lib
+        self._h = lib.loro_idmap_new()
+
+    def __del__(self):
+        h = getattr(self, "_h", None)
+        if h:
+            self._lib.loro_idmap_free(h)
+            self._h = None
+
+    def __len__(self) -> int:
+        return int(self._lib.loro_idmap_len(self._h))
+
+    def __bool__(self) -> bool:
+        return len(self) > 0
+
+    def get(self, key, default=None):
+        r = self._lib.loro_idmap_get(self._h, ctypes.c_uint64(key[0]), ctypes.c_longlong(key[1]))
+        return default if r < 0 else int(r)
+
+    def __getitem__(self, key):
+        r = self.get(key)
+        if r is None:
+            raise KeyError(key)
+        return r
+
+    def __contains__(self, key) -> bool:
+        return self.get(key) is not None
+
+    def update(self, d) -> None:
+        """Committed inserts from a {(peer, counter): row} dict."""
+        if not d:
+            return
+        n = len(d)
+        peer = np.fromiter((k[0] for k in d), np.uint64, n)
+        ctr = np.fromiter((k[1] for k in d), np.int64, n)
+        self.insert_arrays(peer, ctr, np.fromiter(d.values(), np.int32, n))
+
+    def insert_arrays(self, peer, ctr, rows) -> None:
+        peer = np.ascontiguousarray(peer, np.uint64)
+        ctr = np.ascontiguousarray(ctr, np.int64)
+        rows = np.ascontiguousarray(rows, np.int32)
+        self._lib.loro_idmap_insert(self._h, len(peer), _ptr(peer), _ptr(ctr), _ptr(rows))
+
+    def stage_base(self, peer, ctr, base_row: int) -> None:
+        peer = np.ascontiguousarray(peer, np.uint64)
+        ctr = np.ascontiguousarray(ctr, np.int64)
+        self._lib.loro_idmap_stage(self._h, len(peer), _ptr(peer), _ptr(ctr), base_row)
+
+    def lookup(self, peer, ctr) -> np.ndarray:
+        """Staged-first batch lookup; -1 = missing."""
+        peer = np.ascontiguousarray(peer, np.uint64)
+        ctr = np.ascontiguousarray(ctr, np.int64)
+        out = np.empty(len(peer), np.int32)
+        self._lib.loro_idmap_lookup(self._h, len(peer), _ptr(peer), _ptr(ctr), _ptr(out))
+        return out
+
+    def commit(self) -> None:
+        self._lib.loro_idmap_commit(self._h)
+
+    def abort(self) -> None:
+        self._lib.loro_idmap_abort(self._h)
+
+
+def native_idmap() -> NativeIdMap:
+    """A new native id map; RuntimeError if the library cannot be built."""
+    return NativeIdMap(_engines())

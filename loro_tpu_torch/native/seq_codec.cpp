@@ -8,8 +8,11 @@
 // The sequence part of the JAX package's native decoder, copied: Reader,
 // skip_value, the (peer, counter) -> row maps (RowTable, and IdMap when
 // RowTable's budget is exceeded), strict UTF-8, the prelude and op
-// skipping, and the two-pass explode.  Map, tree, movable-list, order
-// and id-map code stay behind.
+// skipping, the two-pass explode, and the resident batch's delta
+// explode (rows whose parents lie in earlier payloads come back as
+// (peer index, counter) pairs, deletes as raw spans), its style-anchor
+// metadata pass and its delete count.  Map, tree and movable-list code
+// stay behind; the order engine and id map are in order_idmap.cpp.
 //
 // C ABI only (ctypes binding in loro_tpu_torch/native/__init__.py);
 // built with g++ -O3 -shared -fPIC -std=c++17.
@@ -500,6 +503,247 @@ long long loro_explode_seq(const uint8_t* buf, long long len, int target_cid,
   return explode_seq_impl<IdMap>(
       buf, len, target_cid, out_parent, out_side, out_peer, out_counter,
       out_deleted, out_content, n_elems);
+}
+
+// Count rows the DELTA explode will emit (chars/values AND style
+// anchors — anchors are parentable Fugue nodes and must enter the
+// resident id map).
+long long loro_count_seq_delta_rows(const uint8_t* buf, long long len,
+                                    int target_cid) {
+  Reader r{buf, buf + len};
+  uint64_t n_peers; std::vector<int32_t> cid_types; std::vector<ChangeMeta> metas;
+  if (!parse_prelude(r, &n_peers, cid_types, metas)) return -1;
+  long long total = 0;
+  for (auto& m : metas) {
+    for (uint64_t k = 0; k < m.n_ops; k++) {
+      uint64_t cidx = r.varint();
+      uint8_t kind = r.u8();
+      if (!r.ok) return -1;
+      int64_t atoms = 1;
+      if (!skip_op(r, kind, &atoms)) return -1;
+      if ((long long)cidx == target_cid &&
+          (kind == K_INSERT_TEXT || kind == K_INSERT_VALUES || kind == K_INSERT_ANCHOR)) {
+        total += atoms;
+      }
+    }
+  }
+  return total;
+}
+
+// Pass 2 (incremental variant): like loro_explode_seq but parents that
+// don't resolve inside this payload are reported as (peer_idx, counter)
+// pairs with out_parent = -2, for host-side resolution against the
+// resident batch's id map; deletes are returned as spans instead of
+// folded, for the same reason; style anchors emit rows with
+// out_content = -1.  out_del_* must hold n_del_max entries (from
+// loro_count_seq_deletes).  Returns rows written or -1.
+long long loro_explode_seq_delta(const uint8_t* buf, long long len, int target_cid,
+                                 int32_t* out_parent, int32_t* out_side,
+                                 int32_t* out_peer, int32_t* out_counter,
+                                 int32_t* out_content,
+                                 int32_t* out_ext_peer, int64_t* out_ext_ctr,
+                                 long long n_elems,
+                                 int32_t* out_del_peer, int64_t* out_del_start,
+                                 int64_t* out_del_end, long long n_del_max,
+                                 long long* n_del_out) {
+  Reader r{buf, buf + len};
+  uint64_t n_peers; std::vector<int32_t> cid_types; std::vector<ChangeMeta> metas;
+  if (!parse_prelude(r, &n_peers, cid_types, metas)) return -1;
+  IdMap map((size_t)(n_elems > 16 ? n_elems : 16));
+  long long row = 0, n_del = 0;
+  int32_t value_base = 0;
+  for (auto& m : metas) {
+    int64_t ctr = m.ctr;
+    for (uint64_t k = 0; k < m.n_ops; k++) {
+      uint64_t cidx = r.varint();
+      uint8_t kind = r.u8();
+      if (!r.ok) return -1;
+      if ((long long)cidx != target_cid) {
+        int64_t atoms;
+        if (!skip_op(r, kind, &atoms)) return -1;
+        ctr += atoms;
+        continue;
+      }
+      if (kind == K_INSERT_TEXT || kind == K_INSERT_VALUES || kind == K_INSERT_ANCHOR) {
+        uint8_t ptag = r.u8();
+        uint32_t p_peer = 0; int64_t p_ctr = 0;
+        if (ptag == PT_ID) {
+          uint64_t pi = r.varint();
+          if (!r.ok || pi >= n_peers) return -1;
+          p_peer = (uint32_t)pi; p_ctr = r.zigzag();
+        }
+        uint8_t side = r.u8();
+        int32_t parent_row;
+        uint32_t ext_peer = 0; int64_t ext_ctr = -1;
+        if (ptag == PT_NONE) parent_row = -1;
+        else if (ptag == PT_RUNCONT) {
+          parent_row = map.get(idkey(m.peer_idx, ctr - 1));
+          if (parent_row < 0) { parent_row = -2; ext_peer = m.peer_idx; ext_ctr = ctr - 1; }
+        } else {
+          parent_row = map.get(idkey(p_peer, p_ctr));
+          if (parent_row < 0) { parent_row = -2; ext_peer = p_peer; ext_ctr = p_ctr; }
+        }
+        auto emit = [&](int64_t j, uint32_t cp) -> bool {
+          if (row >= n_elems) return false;
+          out_parent[row] = (j == 0) ? parent_row : (int32_t)(row - 1);
+          out_side[row] = (j == 0) ? side : 1;
+          out_peer[row] = (int32_t)m.peer_idx;
+          out_counter[row] = (int32_t)(ctr + j);
+          out_content[row] = (int32_t)cp;
+          out_ext_peer[row] = (j == 0 && parent_row == -2) ? (int32_t)ext_peer : -1;
+          out_ext_ctr[row] = (j == 0 && parent_row == -2) ? ext_ctr : -1;
+          map.put(idkey(m.peer_idx, ctr + j), (int32_t)row);
+          row++;
+          return true;
+        };
+        if (kind == K_INSERT_ANCHOR) {
+          // key-idx, value, is_start, info — anchors are zero-width but
+          // parentable: emit a content=-1 row (the order solve ignores
+          // it; the id map needs it)
+          r.varint();
+          if (!skip_value(r)) return -1;
+          r.u8(); r.varint();
+          if (!r.ok) return -1;
+          if (!emit(0, (uint32_t)-1)) return -1;
+          ctr += 1;
+        } else if (kind == K_INSERT_TEXT) {
+          uint64_t nb; const uint8_t* s = r.bytes(&nb);
+          if (!r.ok) return -1;
+          uint64_t i = 0; int64_t j = 0;
+          while (i < nb) {
+            uint32_t cp;
+            int used = decode_utf8_cp(s, nb, i, &cp);
+            if (used < 0) return -1;
+            i += used;
+            if (!emit(j, cp)) return -1;
+            j++;
+          }
+          ctr += j;
+        } else {
+          uint64_t n = r.varint();
+          for (uint64_t j = 0; j < n; j++) {
+            if (!skip_value(r)) return -1;
+            if (!emit((int64_t)j, (uint32_t)value_base++)) return -1;
+          }
+          ctr += (int64_t)n;
+        }
+      } else if (kind == K_DELETE) {
+        uint64_t n = r.varint();
+        for (uint64_t i = 0; i < n && r.ok; i++) {
+          uint64_t dpi = r.varint();
+          if (!r.ok || dpi >= n_peers) return -1;
+          uint32_t dp = (uint32_t)dpi;
+          int64_t ds = r.zigzag();
+          int64_t dl = (int64_t)r.varint();
+          if (n_del >= n_del_max) return -1;
+          out_del_peer[n_del] = (int32_t)dp;
+          out_del_start[n_del] = ds;
+          out_del_end[n_del] = ds + dl;
+          n_del++;
+        }
+        if (!r.ok) return -1;
+        ctr += 1;
+      } else {
+        int64_t atoms;
+        if (!skip_op(r, kind, &atoms)) return -1;
+        ctr += atoms;
+      }
+    }
+  }
+  *n_del_out = n_del;
+  return row;
+}
+
+// Style-anchor metadata for a target container, in the SAME row
+// numbering as loro_explode_seq_delta (the host pairs anchors to their
+// device rows by ordinal).  Per anchor: row ordinal, wire key index,
+// value BYTE OFFSET into the payload (decoded lazily host-side, like
+// the map explode's winners), lamport, flags (bit0 = is_start).
+// Returns anchors written, or -1 on malformed input / n_max overflow.
+long long loro_explode_seq_anchor_meta(const uint8_t* buf, long long len,
+                                       int target_cid,
+                                       int64_t* out_row, int32_t* out_key,
+                                       int64_t* out_voffset,
+                                       int32_t* out_lamport,
+                                       int32_t* out_flags,
+                                       long long n_max) {
+  Reader r{buf, buf + len};
+  uint64_t n_peers, n_keys; std::vector<int32_t> cid_types; std::vector<ChangeMeta> metas;
+  if (!parse_prelude(r, &n_peers, cid_types, metas, &n_keys)) return -1;
+  long long row = 0, n_anchor = 0;
+  for (auto& m : metas) {
+    int64_t ctr = m.ctr;
+    for (uint64_t k = 0; k < m.n_ops; k++) {
+      uint64_t cidx = r.varint();
+      uint8_t kind = r.u8();
+      if (!r.ok) return -1;
+      if ((long long)cidx != target_cid) {
+        int64_t atoms;
+        if (!skip_op(r, kind, &atoms)) return -1;
+        ctr += atoms;
+        continue;
+      }
+      if (kind == K_INSERT_ANCHOR) {
+        uint8_t ptag = r.u8();
+        if (ptag == PT_ID) { r.varint(); r.zigzag(); }
+        r.u8();  // side
+        uint64_t key = r.varint();
+        if (!r.ok || key >= n_keys) return -1;
+        int64_t voff = (int64_t)(r.p - buf);
+        if (!skip_value(r)) return -1;
+        uint8_t is_start = r.u8();
+        r.varint();  // info (expand behavior rides anchor placement)
+        if (!r.ok) return -1;
+        if (out_row) {  // null outputs = counting pass
+          if (n_anchor >= n_max) return -1;
+          out_row[n_anchor] = row;
+          out_key[n_anchor] = (int32_t)key;
+          out_voffset[n_anchor] = voff;
+          out_lamport[n_anchor] = (int32_t)(m.lamport + (ctr - m.ctr));
+          out_flags[n_anchor] = is_start ? 1 : 0;
+        }
+        n_anchor++;
+        row++;
+        ctr += 1;
+      } else {
+        // every other kind: skip_op's atom count IS the row count for
+        // insert kinds (one row per codepoint/value; the main explode
+        // already strictly validated this same payload) and deletes
+        // emit no rows
+        int64_t atoms;
+        if (!skip_op(r, kind, &atoms)) return -1;
+        if (kind == K_INSERT_TEXT || kind == K_INSERT_VALUES) row += atoms;
+        ctr += atoms;
+      }
+    }
+  }
+  return n_anchor;
+}
+
+// Count delete spans for a target container (sizing for the delta API).
+long long loro_count_seq_deletes(const uint8_t* buf, long long len, int target_cid) {
+  Reader r{buf, buf + len};
+  uint64_t n_peers; std::vector<int32_t> cid_types; std::vector<ChangeMeta> metas;
+  if (!parse_prelude(r, &n_peers, cid_types, metas)) return -1;
+  long long total = 0;
+  for (auto& m : metas) {
+    for (uint64_t k = 0; k < m.n_ops; k++) {
+      uint64_t cidx = r.varint();
+      uint8_t kind = r.u8();
+      if (!r.ok) return -1;
+      if ((long long)cidx == target_cid && kind == K_DELETE) {
+        // peek span count without consuming twice: parse spans
+        uint64_t n = r.varint();
+        for (uint64_t i = 0; i < n && r.ok; i++) { r.varint(); r.zigzag(); r.varint(); }
+        if (!r.ok) return -1;
+        total += (long long)n;
+      } else {
+        int64_t atoms;
+        if (!skip_op(r, kind, &atoms)) return -1;
+      }
+    }
+  }
+  return total;
 }
 
 }  // extern "C"

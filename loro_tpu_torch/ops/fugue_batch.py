@@ -692,26 +692,11 @@ merge_docs_u = materialize_content_u
 # ---- resident text path: device ops on SeqColumnsU -----------------------------
 
 
-def chain_contract_materialize_u(
-    cols: SeqColumnsU, c_pad: int
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Chain contraction on the device, order and placement for the
-    row-order-free table [D, N]: (codes int32 [D, N] padded with -1,
-    count int32 [D], n_chains int32 [D]).
-
-    Row i links to row i - 1 (columnar.contract_chains' conditions) iff
-    both are valid, parent == i - 1, side is Right, row i - 1 has exactly
-    one child and no Left child, and row i has no Left child; chains are
-    the runs of linked rows, numbered in row order.  Chain attributes are
-    scattered from head rows into `c_pad` slots, chains are ranked with
-    sibling keys (peer_hi, peer_lo, counter) of their head rows, and
-    elements placed by the sort placement.
-
-    When n_chains > c_pad the codes are garbage and the caller retries
-    with a larger budget; n_chains is right either way.  Chain ids past
-    the budget go to the dump slot c_pad of every scatter, and chain
-    parents are clipped to [-1, c_pad - 1] (JAX clamps the gathers that
-    read them), so such a call indexes nothing out of range."""
+def _contract_u(cols: SeqColumnsU, c_pad: int):
+    """The chain table of the row-order-free table [D, N] at chain budget
+    `c_pad` (chain_contract_materialize_u's contraction): (c_parent,
+    c_side, c_valid, sib_keys, head_row, n_chains), chain columns [D,
+    c_pad] whose Euler ring (_ring_and_anchors) the solver ranks."""
     if c_pad < 1:
         raise ConfigError("c_pad", c_pad, "a chain budget >= 1")
     dev = cols.parent.device
@@ -745,8 +730,32 @@ def chain_contract_materialize_u(
     c_parent = c_parent.clamp(max=c_pad - 1)
     c_valid = torch.arange(c_pad, device=dev) < n_chains[:, None]
     sib_keys = (head_scatter(cols.peer_hi, 0), head_scatter(cols.peer_lo, 0), head_scatter(cols.counter.to(i64) & _U32, 0))
-    crank = _order_core(c_parent, head_scatter(side, 0), c_valid, sib_keys=sib_keys)
-    visible = valid & ~cols.deleted & (cols.content >= 0)
+    return c_parent, head_scatter(side, 0), c_valid, sib_keys, head_row, n_chains
+
+
+def chain_contract_materialize_u(
+    cols: SeqColumnsU, c_pad: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Chain contraction on the device, order and placement for the
+    row-order-free table [D, N]: (codes int32 [D, N] padded with -1,
+    count int32 [D], n_chains int32 [D]).
+
+    Row i links to row i - 1 (columnar.contract_chains' conditions) iff
+    both are valid, parent == i - 1, side is Right, row i - 1 has exactly
+    one child and no Left child, and row i has no Left child; chains are
+    the runs of linked rows, numbered in row order.  Chain attributes are
+    scattered from head rows into `c_pad` slots, chains are ranked with
+    sibling keys (peer_hi, peer_lo, counter) of their head rows, and
+    elements placed by the sort placement.
+
+    When n_chains > c_pad the codes are garbage and the caller retries
+    with a larger budget; n_chains is right either way.  Chain ids past
+    the budget go to the dump slot c_pad of every scatter, and chain
+    parents are clipped to [-1, c_pad - 1] (JAX clamps the gathers that
+    read them), so such a call indexes nothing out of range."""
+    c_parent, c_side, c_valid, sib_keys, head_row, n_chains = _contract_u(cols, c_pad)
+    crank = _order_core(c_parent, c_side, c_valid, sib_keys=sib_keys)
+    visible = cols.valid & ~cols.deleted & (cols.content >= 0)
     codes, count = _place_by_chain_sort(crank, c_valid, head_row, visible, cols.content)
     return codes, count, n_chains
 

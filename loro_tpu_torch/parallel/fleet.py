@@ -1,40 +1,69 @@
 """Fleet merge front end, text family: a batch of documents merged in
 one device call (the port of loro_tpu/parallel/fleet.py's one-shot text
-merges, Fleet.merge_text_docs / merge_text_changes / merge_text_payloads).
+merges, Fleet.merge_text_docs / merge_text_changes / merge_text_payloads),
+and the resident text batch that keeps documents on the device between
+syncs (DeviceDocBatch).
 
-Per call: every document's element table is padded to one bucketed row
-count (pad_bucket), the doc axis to `pad_docs` with all-invalid filler
-docs, the columns are written into one host array a column
-(fugue_batch.stack_seq_columns) and uploaded (one copy a column),
+One-shot, per call: every document's element table is padded to one
+bucketed row count (pad_bucket), the doc axis to `pad_docs` with
+all-invalid filler docs, the columns are written into one host array a
+column (fugue_batch.stack_seq_columns) and uploaded (one copy a column),
 materialize_content_batch merges the whole batch on the device, and one
 fetch brings back the codes and counts.
 
-The JAX Fleet is bound to a device mesh and pads the doc axis to a
-multiple of its doc dimension; this one is bound to one device, where
+Resident: DeviceDocBatch holds each doc's element table on the device
+([D, capacity] SeqColumnsU plus standing order keys); each append ships
+only the new rows and tombstones, a host order engine a doc
+(order_maintenance.ShadowOrder or its native twin) keeps the keys, and
+texts() reads every doc in one sort by those keys.
+
+The JAX package binds both to a device mesh and pads the doc axis to a
+multiple of its doc dimension; here they are bound to one device, where
 that multiple is 1.  Not ported yet: the supervised launch and fetch
 with its DeviceFailure -> host degradation (a CUDA error propagates as
-it is), the obs counters and trace instants, and the other container
-families.
+it is), the obs counters and trace instants, the other container
+families, and DeviceDocBatch's coalesce group, compaction, doc release,
+richtexts and export_select.
 """
 from __future__ import annotations
 
+import os
+import struct
+import threading
+import time
+from contextlib import contextmanager
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
-from ..codec.binary import decode_changes
-from ..core.change import Change
+from ..codec.binary import Reader, Writer, _Dicts, _read_cid, _read_value, _write_cid, _write_value, decode_changes, read_tables
+from ..core.change import Change, SeqDelete, SeqInsert, StyleAnchor, _RunCont
 from ..core.ids import ContainerID
 from ..device import DeviceLike, resolve_device
+from ..errors import DecodeError, LoroError
 from ..ops.columnar import SeqExtract, extract_seq_container, extract_seq_from_payload
-from ..ops.fugue_batch import materialize_content_batch, pad_bucket, seq_columns_to_torch, stack_seq_columns
+from ..ops.fugue_batch import (
+    SeqColumnsU,
+    chain_merge_docs_u,
+    materialize_by_key,
+    materialize_content_batch,
+    pad_bucket,
+    seq_columns_to_torch,
+    stack_seq_columns,
+)
+from ..storage import MemKvStore
+from .idmap import make_idmap
+from .order_maintenance import ShadowOrder, split_keys
 
-# Payloads that the native explode rejected and the Python decode
-# (decode_changes + extract_seq_container) was tried on, incremented
-# where that fallback is taken: the counterpart of the JAX package's
-# fleet.host_fallback_total{kind=payload_extract}.
-FLEET_FALLBACKS: Dict[str, int] = {"payload_extract": 0}
+# Host fallbacks, incremented where each is taken: the counterpart of the
+# JAX package's fleet.host_fallback_total{kind=...}.  payload_extract: a
+# one-shot payload the native explode rejected, tried with the Python
+# decode; payload_decode: the same for a resident append; order / idmap:
+# a resident doc given the Python order engine or id map
+# (LORO_PY_ORDER=1 / LORO_PY_IDMAP=1).
+FLEET_FALLBACKS: Dict[str, int] = {"payload_extract": 0, "payload_decode": 0, "order": 0, "idmap": 0}
 
 
 @dataclass
@@ -91,3 +120,921 @@ class Fleet:
                     ) from e
             extracts.append(ex)
         return self.merge_text_docs(extracts)
+
+
+# ---- resident text batch ------------------------------------------------------
+
+
+def _grow_target(required: int, current: int) -> int:
+    """Next power-of-two bucket >= required, at least 2x current (avoids
+    repeated small regrows)."""
+    return pad_bucket(required, floor=max(16, 2 * current))
+
+
+def _resolve_row(overlay, idmap, key, di, what):
+    """Overlay-then-id-map row lookup that raises a typed, actionable
+    error for unknown ids."""
+    r = overlay.get(key)
+    if r is not None:
+        return r
+    try:
+        return idmap[key]
+    except KeyError:
+        raise LoroError(
+            f"doc {di}: {what} references unknown element {key} — resident "
+            "batches need every doc's FULL history from its first epoch "
+            "(feed the base import before deltas)"
+        ) from None
+
+
+def _pad_axis1(arrays: Dict[str, torch.Tensor], new_n: int, fills: Dict[str, object]) -> Dict[str, torch.Tensor]:
+    """[d, n] tensors re-padded to [d, new_n] with per-field fills, on
+    their device: the repack of the resident grow path."""
+    out = {}
+    for f, a in arrays.items():
+        t = torch.full((a.shape[0], new_n), fills[f], dtype=a.dtype, device=a.device)
+        t[:, : a.shape[1]] = a
+        out[f] = t
+    return out
+
+
+def _windowed_scatter_field_(col: torch.Tensor, nbl: torch.Tensor, vbl: torch.Tensor, idx: torch.Tensor) -> None:
+    """One field of the block scatter, in place: the window
+    col[d, idx[d]] takes the block's values where the block row is valid
+    and keeps its own elsewhere, so a short update does not clobber its
+    neighbours.  Every index must be in range (the caller's capacity
+    check): on a card an out-of-range gather is a device assert, where
+    JAX's dynamic_update_slice would clamp."""
+    window = col.gather(1, idx)
+    col.scatter_(1, idx, torch.where(vbl, nbl, window))
+
+
+def _scatter_rows(state: Dict[str, torch.Tensor], blk: Dict[str, torch.Tensor], offsets: torch.Tensor) -> None:
+    """Write each doc's block of new rows [D, W] at its row offset into
+    every [D, cap] tensor of `state` (the columns and key halves), in
+    place: the windows are offsets[:, None] + arange(W)."""
+    idx = offsets[:, None] + torch.arange(blk["valid"].shape[1], device=offsets.device)
+    for f, col in state.items():
+        _windowed_scatter_field_(col, blk[f], blk["valid"], idx)
+
+
+def _set_key_rows(key_hi: torch.Tensor, key_lo: torch.Tensor, d_idx: torch.Tensor, kh_rows, kl_rows) -> None:
+    """Replace whole key rows of the docs d_idx, in place (renumbered
+    docs)."""
+    key_hi.index_copy_(0, d_idx, kh_rows)
+    key_lo.index_copy_(0, d_idx, kl_rows)
+
+
+def _set_deleted(deleted: torch.Tensor, d_idx: torch.Tensor, r_idx: torch.Tensor) -> None:
+    """Tombstone (doc, row) pairs in place, one launch."""
+    deleted.index_put_((d_idx, r_idx), torch.ones((), dtype=torch.bool, device=deleted.device))
+
+
+def _to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A host block column on `dev`: uint32 as int64 holding the same
+    values (the SeqColumnsU tensor convention), other dtypes as they are."""
+    if a.dtype == np.uint32:
+        return torch.from_numpy(a.view(np.int32)).to(dev).to(torch.int64) & 0xFFFFFFFF
+    return torch.from_numpy(a).to(dev)
+
+
+class StageClock:
+    """Per-stage times, ms, of a resident batch's last public call: host
+    stages by the host clock, device stages by CUDA events on a card (by
+    the host clock on the CPU).  `read()` waits for the device stages."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self._host: Dict[str, float] = {}
+        self._events: List[Tuple[str, object, object]] = []
+
+    def reset(self) -> None:
+        self._host = {}
+        self._events = []
+
+    @contextmanager
+    def host(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self._host[name] = self._host.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+
+    @contextmanager
+    def device_stage(self, name: str):
+        if self.device.type != "cuda":
+            with self.host(name):
+                yield
+            return
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        try:
+            yield
+        finally:
+            b.record()
+            self._events.append((name, a, b))
+
+    def read(self) -> Dict[str, float]:
+        out = dict(self._host)
+        for name, a, b in self._events:
+            b.synchronize()
+            out[name] = out.get(name, 0.0) + a.elapsed_time(b)
+        return out
+
+
+class DeviceDocBatch:
+    """Device-resident document batch with incremental ingest.
+
+    The element tables stay on the device between syncs; each append
+    ships only the new rows and tombstones, and texts() re-resolves
+    order in one launch.  Rows are appended at each doc's tail, not in
+    (peer, counter) order, so the tables are the row-order-free
+    SeqColumnsU.  Bound to one device (default "cuda";
+    DeviceUnavailable without a card unless "cpu" is asked for)."""
+
+    def __init__(self, n_docs: int, capacity: int, device: DeviceLike = "cuda", as_text: bool = True,
+                 auto_grow: bool = False):
+        """as_text=False holds List containers: contents become per-doc
+        value ordinals (the host keeps the value stores) and values() is
+        the materializer instead of texts().  auto_grow=True repacks the
+        batch to the next capacity bucket instead of raising when an
+        append overflows (long-lived server lifecycle)."""
+        self.device = resolve_device(device)
+        self.n_docs = n_docs
+        self.cap = capacity
+        self.as_text = as_text
+        self.auto_grow = auto_grow
+        self._c_pad = 256  # chain budget of the solver (doubles on overflow)
+        self.counts = np.zeros(n_docs, np.int64)  # used rows per doc
+        # ingest epochs date rows and tombstones (compaction's input)
+        self.epoch = 0
+        self.tomb_epoch = np.full((n_docs, capacity), -1, np.int64)
+        self.row_epoch = np.full((n_docs, capacity), -1, np.int64)
+        # host-side id -> row resolution per doc (stage/lookup/commit
+        # contract, parallel/idmap.py)
+        self.id2row = [make_idmap() for _ in range(n_docs)]
+        self.value_store: List[List] = [[] for _ in range(n_docs)]
+        # style-anchor metadata ((peer, ctr) -> dict) and a row backmap,
+        # so delete tombstones deactivate pairs
+        self.anchor_meta: List[Dict[Tuple[int, int], dict]] = [dict() for _ in range(n_docs)]
+        self.anchor_by_row: List[Dict[int, Tuple[int, int]]] = [dict() for _ in range(n_docs)]
+        # a host order engine a doc assigns standing 64-bit order keys in
+        # O(delta); texts() sorts by them instead of re-ranking the table
+        self.order = [self._fresh_order() for _ in range(n_docs)]
+        self.cols = SeqColumnsU(**{
+            f: torch.full((n_docs, capacity), fill, dtype=self._COL_DTYPES[f], device=self.device)
+            for f, fill in self._COL_FILLS.items()
+        })
+        self.key_hi = torch.full((n_docs, capacity), 0xFFFFFFFF, dtype=torch.int64, device=self.device)
+        self.key_lo = torch.full((n_docs, capacity), 0xFFFFFFFF, dtype=torch.int64, device=self.device)
+        # serializes writers of the device tensors (appends, grow)
+        self._dev_lock = threading.RLock()
+        self.clock = StageClock(self.device)
+
+    # column fill values shared by __init__, grow() and the block: one
+    # table so they cannot drift
+    _COL_FILLS = dict(
+        parent=-1, side=0, peer_hi=0, peer_lo=0, counter=0,
+        deleted=True, content=-1, valid=False,
+    )
+    # each column's tensor dtype (peer halves: int64 holding the uint32
+    # values) and host block dtype
+    _COL_DTYPES = dict(
+        parent=torch.int32, side=torch.int32, peer_hi=torch.int64, peer_lo=torch.int64, counter=torch.int32,
+        deleted=torch.bool, content=torch.int32, valid=torch.bool,
+    )
+    _BLK_DTYPES = dict(
+        parent=np.int32, side=np.int32, peer_hi=np.uint32, peer_lo=np.uint32, counter=np.int32,
+        deleted=np.bool_, content=np.int32, valid=np.bool_,
+    )
+
+    def stage_ms(self) -> Dict[str, float]:
+        """Per-stage ms of the last append_changes / append_payloads /
+        texts / values call (waits for its device stages).  Appends:
+        explode (read_tables and the native explode, or the Python walk
+        with its overlay), stage (id-map staging and the batch lookups of
+        parents and deletes in earlier epochs), grow, commit (id maps,
+        anchors, values), block (host block build), order (order-engine
+        appends, threaded over docs), upload_scatter (block upload and
+        scatter), renumber_keys (renumbered docs' whole key rows, built
+        and uploaded), tombstone.  Reads: sort or solve, fetch, decode."""
+        return self.clock.read()
+
+    def _device_commit_block(self, blk, key_blk_hi, key_blk_lo, offsets, renumbered) -> None:
+        """The device tail of an append: upload the block, scatter it at
+        each doc's offset, and re-upload whole key rows of renumbered
+        docs."""
+        with self._dev_lock:
+            with self.clock.device_stage("upload_scatter"):
+                dev = self.device
+                blk_dev = {f: _to_device(v, dev) for f, v in blk.items()}
+                blk_dev["key_hi"] = _to_device(key_blk_hi, dev)
+                blk_dev["key_lo"] = _to_device(key_blk_lo, dev)
+                state = {f: getattr(self.cols, f) for f in SeqColumnsU._fields}
+                state["key_hi"], state["key_lo"] = self.key_hi, self.key_lo
+                _scatter_rows(state, blk_dev, torch.from_numpy(np.asarray(offsets, np.int64)).to(dev))
+            if renumbered:
+                with self.clock.device_stage("renumber_keys"):
+                    self._upload_renumbered_keys(renumbered)
+
+    def _upload_renumbered_keys(self, renumbered: Sequence[int]) -> None:
+        """Renumbered docs: whole [cap] key rows, uploaded and written in
+        one index copy a half."""
+        kh_rows = np.full((len(renumbered), self.cap), 0xFFFFFFFF, np.uint32)
+        kl_rows = np.full((len(renumbered), self.cap), 0xFFFFFFFF, np.uint32)
+        for i, di in enumerate(renumbered):
+            kh, kl = split_keys(np.asarray(self.order[di].all_keys(), np.int64))
+            kh_rows[i, : len(kh)] = kh
+            kl_rows[i, : len(kl)] = kl
+        dev = self.device
+        with self._dev_lock:
+            d_idx = torch.as_tensor(list(renumbered), dtype=torch.int64).to(dev)
+            _set_key_rows(self.key_hi, self.key_lo, d_idx, _to_device(kh_rows, dev), _to_device(kl_rows, dev))
+
+    def _device_mark_deleted(self, d_all: np.ndarray, r_all: np.ndarray) -> None:
+        """The device tail of mark_deleted: one tombstone scatter."""
+        with self._dev_lock, self.clock.device_stage("tombstone"):
+            dev = self.device
+            _set_deleted(self.cols.deleted, torch.from_numpy(d_all.astype(np.int64)).to(dev),
+                         torch.from_numpy(r_all.astype(np.int64)).to(dev))
+
+    def grow(self, new_capacity: int) -> None:
+        """Repack the resident columns to a larger row capacity (on the
+        device; order engines, id maps, counts and host metadata do not
+        depend on the capacity)."""
+        if new_capacity <= self.cap:
+            return
+        with self._dev_lock:
+            cols = _pad_axis1({f: getattr(self.cols, f) for f in SeqColumnsU._fields}, new_capacity, self._COL_FILLS)
+            self.cols = SeqColumnsU(**cols)
+            keys = _pad_axis1({"key_hi": self.key_hi, "key_lo": self.key_lo}, new_capacity,
+                              {"key_hi": 0xFFFFFFFF, "key_lo": 0xFFFFFFFF})
+            self.key_hi, self.key_lo = keys["key_hi"], keys["key_lo"]
+            for name in ("tomb_epoch", "row_epoch"):
+                ne = np.full((self.n_docs, new_capacity), -1, np.int64)
+                ne[:, : self.cap] = getattr(self, name)
+                setattr(self, name, ne)
+            self.cap = new_capacity
+
+    def _fresh_order(self):
+        """A new order engine: the native one, or the Python ShadowOrder
+        when LORO_PY_ORDER=1 (the JAX package's switch; counted in
+        FLEET_FALLBACKS["order"]).  A native library that cannot be
+        built raises RuntimeError."""
+        if os.environ.get("LORO_PY_ORDER", "0") not in ("1", "true", "yes"):
+            from ..native import native_order
+
+            return native_order()
+        FLEET_FALLBACKS["order"] += 1
+        return ShadowOrder()
+
+    def append_changes(self, per_doc_changes: Sequence[Optional[Sequence[Change]]], cid) -> None:
+        """Incremental ingest: each doc's new causally-ordered changes
+        (None = no update).  Inserts (chars and style anchors: anchors
+        are real Fugue nodes other inserts may parent on) become new
+        rows; deletes tombstone rows from any epoch.  All validation and
+        id-map staging happens before any state mutates, so a capacity
+        error leaves the batch untouched.  One device scatter per call."""
+        self.clock.reset()
+        per_doc_changes = list(per_doc_changes) + [None] * (self.n_docs - len(per_doc_changes))
+        rows_per_doc: List[list] = []
+        overlays: List[Dict[Tuple[int, int], int]] = []
+        anchor_stages: List[Dict[Tuple[int, int], dict]] = []
+        value_stages: List[list] = []
+        del_pairs: List[Tuple[int, object]] = []
+        with self.clock.host("explode"):
+            for di, changes in enumerate(per_doc_changes):
+                rows: list = []
+                overlay: Dict[Tuple[int, int], int] = {}
+                stage: Dict[Tuple[int, int], dict] = {}
+                vstage: list = []
+                rows_per_doc.append(rows)
+                overlays.append(overlay)
+                anchor_stages.append(stage)
+                value_stages.append(vstage)
+                if changes:
+                    self._python_rows(di, changes, cid, rows, overlay, del_pairs, stage, vstage)
+        self._commit_rows(rows_per_doc, overlays, del_pairs, anchor_stages, value_stages)
+
+    def _python_rows(self, di, changes, cid, rows, overlay, del_pairs, anchor_stage, value_stage) -> None:
+        """Python op walk producing (parent, side, counter, content, peer)
+        rows, delete pairs and staged anchor metadata for one doc (also
+        the per-payload fallback of the native delta path)."""
+        base = int(self.counts[di])
+        idmap = self.id2row[di]
+        n_vals = len(self.value_store[di])
+
+        def resolve(key):
+            return _resolve_row(overlay, idmap, key, di, "op parent")
+
+        for ch in changes:
+            for op in ch.ops:
+                if op.container != cid:
+                    continue
+                c = op.content
+                if isinstance(c, SeqInsert):
+                    body = [c.content] if isinstance(c.content, StyleAnchor) else c.content
+                    for j in range(len(body)):
+                        if j == 0:
+                            if isinstance(c.parent, _RunCont):
+                                prow = resolve((ch.peer, op.counter - 1))
+                            elif c.parent is None:
+                                prow = -1
+                            else:
+                                prow = resolve((c.parent.peer, c.parent.counter))
+                            side = int(c.side)
+                        else:
+                            prow = base + len(rows) - 1
+                            side = 1
+                        row = base + len(rows)
+                        overlay[(ch.peer, op.counter + j)] = row
+                        if isinstance(body[j], StyleAnchor):
+                            content = -1
+                            a = body[j]
+                            anchor_stage[(ch.peer, op.counter + j)] = {
+                                "row": row,
+                                "key": a.key,
+                                "value": a.value,
+                                "lamport": ch.lamport + (op.counter + j - ch.ctr_start),
+                                "peer": ch.peer,
+                                "start": a.is_start,
+                                "deleted": False,
+                            }
+                        elif self.as_text:
+                            content = ord(body[j])
+                        else:
+                            content = n_vals + len(value_stage)
+                            value_stage.append(body[j])
+                        rows.append((prow, side, op.counter + j, content, ch.peer))
+                elif isinstance(c, SeqDelete):
+                    # deletes tolerate unknown targets (as the native path
+                    # does): a missing target means its insert is missing
+                    # too, which the parent resolution flags
+                    for sp in c.spans:
+                        for ctr in range(sp.start, sp.end):
+                            row_d = overlay.get((sp.peer, ctr))
+                            if row_d is None:
+                                row_d = idmap.get((sp.peer, ctr))
+                            if row_d is not None:
+                                del_pairs.append((di, row_d))
+
+    def _commit_rows(self, rows_per_doc, overlays, del_pairs, anchor_stages=None, value_stages=None) -> None:
+        """Shared tail of both appends: validate capacity, commit staged
+        id maps and anchor metadata, build the block of new rows, append
+        them to the order engines, scatter the block and tombstone
+        deletes.  Per-doc entries are tuple lists (Python walks) or
+        column dicts (the native path, ids staged in the id map:
+        overlays[di] is None and commit/abort goes through the map's
+        staging)."""
+
+        def n_of(r) -> int:
+            return len(r["parent"]) if isinstance(r, dict) else len(r)
+
+        n_new = [n_of(r) for r in rows_per_doc]
+        max_new = pad_bucket(max(n_new, default=0), floor=16) if any(n_new) else 0
+        # validate BEFORE any device write: the scatter window is max_new
+        # wide, so every updated doc needs base + max_new <= capacity (on
+        # a card a window past it would be a device assert)
+        required = max((int(self.counts[di]) + max_new for di, k in enumerate(n_new) if k), default=0)
+        if required > self.cap:
+            if self.auto_grow:
+                with self.clock.host("grow"):
+                    self.grow(_grow_target(required, self.cap))
+            else:
+                for dj, ov in enumerate(overlays):
+                    if ov is None:
+                        self.id2row[dj].abort()
+                raise RuntimeError(
+                    f"DeviceDocBatch capacity exceeded: a doc needs {required} rows > {self.cap} "
+                    "(pass auto_grow=True or call grow())"
+                )
+        self.epoch += 1  # post-validation: dates this append's rows
+        with self.clock.host("commit"):
+            for di, overlay in enumerate(overlays):
+                if overlay is None:
+                    self.id2row[di].commit()
+                elif overlay:
+                    self.id2row[di].update(overlay)
+            for di, stage in enumerate(anchor_stages or ()):
+                if stage:
+                    self.anchor_meta[di].update(stage)
+                    self.anchor_by_row[di].update({a["row"]: pc for pc, a in stage.items()})
+            for di, vs in enumerate(value_stages or ()):
+                if vs:
+                    self.value_store[di].extend(vs)
+        if max_new:
+            active = [di for di, k in enumerate(n_new) if k]
+            blk_shape = (self.n_docs, max_new)
+            with self.clock.host("block"):
+                blk = {f: np.full(blk_shape, fill, self._BLK_DTYPES[f]) for f, fill in self._COL_FILLS.items()}
+                key_blk_hi = np.full(blk_shape, 0xFFFFFFFF, np.uint32)
+                key_blk_lo = np.full(blk_shape, 0xFFFFFFFF, np.uint32)
+                offsets = np.zeros(self.n_docs, np.int64)
+                doc_rows = {}
+                for di in active:
+                    rows = rows_per_doc[di]
+                    base = int(self.counts[di])
+                    if isinstance(rows, dict):
+                        parent, side_a = rows["parent"], rows["side"]
+                        ctr_a, content_a, pu = rows["counter"], rows["content"], rows["peer"]
+                    else:
+                        arr = np.asarray([r[:4] for r in rows], np.int64)
+                        pu = np.asarray([r[4] for r in rows], np.uint64)
+                        parent, side_a, ctr_a, content_a = arr[:, 0], arr[:, 1], arr[:, 2], arr[:, 3]
+                    k = len(parent)
+                    blk["parent"][di, :k] = parent
+                    blk["side"][di, :k] = side_a
+                    blk["peer_hi"][di, :k] = (pu >> np.uint64(32)).astype(np.uint32)
+                    blk["peer_lo"][di, :k] = (pu & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+                    blk["counter"][di, :k] = ctr_a
+                    blk["deleted"][di, :k] = False
+                    blk["content"][di, :k] = content_a
+                    blk["valid"][di, :k] = True
+                    self.row_epoch[di, base : base + k] = self.epoch
+                    offsets[di] = base
+                    doc_rows[di] = (parent, side_a, pu, ctr_a, base)
+
+            def _order_doc(di: int) -> bool:
+                """One doc's order append and its keys in the block (doc-
+                disjoint state; the native engine's ctypes call releases
+                the interpreter lock, so docs run on threads).  True when
+                the doc's keys were renumbered (its whole key row is
+                uploaded)."""
+                parent, side_a, pu, ctr_a, base = doc_rows[di]
+                keys = self.order[di].append_arrays(parent, side_a, pu, ctr_a, base)
+                if keys is None:
+                    return True
+                kh, kl = split_keys(np.asarray(keys, np.int64))
+                key_blk_hi[di, : len(kh)] = kh
+                key_blk_lo[di, : len(kl)] = kl
+                return False
+
+            # threads pay only for the native engine; the Python
+            # ShadowOrder would serialize through the interpreter lock
+            native_engine = not isinstance(self.order[0], ShadowOrder)
+            n_threads = min(
+                int(os.environ.get("LORO_ORDER_THREADS") or (os.cpu_count() or 1)) if native_engine else 1,
+                max(1, len(active)),
+            )
+            with self.clock.host("order"):
+                if n_threads > 1:
+                    from concurrent.futures import ThreadPoolExecutor
+
+                    with ThreadPoolExecutor(max_workers=n_threads) as pool:
+                        renum = list(pool.map(_order_doc, active))
+                else:
+                    renum = [_order_doc(di) for di in active]
+            renumbered = [di for di, r in zip(active, renum) if r]
+            for di in active:
+                self.counts[di] += n_new[di]
+            self._device_commit_block(blk, key_blk_hi, key_blk_lo, offsets, renumbered)
+        self.mark_deleted(del_pairs)
+
+    def append_payloads(self, per_doc_payloads: Sequence[Optional[bytes]], cid) -> None:
+        """Incremental native ingest: envelope-stripped binary payloads ->
+        the native delta explode (parents and deletes in earlier epochs
+        resolved through the per-doc id maps) -> one block scatter.  A
+        payload the native path rejects (KeyError, ValueError) goes
+        through the Python decode instead, counted in
+        FLEET_FALLBACKS["payload_decode"].  A value batch (as_text=False)
+        takes the Python decode for every payload, as in JAX."""
+        if not self.as_text:
+            self.append_changes([decode_changes(p) if p else None for p in per_doc_payloads], cid)
+            return
+        self.clock.reset()
+        per_doc_payloads = list(per_doc_payloads) + [None] * (self.n_docs - len(per_doc_payloads))
+        try:
+            self._append_payloads_staged(per_doc_payloads, cid)
+        except BaseException:
+            # any escaping error rolls back the native-staged ids: the
+            # maps are long-lived, and a later commit would publish
+            # mappings for rows that were never scattered
+            for di in range(self.n_docs):
+                self.id2row[di].abort()
+            raise
+
+    def _append_payloads_staged(self, per_doc_payloads, cid) -> None:
+        from ..native import decode_value_at, explode_seq_anchor_meta, explode_seq_delta_payload
+
+        clock = self.clock
+        rows_per_doc: List[object] = []
+        overlays: List[Optional[Dict[Tuple[int, int], int]]] = []
+        anchor_stages: List[Dict[Tuple[int, int], dict]] = []
+        value_stages: List[list] = []
+        del_pairs: List[Tuple[int, object]] = []
+        for di, payload in enumerate(per_doc_payloads):
+            rows: list = []
+            overlay: Dict[Tuple[int, int], int] = {}
+            stage: Dict[Tuple[int, int], dict] = {}
+            vstage: list = []
+            rows_per_doc.append(rows)
+            overlays.append(overlay)
+            anchor_stages.append(stage)
+            value_stages.append(vstage)
+            if not payload:
+                continue
+            n_dels_start = len(del_pairs)
+            try:
+                with clock.host("explode"):
+                    peers_wire, keys_wire, cids, _r = read_tables(payload)
+                    if cid not in cids:
+                        continue  # no ops for this container
+                    target = cids.index(cid)
+                    out = explode_seq_delta_payload(payload, target)
+                    # style anchors: their metadata in the same row numbering
+                    anchor_cols = explode_seq_anchor_meta(payload, target) if (out["content"] == -1).any() else None
+                with clock.host("stage"):
+                    base = int(self.counts[di])
+                    idmap = self.id2row[di]
+                    # the new ids ride the map's staging (committed in
+                    # _commit_rows); parents in earlier payloads and delete
+                    # spans resolve in two batch lookups
+                    peers_np = np.asarray(peers_wire, np.uint64)
+                    peer_u64 = peers_np[out["peer_idx"]]
+                    idmap.stage_base(peer_u64, out["counter"].astype(np.int64), base)
+                    prow_arr = np.where(out["parent"] >= 0, base + out["parent"], out["parent"]).astype(np.int32)
+                    ext_rows = np.flatnonzero(out["parent"] == -2)
+                    if len(ext_rows):
+                        res = idmap.lookup(peers_np[out["ext_peer_idx"][ext_rows]], out["ext_counter"][ext_rows])
+                        if (res < 0).any():
+                            raise KeyError("unresolved cross-epoch parent")
+                        prow_arr[ext_rows] = res
+                    rows_per_doc[di] = {
+                        "parent": prow_arr, "side": out["side"], "counter": out["counter"],
+                        "content": out["content"], "peer": peer_u64,
+                    }
+                    overlays[di] = None  # marker: ids staged in the id map
+                    if anchor_cols is not None:
+                        for ai in range(len(anchor_cols["row"])):
+                            rrow = int(anchor_cols["row"][ai])
+                            a_peer = int(peer_u64[rrow])
+                            stage[(a_peer, int(out["counter"][rrow]))] = {
+                                "row": base + rrow,
+                                "key": keys_wire[int(anchor_cols["key_idx"][ai])],
+                                "value": decode_value_at(payload, int(anchor_cols["voffset"][ai]), cids),
+                                "lamport": int(anchor_cols["lamport"][ai]),
+                                "peer": a_peer,
+                                "start": bool(anchor_cols["flags"][ai] & 1),
+                                "deleted": False,
+                            }
+                    lens = (out["del_end"] - out["del_start"]).astype(np.int64)
+                    tot = int(lens.sum())
+                    if tot:
+                        dp = np.repeat(peers_np[out["del_peer_idx"]], lens)
+                        offs = np.repeat(np.cumsum(lens) - lens, lens)
+                        dctr = np.arange(tot, dtype=np.int64) - offs + np.repeat(out["del_start"], lens)
+                        drows = idmap.lookup(dp, dctr)
+                        drows = drows[drows >= 0]  # deletes tolerate unknown targets
+                        if len(drows):
+                            del_pairs.append((di, drows))
+            except (KeyError, ValueError):
+                # unresolvable refs or malformed input for the native
+                # path: the Python decode for this payload only
+                FLEET_FALLBACKS["payload_decode"] += 1
+                self.id2row[di].abort()
+                rows.clear()
+                rows_per_doc[di] = rows
+                overlay.clear()
+                overlays[di] = overlay
+                stage.clear()
+                vstage.clear()
+                del del_pairs[n_dels_start:]
+                with clock.host("explode"):
+                    self._python_rows(di, decode_changes(payload), cid, rows, overlay, del_pairs, stage, vstage)
+        self._commit_rows(rows_per_doc, overlays, del_pairs, anchor_stages, value_stages)
+
+    def mark_deleted(self, pairs) -> None:
+        """Tombstone (doc, row) entries; an entry's row may be an int or an
+        ndarray of rows.  Advances the epoch clock and dates the new
+        tombstones with it, direct public calls included.  Runs after all
+        ingest validation, so a failed append leaves the clock as it
+        was."""
+        if not pairs:
+            return
+        self.epoch += 1
+        d_parts: List[np.ndarray] = []
+        r_parts: List[np.ndarray] = []
+        for di, row in pairs:  # deactivate style pairs whose anchor died
+            abr = self.anchor_by_row[di]
+            rows = np.atleast_1d(np.asarray(row, np.int64))
+            if abr:
+                for rr in rows.tolist():
+                    pc = abr.get(rr)
+                    if pc is not None:
+                        self.anchor_meta[di][pc]["deleted"] = True
+            d_parts.append(np.full(len(rows), di, np.int64))
+            r_parts.append(rows)
+        d_all = np.concatenate(d_parts)
+        r_all = np.concatenate(r_parts)
+        if not len(d_all):
+            return
+        self.tomb_epoch[d_all, r_all] = self.epoch
+        self._device_mark_deleted(d_all, r_all)
+
+    def resolve_row(self, doc: int, peer: int, counter: int) -> Optional[int]:
+        return self.id2row[doc].get((peer, counter))
+
+    def _materialize(self, use_solver: bool = False) -> Tuple[np.ndarray, np.ndarray]:
+        """(codes, counts) of the whole batch on the host, from one launch.
+
+        Default: sort by the standing order keys (materialize_by_key); the
+        order work already happened on ingest.  use_solver=True runs the
+        chain-contracted rank solve (chain_merge_docs_u) instead, from the
+        batch's chain budget, doubled until every doc's chains fit (the
+        bulk path, and the differential check).  The fetch brings back
+        the counts, then codes[:, :max(counts)]."""
+        dev = self.device
+        if not use_solver:
+            with self.clock.device_stage("sort"):
+                codes, counts = materialize_by_key(self.cols, self.key_hi, self.key_lo, device=dev)
+        else:
+            with self.clock.device_stage("solve"):
+                while True:
+                    codes, counts, n_chains = chain_merge_docs_u(self.cols, self._c_pad, device=dev)
+                    max_chains = int(n_chains.max()) if self.n_docs else 0
+                    if max_chains <= self._c_pad:
+                        break
+                    while self._c_pad < max_chains:
+                        self._c_pad *= 2
+        with self.clock.host("fetch"):
+            counts_h = counts.cpu().numpy()
+            codes_h = codes[:, : int(counts_h.max(initial=0))].cpu().numpy()
+        return codes_h, counts_h
+
+    def texts(self, use_solver: bool = False) -> List[str]:
+        """Every doc's text, from one launch."""
+        self.clock.reset()
+        codes, counts = self._materialize(use_solver)
+        with self.clock.host("decode"):
+            return texts_of(codes, counts, self.n_docs)
+
+    def values(self, use_solver: bool = False) -> List[list]:
+        """Every doc's value list (as_text=False batches)."""
+        if self.as_text:
+            raise LoroError("values() is for as_text=False batches; use texts()")
+        self.clock.reset()
+        codes, counts = self._materialize(use_solver)
+        out = []
+        with self.clock.host("decode"):
+            for i in range(self.n_docs):
+                store = self.value_store[i]
+                row = []
+                for j in codes[i, : counts[i]].tolist():
+                    if not 0 <= j < len(store):
+                        raise DecodeError(
+                            "resident batch: content ordinal outside the value store (corrupt restored state?)"
+                        )
+                    row.append(store[j])
+                out.append(row)
+        return out
+
+    # -- checkpoint and resume ------------------------------------------
+    STATE_VERSION = 2  # v2: + ingest epoch in meta, tomb-epoch columns
+    # serialized row columns (valid is derived from counts): one schema
+    # shared by export and import so they cannot drift
+    _STATE_SCHEMA = (
+        ("parent", np.int32),
+        ("side", np.int32),
+        ("peer_hi", np.uint32),
+        ("peer_lo", np.uint32),
+        ("counter", np.int32),
+        ("deleted", np.uint8),
+        ("content", np.int32),
+    )
+
+    def export_state(self) -> bytes:
+        """The batch as an LTKV store (storage.MemKvStore's SSTable
+        bytes): per-doc committed row columns, row and tombstone epochs,
+        value stores and anchor metadata; byte for byte what the JAX
+        package's DeviceDocBatch exports after the same appends.  Id maps
+        and order engines are not serialized: both rebuild from the row
+        table on import (any valid key assignment orders identically)."""
+        kmax = int(self.counts.max(initial=0))
+        cols = {f: getattr(self.cols, f)[:, :kmax].cpu().numpy() for f, _ in self._STATE_SCHEMA}
+        kv = MemKvStore()
+        d = _Dicts()
+        meta = Writer()
+        meta.u8(self.STATE_VERSION)
+        meta.varint(self.n_docs)
+        meta.varint(self.n_docs)  # the exporter's doc width (JAX: mesh-padded)
+        meta.varint(self.cap)
+        meta.u8(1 if self.as_text else 0)
+        meta.varint(self._c_pad)
+        for di in range(self.n_docs):
+            meta.varint(int(self.counts[di]))
+        meta.varint(self.epoch)
+        meta.u8(1 if self.auto_grow else 0)
+        kv.set(b"meta", bytes(meta.buf))
+        for di in range(self.n_docs):
+            k = int(self.counts[di])
+            w = Writer()
+            for f, dt in self._STATE_SCHEMA:
+                w.bytes_(cols[f][di, :k].astype(dt).tobytes())
+            kv.set(b"doc/%08d/rows" % di, bytes(w.buf))
+            if k:
+                kv.set(b"doc/%08d/tombepoch" % di, self.tomb_epoch[di, :k].astype(np.int64).tobytes())
+                kv.set(b"doc/%08d/rowepoch" % di, self.row_epoch[di, :k].astype(np.int64).tobytes())
+            w = Writer()
+            _state_write_values(w, d, self.value_store[di])
+            kv.set(b"doc/%08d/values" % di, bytes(w.buf))
+            w = Writer()
+            w.varint(len(self.anchor_meta[di]))
+            for (peer, ctr), a in self.anchor_meta[di].items():
+                w.varint(d.peer(peer))
+                w.zigzag(ctr)
+                w.varint(a["row"])
+                w.str_(a["key"])
+                if a["value"] is None:
+                    w.u8(0)
+                else:
+                    w.u8(1)
+                    _write_value(w, d, a["value"])
+                w.varint(a["lamport"])
+                w.u8((1 if a["start"] else 0) | (2 if a["deleted"] else 0))
+            kv.set(b"doc/%08d/anchors" % di, bytes(w.buf))
+        kv.set(b"dicts", _state_dicts_blob(d))
+        return kv.export_all()
+
+    @classmethod
+    def import_state(cls, data: bytes, device: DeviceLike = "cuda") -> "DeviceDocBatch":
+        """Restore a resident batch from export_state bytes (the port's or
+        the JAX package's): upload the row table, rebuild the id maps and
+        order engines by replay, re-derive the standing keys.  Malformed
+        or implausible state raises DecodeError before anything large is
+        allocated."""
+        kv = MemKvStore()
+        kv.import_all(data)
+        meta_b = kv.get(b"meta")
+        if meta_b is None:
+            raise DecodeError("DeviceDocBatch state: missing meta")
+        try:
+            r = Reader(meta_b)
+            version = r.u8()
+            if version > cls.STATE_VERSION:
+                raise DecodeError(f"DeviceDocBatch state v{version} too new")
+            n_docs = r.varint()
+            d_saved = r.varint()
+            cap = r.varint()
+            as_text = r.u8() == 1
+            c_pad = r.varint()
+            if c_pad <= 0:  # the chain-budget doubling loop needs > 0
+                raise DecodeError("DeviceDocBatch state: bad chain budget")
+            counts = [r.varint() for _ in range(d_saved)]
+            epoch = r.varint() if version >= 2 else 0
+            auto_grow = (r.u8() == 1) if version >= 2 else False
+        except (IndexError, ValueError, struct.error) as e:
+            raise DecodeError(f"DeviceDocBatch state: malformed meta ({e})") from None
+        _state_sane_sizes("DeviceDocBatch", d_saved, capacity=cap)
+        if not 0 < n_docs <= d_saved:
+            raise DecodeError("DeviceDocBatch state: implausible n_docs")
+        batch = cls(n_docs, cap, device=device, as_text=as_text, auto_grow=auto_grow)
+        batch._c_pad = c_pad
+        batch.epoch = epoch
+        # pad docs past the importer's width must be empty (an exporter's
+        # mesh padding only ever receives None updates)
+        for di in range(batch.n_docs, d_saved):
+            if counts[di]:
+                raise DecodeError("DeviceDocBatch state: exporter pad doc carries rows but importer is narrower")
+        dicts_b = kv.get(b"dicts")
+        if dicts_b is None:
+            raise DecodeError("DeviceDocBatch state: missing dicts")
+        peers, cids = _state_read_dicts(dicts_b)
+        host = {f: np.full((batch.n_docs, cap), fill, cls._BLK_DTYPES[f]) for f, fill in cls._COL_FILLS.items()}
+        key_hi = np.full((batch.n_docs, cap), 0xFFFFFFFF, np.uint32)
+        key_lo = np.full((batch.n_docs, cap), 0xFFFFFFFF, np.uint32)
+        for di in range(min(batch.n_docs, d_saved)):
+            k = counts[di]
+            if k > cap:
+                raise DecodeError("DeviceDocBatch state: count exceeds capacity")
+            rows_b = kv.get(b"doc/%08d/rows" % di)
+            if k and rows_b is None:
+                raise DecodeError(f"DeviceDocBatch state: missing rows for doc {di}")
+            if rows_b is not None:
+                r = Reader(rows_b)
+                arrs = {}
+                try:
+                    for f, dt in cls._STATE_SCHEMA:
+                        buf = np.frombuffer(r.bytes_(), dt)
+                        if len(buf) != k:
+                            raise DecodeError("DeviceDocBatch state: row column length")
+                        arrs[f] = buf
+                except (IndexError, ValueError) as e:
+                    raise DecodeError(f"DeviceDocBatch state: malformed rows ({e})") from None
+                for f, a in arrs.items():
+                    host[f][di, :k] = a.astype(host[f].dtype)
+                host["valid"][di, :k] = True
+                batch.counts[di] = k
+                for key, attr in ((b"doc/%08d/tombepoch" % di, "tomb_epoch"), (b"doc/%08d/rowepoch" % di, "row_epoch")):
+                    e_b = kv.get(key)
+                    if e_b is not None:
+                        ecol = np.frombuffer(e_b, np.int64)
+                        if len(ecol) != k:
+                            raise DecodeError("DeviceDocBatch state: epoch column length")
+                        getattr(batch, attr)[di, :k] = ecol
+                peer_full = (arrs["peer_hi"].astype(np.uint64) << np.uint64(32)) | arrs["peer_lo"].astype(np.uint64)
+                ctr = arrs["counter"].astype(np.int64)
+                batch.id2row[di].insert_arrays(peer_full, ctr, np.arange(k, dtype=np.int32))
+                # deterministic order-engine rebuild by replay
+                if k:
+                    keys = batch.order[di].append_arrays(arrs["parent"], arrs["side"], peer_full, ctr, 0)
+                    if keys is None:
+                        keys = batch.order[di].all_keys()
+                    kh, kl = split_keys(np.asarray(keys, np.int64))
+                    key_hi[di, :k] = kh
+                    key_lo[di, :k] = kl
+            try:
+                vals_b = kv.get(b"doc/%08d/values" % di)
+                if vals_b is not None:
+                    batch.value_store[di] = _state_read_values(vals_b, cids)
+                if k:
+                    c_col = host["content"][di, :k].astype(np.int64)
+                    if as_text:
+                        if c_col.min() < -1 or c_col.max() >= 0x110000:
+                            raise DecodeError("DeviceDocBatch state: content code")
+                    elif batch.value_store[di] and (c_col.min() < -1 or c_col.max() >= len(batch.value_store[di])):
+                        # an empty store with content rows is an externally
+                        # indexed use; values() re-checks at read time
+                        raise DecodeError("DeviceDocBatch state: value ordinal")
+                anch_b = kv.get(b"doc/%08d/anchors" % di)
+                if anch_b is not None:
+                    r = Reader(anch_b)
+                    meta_d: Dict[Tuple[int, int], dict] = {}
+                    for _ in range(r.varint()):
+                        pi = r.varint()
+                        if pi >= len(peers):
+                            raise DecodeError("DeviceDocBatch state: anchor peer index")
+                        peer = peers[pi]
+                        ctr_ = r.zigzag()
+                        row = r.varint()
+                        if row >= k:
+                            raise DecodeError("DeviceDocBatch state: anchor row out of range")
+                        key = r.str_()
+                        val = _read_value(r, cids) if r.u8() == 1 else None
+                        lam = r.varint()
+                        flags = r.u8()
+                        meta_d[(peer, ctr_)] = {
+                            "row": row, "key": key, "value": val, "lamport": lam, "peer": peer,
+                            "start": bool(flags & 1), "deleted": bool(flags & 2),
+                        }
+                    batch.anchor_meta[di] = meta_d
+                    batch.anchor_by_row[di] = {a["row"]: pc for pc, a in meta_d.items()}
+            except (IndexError, ValueError, struct.error, UnicodeDecodeError) as e:
+                raise DecodeError(f"DeviceDocBatch state: malformed doc {di} ({e})") from None
+        dev = batch.device
+        batch.cols = SeqColumnsU(**{f: _to_device(v, dev) for f, v in host.items()})
+        batch.key_hi, batch.key_lo = _to_device(key_hi, dev), _to_device(key_lo, dev)
+        return batch
+
+
+def _state_sane_sizes(cls_name: str, d_saved: int, **fields) -> None:
+    """Reject implausible size fields BEFORE allocating host or device
+    arrays from them: a few flipped meta bytes must give DecodeError,
+    not a multi-GB allocation.  Bounds are generous (16M per axis, 128M
+    grid entries)."""
+    if not 0 < d_saved <= 1 << 20:
+        raise DecodeError(f"{cls_name} state: implausible doc width {d_saved}")
+    for name, v in fields.items():
+        if not 0 < v <= 1 << 24:
+            raise DecodeError(f"{cls_name} state: implausible {name} {v}")
+        if d_saved * v > 1 << 27:
+            raise DecodeError(f"{cls_name} state: implausible grid {d_saved}x{v} ({name})")
+
+
+def _state_dicts_blob(d: _Dicts) -> bytes:
+    """The peer and container dictionaries (the containers' peers
+    registered first, so the peer table is complete)."""
+    for c in d.cids:
+        if not c.is_root:
+            d.peer(c.peer)
+    w = Writer()
+    w.varint(len(d.peers))
+    for p in d.peers:
+        w.u64le(p)
+    w.varint(len(d.cids))
+    for c in d.cids:
+        _write_cid(w, d.peer, c)
+    return bytes(w.buf)
+
+
+def _state_read_dicts(blob: bytes):
+    try:
+        r = Reader(blob)
+        peers = [r.u64le() for _ in range(r.varint())]
+        cids: List[ContainerID] = [_read_cid(r, peers) for _ in range(r.varint())]
+        return peers, cids
+    except (IndexError, ValueError, struct.error) as e:
+        raise DecodeError(f"resident state: malformed dicts ({e})") from None
+
+
+def _state_write_values(w: Writer, d: _Dicts, values) -> None:
+    w.varint(len(values))
+    for v in values:
+        _write_value(w, d, v)
+
+
+def _state_read_values(blob: bytes, cids) -> list:
+    try:
+        r = Reader(blob)
+        return [_read_value(r, cids) for _ in range(r.varint())]
+    except (IndexError, ValueError, struct.error, UnicodeDecodeError) as e:
+        raise DecodeError(f"resident state: malformed values ({e})") from None

@@ -24,9 +24,11 @@ the node and right subtrees after it.
 ``trace_payload`` turns it into the binary updates payload a server
 would receive for the document (one change a peer's window, encoded by
 ``codec.binary.encode_text_changes``), so the ingest path can start
-from payload bytes.  ``seq_columns_u`` lays a document out as the
-row-order-free table of the resident path, rows in apply order (as a
-resident batch appends them) or in (peer, counter) order.
+from payload bytes; ``epoch_payloads`` splits the same changes into one
+payload a sync epoch, the deltas a resident batch appends.
+``seq_columns_u`` lays a document out as the row-order-free table of
+the resident path, rows in apply order (as a resident batch appends
+them) or in (peer, counter) order.
 
 Generated tables and payloads are cached under ``build/tracegen/``,
 tables keyed by the generator version and every parameter, payloads by
@@ -332,11 +334,17 @@ def concurrent_doc(patches, n_peers: int = 4, sync_every: int = 4000, seed: int 
 
 
 def trace_changes(doc: TraceDoc) -> List[TextChange]:
-    """The document's event log as changes, in apply order: a change is
-    the run of one window's events within one sync epoch (so a change
-    never spans a sync), and a same-peer right-spine typing run in it (an
-    insert whose parent is the peer's previous insert, on the right)
-    becomes one multi-character insert.  Deps are causally sound: the
+    """The document's event log as changes, in apply order (see
+    _epoch_changes)."""
+    return [ch for _, ch in _epoch_changes(doc)]
+
+
+def _epoch_changes(doc: TraceDoc) -> List[Tuple[int, TextChange]]:
+    """(sync epoch, change) of the document's event log, in apply order:
+    a change is the run of one window's events within one sync epoch (so
+    a change never spans a sync), and a same-peer right-spine typing run
+    in it (an insert whose parent is the peer's previous insert, on the
+    right) becomes one multi-character insert.  Deps are causally sound: the
     peer's own last op when it already changed in this epoch, else the
     last op of every peer before the epoch's sync (all the peer's view
     held).  Lamport = 1 + the largest lamport among the deps."""
@@ -347,7 +355,7 @@ def trace_changes(doc: TraceDoc) -> List[TextChange]:
     snap_ctr, snap_lam = list(last_ctr), list(last_lam)
     snap_epoch = 0
     changed_in_epoch = [False] * n_peers
-    out: List[TextChange] = []
+    out: List[Tuple[int, TextChange]] = []
     n = len(ev["window"])
     i = 0
     while i < n:
@@ -376,7 +384,7 @@ def trace_changes(doc: TraceDoc) -> List[TextChange]:
             else:
                 ops.append(TextInsert(ref, ev["side"][k], chr(ev["char"][k])))
         ctr_start = ev["counter"][i]
-        out.append(TextChange(ids[p], ctr_start, lamport, 0, deps, tuple(ops)))
+        out.append((epoch, TextChange(ids[p], ctr_start, lamport, 0, deps, tuple(ops))))
         last_ctr[p] = ev["counter"][j - 1]
         last_lam[p] = lamport + last_ctr[p] - ctr_start
         changed_in_epoch[p] = True
@@ -403,6 +411,41 @@ def trace_payload(doc: TraceDoc, use_cache: bool = True) -> bytes:
         tmp.write_bytes(payload)
         tmp.replace(path)
     return payload
+
+
+def epoch_payloads(doc: TraceDoc, use_cache: bool = True) -> List[bytes]:
+    """One binary updates payload a sync epoch of the document, in
+    container TEXT_CID: the changes of trace_changes grouped by their
+    epoch (a change never spans a sync), each group encoded by
+    encode_text_changes: what a sync server receives from the document's
+    replicas at each sync, the input of a resident batch's appends.
+    Their concatenated changes are trace_changes(doc).  Cached under
+    build/tracegen/ like trace_payload."""
+    h = hashlib.sha256(f"epochs {GENERATOR_VERSION}".encode())
+    for f in EVENT_FIELDS:
+        h.update(doc.events[f].tobytes())
+    h.update(np.asarray(doc.extract.peers, np.uint64).tobytes())
+    path = CACHE_DIR / f"epochs_{h.hexdigest()[:16]}.npz"
+    if use_cache and path.exists():
+        try:
+            z = np.load(path)
+            data, offs = z["data"].tobytes(), z["offsets"].tolist()
+            return [data[a:b] for a, b in zip(offs, offs[1:])]
+        except (OSError, KeyError, ValueError, EOFError, zipfile.BadZipFile):
+            pass  # stale or truncated cache: regenerate
+    tagged = _epoch_changes(doc)
+    n_epochs = 1 + int(doc.events["epoch"].max(initial=0))
+    groups: List[List[TextChange]] = [[] for _ in range(n_epochs)]
+    for epoch, ch in tagged:
+        groups[epoch].append(ch)
+    payloads = [encode_text_changes(g, TEXT_CID) for g in groups]
+    if use_cache:
+        path.parent.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_suffix(f".{os.getpid()}.tmp.npz")
+        offs = np.cumsum([0] + [len(b) for b in payloads]).astype(np.int64)
+        np.savez(tmp, data=np.frombuffer(b"".join(payloads), np.uint8), offsets=offs)
+        tmp.replace(path)
+    return payloads
 
 
 def seq_columns_u(doc: TraceDoc, order: str = "apply", pad_to: Optional[int] = None) -> SeqColumnsU:

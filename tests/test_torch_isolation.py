@@ -87,6 +87,29 @@ _BLOCKED_IMPORT = textwrap.dedent(
     by_key = fugue_batch.materialize_by_key(u, rank >> 10, rank & 0x3FF, device="cpu")
     assert torch_equal(codes_u, by_key[0]) and torch_equal(counts_u, by_key[1])
 
+    # the resident text batch: epoch payloads in, texts and a checkpoint
+    # out, on the native engines and on the Python ones
+    import os
+    from loro_tpu_torch.parallel.fleet import DeviceDocBatch
+    from loro_tpu_torch.parallel.order_maintenance import ShadowOrder
+    from loro_tpu_torch.storage import MemKvStore
+
+    eps = [tracegen.epoch_payloads(d, use_cache=False) for d in docs]
+    blobs = []
+    for py in ("0", "1"):
+        os.environ["LORO_PY_ORDER"] = os.environ["LORO_PY_IDMAP"] = py
+        batch = DeviceDocBatch(len(docs), 256, device="cpu", auto_grow=True)
+        assert isinstance(batch.order[0], ShadowOrder) == (py == "1")
+        for e in range(len(eps[0])):
+            batch.append_payloads([ep[e] for ep in eps], tracegen.TEXT_CID)
+        assert batch.texts() == batch.texts(use_solver=True) == [d.text for d in docs]
+        blobs.append(batch.export_state())
+    assert blobs[0] == blobs[1] and FLEET_FALLBACKS["payload_decode"] == 0
+    assert DeviceDocBatch.import_state(blobs[0], device="cpu").export_state() == blobs[0]
+    kv = MemKvStore()
+    kv.import_all(blobs[0])
+    assert kv.get(b"meta") is not None
+
     # the port's entry point
     from loro_tpu_torch.entry import entry
 
@@ -120,9 +143,10 @@ def test_source_scan_finds_no_jax_or_loro_tpu_import():
     source of the port includes anything of loro_tpu/."""
     files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 5
-    for name in ("parallel/fleet.py", "core/change.py", "core/version.py", "core/ids.py"):
+    for name in ("parallel/fleet.py", "core/change.py", "core/version.py", "core/ids.py", "storage/kv.py",
+                 "parallel/order_maintenance.py", "parallel/idmap.py", "native/__init__.py"):
         assert PKG / name in files, name
-    for sub in ("codec", "core", "native", "ops", "parallel"):
+    for sub in ("codec", "core", "native", "ops", "parallel", "storage"):
         assert any(f.parent == PKG / sub for f in files), sub
     offenders = [
         f"{f.relative_to(REPO)}: {m.group(0).strip()}" for f in files for m in _IMPORT_RE.finditer(f.read_text())
@@ -131,7 +155,7 @@ def test_source_scan_finds_no_jax_or_loro_tpu_import():
     assert _IMPORT_RE.search("import jax.numpy as jnp") and _IMPORT_RE.search("from loro_tpu.ops import x")
     assert not _IMPORT_RE.search("from loro_tpu_torch.ops import x")
     native = sorted(PKG.rglob("*.cpp")) + sorted(PKG.rglob("*.cu")) + sorted(PKG.rglob("*.cuh"))
-    assert {f.name for f in native} >= {"seq_codec.cpp", "list_rank.cu"}
+    assert {f.name for f in native} >= {"seq_codec.cpp", "order_idmap.cpp", "list_rank.cu"}
     includes = [(f, inc) for f in native for inc in _INCLUDE_RE.findall(f.read_text())]
     assert includes
     bad = [
@@ -159,7 +183,7 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
     )
     cpu_cols = fugue_batch.chain_columns_to_torch(np_cols, device="cpu")
     from loro_tpu_torch.entry import entry, example_cols
-    from loro_tpu_torch.parallel.fleet import Fleet
+    from loro_tpu_torch.parallel.fleet import DeviceDocBatch, Fleet
 
     np_seq = example_cols(d=1, n=8)
     seq = fugue_batch.seq_columns_to_torch(np_seq, device="cpu")
@@ -194,6 +218,8 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
         lambda: fugue_batch.chain_merge_docs_u(seq_u, 8),
         lambda: fugue_batch.materialize_by_key(seq_u, u32, u32),
         lambda: Fleet(),
+        lambda: DeviceDocBatch(1, 16),
+        lambda: DeviceDocBatch.import_state(DeviceDocBatch(1, 16, device="cpu").export_state()),
     ]
     for call in calls:
         with pytest.raises(DeviceUnavailable):
