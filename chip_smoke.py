@@ -15,8 +15,8 @@ checks it, end to end:
    lists, in-trees and index-local runs), and the wide kernel on its
    cluster of 8, including a ring whose every pointer crosses a CTA
    slice; then runs tests/test_torch_list_rank_cuda.py,
-   tests/test_torch_fleet_cuda.py and tests/test_torch_resident_cuda.py
-   (pytest -m cuda) as a subprocess;
+   tests/test_torch_fleet_cuda.py, tests/test_torch_resident_cuda.py and
+   tests/test_torch_map_counter_cuda.py (pytest -m cuda) as a subprocess;
 4. main paths, each with launch counts reset before and read after:
    a. chain merge: a full-size 8-doc chunk of automerge-perf-shaped
       documents (tracegen), chain-contracted, merged with
@@ -66,6 +66,21 @@ checks it, end to end:
       ([1,024, 8,194] and [8, 65,538]); rows/s per round split
       stage by stage, one round under the profiler, read and checkpoint
       times and bytes, peak device memory;
+   f. map and counter (torch scatter ops, no list-rank kernel, checked):
+      Fleet.merge_map_docs on 1,024 map traces' extracts cycled over 8
+      distinct ones (65,536 puts on 4,096 keys each, [1,024, 65,536] op
+      rows, the JAX bench's map shape) and merge_counter_changes on
+      1,024 counter traces' change lists, every doc checked against the
+      host oracle, timed whole and by stage, with device busy and peak
+      memory, and two card folds of tenths compared bit for bit; the
+      native map explode held against the Python extract on the 8
+      traces; DeviceMapBatch (1,024 docs from 1,024 slots, grown to
+      4,096 in round 1, 3 of the traces' 16 sync epochs, checkpointed
+      after round 2) and DeviceCounterBatch (1,024 docs from 64 slots,
+      grown once, 8 epochs, checkpointed after round 4) fed one epoch a
+      round, checked against the oracles' prefixes, the restored batches
+      fed the rest to equal state bytes, each round timed and split,
+      the last map round under the profiler;
 5. timings (CUDA events, warm-up then median; a kernel's ms is 20
    back-to-back calls of its wrapper replayed from a CUDA graph, and
    beside it eager_ms, the same 20 calls eager): merge ms per chunk and
@@ -123,6 +138,18 @@ FLAGSHIP_N, C_PAD_START = 262_144, 256
 # RES_CHECK_EVERY rounds); both start at RES_CAP rows and grow
 RES_FLEET_DOCS, RES_FLEET_EPOCHS, RES_CAP = 1024, 10, 16_384
 RES_DOC_EPOCHS, RES_DOC_CAP, RES_DOC_C_PAD, RES_CKPT_ROUND, RES_CHECK_EVERY = 65, 262_144, 32_768, 32, 16
+# the map and counter phase: one-shot merges of MAP_DOCS docs cycled over
+# MAP_DISTINCT distinct traces (maps: MAP_OPS ops on MAP_KEYS keys, the
+# JAX bench's map shape; counters: COUNTER_INCR increments on
+# COUNTER_ITEMS counters), and the resident batches fed one sync epoch a
+# round from the server's default slot capacities (MAP_RES_CAP,
+# COUNTER_CAP), the map batch for MAP_RES_ROUNDS rounds with a checkpoint
+# after MAP_RES_CKPT, the counter batch for all its epochs with a
+# checkpoint after COUNTER_CKPT
+MAP_DOCS, MAP_DISTINCT, MAP_OPS, MAP_KEYS = 1024, 8, 65_536, 4_096
+COUNTER_INCR, COUNTER_ITEMS = 4_096, 96
+MAP_RES_CAP, MAP_RES_ROUNDS, MAP_RES_CKPT = 1024, 3, 2
+COUNTER_CAP, COUNTER_CKPT = 64, 4
 
 
 def check(cond: bool, what: str) -> None:
@@ -172,11 +199,12 @@ def both_ms(torch, fn) -> tuple:
     return time_ms(torch, fn, inner=20), kernel_ms(torch, fn)
 
 
-def device_breakdown(torch, fn, calls: int = 5, warm: bool = True):
-    """(device-busy ms per call, wall ms per call, top kernels) from
-    torch.profiler over `calls` back-to-back calls, after one unprofiled
-    call unless warm=False (for a call that changes state).  Busy time is
-    the sum of kernel durations, so busy / wall is the share the device
+def device_breakdown(torch, fn, calls: int = 5, warm: bool = True, top: int | None = 8):
+    """(device-busy ms per call, wall ms per call, the `top` longest
+    device rows, all of them for top=None) from torch.profiler over
+    `calls` back-to-back calls, after one unprofiled call unless
+    warm=False (for a call that changes state).  Busy time is the sum of
+    kernel and copy durations, so busy / wall is the share the device
     worked."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -200,7 +228,7 @@ def device_breakdown(torch, fn, calls: int = 5, warm: bool = True):
         if us > 0:
             rows.append((us / 1e3 / calls, e.key, e.count // calls))
     rows.sort(reverse=True)
-    return sum(r[0] for r in rows), wall_ms, rows[:8]
+    return sum(r[0] for r in rows), wall_ms, rows[:top]
 
 
 def ptxas_lines(log: str):
@@ -511,6 +539,368 @@ def resident_phase(torch, dev, kind: str, card: str, fleet_docs, fleet_want, fla
     return resident4e
 
 
+def map_counter_phase(torch, dev, kind: str, card: str) -> dict:
+    """Phase 4f, the LWW-map and counter merges: Fleet.merge_map_docs on
+    MAP_DOCS extracts cycled over MAP_DISTINCT map traces and
+    Fleet.merge_counter_changes on as many counter change lists, each
+    checked against the host oracle and timed whole and by stage; the
+    native map explode held against the Python extract on every distinct
+    trace; DeviceMapBatch and DeviceCounterBatch fed one sync epoch a
+    round (append_payloads / append_changes), checked against the
+    oracle's prefix, checkpointed, restored and fed the rest to equal
+    state bytes, each round timed and split from outside (the host clock
+    and CUDA events around the explode, the fold and the grow; the last
+    map round under the profiler for its device time); the one-shot
+    calls' host stages timed inside the calls whose walls are reported."""
+    import numpy as np
+
+    from loro_tpu_torch import native, tracegen
+    from loro_tpu_torch.codec.binary import decode_changes
+    from loro_tpu_torch.ops import columnar, lww
+    from loro_tpu_torch.ops.fugue_batch import pad_bucket
+    from loro_tpu_torch.parallel import fleet as fleet_mod
+    from loro_tpu_torch.parallel.fleet import DeviceCounterBatch, DeviceMapBatch, Fleet
+
+    def timed_calls(fn, obj, names, reps: int = 2):
+        """(walls ms, {name: [ms a call]}) of `reps` calls of fn, each
+        ended on a device sync, with the host ms of obj's methods `names`
+        taken inside the same calls (the methods wrapped on the
+        instance)."""
+        acc = {n: [] for n in names}
+
+        def timed(n, real):
+            def run(*args, **kw):
+                t = time.perf_counter()
+                try:
+                    return real(*args, **kw)
+                finally:
+                    acc[n][-1] += (time.perf_counter() - t) * 1e3
+            return run
+
+        for n in names:
+            setattr(obj, n, timed(n, getattr(obj, n)))
+        walls = []
+        try:
+            for _ in range(reps):
+                for n in names:
+                    acc[n].append(0.0)
+                t = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t) * 1e3)
+        finally:
+            for n in names:
+                delattr(obj, n)
+        return walls, acc
+
+    out = {}
+    fl = Fleet(device=dev)
+    t0 = time.perf_counter()
+    mdocs = [tracegen.map_doc(SEED * 1000 + i, n_ops=MAP_OPS, n_keys=MAP_KEYS) for i in range(MAP_DISTINCT)]
+    mpayloads = [tracegen.map_payload(d) for d in mdocs]
+    mwant = [tracegen.oracle_map(d) for d in mdocs]
+    cdocs = [tracegen.counter_doc(SEED * 1000 + i, n_incr=COUNTER_INCR, n_counters=COUNTER_ITEMS)
+             for i in range(MAP_DISTINCT)]
+    cwant = [tracegen.oracle_counter(d) for d in cdocs]
+    out["gen_s"] = time.perf_counter() - t0
+    check(all(any(p >> 63 for p in d.peers) for d in mdocs), "map traces: a peer id with bit 63 set")
+
+    # (a) map one-shot; the extracts are built on the host and not timed
+    t0 = time.perf_counter()
+    exs = [columnar.extract_map_ops(decode_changes(p)) for p in mpayloads]
+    decode_extract_ms = (time.perf_counter() - t0) * 1e3 / MAP_DISTINCT
+    explode_ms = []
+    for d, p, ex in zip(mdocs, mpayloads, exs):
+        check(len(ex.slot) == MAP_OPS and len(ex.slots) <= MAP_KEYS, f"map trace: {len(ex.slot)} ops, {len(ex.slots)} slots")
+        t0 = time.perf_counter()
+        cols = native.explode_map_payload(p)
+        explode_ms.append((time.perf_counter() - t0) * 1e3)
+        slot_of = {k: i for i, k in enumerate(ex.slots)}
+        slots = [slot_of[(cols["cids"][c], cols["keys"][k])]
+                 for c, k in zip(cols["cid_idx"].tolist(), cols["key_idx"].tolist())]
+        check(np.array_equal(np.asarray(slots, np.int32), ex.slot) and np.array_equal(cols["lamport"], ex.lamport)
+              and np.array_equal(cols["peer_rank"], ex.peer) and np.array_equal(cols["value_ordinal"], ex.value_idx)
+              and cols["peers"] == ex.peers and sorted(cols["peer_u64"].tolist()) == sorted(
+                  ch.peer for ch in d.changes for _ in ch.ops),
+              "explode_map_payload's columns != the Python extract's")
+        vals = [native.decode_value_at(p, o, cols["cids"]) for o in cols["value_offset"].tolist() if o >= 0]
+        check(vals == ex.values, "explode_map_payload's value offsets do not decode to the extract's values")
+    batch = [exs[j % MAP_DISTINCT] for j in range(MAP_DOCS)]
+    rows = sum(len(e.slot) for e in batch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    got = fl.merge_map_docs(batch)
+    first_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    for j, g in enumerate(got):
+        check(g == mwant[j % MAP_DISTINCT], f"map one-shot: doc {j} != oracle_map")
+    walls, host_ms = timed_calls(lambda: fl.merge_map_docs(batch), fl, ("_batch_map_cols", "_map_winner_values"))
+    # the device stages, with the functions the call runs
+    m = pad_bucket(max(len(e.slot) for e in batch))
+    n_slots = max(len(e.slots) for e in batch)
+    host_cols = fl._batch_map_cols(batch, m)
+    t1 = time.perf_counter()
+    dcols = lww.MapOpCols(*(fleet_mod._to_device(a, dev) for a in host_cols))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    merge_ms = time_ms(torch, lambda: lww.lww_merge_batch(dcols, n_slots, device=dev), warmup=1, reps=20)
+    vi, _, _ = lww.lww_merge_batch(dcols, n_slots, device=dev)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    vi_h = vi.cpu().numpy()
+    t4 = time.perf_counter()
+    staged = fl._map_winner_values(vi_h, batch)
+    check(staged == got, "map one-shot: staged call != the call")
+    col_bytes = sum(a.nbytes for a in host_cols)
+    win_bytes = 3 * 4 * MAP_DOCS * n_slots
+    del dcols, vi
+    busy_ms, busy_wall_ms, busy_top = device_breakdown(torch, lambda: fl.merge_map_docs(batch), calls=1, warm=False)
+    out["map_oneshot"] = {
+        "docs": MAP_DOCS, "distinct": MAP_DISTINCT, "rows": rows, "m": m, "slots": n_slots, "first_call_s": first_s,
+        "wall_ms": statistics.median(walls), "walls_ms": walls,
+        "split_ms": {"stack": statistics.median(host_ms["_batch_map_cols"]), "upload": (t2 - t1) * 1e3,
+                     "merge": merge_ms, "fetch": (t4 - t3) * 1e3,
+                     "winner_values": statistics.median(host_ms["_map_winner_values"])},
+        "merge_ops_per_s": rows / (merge_ms / 1e3), "bytes_bound_ms": (col_bytes + win_bytes) / HBM_BYTES_PER_S * 1e3,
+        "column_bytes": col_bytes, "device_busy_ms": busy_ms, "device_busy_wall_ms": busy_wall_ms,
+        "device_busy_share": busy_ms / busy_wall_ms,
+        "device_busy_top": [[ms, name[:80], cnt] for ms, name, cnt in busy_top], "peak_device_bytes": peak,
+        "explode_ms_per_doc": statistics.median(explode_ms), "decode_extract_ms_per_doc": decode_extract_ms,
+    }
+    r = out["map_oneshot"]
+    print(f"map one-shot on {kind} ({card}): merge_map_docs of {MAP_DOCS} docs ({MAP_DISTINCT} distinct, "
+          f"[{MAP_DOCS}, {m}] = {rows} op rows, {n_slots} slots, {col_bytes} column bytes) in {r['wall_ms']:.1f} ms "
+          f"wall (median of 2; first call {first_s:.2f} s); split: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in r["split_ms"].items())
+          + f" ms; lww_merge_batch {merge_ms:.3f} ms (median of 20, CUDA events) = "
+          f"{r['merge_ops_per_s'] / 1e6:.1f}M ops/s, bytes bound {r['bytes_bound_ms']:.3f} ms; device busy "
+          f"{busy_ms:.2f} ms = {100 * r['device_busy_share']:.2f} % of one profiled call ({busy_wall_ms:.1f} ms); peak "
+          f"device memory {peak / 2**30:.2f} GiB; every doc == oracle_map; explode_map_payload == the Python extract on "
+          f"{MAP_DISTINCT} docs ({r['explode_ms_per_doc']:.2f} ms a doc, decode_changes + extract_map_ops "
+          f"{decode_extract_ms:.1f}); busy top: "
+          + "; ".join(f"{name[:50]} x{cnt} {ms:.2f} ms" for ms, name, cnt in busy_top), flush=True)
+    del host_cols, staged, got
+
+    # (b) counter one-shot
+    lists = [cdocs[j % MAP_DISTINCT].changes for j in range(MAP_DOCS)]
+    got = fl.merge_counter_changes(lists)
+    for j, g in enumerate(got):
+        check(g == cwant[j % MAP_DISTINCT], f"counter one-shot: doc {j} != oracle_counter (exact)")
+    walls, host_ms = timed_calls(lambda: fl.merge_counter_changes(lists), fl, ("_counter_cols",))
+    slot, delta, valid, n_slots, cids_per_doc = fl._counter_cols(lists)
+    t1 = time.perf_counter()
+    dc = [fleet_mod._to_device(a, dev) for a in (slot, delta, valid)]
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    fold_ms = time_ms(torch, lambda: lww.counter_merge_batch(*dc, n_slots, device=dev), warmup=1, reps=20)
+    sums = lww.counter_merge_batch(*dc, n_slots, device=dev)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    sums_h = sums.cpu().numpy()
+    t4 = time.perf_counter()
+    dicts = [{cid: float(sums_h[di, j]) for j, cid in enumerate(cids)} for di, cids in enumerate(cids_per_doc)]
+    t5 = time.perf_counter()
+    check(dicts == got, "counter one-shot: staged call != the call")
+    # tenths, which no float32 sum holds exactly: two card folds, bit for bit?
+    rng = np.random.default_rng(SEED)
+    tenths = torch.from_numpy((rng.integers(-640, 641, slot.shape) / 10).astype(np.float32)).to(dev)
+    runs = [lww.counter_merge_batch(dc[0], tenths, dc[2], n_slots, device=dev).cpu().numpy().tobytes() for _ in range(2)]
+    out["counter_oneshot"] = {
+        "docs": MAP_DOCS, "rows": int(valid.sum()), "m": slot.shape[1], "slots": n_slots,
+        "wall_ms": statistics.median(walls), "walls_ms": walls,
+        "split_ms": {"row_build": statistics.median(host_ms["_counter_cols"]), "upload": (t2 - t1) * 1e3, "fold": fold_ms,
+                     "fetch": (t4 - t3) * 1e3, "dicts": (t5 - t4) * 1e3},
+        "tenths_two_runs_identical": runs[0] == runs[1],
+    }
+    del dc, sums, tenths
+    r = out["counter_oneshot"]
+    print(f"counter one-shot on {kind} ({card}): merge_counter_changes of {MAP_DOCS} change lists ({r['rows']} "
+          f"increments, [{MAP_DOCS}, {r['m']}], {n_slots} slots) in {r['wall_ms']:.1f} ms wall (median of 2); split: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in r["split_ms"].items())
+          + f" ms; sums == oracle_counter exactly; tenths folded twice on the card: "
+          f"{'identical' if r['tenths_two_runs_identical'] else 'different'} bits", flush=True)
+
+    # (c) resident map: one sync epoch a round through append_payloads
+    eps = [tracegen.map_epoch_payloads(d) for d in mdocs]
+    check(all(len(e) == MAP_OPS // tracegen.MAP_SYNC_EVERY for e in eps), "map traces: 16 sync epochs")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def timed_round(b, pls, profiled: bool = False) -> dict:
+        """One append_payloads round ended on a device sync: its wall, and its
+        explode, fold (the host block build, its upload and the device
+        fold, by the host clock), fold span (CUDA events recorded around
+        the host call lww_update_resident: its launches and any host stall
+        in it included, so an upper bound of the device fold) and grow,
+        timed around the calls the batch makes; staging is the rest (the
+        per-row slot and value loop).  profiled=True runs the round under
+        torch.profiler and adds its device busy ms (every kernel and copy),
+        of it the kernels' ms (the fold's, and the grow's in a grow round)
+        and its top rows."""
+        acc = {"explode": 0.0, "fold": 0.0, "fold_span": 0.0, "grow": 0.0}
+        real_explode, real_update = native.explode_map_payload, fleet_mod.lww_update_resident
+        real_fold, real_grow = b._device_fold, b.grow
+
+        def explode(p):
+            t = time.perf_counter()
+            try:
+                return real_explode(p)
+            finally:
+                acc["explode"] += (time.perf_counter() - t) * 1e3
+
+        def update(*args, **kw):
+            a, z = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            res = real_update(*args, **kw)
+            z.record()
+            z.synchronize()
+            acc["fold_span"] += a.elapsed_time(z)
+            return res
+
+        def fold(rows_):
+            t = time.perf_counter()
+            real_fold(rows_)
+            torch.cuda.synchronize()
+            acc["fold"] += (time.perf_counter() - t) * 1e3
+
+        def grow(n):
+            t = time.perf_counter()
+            real_grow(n)
+            torch.cuda.synchronize()
+            acc["grow"] += (time.perf_counter() - t) * 1e3
+
+        s0, e0 = b.s, b.epoch
+        native.explode_map_payload, fleet_mod.lww_update_resident = explode, update
+        b._device_fold, b.grow = fold, grow
+        prof = {}
+        try:
+            if profiled:
+                busy, wall, rows_ = device_breakdown(torch, lambda: b.append_payloads(pls), calls=1, warm=False,
+                                                     top=None)
+                prof = {"device_busy_ms": busy, "device_kernel_ms": sum(
+                    ms for ms, name, _ in rows_ if not name.startswith(("Memcpy", "Memset"))),
+                    "device_busy_top": [[ms, name[:80], cnt] for ms, name, cnt in rows_[:8]]}
+            else:
+                t = time.perf_counter()
+                b.append_payloads(pls)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t) * 1e3
+        finally:
+            native.explode_map_payload, fleet_mod.lww_update_resident = real_explode, real_update
+            del b._device_fold, b.grow
+        check(b.epoch == e0 + 1, "a round is one epoch")
+        n = MAP_DOCS * tracegen.MAP_SYNC_EVERY  # every epoch of a map trace holds MAP_SYNC_EVERY ops
+        return {"wall_ms": wall, "rows": n, "rows_per_s": n / (wall / 1e3), "grew": b.s != s0, "cap": b.s,
+                **{k + "_ms": v for k, v in acc.items()},
+                "staging_ms": wall - acc["explode"] - acc["fold"] - acc["grow"], "profiled": profiled, **prof}
+
+    mb = DeviceMapBatch(MAP_DOCS, MAP_RES_CAP, device=dev, auto_grow=True)
+    rounds, restored, ckpt, reads = [], None, {}, {}
+    for e in range(MAP_RES_ROUNDS):
+        pls = [eps[j % MAP_DISTINCT][e] for j in range(MAP_DOCS)]
+        rounds.append(timed_round(mb, pls, profiled=e + 1 == MAP_RES_ROUNDS))
+        if restored is not None:
+            restored.append_payloads(pls)
+        if e == 0 or e + 1 == MAP_RES_ROUNDS:
+            want = [tracegen.oracle_map(d, e + 1) for d in mdocs]
+            t0 = time.perf_counter()
+            vm = mb.root_value_maps("m")
+            reads[e + 1] = (time.perf_counter() - t0) * 1e3
+            for j, g in enumerate(vm):
+                check(g == want[j % MAP_DISTINCT], f"resident map round {e + 1}: doc {j} != oracle_map of the prefix")
+            del vm
+        if e + 1 == MAP_RES_CKPT:
+            t0 = time.perf_counter()
+            blob = mb.export_state()
+            t1 = time.perf_counter()
+            restored = DeviceMapBatch.import_state(blob, device=dev)
+            t2 = time.perf_counter()
+            ckpt = {"round": e + 1, "bytes": len(blob), "export_ms": (t1 - t0) * 1e3, "import_ms": (t2 - t1) * 1e3}
+            del blob
+    grew = [(i, r_["cap"]) for i, r_ in enumerate(rounds) if r_["grew"]]
+    check(mb.s == MAP_KEYS and grew == [(0, MAP_KEYS)], f"resident map grew {grew}, not once to {MAP_KEYS} in round 1")
+    t0 = time.perf_counter()
+    blob = mb.export_state()
+    t1 = time.perf_counter()
+    check(restored.export_state() == blob, f"the restored map batch fed rounds {MAP_RES_CKPT + 1}-{MAP_RES_ROUNDS} "
+                                           "exports other bytes")
+    res_bytes = sum(t.numel() * t.element_size() for t in mb.res)
+    del restored
+    steady = [r_["rows_per_s"] for r_ in rounds if not r_["grew"]]
+    out["map_resident"] = {
+        "docs": MAP_DOCS, "rounds": rounds, "cap": mb.s, "grew": grew, "value_maps_ms": reads,
+        "median_rows_per_s": statistics.median(steady) if steady else None, "best_rows_per_s": max(steady, default=None),
+        "checkpoint_round": ckpt, "final_export": {"bytes": len(blob), "export_ms": (t1 - t0) * 1e3},
+        "winner_bytes": res_bytes, "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
+    }
+    del mb, blob
+    r = out["map_resident"]
+    print(f"resident map on {kind} ({card}): DeviceMapBatch [{MAP_DOCS}, {r['cap']}] ({res_bytes / 2**20:.1f} MiB of "
+          f"winners) from {MAP_RES_CAP} slots, {MAP_RES_ROUNDS} rounds of {MAP_DOCS} payloads x "
+          f"{tracegen.MAP_SYNC_EVERY} ops; rows/s median {(r['median_rows_per_s'] or 0) / 1e6:.3f}M, best "
+          f"{(r['best_rows_per_s'] or 0) / 1e6:.3f}M; rounds (wall, explode, staging, fold (event span, host "
+          f"included), grow ms): "
+          + "; ".join(f"{i + 1}: {x['wall_ms']:.0f}, {x['explode_ms']:.0f}, {x['staging_ms']:.0f}, {x['fold_ms']:.1f} "
+                      f"({x['fold_span_ms']:.2f}), {x['grow_ms']:.1f}" for i, x in enumerate(rounds))
+          + "".join(f"; round {i + 1} under the profiler: device busy {x['device_busy_ms']:.2f} ms = "
+                    f"{100 * x['device_busy_ms'] / x['wall_ms']:.3f} % of its wall, kernels "
+                    f"{x['device_kernel_ms']:.3f} ms; busy top: "
+                    + "; ".join(f"{name[:50]} x{cnt} {ms:.3f} ms" for ms, name, cnt in x["device_busy_top"])
+                    for i, x in enumerate(rounds) if x["profiled"])
+          + "; root_value_maps ms " + ", ".join(f"round {k}: {v:.0f}" for k, v in reads.items())
+          + f" (== oracle_map of the prefix); checkpoint after round {ckpt['round']}: {ckpt['bytes']} bytes, export "
+          f"{ckpt['export_ms']:.0f} ms, import {ckpt['import_ms']:.0f} ms; restored batch fed the rest: equal state; "
+          f"final export {r['final_export']['bytes']} bytes in {r['final_export']['export_ms']:.0f} ms; peak device "
+          f"memory {r['peak_device_bytes'] / 2**30:.2f} GiB", flush=True)
+
+    # (d) resident counter: one sync epoch of change lists a round
+    n_epochs = cdocs[0].n_epochs
+    cgroups = [d.epoch_changes() for d in cdocs]
+    cb = DeviceCounterBatch(MAP_DOCS, COUNTER_CAP, device=dev, auto_grow=True)
+    rounds, restored, ckpt = [], None, {}
+    for e in range(n_epochs):
+        lists_e = [cgroups[j % MAP_DISTINCT][e] for j in range(MAP_DOCS)]
+        n = sum(len(ch.ops) for chs in lists_e for ch in chs)
+        s0 = cb.s
+        t0 = time.perf_counter()
+        cb.append_changes(lists_e)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        rounds.append({"wall_ms": wall, "rows": n, "rows_per_s": n / (wall / 1e3), "grew": cb.s != s0, "cap": cb.s})
+        if restored is not None:
+            restored.append_changes(lists_e)
+        want = [tracegen.oracle_counter(d, e + 1) for d in cdocs]
+        for j, g in enumerate(cb.value_maps()):
+            check(g == want[j % MAP_DISTINCT], f"resident counter round {e + 1}: doc {j} != oracle_counter (exact)")
+        if e + 1 == COUNTER_CKPT:
+            t0 = time.perf_counter()
+            blob = cb.export_state()
+            t1 = time.perf_counter()
+            restored = DeviceCounterBatch.import_state(blob, device=dev)
+            t2 = time.perf_counter()
+            ckpt = {"round": e + 1, "bytes": len(blob), "export_ms": (t1 - t0) * 1e3, "import_ms": (t2 - t1) * 1e3}
+    grew = [(i, r_["cap"]) for i, r_ in enumerate(rounds) if r_["grew"]]
+    check(len(grew) == 1 and cb.s == 2 * COUNTER_CAP, f"resident counter grew {grew}, not once past {COUNTER_CAP}")
+    blob = cb.export_state()
+    check(restored.export_state() == blob, "the restored counter batch exports other bytes")
+    steady = [r_["rows_per_s"] for r_ in rounds if not r_["grew"]]
+    out["counter_resident"] = {"docs": MAP_DOCS, "rounds": rounds, "cap": cb.s, "grew": grew,
+                               "median_rows_per_s": statistics.median(steady), "best_rows_per_s": max(steady),
+                               "checkpoint_round": ckpt, "final_bytes": len(blob)}
+    del cb, restored
+    r = out["counter_resident"]
+    print(f"resident counter on {kind} ({card}): DeviceCounterBatch [{MAP_DOCS}, {r['cap']}] from {COUNTER_CAP} slots "
+          f"(grew at round {grew[0][0] + 1}), {n_epochs} rounds of {MAP_DOCS} change lists; rows/s median "
+          f"{r['median_rows_per_s'] / 1e6:.3f}M, best {r['best_rows_per_s'] / 1e6:.3f}M; round walls ms "
+          + ", ".join(f"{x['wall_ms']:.0f}" for x in rounds)
+          + f"; sums == oracle_counter exactly every round; checkpoint after round {ckpt['round']}: {ckpt['bytes']} "
+          f"bytes, export {ckpt['export_ms']:.1f} ms, import {ckpt['import_ms']:.1f} ms; restored batch fed the rest: "
+          f"equal state", flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -696,11 +1086,11 @@ def main() -> int:
     test = subprocess.run(
         [sys.executable, "-m", "pytest", "-q", "-m", "cuda", "--noconftest", "-p", "no:cacheprovider",
          "-o", "markers=cuda: needs an NVIDIA GPU", "tests/test_torch_list_rank_cuda.py",
-         "tests/test_torch_fleet_cuda.py", "tests/test_torch_resident_cuda.py"],
+         "tests/test_torch_fleet_cuda.py", "tests/test_torch_resident_cuda.py", "tests/test_torch_map_counter_cuda.py"],
         cwd=root, capture_output=True, text=True, timeout=600,
     )
     summary = (test.stdout.strip().splitlines() or ["(no output)"])[-1]
-    print(f"pytest -m cuda tests/test_torch_{{list_rank,fleet,resident}}_cuda.py: rc {test.returncode}, "
+    print(f"pytest -m cuda tests/test_torch_{{list_rank,fleet,resident,map_counter}}_cuda.py: rc {test.returncode}, "
           f"{summary} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     check(test.returncode == 0 and " passed" in summary and "skipped" not in summary,
@@ -1218,6 +1608,12 @@ def main() -> int:
     for name, err in resident4e["max_abs_err"].items():
         max_err[name] = max(max_err[name], err)
 
+    # ---- 4f. the LWW-map and counter merges, one-shot and resident -------
+    # (torch scatter ops: no list-rank kernel runs here, checked)
+    list_rank.reset_launches()
+    map_counter4f = map_counter_phase(torch, dev, kind, card)
+    check(not any(list_rank.LAUNCHES.values()), f"the map and counter phase launched {list_rank.LAUNCHES}")
+
     # ---- 5. timings -------------------------------------------------------
     # each kernel at its main-path shape: the flagship chain rings for the
     # packed kernels, the element rings for the wide kernel
@@ -1413,6 +1809,7 @@ def main() -> int:
         "element_chunk_ops": echunk_ops, "build_s": build_s, "gen_s": gen_s, "element_gen_s": egen_s, **res,
         "bound_ms": bounds, "phases": phases, "full_card": full_card, "wyllie_over_budget": over_budget,
         "sweep": sweep, "sweep_graph": sweep_graph, "ingest": ingest, "fleet": fleet, "resident": resident4e,
+        "map_counter": map_counter4f,
         "total_s": time.perf_counter() - t_start,
     }))
     # launches in the fleet phase's checked one-shot calls, one a call

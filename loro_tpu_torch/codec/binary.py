@@ -1,5 +1,5 @@
 """The binary updates payload: the port's copy of loro_tpu/codec/binary.py
-(its decoder, and an encoder for text traces).
+(its decoder and encoder).
 
 Layout (after the doc-level envelope, which is not handled here):
   [peer table]   varint n, then n u64 LE peer ids (ops name peers by
@@ -15,9 +15,10 @@ Layout (after the doc-level envelope, which is not handled here):
 
 read_tables parses the prelude dictionaries (the native explode parses
 the rest).  decode_changes decodes a whole payload, every op kind and
-value tag, into Change objects (core/change.py).  encode_text_changes
-writes a payload of text inserts and deletes, byte for byte what the JAX
-package's encode_changes writes for the same changes.
+value tag, into Change objects (core/change.py); encode_changes is its
+inverse, byte for byte what the JAX package's encode_changes writes for
+the same changes.  encode_text_changes writes the same bytes for text
+changes given as plain tuples (the text traces' form).
 """
 from __future__ import annotations
 
@@ -38,6 +39,7 @@ from ..core.change import (
     StyleAnchor,
     TreeMove,
     UnknownContent,
+    _RunCont,
 )
 from ..core.ids import ID, ContainerID, ContainerType, IdSpan, TreeID
 from ..core.version import Frontiers
@@ -161,13 +163,14 @@ class Reader:
 
 
 class _Dicts:
-    """Encoding dictionaries (the peer and container tables; the JAX
-    package's also has the key table, which no writer here needs),
+    """Encoding dictionaries (the peer, key and container tables),
     indexes in first-use order."""
 
     def __init__(self) -> None:
         self.peers: List[int] = []
         self._peer_idx: Dict[int, int] = {}
+        self.keys: List[str] = []
+        self._key_idx: Dict[str, int] = {}
         self.cids: List[ContainerID] = []
         self._cid_idx: Dict[ContainerID, int] = {}
 
@@ -177,6 +180,14 @@ class _Dicts:
             i = len(self.peers)
             self.peers.append(p)
             self._peer_idx[p] = i
+        return i
+
+    def key(self, k: str) -> int:
+        i = self._key_idx.get(k)
+        if i is None:
+            i = len(self.keys)
+            self.keys.append(k)
+            self._key_idx[k] = i
         return i
 
     def cid(self, c: ContainerID) -> int:
@@ -391,6 +402,169 @@ def _read_op(r: Reader, peers: List[int], keys: List[str], cids: List[ContainerI
     return Op(counter, cid, content)
 
 
+# ---- encoder -------------------------------------------------------------------
+
+
+def encode_changes(changes: Sequence[Change]) -> bytes:
+    """The payload of `changes`, every op kind and value tag: the bytes
+    the JAX package's encode_changes writes.  Dictionaries are in
+    first-use order: each change's peer and its deps' peers, then per op
+    its container, key and the peers it names; containers that values
+    name are registered while the ops are written, and the peers of
+    non-root containers join the peer table before it is written."""
+    d = _Dicts()
+    for ch in changes:
+        d.peer(ch.peer)
+        for dep in ch.deps:
+            d.peer(dep.peer)
+        for op in ch.ops:
+            d.cid(op.container)
+            c = op.content
+            if isinstance(c, MapSet):
+                d.key(c.key)
+            elif isinstance(c, SeqInsert):
+                if isinstance(c.parent, ID):
+                    d.peer(c.parent.peer)
+                if isinstance(c.content, StyleAnchor):
+                    d.key(c.content.key)
+            elif isinstance(c, SeqDelete):
+                for sp in c.spans:
+                    d.peer(sp.peer)
+            elif isinstance(c, TreeMove):
+                d.peer(c.target.peer)
+                if c.parent is not None:
+                    d.peer(c.parent.peer)
+            elif isinstance(c, (MovableSet, MovableMove)):
+                d.peer(c.elem.peer)
+                if isinstance(c, MovableMove) and isinstance(c.parent, ID):
+                    d.peer(c.parent.peer)
+    ops_w = Writer()
+    for ch in changes:
+        for op in ch.ops:
+            _write_op(ops_w, d, op)
+    for c in d.cids:
+        if not c.is_root:
+            d.peer(c.peer)
+
+    w = Writer()
+    w.varint(len(d.peers))
+    for p in d.peers:
+        w.u64le(p)
+    w.varint(len(d.keys))
+    for k in d.keys:
+        w.str_(k)
+    w.varint(len(d.cids))
+    for c in d.cids:
+        _write_cid(w, d.peer, c)
+    w.varint(len(changes))
+    prev_ts = 0
+    for ch in changes:
+        w.varint(d.peer(ch.peer))
+        w.zigzag(ch.ctr_start)
+        w.zigzag(ch.lamport)
+        w.zigzag(ch.timestamp - prev_ts)
+        prev_ts = ch.timestamp
+        w.varint(len(ch.deps))
+        for dep in ch.deps:
+            w.varint(d.peer(dep.peer))
+            w.zigzag(dep.counter)
+        if ch.message is None:
+            w.u8(0)
+        else:
+            w.u8(1)
+            w.str_(ch.message)
+        w.varint(len(ch.ops))
+    w.buf += ops_w.buf
+    return bytes(w.buf)
+
+
+def _write_op(w: Writer, d: _Dicts, op: Op) -> None:
+    c = op.content
+    w.varint(d.cid(op.container))
+    if isinstance(c, MapSet):
+        if c.deleted:
+            w.u8(K_MAP_DEL)
+            w.varint(d.key(c.key))
+        else:
+            w.u8(K_MAP_SET)
+            w.varint(d.key(c.key))
+            _write_value(w, d, c.value)
+    elif isinstance(c, SeqInsert):
+        if isinstance(c.content, StyleAnchor):
+            a = c.content
+            w.u8(K_INSERT_ANCHOR)
+            _write_parent(w, d, c.parent)
+            w.u8(int(c.side))
+            w.varint(d.key(a.key))
+            _write_value(w, d, a.value)
+            w.u8(1 if a.is_start else 0)
+            w.varint(a.info)
+        elif isinstance(c.content, str):
+            w.u8(K_INSERT_TEXT)
+            _write_parent(w, d, c.parent)
+            w.u8(int(c.side))
+            w.str_(c.content)
+        else:
+            w.u8(K_INSERT_VALUES)
+            _write_parent(w, d, c.parent)
+            w.u8(int(c.side))
+            w.varint(len(c.content))
+            for v in c.content:
+                _write_value(w, d, v)
+    elif isinstance(c, SeqDelete):
+        w.u8(K_DELETE)
+        w.varint(len(c.spans))
+        for sp in c.spans:
+            w.varint(d.peer(sp.peer))
+            w.zigzag(sp.start)
+            w.varint(sp.end - sp.start)
+    elif isinstance(c, TreeMove):
+        w.u8(K_TREE)
+        w.varint(d.peer(c.target.peer))
+        w.zigzag(c.target.counter)
+        flags = ((1 if c.is_create else 0) | (2 if c.is_delete else 0) | (4 if c.parent is not None else 0)
+                 | (8 if c.position is not None else 0))
+        w.u8(flags)
+        if c.parent is not None:
+            w.varint(d.peer(c.parent.peer))
+            w.zigzag(c.parent.counter)
+        if c.position is not None:
+            w.bytes_(c.position)
+    elif isinstance(c, CounterIncr):
+        w.u8(K_COUNTER)
+        w.f64(c.delta)
+    elif isinstance(c, MovableSet):
+        w.u8(K_MSET)
+        w.varint(d.peer(c.elem.peer))
+        w.zigzag(c.elem.counter)
+        _write_value(w, d, c.value)
+    elif isinstance(c, MovableMove):
+        w.u8(K_MMOVE)
+        w.varint(d.peer(c.elem.peer))
+        w.zigzag(c.elem.counter)
+        _write_parent(w, d, c.parent)
+        w.u8(int(c.side))
+    elif isinstance(c, UnknownContent):
+        w.u8(K_UNKNOWN)
+        w.varint(c.kind)
+        w.bytes_(c.data)
+    else:
+        raise TypeError(f"cannot encode op content {type(c)}")
+
+
+def _write_parent(w: Writer, d: _Dicts, parent) -> None:
+    """A sequence insert's parent: none (the root), the run-continuation
+    tag, or an id; the inverse of _read_parent."""
+    if parent is None:
+        w.u8(PT_NONE)
+    elif isinstance(parent, _RunCont):
+        w.u8(RUN_CONT_TAG)
+    else:
+        w.u8(PT_ID)
+        w.varint(d.peer(parent.peer))
+        w.zigzag(parent.counter)
+
+
 # ---- text trace encoder -------------------------------------------------------
 
 Id = Tuple[int, int]  # (peer id, counter)
@@ -428,78 +602,21 @@ class TextChange(NamedTuple):
 
 
 def encode_text_changes(changes: Sequence[TextChange], cid: ContainerID) -> bytes:
-    """Payload of text changes whose every op targets `cid`: the bytes
-    the JAX package's encode_changes writes for the same changes
-    (dictionaries in first-use order: each change's peer, its deps'
-    peers, then per op the container and the peers it names)."""
-    peers: List[int] = []
-    peer_idx: Dict[int, int] = {}
-
-    def peer(p: int) -> int:
-        i = peer_idx.get(p)
-        if i is None:
-            i = peer_idx[p] = len(peers)
-            peers.append(p)
-        return i
-
+    """Payload of text changes whose every op targets `cid`: encode_changes
+    of the same changes as Change / SeqInsert / SeqDelete, so the bytes
+    the JAX package's encode_changes writes for them."""
+    out = []
     for ch in changes:
-        peer(ch.peer)
-        for p, _ in ch.deps:
-            peer(p)
+        ctr = ch.ctr_start
+        ops = []
         for op in ch.ops:
             if isinstance(op, TextInsert):
-                if op.parent is not None:
-                    peer(op.parent[0])
+                parent = None if op.parent is None else ID(*op.parent)
+                ops.append(Op(ctr, cid, SeqInsert(parent, Side(op.side), op.text)))
+                ctr += len(op.text)
             else:
-                for p, _, _ in op.spans:
-                    peer(p)
-    used = any(ch.ops for ch in changes)  # the cid table lists used containers only
-    if used and not cid.is_root:
-        peer(cid.peer)
-
-    ops_w = Writer()
-    for ch in changes:
-        for op in ch.ops:
-            ops_w.varint(0)  # the container's index: the only cid
-            if isinstance(op, TextInsert):
-                ops_w.u8(K_INSERT_TEXT)
-                if op.parent is None:
-                    ops_w.u8(PT_NONE)
-                else:
-                    ops_w.u8(PT_ID)
-                    ops_w.varint(peer(op.parent[0]))
-                    ops_w.zigzag(op.parent[1])
-                ops_w.u8(op.side)
-                ops_w.str_(op.text)
-            else:
-                ops_w.u8(K_DELETE)
-                ops_w.varint(len(op.spans))
-                for p, start, end in op.spans:
-                    ops_w.varint(peer(p))
-                    ops_w.zigzag(start)
-                    ops_w.varint(end - start)
-
-    w = Writer()
-    w.varint(len(peers))
-    for p in peers:
-        w.u64le(p)
-    w.varint(0)  # no keys
-    w.varint(int(used))
-    if used:
-        _write_cid(w, peer, cid)
-    w.varint(len(changes))
-    prev_ts = 0
-    for ch in changes:
-        w.varint(peer(ch.peer))
-        w.zigzag(ch.ctr_start)
-        w.zigzag(ch.lamport)
-        w.zigzag(ch.timestamp - prev_ts)
-        prev_ts = ch.timestamp
-        w.varint(len(ch.deps))
-        for p, c in ch.deps:
-            w.varint(peer(p))
-            w.zigzag(c)
-        w.u8(0)  # no message
-        w.varint(len(ch.ops))
-    w.buf += ops_w.buf
-    return bytes(w.buf)
+                ops.append(Op(ctr, cid, SeqDelete(tuple(IdSpan(*sp) for sp in op.spans))))
+                ctr += 1
+        out.append(Change(ID(ch.peer, ch.ctr_start), ch.lamport, Frontiers(ID(*dep) for dep in ch.deps), ops,
+                          timestamp=ch.timestamp))
+    return encode_changes(out)

@@ -1,7 +1,7 @@
 """ctypes bindings of the port's native host code: the payload codec
-(seq_codec.cpp: the one-shot explode, and the resident batch's delta
-explode and anchor metadata) and the resident batch's engines
-(order_idmap.cpp: NativeShadowOrder, NativeIdMap).
+(seq_codec.cpp: the one-shot explode, the resident batch's delta
+explode and anchor metadata, and the map explode) and the resident
+batch's engines (order_idmap.cpp: NativeShadowOrder, NativeIdMap).
 
 Each library is built with g++ at its first use (``_build.library``:
 ``build/torch_kernels/``, keyed by the source hash) and loaded with
@@ -47,6 +47,10 @@ def _lib() -> ctypes.CDLL:
         lib.loro_explode_seq_delta.argtypes = head + [_P] * 7 + [ctypes.c_longlong] + [_P] * 3 + [ctypes.c_longlong, _P]
         lib.loro_explode_seq_anchor_meta.restype = ctypes.c_longlong
         lib.loro_explode_seq_anchor_meta.argtypes = head + [_P] * 5 + [ctypes.c_longlong]
+        lib.loro_count_map_ops.restype = ctypes.c_longlong
+        lib.loro_count_map_ops.argtypes = [ctypes.c_char_p, ctypes.c_longlong]
+        lib.loro_explode_map.restype = ctypes.c_longlong
+        lib.loro_explode_map.argtypes = [ctypes.c_char_p, ctypes.c_longlong] + [_P] * 6 + [ctypes.c_longlong]
         _lib_handle = lib
     return _lib_handle
 
@@ -141,9 +145,48 @@ def explode_seq_anchor_meta(payload: bytes, target_cid_index: int) -> Dict[str, 
     return out
 
 
+def explode_map_payload(payload: bytes) -> dict:
+    """Every map set and delete of a payload (all map containers), in
+    payload order: numpy columns cid_idx and key_idx (into the payload's
+    tables), lamport, peer_rank (the op's peer ranked among the sorted
+    u64 ids of the payload's peer table, the LWW tie-break order, not
+    the wire's), peer_u64 (uint64), value_ordinal (-1 = delete) and
+    value_offset (the value's byte offset into the payload, for
+    decode_value_at; -1 = delete); and the tables peers (sorted), keys
+    and cids.  Raises CodecDecodeError on malformed payloads."""
+    from ..codec.binary import read_tables
+
+    lib = _lib()
+    payload = bytes(payload)
+    n = lib.loro_count_map_ops(payload, len(payload))
+    if n < 0:
+        raise CodecDecodeError("native decode failed (malformed payload?)")
+    cols = {f: np.empty(n, np.int32) for f in ("cid_idx", "key_idx", "lamport", "peer_idx", "value_ordinal")}
+    cols["value_offset"] = np.empty(n, np.int64)
+    wrote = lib.loro_explode_map(
+        payload, len(payload),
+        *[_ptr(cols[f]) for f in ("cid_idx", "key_idx", "lamport", "peer_idx", "value_ordinal", "value_offset")], n,
+    )
+    if wrote != n:
+        raise CodecDecodeError("native decode failed (count mismatch)")
+    peers_wire, keys, cids, _r = read_tables(payload)
+    wire = np.asarray(peers_wire, np.uint64)
+    rank_of = np.empty(len(wire), np.int32)
+    rank_of[np.argsort(wire, kind="stable")] = np.arange(len(wire), dtype=np.int32)
+    peer_idx = cols.pop("peer_idx")
+    return {
+        **cols,
+        "peer_rank": rank_of[peer_idx],
+        "peer_u64": wire[peer_idx],
+        "peers": sorted(peers_wire),
+        "keys": keys,
+        "cids": cids,
+    }
+
+
 def decode_value_at(payload: bytes, offset: int, cids):
     """Decode one tagged value at a byte offset the native code reported
-    (an anchor's value)."""
+    (an anchor's or a map op's value)."""
     from ..codec.binary import Reader, _read_value
 
     r = Reader(payload)

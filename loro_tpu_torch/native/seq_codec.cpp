@@ -11,8 +11,9 @@
 // skipping, the two-pass explode, and the resident batch's delta
 // explode (rows whose parents lie in earlier payloads come back as
 // (peer index, counter) pairs, deletes as raw spans), its style-anchor
-// metadata pass and its delete count.  Map, tree and movable-list code
-// stay behind; the order engine and id map are in order_idmap.cpp.
+// metadata pass and its delete count; and the map explode (every map
+// set and delete with its value's byte offset).  Tree and movable-list
+// code stay behind; the order engine and id map are in order_idmap.cpp.
 //
 // C ABI only (ctypes binding in loro_tpu_torch/native/__init__.py);
 // built with g++ -O3 -shared -fPIC -std=c++17.
@@ -744,6 +745,74 @@ long long loro_count_seq_deletes(const uint8_t* buf, long long len, int target_c
     }
   }
   return total;
+}
+
+// Pass 1: count MapSet/MapDel rows in the payload.
+long long loro_count_map_ops(const uint8_t* buf, long long len) {
+  Reader r{buf, buf + len};
+  uint64_t n_peers; std::vector<int32_t> cid_types; std::vector<ChangeMeta> metas;
+  if (!parse_prelude(r, &n_peers, cid_types, metas)) return -1;
+  long long total = 0;
+  for (auto& m : metas) {
+    for (uint64_t k = 0; k < m.n_ops; k++) {
+      r.varint();  // container idx
+      uint8_t kind = r.u8();
+      if (!r.ok) return -1;
+      int64_t atoms;
+      if (!skip_op(r, kind, &atoms)) return -1;
+      if (kind == K_MAP_SET || kind == K_MAP_DEL) total++;
+    }
+  }
+  return total;
+}
+
+// Pass 2: map-op rows across ALL map containers: (cid_idx, key_idx,
+// lamport, peer_idx, value ordinal or -1 for a delete, the value's
+// BYTE OFFSET into the payload or -1).  Values are not decoded here:
+// the offsets let the caller decode only the LWW winners.
+long long loro_explode_map(const uint8_t* buf, long long len,
+                           int32_t* out_cid, int32_t* out_key,
+                           int32_t* out_lamport, int32_t* out_peer,
+                           int32_t* out_value, int64_t* out_voffset,
+                           long long n_rows) {
+  Reader r{buf, buf + len};
+  uint64_t n_peers, n_keys; std::vector<int32_t> cid_types; std::vector<ChangeMeta> metas;
+  if (!parse_prelude(r, &n_peers, cid_types, metas, &n_keys)) return -1;
+  long long row = 0;
+  int32_t ordinal = 0;
+  for (auto& m : metas) {
+    int64_t ctr = m.ctr;
+    for (uint64_t k = 0; k < m.n_ops; k++) {
+      uint64_t cidx = r.varint();
+      uint8_t kind = r.u8();
+      if (!r.ok) return -1;
+      if (kind == K_MAP_SET || kind == K_MAP_DEL) {
+        uint64_t key = r.varint();
+        if (!r.ok || cidx >= cid_types.size() || key >= n_keys) return -1;
+        int32_t val = -1;
+        int64_t voff = -1;
+        if (kind == K_MAP_SET) {
+          voff = (int64_t)(r.p - buf);
+          if (!skip_value(r)) return -1;
+          val = ordinal++;
+        }
+        if (row >= n_rows) return -1;
+        out_cid[row] = (int32_t)cidx;
+        out_key[row] = (int32_t)key;
+        out_lamport[row] = (int32_t)(m.lamport + (ctr - m.ctr));
+        out_peer[row] = (int32_t)m.peer_idx;
+        out_value[row] = val;
+        out_voffset[row] = voff;
+        row++;
+        ctr += 1;
+      } else {
+        int64_t atoms;
+        if (!skip_op(r, kind, &atoms)) return -1;
+        ctr += atoms;
+      }
+    }
+  }
+  return row;
 }
 
 }  // extern "C"

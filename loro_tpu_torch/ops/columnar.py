@@ -1,7 +1,9 @@
 """Host-side columnar extraction: binary payloads -> numpy element
 tables (extract_seq_from_payload, through the native explode; or
 extract_seq_container over decoded Change objects) -> padded SeqColumns
-(the element-level merge) or ChainColumns (the chain-contracted merge).
+(the element-level merge) or ChainColumns (the chain-contracted merge);
+and decoded changes -> map op rows (extract_map_ops, the LWW merge's
+input).
 
 Numpy only, exactly as in the JAX package (loro_tpu/ops/columnar.py):
 this stage runs on the host and its output is carried to the device by
@@ -16,7 +18,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..codec.binary import read_tables
-from ..core.change import Change, SeqDelete, SeqInsert, StyleAnchor, _RunCont
+from ..core.change import Change, MapSet, SeqDelete, SeqInsert, StyleAnchor, _RunCont
 from ..core.ids import ContainerID
 from ..native import explode_seq_payload
 from .fugue_batch import ChainColumns, SeqColumns, pad_bucket, pad_rows, pad_seq_columns
@@ -197,6 +199,61 @@ def extract_seq_from_payload(payload: bytes, cid: ContainerID) -> SeqExtract:
         valid=np.ones(parent.shape[0], bool),
         peers=sorted(peers),
     ).sort_by_peer_counter()
+
+
+@dataclass
+class MapExtract:
+    """Columns for the batched LWW map merge: one row per map set or
+    delete, in change order."""
+
+    slot: np.ndarray  # i32[M] (container, key) slot index
+    lamport: np.ndarray  # i32[M]
+    peer: np.ndarray  # i32[M] peer rank among the sorted u64 peer ids
+    value_idx: np.ndarray  # i32[M] into `values`; -1 = delete
+    valid: np.ndarray  # bool[M]
+    slots: List[Tuple[ContainerID, str]]  # slot dictionary
+    values: List  # value dictionary
+    peers: List[int]
+
+
+def extract_map_ops(changes: Sequence[Change]) -> MapExtract:
+    """Every map op of `changes` (all map containers) as LWW rows: slots
+    numbered by first use of each (container, key), an op's lamport
+    its change's plus its counter offset, peers ranked sorted-u64."""
+    peers_seen = sorted({ch.peer for ch in changes})
+    peer_rank = {p: i for i, p in enumerate(peers_seen)}
+    slot_of: Dict[Tuple[ContainerID, str], int] = {}
+    slots: List[Tuple[ContainerID, str]] = []
+    values: List = []
+    rows: List[Tuple[int, int, int, int]] = []
+    for ch in changes:
+        for op in ch.ops:
+            c = op.content
+            if not isinstance(c, MapSet):
+                continue
+            key = (op.container, c.key)
+            if key not in slot_of:
+                slot_of[key] = len(slots)
+                slots.append(key)
+            lam = ch.lamport + (op.counter - ch.ctr_start)
+            if c.deleted:
+                vi = -1
+            else:
+                vi = len(values)
+                values.append(c.value)
+            rows.append((slot_of[key], lam, peer_rank[ch.peer], vi))
+    m = len(rows)
+    arr = np.asarray(rows, np.int64).reshape(m, 4) if m else np.zeros((0, 4), np.int64)
+    return MapExtract(
+        slot=arr[:, 0].astype(np.int32),
+        lamport=arr[:, 1].astype(np.int32),
+        peer=arr[:, 2].astype(np.int32),
+        value_idx=arr[:, 3].astype(np.int32),
+        valid=np.ones(m, bool),
+        slots=slots,
+        values=values,
+        peers=peers_seen,
+    )
 
 
 @dataclass

@@ -1,29 +1,34 @@
-"""Fleet merge front end, text family: a batch of documents merged in
-one device call (the port of loro_tpu/parallel/fleet.py's one-shot text
-merges, Fleet.merge_text_docs / merge_text_changes / merge_text_payloads),
-and the resident text batch that keeps documents on the device between
-syncs (DeviceDocBatch).
+"""Fleet merge front end: a batch of documents merged in one device call
+(the port of loro_tpu/parallel/fleet.py's one-shot merges:
+Fleet.merge_text_docs / merge_text_changes / merge_text_payloads,
+merge_map_docs and merge_counter_changes), and the resident batches that
+keep documents on the device between syncs (DeviceDocBatch for text and
+lists, DeviceMapBatch for LWW maps, DeviceCounterBatch for counters).
 
-One-shot, per call: every document's element table is padded to one
-bucketed row count (pad_bucket), the doc axis to `pad_docs` with
-all-invalid filler docs, the columns are written into one host array a
-column (fugue_batch.stack_seq_columns) and uploaded (one copy a column),
-materialize_content_batch merges the whole batch on the device, and one
-fetch brings back the codes and counts.
+One-shot, per call: every document's rows are padded to one bucketed
+row count (pad_bucket), the doc axis to `pad_docs` with all-invalid
+filler docs where the call takes one, the columns are written into one
+host array a column and uploaded (one copy a column), one device merge
+runs over the whole batch, and one fetch brings back the result.
 
 Resident: DeviceDocBatch holds each doc's element table on the device
 ([D, capacity] SeqColumnsU plus standing order keys); each append ships
 only the new rows and tombstones, a host order engine a doc
 (order_maintenance.ShadowOrder or its native twin) keeps the keys, and
-texts() reads every doc in one sort by those keys.
+texts() reads every doc in one sort by those keys.  DeviceMapBatch holds
+each (doc, slot) LWW winner ([D, S] ops/lww.LwwResident) and folds each
+append's block of map ops into it; the values stay on the host, and a
+payload's values are decoded only when they win.  DeviceCounterBatch
+holds the [D, S] float32 sums and adds each append's block to them.
 
-The JAX package binds both to a device mesh and pads the doc axis to a
-multiple of its doc dimension; here they are bound to one device, where
-that multiple is 1.  Not ported yet: the supervised launch and fetch
-with its DeviceFailure -> host degradation (a CUDA error propagates as
-it is), the obs counters and trace instants, the other container
-families, and DeviceDocBatch's coalesce group, compaction, doc release,
-richtexts and export_select.
+The JAX package binds all of them to a device mesh and pads the doc
+axis to a multiple of its doc dimension; here they are bound to one
+device, where that multiple is 1.  Not ported yet: the supervised launch
+and fetch with its DeviceFailure -> host degradation (a CUDA error
+propagates as it is), the obs counters and trace instants, the tree,
+movable-list and richtext families, the op-sharded map merge, and the
+resident batches' coalesce group, doc release and export_select
+(DeviceDocBatch also lacks compaction and richtexts).
 """
 from __future__ import annotations
 
@@ -39,11 +44,11 @@ import numpy as np
 import torch
 
 from ..codec.binary import Reader, Writer, _Dicts, _read_cid, _read_value, _write_cid, _write_value, decode_changes, read_tables
-from ..core.change import Change, SeqDelete, SeqInsert, StyleAnchor, _RunCont
+from ..core.change import Change, CounterIncr, MapSet, SeqDelete, SeqInsert, StyleAnchor, _RunCont
 from ..core.ids import ContainerID
 from ..device import DeviceLike, resolve_device
 from ..errors import DecodeError, LoroError
-from ..ops.columnar import SeqExtract, extract_seq_container, extract_seq_from_payload
+from ..ops.columnar import MapExtract, SeqExtract, extract_seq_container, extract_seq_from_payload
 from ..ops.fugue_batch import (
     SeqColumnsU,
     chain_merge_docs_u,
@@ -53,6 +58,7 @@ from ..ops.fugue_batch import (
     seq_columns_to_torch,
     stack_seq_columns,
 )
+from ..ops.lww import NEG, LwwResident, MapOpCols, counter_merge_batch, counter_merge_doc, lww_merge_batch, lww_update_resident
 from ..storage import MemKvStore
 from .idmap import make_idmap
 from .order_maintenance import ShadowOrder, split_keys
@@ -120,6 +126,88 @@ class Fleet:
                     ) from e
             extracts.append(ex)
         return self.merge_text_docs(extracts)
+
+    def merge_counter_changes(self, docs_changes: Sequence[Sequence[Change]]) -> List[Dict[ContainerID, float]]:
+        """Every doc's counters {container: sum} from its change list, in
+        one device call (order-independent segment sums; float32, the
+        precision contract of DeviceCounterBatch)."""
+        slot, delta, valid, s, cids_per_doc = self._counter_cols(docs_changes)
+        dev = self.device
+        sums = counter_merge_batch(*(_to_device(a, dev) for a in (slot, delta, valid)), s, device=dev).cpu().numpy()
+        return [{cid: float(sums[di, j]) for j, cid in enumerate(cids)} for di, cids in enumerate(cids_per_doc)]
+
+    def _counter_cols(self, docs_changes: Sequence[Sequence[Change]]):
+        """(slot, delta, valid [D, M] numpy columns, slot count, each doc's
+        counters in slot order): one row per increment, a doc's counters
+        numbered by first use."""
+        rows_per_doc = []
+        cids_per_doc = []
+        for changes in docs_changes:
+            rows = []
+            cid_of: Dict[ContainerID, int] = {}
+            cids: List[ContainerID] = []
+            for ch in changes:
+                for op in ch.ops:
+                    if not isinstance(op.content, CounterIncr):
+                        continue
+                    if op.container not in cid_of:
+                        cid_of[op.container] = len(cids)
+                        cids.append(op.container)
+                    rows.append((cid_of[op.container], op.content.delta))
+            rows_per_doc.append(rows)
+            cids_per_doc.append(cids)
+        m = pad_bucket(max(1, max(len(r) for r in rows_per_doc)), floor=16)
+        s = max(1, max(len(c) for c in cids_per_doc))
+        d = len(docs_changes)
+        slot = np.zeros((d, m), np.int32)
+        delta = np.zeros((d, m), np.float32)
+        valid = np.zeros((d, m), bool)
+        for di, rows in enumerate(rows_per_doc):
+            if rows:
+                slot[di, : len(rows)] = [r[0] for r in rows]
+                delta[di, : len(rows)] = [r[1] for r in rows]
+                valid[di, : len(rows)] = True
+        return slot, delta, valid, s, cids_per_doc
+
+    def _batch_map_cols(self, extracts: Sequence[MapExtract], m: int) -> MapOpCols:
+        """Per-doc MapExtract rows stacked into padded [D, M] numpy
+        columns."""
+
+        def col(rows_list, fill, dtype):
+            out = np.full((len(extracts), m), fill, dtype)
+            for i, r in enumerate(rows_list):
+                out[i, : len(r)] = r
+            return out
+
+        return MapOpCols(
+            slot=col([e.slot for e in extracts], 0, np.int32),
+            lamport=col([e.lamport for e in extracts], 0, np.int32),
+            peer=col([e.peer for e in extracts], 0, np.int32),
+            value_idx=col([e.value_idx for e in extracts], 0, np.int32),
+            valid=col([e.valid for e in extracts], False, bool),
+        )
+
+    def merge_map_docs(self, extracts: Sequence[MapExtract]) -> List[Dict[str, object]]:
+        """LWW winners of a batch of docs in one device call; per doc
+        {key: value} over every map container's keys (a key set in two
+        containers keeps the later slot's winner, as in JAX)."""
+        m = pad_bucket(max(1, max(len(e.slot) for e in extracts)))
+        s = max(1, max(len(e.slots) for e in extracts))
+        dev = self.device
+        cols = MapOpCols(*(_to_device(a, dev) for a in self._batch_map_cols(extracts, m)))
+        vi, _, _ = lww_merge_batch(cols, s, device=dev)
+        return self._map_winner_values(vi.cpu().numpy(), extracts)
+
+    def _map_winner_values(self, vi: np.ndarray, extracts) -> List[Dict[str, object]]:
+        out: List[Dict[str, object]] = []
+        for i, e in enumerate(extracts):
+            got: Dict[str, object] = {}
+            for si, (cid, key) in enumerate(e.slots):
+                idx = int(vi[i, si])
+                if idx >= 0:
+                    got[key] = e.values[idx]
+            out.append(got)
+        return out
 
 
 # ---- resident text batch ------------------------------------------------------
@@ -1027,8 +1115,14 @@ def _state_read_dicts(blob: bytes):
 
 
 def _state_write_values(w: Writer, d: _Dicts, values) -> None:
+    """A value store; lazy cells are decoded and the decoded value
+    replaces the cell in `values`, so a later export decodes only the
+    values added since."""
     w.varint(len(values))
-    for v in values:
+    for i, v in enumerate(values):
+        if isinstance(v, _LazyValue):
+            v = v.decode()
+            values[i] = v
         _write_value(w, d, v)
 
 
@@ -1038,3 +1132,495 @@ def _state_read_values(blob: bytes, cids) -> list:
         return [_read_value(r, cids) for _ in range(r.varint())]
     except (IndexError, ValueError, struct.error, UnicodeDecodeError) as e:
         raise DecodeError(f"resident state: malformed values ({e})") from None
+
+
+def _state_write_grid(kv: MemKvStore, key: bytes, arrays) -> None:
+    """One [D, S] array set as raw little-endian buffers."""
+    w = Writer()
+    for a in arrays:
+        w.bytes_(np.asarray(a).tobytes())
+    kv.set(key, bytes(w.buf))
+
+
+def _state_read_grid(blob: bytes, shapes_dtypes) -> List[np.ndarray]:
+    try:
+        r = Reader(blob)
+        out = []
+        for shape, dt in shapes_dtypes:
+            buf = np.frombuffer(r.bytes_(), dt)
+            if buf.size != int(np.prod(shape)):
+                raise DecodeError("resident state: grid size mismatch")
+            out.append(buf.reshape(shape).copy())
+        return out
+    except (IndexError, ValueError) as e:
+        raise DecodeError(f"resident state: malformed grid ({e})") from None
+
+
+# ---- resident map and counter batches ------------------------------------------
+
+
+class _LazyValue:
+    """An undecoded map value: the payload and the byte offset the native
+    explode reported.  Decoded only if it wins the LWW (value_maps) or
+    the batch is exported."""
+
+    __slots__ = ("payload", "offset", "cids")
+
+    def __init__(self, payload: bytes, offset: int, cids):
+        self.payload = payload
+        self.offset = offset
+        self.cids = cids
+
+    def decode(self):
+        from ..native import decode_value_at
+
+        return decode_value_at(self.payload, self.offset, self.cids)
+
+
+def _stage_slot(slot_of: dict, staged: dict, key) -> int:
+    """The slot of `key` in a doc: its committed one, else its staged
+    one, else the next free one, staged in `staged` (insertion-ordered,
+    committed after the append's capacity check)."""
+    slot = slot_of.get(key)
+    if slot is None:
+        slot = staged.get(key)
+    if slot is None:
+        slot = staged[key] = len(slot_of) + len(staged)
+    return slot
+
+
+def _lww_fills(value_fill: int) -> Dict[str, int]:
+    """Fill values of the LwwResident fields, one table for the batch's
+    construction, grow and import (the value fill is the only per-use
+    field)."""
+    return dict(lamport=NEG, peer_hi=0, peer_lo=0, value=value_fill)
+
+
+# LwwResident tensor dtypes (peer halves: int64 holding uint32) and the
+# checkpoint's grid dtypes, the JAX package's
+_LWW_DTYPES = dict(lamport=torch.int32, peer_hi=torch.int64, peer_lo=torch.int64, value=torch.int32)
+_LWW_GRID = dict(lamport=np.int32, peer_hi=np.uint32, peer_lo=np.uint32, value=np.int32)
+
+
+def _require_slots(batch, required: int, error: type) -> None:
+    """Grow a map or counter batch (auto_grow) or raise `error` (the JAX
+    package's type for that batch) when a staged append needs more slots
+    than its capacity; called before any state changes."""
+    if required <= batch.s:
+        return
+    if not batch.auto_grow:
+        raise error(f"{type(batch).__name__} slot capacity exceeded: a doc needs {required} slots > {batch.s}; "
+                    "grow slot_capacity or pass auto_grow=True")
+    batch.grow(_grow_target(required, batch.s))
+
+
+def _read_meta(cls_name: str, meta_b: bytes, state_version: int):
+    """(n_docs, exporter's doc width, slot capacity, auto_grow, epoch) of a
+    map or counter batch's checkpoint meta."""
+    try:
+        r = Reader(meta_b)
+        version = r.u8()
+        if version > state_version:
+            raise DecodeError(f"{cls_name} state v{version} too new")
+        n_docs, d_saved, s = r.varint(), r.varint(), r.varint()
+        auto_grow = (r.u8() == 1) if version >= 2 else False
+        epoch = r.varint() if version >= 3 else 0
+    except (IndexError, ValueError) as e:
+        raise DecodeError(f"{cls_name} state: malformed meta ({e})") from None
+    _state_sane_sizes(cls_name, d_saved, slot_capacity=s)
+    if not 0 < n_docs <= d_saved:
+        raise DecodeError(f"{cls_name} state: implausible n_docs")
+    return n_docs, d_saved, s, auto_grow, epoch
+
+
+def _write_meta(kv: MemKvStore, batch) -> None:
+    meta = Writer()
+    meta.u8(batch.STATE_VERSION)
+    meta.varint(batch.n_docs)
+    meta.varint(batch.n_docs)  # the exporter's doc width (JAX: mesh-padded)
+    meta.varint(batch.s)
+    meta.u8(1 if batch.auto_grow else 0)
+    meta.varint(batch.epoch)
+    kv.set(b"meta", bytes(meta.buf))
+
+
+class DeviceMapBatch:
+    """Device-resident LWW-map winners for a doc batch: per (doc, slot)
+    the winning (lamport, peer, value ordinal), [D, S] on the device.
+    A slot is a (container, key) pair of one doc, numbered by first use.
+    Each append folds its block of map ops into the winners in one
+    device call; the values stay on the host as per-doc ordinal lists.
+    Bound to one device (default "cuda"; DeviceUnavailable without a card
+    unless "cpu" is asked for)."""
+
+    def __init__(self, n_docs: int, slot_capacity: int, device: DeviceLike = "cuda", auto_grow: bool = False):
+        """auto_grow=True repacks the winners to the next slot bucket
+        instead of raising when an append needs more slots."""
+        self.device = resolve_device(device)
+        self.n_docs = n_docs
+        self.s = slot_capacity
+        self.auto_grow = auto_grow
+        self.res = LwwResident(**{
+            f: torch.full((n_docs, slot_capacity), fill, dtype=_LWW_DTYPES[f], device=self.device)
+            for f, fill in _lww_fills(-2).items()
+        })
+        self.slot_of: List[Dict[Tuple[ContainerID, str], int]] = [dict() for _ in range(n_docs)]
+        self.values: List[List] = [[] for _ in range(n_docs)]
+        # ingest epochs (the JAX server journals rounds against them)
+        self.epoch = 0
+
+    def grow(self, new_slot_capacity: int) -> None:
+        """Repack the winners to a larger slot capacity, on the device."""
+        if new_slot_capacity <= self.s:
+            return
+        self.res = LwwResident(**_pad_axis1(self.res._asdict(), new_slot_capacity, _lww_fills(-2)))
+        self.s = new_slot_capacity
+
+    def append_changes(self, per_doc_changes: Sequence[Optional[Sequence[Change]]]) -> None:
+        """Fold each doc's new changes (None = no update) into the
+        winners.  Slots and values are staged and committed only after
+        the capacity check, so a capacity error leaves the batch as it
+        was."""
+        per_doc_changes = list(per_doc_changes) + [None] * (self.n_docs - len(per_doc_changes))
+        rows_per_doc, new_slots, new_vals = [], [], []
+        for di, changes in enumerate(per_doc_changes):
+            rows = []
+            rows_per_doc.append(rows)
+            staged_slots: Dict = {}
+            staged_vals: List = []
+            new_slots.append(staged_slots)
+            new_vals.append(staged_vals)
+            if not changes:
+                continue
+            slot_of = self.slot_of[di]
+            n_vals0 = len(self.values[di])
+            for ch in changes:
+                for op in ch.ops:
+                    c = op.content
+                    if not isinstance(c, MapSet):
+                        continue
+                    slot = _stage_slot(slot_of, staged_slots, (op.container, c.key))
+                    lam = ch.lamport + (op.counter - ch.ctr_start)
+                    if c.deleted:
+                        vi = -1
+                    else:
+                        vi = n_vals0 + len(staged_vals)
+                        staged_vals.append(c.value)
+                    rows.append((slot, lam, ch.peer, vi))
+        self._commit_staged(rows_per_doc, new_slots, new_vals)
+
+    def append_payloads(self, per_doc_payloads: Sequence[Optional[bytes]]) -> None:
+        """Native ingest: each doc's envelope-stripped binary payload (None
+        = no update) -> the native map explode -> one fold.  Values are not
+        decoded here: each is a lazy cell (payload, byte offset) that
+        value_maps() decodes only if it wins.  Staged like append_changes.
+        A malformed payload raises CodecDecodeError and a codec that
+        cannot be built RuntimeError, both before any state changes."""
+        from ..native import explode_map_payload
+
+        per_doc_payloads = list(per_doc_payloads) + [None] * (self.n_docs - len(per_doc_payloads))
+        rows_per_doc, new_slots, new_vals = [], [], []
+        for di, payload in enumerate(per_doc_payloads):
+            rows = []
+            rows_per_doc.append(rows)
+            staged_slots: Dict = {}
+            staged_vals: List = []
+            new_slots.append(staged_slots)
+            new_vals.append(staged_vals)
+            if not payload:
+                continue
+            out = explode_map_payload(payload)
+            slot_of = self.slot_of[di]
+            n_vals0 = len(self.values[di])
+            cids, keys = out["cids"], out["keys"]
+            cid_idx, key_idx = out["cid_idx"].tolist(), out["key_idx"].tolist()
+            lamport, peer, offset = out["lamport"].tolist(), out["peer_u64"].tolist(), out["value_offset"].tolist()
+            for j in range(len(cid_idx)):
+                slot = _stage_slot(slot_of, staged_slots, (cids[cid_idx[j]], keys[key_idx[j]]))
+                off = offset[j]
+                if off < 0:
+                    vi = -1
+                else:
+                    vi = n_vals0 + len(staged_vals)
+                    staged_vals.append(_LazyValue(payload, off, cids))
+                rows.append((slot, lamport[j], peer[j], vi))
+        self._commit_staged(rows_per_doc, new_slots, new_vals)
+
+    def _commit_staged(self, rows_per_doc, new_slots, new_vals) -> None:
+        """Shared tail of both appends: the capacity check (grow or
+        raise), then the staged slots and values, the epoch and the fold."""
+        _require_slots(self, max((len(self.slot_of[di]) + len(new_slots[di]) for di in range(self.n_docs)), default=0),
+                       ValueError)
+        for di in range(self.n_docs):
+            self.slot_of[di].update(new_slots[di])
+            self.values[di].extend(new_vals[di])
+        self.epoch += 1  # post-validation: dates this append
+        if any(rows_per_doc):
+            self._device_fold(rows_per_doc)
+
+    def _device_fold(self, rows_per_doc) -> None:
+        """One block [D, M] of (slot, lamport, peer, value) rows, built on
+        the host, uploaded and folded into the winners in place."""
+        m = pad_bucket(max(len(r) for r in rows_per_doc), floor=16)
+        shape = (self.n_docs, m)
+        blk = dict(slot=np.zeros(shape, np.int32), lam=np.zeros(shape, np.int32), hi=np.zeros(shape, np.uint32),
+                   lo=np.zeros(shape, np.uint32), valid=np.zeros(shape, bool), value=np.full(shape, -2, np.int32))
+        for di, rows in enumerate(rows_per_doc):
+            if not rows:
+                continue
+            k = len(rows)
+            arr = np.asarray([(r[0], r[1], r[3]) for r in rows], np.int64)
+            pu = np.asarray([r[2] for r in rows], np.uint64)
+            blk["slot"][di, :k] = arr[:, 0]
+            blk["lam"][di, :k] = arr[:, 1]
+            blk["value"][di, :k] = arr[:, 2]
+            blk["hi"][di, :k] = pu >> np.uint64(32)
+            blk["lo"][di, :k] = pu & np.uint64(0xFFFFFFFF)
+            blk["valid"][di, :k] = True
+        t = {f: _to_device(a, self.device) for f, a in blk.items()}
+        lww_update_resident(self.res, t["slot"], t["lam"], t["hi"], t["lo"], t["valid"], self.s, value=t["value"])
+
+    def value_maps(self) -> List[Dict[Tuple[ContainerID, str], object]]:
+        """{(container, key): value} per doc (the container in the key, so
+        one key name in two map containers cannot collide).  Lazy cells
+        are decoded here, winners only, and replaced by their values."""
+        win = self.res.value.cpu().numpy()
+        out = []
+        for di in range(self.n_docs):
+            m: Dict[Tuple[ContainerID, str], object] = {}
+            for (cid, key), s_ in self.slot_of[di].items():
+                vi = int(win[di, s_])
+                if vi >= 0:
+                    v = self.values[di][vi]
+                    if isinstance(v, _LazyValue):
+                        v = v.decode()
+                        self.values[di][vi] = v
+                    m[(cid, key)] = v
+            out.append(m)
+        return out
+
+    def root_value_maps(self, name: str) -> List[Dict[str, object]]:
+        """Flat {key: value} per doc for the root map container `name`."""
+        return [
+            {key: v for (cid, key), v in full.items() if cid.is_root and cid.name == name}
+            for full in self.value_maps()
+        ]
+
+    # -- checkpoint and resume ------------------------------------------
+    STATE_VERSION = 3  # v3: + ingest epoch
+
+    def export_state(self) -> bytes:
+        """The batch as an LTKV store: meta, the [D, S] winner grids, each
+        doc's slot dictionary and value store (lazy cells decoded); byte
+        for byte what the JAX package's DeviceMapBatch exports after the
+        same appends."""
+        kv = MemKvStore()
+        d = _Dicts()
+        _write_meta(kv, self)
+        _state_write_grid(kv, b"res", [getattr(self.res, f).cpu().numpy().astype(dt) for f, dt in _LWW_GRID.items()])
+        for di in range(self.n_docs):
+            w = Writer()
+            w.varint(len(self.slot_of[di]))
+            for (cid, key), s_ in self.slot_of[di].items():
+                w.varint(d.cid(cid))
+                w.str_(key)
+                w.varint(s_)
+            kv.set(b"doc/%08d/slots" % di, bytes(w.buf))
+            w = Writer()
+            _state_write_values(w, d, self.values[di])
+            kv.set(b"doc/%08d/values" % di, bytes(w.buf))
+        kv.set(b"dicts", _state_dicts_blob(d))
+        return kv.export_all()
+
+    @classmethod
+    def import_state(cls, data: bytes, device: DeviceLike = "cuda") -> "DeviceMapBatch":
+        """Restore a batch from export_state bytes (the port's or the JAX
+        package's).  Malformed or implausible state raises DecodeError
+        before anything large is allocated."""
+        kv = MemKvStore()
+        kv.import_all(data)
+        meta_b, dicts_b = kv.get(b"meta"), kv.get(b"dicts")
+        if meta_b is None or dicts_b is None:
+            raise DecodeError("DeviceMapBatch state: missing meta/dicts")
+        n_docs, d_saved, s, auto_grow, epoch = _read_meta("DeviceMapBatch", meta_b, cls.STATE_VERSION)
+        _peers, cids = _state_read_dicts(dicts_b)
+        res_b = kv.get(b"res")
+        if res_b is None:
+            raise DecodeError("DeviceMapBatch state: missing res")
+        grids = _state_read_grid(res_b, [((d_saved, s), dt) for dt in _LWW_GRID.values()])
+        batch = cls(n_docs, s, device=device, auto_grow=auto_grow)
+        batch.epoch = epoch
+        host = {f: g[:n_docs] for f, g in zip(_LWW_GRID, grids)}
+        for di in range(n_docs):
+            slots_b = kv.get(b"doc/%08d/slots" % di)
+            if slots_b is not None:
+                try:
+                    r = Reader(slots_b)
+                    so: Dict[Tuple[ContainerID, str], int] = {}
+                    for _ in range(r.varint()):
+                        ci = r.varint()
+                        if ci >= len(cids):
+                            raise DecodeError("DeviceMapBatch state: cid index")
+                        key = r.str_()
+                        s_ = r.varint()
+                        if s_ >= s:
+                            raise DecodeError("DeviceMapBatch state: slot index")
+                        so[(cids[ci], key)] = s_
+                    batch.slot_of[di] = so
+                except (IndexError, ValueError, UnicodeDecodeError) as e:
+                    raise DecodeError(f"DeviceMapBatch state: malformed slots ({e})") from None
+            vals_b = kv.get(b"doc/%08d/values" % di)
+            if vals_b is not None:
+                batch.values[di] = _state_read_values(vals_b, cids)
+            # registered slots must name value ordinals in range
+            # (value_maps would raise IndexError otherwise)
+            for s_ in batch.slot_of[di].values():
+                if int(host["value"][di, s_]) >= len(batch.values[di]):
+                    raise DecodeError("DeviceMapBatch state: value ordinal")
+        for f, g in host.items():
+            getattr(batch.res, f)[:] = _to_device(g, batch.device)
+        return batch
+
+
+def _fold_counter_rows(sums: torch.Tensor, slot: torch.Tensor, delta: torch.Tensor) -> None:
+    """Add one block [D, M] of counter rows into the sums [D, S] in place:
+    the block's own sums first (rows with slot >= S are the padding the
+    dump slot swallows), then one add, as the JAX fold does."""
+    s = sums.shape[1]
+    sums.add_(counter_merge_doc(slot, delta, slot < s, s))
+
+
+class DeviceCounterBatch:
+    """Device-resident counter sums for a doc batch (increments commute,
+    so the resident state is the fold: one scatter add an append).  A
+    slot is a counter container of one doc, numbered by first use.
+
+    Precision contract: the sums are float32, as the JAX package's (its
+    TPU path has no float64), so they equal the host's float64 sums
+    exactly for deltas whose every partial sum is exact in float32
+    (integers up to 2^24), and to float32 rounding otherwise.  On a card
+    the additions of one append run in no fixed order.  Bound to one
+    device (default "cuda"; DeviceUnavailable without a card unless
+    "cpu" is asked for)."""
+
+    def __init__(self, n_docs: int, slot_capacity: int, device: DeviceLike = "cuda", auto_grow: bool = False):
+        """auto_grow=True repacks the sums to the next slot bucket instead
+        of raising when an append needs more slots."""
+        self.device = resolve_device(device)
+        self.n_docs = n_docs
+        self.s = slot_capacity
+        self.auto_grow = auto_grow
+        self.slot_of: List[Dict[ContainerID, int]] = [dict() for _ in range(n_docs)]
+        self.sums = torch.zeros((n_docs, slot_capacity), dtype=torch.float32, device=self.device)
+        # ingest epochs (the JAX server journals rounds against them)
+        self.epoch = 0
+
+    def grow(self, new_slot_capacity: int) -> None:
+        """Repack the sums to a larger slot capacity, on the device."""
+        if new_slot_capacity <= self.s:
+            return
+        self.sums = _pad_axis1({"sums": self.sums}, new_slot_capacity, {"sums": 0.0})["sums"]
+        self.s = new_slot_capacity
+
+    def append_changes(self, per_doc_changes: Sequence[Optional[Sequence[Change]]]) -> None:
+        """Add each doc's new increments (None = no update).  New slots
+        are staged and registered only after the capacity check, so a
+        capacity error (RuntimeError) leaves the batch as it was."""
+        per_doc_changes = list(per_doc_changes) + [None] * (self.n_docs - len(per_doc_changes))
+        rows_per_doc: List[list] = []
+        staged_slots: List[dict] = []
+        for di, changes in enumerate(per_doc_changes):
+            rows: list = []
+            staged: Dict[ContainerID, int] = {}
+            rows_per_doc.append(rows)
+            staged_slots.append(staged)
+            if not changes:
+                continue
+            slots = self.slot_of[di]
+            for ch in changes:
+                for op in ch.ops:
+                    if isinstance(op.content, CounterIncr):
+                        rows.append((_stage_slot(slots, staged, op.container), float(op.content.delta)))
+        _require_slots(self, max((len(self.slot_of[di]) + len(staged_slots[di]) for di in range(self.n_docs)),
+                                 default=0), RuntimeError)
+        self.epoch += 1  # post-validation: dates this append
+        if not any(rows_per_doc):
+            return
+        for di, staged in enumerate(staged_slots):
+            self.slot_of[di].update(staged)
+        self._device_fold(rows_per_doc)
+
+    def _device_fold(self, rows_per_doc) -> None:
+        """One block [D, M] of (slot, delta) rows, pads on the dump slot S,
+        uploaded and added into the sums in place."""
+        m = pad_bucket(max(len(r) for r in rows_per_doc), floor=16)
+        slot = np.full((self.n_docs, m), self.s, np.int32)
+        delta = np.zeros((self.n_docs, m), np.float32)
+        for di, rows in enumerate(rows_per_doc):
+            if rows:
+                slot[di, : len(rows)] = [r[0] for r in rows]
+                delta[di, : len(rows)] = [r[1] for r in rows]
+        _fold_counter_rows(self.sums, _to_device(slot, self.device), _to_device(delta, self.device))
+
+    def value_maps(self) -> List[Dict[ContainerID, float]]:
+        sums = self.sums.cpu().numpy()
+        return [{cid: float(sums[di, s_]) for cid, s_ in self.slot_of[di].items()} for di in range(self.n_docs)]
+
+    # -- checkpoint and resume ------------------------------------------
+    STATE_VERSION = 3  # v3: + ingest epoch
+
+    def export_state(self) -> bytes:
+        """The batch as an LTKV store: meta, the [D, S] float32 sums and
+        each doc's slot dictionary; byte for byte what the JAX package's
+        DeviceCounterBatch exports after the same appends."""
+        kv = MemKvStore()
+        d = _Dicts()
+        _write_meta(kv, self)
+        _state_write_grid(kv, b"sums", [self.sums.cpu().numpy()])
+        for di in range(self.n_docs):
+            w = Writer()
+            w.varint(len(self.slot_of[di]))
+            for cid, s_ in self.slot_of[di].items():
+                w.varint(d.cid(cid))
+                w.varint(s_)
+            kv.set(b"doc/%08d/slots" % di, bytes(w.buf))
+        kv.set(b"dicts", _state_dicts_blob(d))
+        return kv.export_all()
+
+    @classmethod
+    def import_state(cls, data: bytes, device: DeviceLike = "cuda") -> "DeviceCounterBatch":
+        """Restore a batch from export_state bytes (the port's or the JAX
+        package's).  Malformed or implausible state raises DecodeError
+        before anything large is allocated."""
+        kv = MemKvStore()
+        kv.import_all(data)
+        meta_b, dicts_b = kv.get(b"meta"), kv.get(b"dicts")
+        if meta_b is None or dicts_b is None:
+            raise DecodeError("DeviceCounterBatch state: missing meta/dicts")
+        n_docs, d_saved, s, auto_grow, epoch = _read_meta("DeviceCounterBatch", meta_b, cls.STATE_VERSION)
+        _peers, cids = _state_read_dicts(dicts_b)
+        sums_b = kv.get(b"sums")
+        if sums_b is None:
+            raise DecodeError("DeviceCounterBatch state: missing sums")
+        (grid,) = _state_read_grid(sums_b, [((d_saved, s), np.float32)])
+        batch = cls(n_docs, s, device=device, auto_grow=auto_grow)
+        batch.epoch = epoch
+        for di in range(n_docs):
+            slots_b = kv.get(b"doc/%08d/slots" % di)
+            if slots_b is not None:
+                try:
+                    r = Reader(slots_b)
+                    so: Dict[ContainerID, int] = {}
+                    for _ in range(r.varint()):
+                        ci = r.varint()
+                        if ci >= len(cids):
+                            raise DecodeError("DeviceCounterBatch state: cid index")
+                        s_ = r.varint()
+                        if s_ >= s:
+                            raise DecodeError("DeviceCounterBatch state: slot index")
+                        so[cids[ci]] = s_
+                    batch.slot_of[di] = so
+                except (IndexError, ValueError) as e:
+                    raise DecodeError(f"DeviceCounterBatch state: malformed slots ({e})") from None
+        batch.sums[:] = _to_device(grid[:n_docs], batch.device)
+        return batch

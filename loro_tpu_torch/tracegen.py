@@ -33,6 +33,17 @@ them) or in (peer, counter) order.
 Generated tables and payloads are cached under ``build/tracegen/``,
 tables keyed by the generator version and every parameter, payloads by
 the version and the event log.
+
+The LWW-map and counter traces are op histories of two peers with
+random u64 ids, routed over the peers in windows of 32-256 ops (one
+change a window), the peers syncing fully every epoch: ``map_doc``, puts
+and deletes on one root map over a fixed key set (the shape of the JAX
+bench's map trace), and ``counter_doc``, increments of per-item counters
+that appear epoch by epoch.  ``map_payload`` / ``map_epoch_payloads``
+encode a map history whole or one payload a sync epoch
+(``codec.binary.encode_changes``); ``oracle_map`` and ``oracle_counter``
+are their host oracles, plain walks over the changes.  These are not
+cached: a 65,536-op history takes about a second to generate.
 """
 from __future__ import annotations
 
@@ -48,8 +59,10 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from .codec.binary import TextChange, TextDelete, TextInsert, encode_text_changes
-from .core.ids import ContainerID, ContainerType
+from .codec.binary import TextChange, TextDelete, TextInsert, encode_changes, encode_text_changes
+from .core.change import Change, CounterIncr, MapSet, Op
+from .core.ids import ID, ContainerID, ContainerType
+from .core.version import Frontiers
 from .ops.columnar import SeqExtract
 from .ops.fugue_batch import SeqColumnsU, pad_rows
 
@@ -573,4 +586,179 @@ def fleet_docs(n_concurrent: int = 2, n_patches: int = AUTOMERGE_PERF_PATCHES, s
             if use_cache:
                 _save(path, params, doc)
         out.append(doc)
+    return out
+
+
+# ---- LWW-map and counter traces ---------------------------------------------
+
+MAP_CID = ContainerID.root("m", ContainerType.Map)  # the map a map trace writes
+MAP_SYNC_EVERY = 4_096  # ops a sync epoch of a map trace
+COUNTER_EPOCH = 512  # increments a sync epoch of a counter trace
+_VALUE_CHARS = "abcdefghijklmnopqrstuvwxyz0123456789 é"
+
+
+@dataclass
+class OpTrace:
+    """A generated op history: its peers' u64 ids, its changes in apply
+    order, and each change's sync epoch (the full syncs before it)."""
+
+    peers: Tuple[int, ...]
+    changes: List[Change]
+    epochs: List[int]
+    n_ops: int
+
+    @property
+    def n_epochs(self) -> int:
+        return 1 + max(self.epochs, default=0)
+
+    def epoch_changes(self) -> List[List[Change]]:
+        """The changes grouped by sync epoch."""
+        groups: List[List[Change]] = [[] for _ in range(self.n_epochs)]
+        for ch, e in zip(self.changes, self.epochs):
+            groups[e].append(ch)
+        return groups
+
+
+def _peer_ids(rng: random.Random, n_peers: int) -> Tuple[int, ...]:
+    """Distinct random u64 peer ids, the first with bit 63 set (a peer id
+    that an int32 or int64 view would take for negative)."""
+    ids = [rng.getrandbits(64) | (1 << 63)]
+    while len(ids) < n_peers:
+        p = rng.getrandbits(64)
+        if p and p not in ids:
+            ids.append(p)
+    return tuple(ids)
+
+
+def _windowed_changes(rng: random.Random, peers: Sequence[int], n_ops: int, sync_every: int, make_op):
+    """(changes, epochs): a stream of n_ops ops, make_op(i) -> (container,
+    content) for op i, routed over the peers in windows of 32-256 ops,
+    one change a window, a change never spanning a sync (one every
+    sync_every ops).  Deps are causally sound: the peer's own last op
+    when it already changed in this epoch, else the last op of every peer
+    before the epoch's sync.  Lamport = 1 + the largest lamport among the
+    deps; each op takes one counter."""
+    n_peers = len(peers)
+    next_ctr = [0] * n_peers
+    last_lam = [-1] * n_peers
+    snap_ctr, snap_lam = list(next_ctr), list(last_lam)
+    changed = [False] * n_peers
+    changes: List[Change] = []
+    epochs: List[int] = []
+    snap_epoch = 0
+    i = 0
+    while i < n_ops:
+        epoch = i // sync_every
+        if epoch != snap_epoch:  # a full sync: every peer has seen every op so far
+            snap_ctr, snap_lam = list(next_ctr), list(last_lam)
+            snap_epoch = epoch
+            changed = [False] * n_peers
+        p = rng.randrange(n_peers)
+        w = min(rng.randint(32, 256), n_ops - i, (epoch + 1) * sync_every - i)
+        if changed[p]:
+            deps = [(p, next_ctr[p] - 1, last_lam[p])]
+        else:
+            deps = [(q, snap_ctr[q] - 1, snap_lam[q]) for q in range(n_peers) if snap_ctr[q] > 0]
+        lamport = 1 + max((lam for _, _, lam in deps), default=-1)
+        ctr0 = next_ctr[p]
+        ops = [Op(ctr0 + k, *make_op(i + k)) for k in range(w)]
+        changes.append(Change(ID(peers[p], ctr0), lamport, Frontiers(ID(peers[q], c) for q, c, _ in deps), ops))
+        epochs.append(epoch)
+        next_ctr[p] += w
+        last_lam[p] = lamport + w - 1
+        changed[p] = True
+        i += w
+    return changes, epochs
+
+
+def map_doc(seed: int, n_ops: int = 65_536, n_keys: int = 4_096, sync_every: int = MAP_SYNC_EVERY) -> OpTrace:
+    """A 2-peer concurrent-put history on the root map MAP_CID: n_ops ops over
+    the keys k0000.. drawn uniformly, 1 in 16 a delete; values mostly
+    ints (a few past 32 bits), then short strings, floats, bools and
+    nulls."""
+    rng = random.Random(seed)
+    peers = _peer_ids(rng, 2)
+    keys = [f"k{i:04d}" for i in range(n_keys)]
+
+    def value():
+        u = rng.random()
+        if u < 0.70:
+            return rng.randrange(-(1 << 20), 1 << 20) if u < 0.68 else rng.randrange(1 << 40)
+        if u < 0.82:
+            return "".join(rng.choice(_VALUE_CHARS) for _ in range(rng.randint(0, 8)))
+        if u < 0.92:
+            return rng.uniform(-1e6, 1e6)
+        if u < 0.97:
+            return rng.random() < 0.5
+        return None
+
+    def op(_i):
+        key = keys[rng.randrange(n_keys)]
+        if rng.random() < 1 / 16:
+            return MAP_CID, MapSet(key, None, True)
+        return MAP_CID, MapSet(key, value())
+
+    changes, epochs = _windowed_changes(rng, peers, n_ops, sync_every, op)
+    return OpTrace(peers, changes, epochs, n_ops)
+
+
+def map_payload(doc: OpTrace) -> bytes:
+    """The binary updates payload of the whole history."""
+    return encode_changes(doc.changes)
+
+
+def map_epoch_payloads(doc: OpTrace) -> List[bytes]:
+    """One binary updates payload a sync epoch, the input of a resident
+    batch's appends."""
+    return [encode_changes(g) for g in doc.epoch_changes()]
+
+
+def oracle_map(doc: OpTrace, n_epochs: Optional[int] = None) -> Dict[str, object]:
+    """{key: value} of the root map MAP_CID after the first `n_epochs`
+    sync epochs (default all): per key the op with the largest (lamport,
+    peer u64); a winning delete leaves the key absent."""
+    best: Dict[str, Tuple[Tuple[int, int], MapSet]] = {}
+    for ch, e in zip(doc.changes, doc.epochs):
+        if n_epochs is not None and e >= n_epochs:
+            break
+        for op in ch.ops:
+            c = op.content
+            if op.container != MAP_CID or not isinstance(c, MapSet):
+                continue
+            k = (ch.lamport + op.counter - ch.ctr_start, ch.peer)
+            cur = best.get(c.key)
+            if cur is None or k > cur[0]:
+                best[c.key] = (k, c)
+    return {key: c.value for key, (_, c) in best.items() if not c.deleted}
+
+
+def counter_doc(seed: int, n_incr: int = 4_096, n_counters: int = 96, epoch_incr: int = COUNTER_EPOCH) -> OpTrace:
+    """A 2-peer increment history over root counters item000..: in epoch e the
+    first ceil(n_counters * (e + 1) / n_epochs) counters are live (items
+    appear epoch by epoch), each increment picks a live counter
+    uniformly; deltas are multiples of 1/4 in [-64, 64], so every partial
+    sum is exact in float32 in any order."""
+    rng = random.Random(seed)
+    peers = _peer_ids(rng, 2)
+    n_epochs = -(-n_incr // epoch_incr)
+    cids = [ContainerID.root(f"item{i:03d}", ContainerType.Counter) for i in range(n_counters)]
+
+    def op(i):
+        live = -(-n_counters * (i // epoch_incr + 1) // n_epochs)
+        return cids[rng.randrange(live)], CounterIncr(rng.randint(-256, 256) / 4)
+
+    changes, epochs = _windowed_changes(rng, peers, n_incr, epoch_incr, op)
+    return OpTrace(peers, changes, epochs, n_incr)
+
+
+def oracle_counter(doc: OpTrace, n_epochs: Optional[int] = None) -> Dict[ContainerID, float]:
+    """{counter: float64 sum} after the first `n_epochs` sync epochs
+    (default all)."""
+    out: Dict[ContainerID, float] = {}
+    for ch, e in zip(doc.changes, doc.epochs):
+        if n_epochs is not None and e >= n_epochs:
+            break
+        for op in ch.ops:
+            if isinstance(op.content, CounterIncr):
+                out[op.container] = out.get(op.container, 0.0) + op.content.delta
     return out

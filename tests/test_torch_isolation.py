@@ -110,6 +110,29 @@ _BLOCKED_IMPORT = textwrap.dedent(
     kv.import_all(blobs[0])
     assert kv.get(b"meta") is not None
 
+    # the LWW-map and counter merges: one-shot and resident, from
+    # tracegen payloads and change lists
+    from loro_tpu_torch.ops.columnar import extract_map_ops
+    from loro_tpu_torch.parallel.fleet import DeviceCounterBatch, DeviceMapBatch
+
+    mdocs = [tracegen.map_doc(s, n_ops=600, n_keys=50, sync_every=200) for s in range(2)]
+    meps = [tracegen.map_epoch_payloads(d) for d in mdocs]
+    mb = DeviceMapBatch(2, 16, device="cpu", auto_grow=True)
+    for e in range(mdocs[0].n_epochs):
+        mb.append_payloads([ep[e] for ep in meps])
+    want = [tracegen.oracle_map(d) for d in mdocs]
+    assert mb.root_value_maps("m") == want and mb.s == 64
+    assert DeviceMapBatch.import_state(mb.export_state(), device="cpu").root_value_maps("m") == want
+    assert fleet.merge_map_docs([extract_map_ops(decode_changes(tracegen.map_payload(d))) for d in mdocs]) == want
+    cdocs = [tracegen.counter_doc(s, n_incr=512, n_counters=20, epoch_incr=128) for s in range(2)]
+    cb = DeviceCounterBatch(2, 8, device="cpu", auto_grow=True)
+    for e in range(cdocs[0].n_epochs):
+        cb.append_changes([d.epoch_changes()[e] for d in cdocs])
+    want = [tracegen.oracle_counter(d) for d in cdocs]
+    assert cb.value_maps() == want and cb.s == 32
+    assert DeviceCounterBatch.import_state(cb.export_state(), device="cpu").value_maps() == want
+    assert fleet.merge_counter_changes([d.changes for d in cdocs]) == want
+
     # the port's entry point
     from loro_tpu_torch.entry import entry
 
@@ -144,7 +167,7 @@ def test_source_scan_finds_no_jax_or_loro_tpu_import():
     files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 5
     for name in ("parallel/fleet.py", "core/change.py", "core/version.py", "core/ids.py", "storage/kv.py",
-                 "parallel/order_maintenance.py", "parallel/idmap.py", "native/__init__.py"):
+                 "parallel/order_maintenance.py", "parallel/idmap.py", "native/__init__.py", "ops/lww.py"):
         assert PKG / name in files, name
     for sub in ("codec", "core", "native", "ops", "parallel", "storage"):
         assert any(f.parent == PKG / sub for f in files), sub
@@ -183,7 +206,8 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
     )
     cpu_cols = fugue_batch.chain_columns_to_torch(np_cols, device="cpu")
     from loro_tpu_torch.entry import entry, example_cols
-    from loro_tpu_torch.parallel.fleet import DeviceDocBatch, Fleet
+    from loro_tpu_torch.ops import lww
+    from loro_tpu_torch.parallel.fleet import DeviceCounterBatch, DeviceDocBatch, DeviceMapBatch, Fleet
 
     np_seq = example_cols(d=1, n=8)
     seq = fugue_batch.seq_columns_to_torch(np_seq, device="cpu")
@@ -193,6 +217,8 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
     )
     seq_u = fugue_batch.seq_columns_to_torch(np_u, device="cpu")
     fn, _ = entry()
+    i32 = torch.zeros((1, 4), dtype=torch.int32)
+    map_cols = lww.MapOpCols(i32, i32, i32, i32, torch.ones((1, 4), dtype=torch.bool))
     calls = [
         lambda: resolve_device(),
         lambda: list_rank.wyllie_rank(np.arange(4, dtype=np.int32)),
@@ -220,6 +246,12 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
         lambda: Fleet(),
         lambda: DeviceDocBatch(1, 16),
         lambda: DeviceDocBatch.import_state(DeviceDocBatch(1, 16, device="cpu").export_state()),
+        lambda: lww.lww_merge_batch(map_cols, 2),
+        lambda: lww.counter_merge_batch(map_cols.slot, map_cols.slot.float(), map_cols.valid, 2),
+        lambda: DeviceMapBatch(1, 4),
+        lambda: DeviceMapBatch.import_state(DeviceMapBatch(1, 4, device="cpu").export_state()),
+        lambda: DeviceCounterBatch(1, 4),
+        lambda: DeviceCounterBatch.import_state(DeviceCounterBatch(1, 4, device="cpu").export_state()),
     ]
     for call in calls:
         with pytest.raises(DeviceUnavailable):
@@ -230,3 +262,4 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
     codes, counts = fn(np_seq, device="cpu")
     assert int(counts[0]) == 7 and codes[0].tolist() == [97, 98, 99, 100, 101, 102, 104, -1]
     assert torch.equal(fugue_batch.merge_docs_u(seq_u, device="cpu")[0], codes)
+    assert lww.lww_merge_batch(map_cols, 2, device="cpu")[0].tolist() == [[0, -2]]
