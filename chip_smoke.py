@@ -15,8 +15,9 @@ checks it, end to end:
    lists, in-trees and index-local runs), and the wide kernel on its
    cluster of 8, including a ring whose every pointer crosses a CTA
    slice; then runs tests/test_torch_list_rank_cuda.py,
-   tests/test_torch_fleet_cuda.py, tests/test_torch_resident_cuda.py and
-   tests/test_torch_map_counter_cuda.py (pytest -m cuda) as a subprocess;
+   tests/test_torch_fleet_cuda.py, tests/test_torch_resident_cuda.py,
+   tests/test_torch_map_counter_cuda.py and tests/test_torch_tree_cuda.py
+   (pytest -m cuda) as a subprocess;
 4. main paths, each with launch counts reset before and read after:
    a. chain merge: a full-size 8-doc chunk of automerge-perf-shaped
       documents (tracegen), chain-contracted, merged with
@@ -81,6 +82,31 @@ checks it, end to end:
       round, checked against the oracles' prefixes, the restored batches
       fed the rest to equal state bytes, each round timed and split,
       the last map round under the profiler;
+   g. movable tree (the replay kernel csrc/tree_replay.cu; no list-rank
+      kernel, checked): Fleet.merge_tree_payloads on 1,024 payloads
+      cycled over 8 tracegen.tree_doc traces (2,048 moves on 512 nodes,
+      4 peers, [1,024, 2,048] at n = 512: the JAX bench_tree's shape),
+      one replay launch, every doc checked against oracle_tree and
+      merge_tree_children against its ordered children, every trace
+      rejecting moves in the cycle check (counted by the kernel and the
+      oracle alike), timed whole and by stage, with device busy and peak
+      memory; tree_merge_batch at BASELINE config 5's [10,240, 2,048],
+      each doc equal to its trace's result; DeviceTreeBatch at the
+      server's capacities ([1,024, 4,096], 1,024 nodes) fed one sync
+      epoch of the traces a round (4 rounds, the last under the
+      profiler) and at document depth (8 traces of 16,384 moves on
+      2,048 nodes, 8 rounds, the log grown twice and the node cap once),
+      parent_maps and children_maps checked against the oracle's prefix
+      every round, both checkpointed after round 2, restored and fed the
+      rest to equal state bytes; then the kernel held bit for bit
+      against its plain version (both table variants) on the traces and
+      on bench_tree's random columns at [1,024, 2,048], and in the
+      resident replays' permutation form on the resident fleet's last
+      log (32 docs a CTA) and the first 4,096 rows of the depth cell's
+      (n = 2,048, 28 docs a CTA), timed by graph
+      and eager beside its latency bound (the longest doc's dependent
+      loads at a shared-memory load latency measured on the card) and
+      its bytes bound;
 5. timings (CUDA events, warm-up then median; a kernel's ms is 20
    back-to-back calls of its wrapper replayed from a CUDA graph, and
    beside it eager_ms, the same 20 calls eager): merge ms per chunk and
@@ -150,6 +176,18 @@ MAP_DOCS, MAP_DISTINCT, MAP_OPS, MAP_KEYS = 1024, 8, 65_536, 4_096
 COUNTER_INCR, COUNTER_ITEMS = 4_096, 96
 MAP_RES_CAP, MAP_RES_ROUNDS, MAP_RES_CKPT = 1024, 3, 2
 COUNTER_CAP, COUNTER_CKPT = 64, 4
+# the tree phase: one-shot merges of TREE_DOCS payloads cycled over
+# TREE_DISTINCT tracegen.tree_doc traces (TREE_MOVES moves on TREE_NODES
+# nodes each: the JAX bench_tree's shape), the kernel at BASELINE config
+# 5's TREE_BIG_DOCS docs, DeviceTreeBatch at the server's capacities
+# (TREE_RES_CAP moves, TREE_RES_NODES nodes) fed one sync epoch a round,
+# and at document depth (TREE_DEEP_DOCS traces of TREE_DEEP_MOVES moves
+# on TREE_DEEP_NODES nodes, an epoch every TREE_DEEP_SYNC moves); both
+# checkpointed after round TREE_CKPT
+TREE_DOCS, TREE_DISTINCT, TREE_MOVES, TREE_NODES, TREE_BIG_DOCS = 1024, 8, 2048, 512, 10_240
+TREE_RES_CAP, TREE_RES_NODES, TREE_CKPT = 4096, 1024, 2
+TREE_DEEP_DOCS, TREE_DEEP_MOVES, TREE_DEEP_NODES, TREE_DEEP_SYNC = 8, 16_384, 2048, 2048
+TREE_DEEP_PLAIN_ROWS = 4096  # the deep log's rows held against the plain version
 
 
 def check(cond: bool, what: str) -> None:
@@ -901,6 +939,389 @@ def map_counter_phase(torch, dev, kind: str, card: str) -> dict:
     return out
 
 
+def tree_phase(torch, dev, kind: str, card: str) -> dict:
+    """Phase 4g, the movable-tree merge: (a) Fleet.merge_tree_payloads on
+    TREE_DOCS payloads cycled over TREE_DISTINCT tracegen.tree_doc traces
+    (bench_tree's [1,024, 2,048] at n = 512, one replay launch), every doc
+    checked against oracle_tree and merge_tree_children against its
+    ordered children, timed whole and by stage; (b) tree_merge_batch at
+    BASELINE config 5's [10,240, 2,048] on the traces' columns tiled
+    (each doc equal to its trace's result from (a)) and the kernel held
+    bit for bit against its plain version on the traces' and on
+    bench_tree's random columns at [1,024, 2,048], timed by graph and
+    eager, with its latency and bytes bounds; (c) DeviceTreeBatch at the
+    server's capacities fed one sync epoch of the traces a round; (d) the
+    same at document depth (TREE_DEEP_DOCS traces of TREE_DEEP_MOVES
+    moves); (c) and (d) checked against the oracle's prefixes after every
+    round, checkpointed after round TREE_CKPT, restored and fed the rest
+    to equal state bytes; the permutation form the resident replays
+    launch held bit for bit against the plain version on (c)'s last log
+    and on the first TREE_DEEP_PLAIN_ROWS rows of (d)'s, both table
+    variants.  The main path's replay launches are counted
+    over (a), (c), (d) and (b)'s [10,240, 2,048] call; the comparisons
+    and timings run after that count is read."""
+    import numpy as np
+
+    from loro_tpu_torch import tracegen
+    from loro_tpu_torch.ops import tree_batch as tb
+    from loro_tpu_torch.parallel import fleet as fleet_mod
+    from loro_tpu_torch.parallel.fleet import DeviceTreeBatch, Fleet
+
+    cid = tracegen.TREE_CID
+    out = {}
+    t0 = time.perf_counter()
+    tdocs = [tracegen.tree_doc(SEED * 1000 + i, n_moves=TREE_MOVES, n_nodes=TREE_NODES) for i in range(TREE_DISTINCT)]
+    tpayloads = [tracegen.tree_payload(d) for d in tdocs]
+    want = [tracegen.oracle_tree(d) for d in tdocs]
+    out["gen_s"] = time.perf_counter() - t0
+
+    def depth(parents):
+        memo = {}
+
+        def dep(x):
+            chain = []
+            while x is not None and x not in memo:
+                chain.append(x)
+                x = parents.get(x)
+            k = 0 if x is None else memo[x]
+            for y in reversed(chain):
+                k += 1
+                memo[y] = k
+            return memo[chain[0]] if chain else k
+
+        return max((dep(x) for x in parents), default=0)
+
+    depths = [depth(w[0]) for w in want]
+    rejected = [w[2] for w in want]
+    check(all(r >= 1 for r in rejected), f"tree traces: moves the cycle check rejected {rejected}, not >= 1 each")
+    check(max(depths) >= 64, f"tree traces: final depths {depths}, none reaches 64")
+    check(all(any(p >> 63 for p in d.peers) for d in tdocs), "tree traces: a peer id with bit 63 set")
+    fl = Fleet(device=dev)
+    tb.reset_launches()
+
+    # (a) one-shot fleet at bench_tree's shape
+    batch = [tpayloads[j % TREE_DISTINCT] for j in range(TREE_DOCS)]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    got = fl.merge_tree_payloads(batch, cid)
+    first_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    for j, g in enumerate(got):
+        check(g == want[j % TREE_DISTINCT][0], f"tree one-shot: doc {j} != oracle_tree")
+    walls = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        fl.merge_tree_payloads(batch, cid)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    lists = [tdocs[j % TREE_DISTINCT].changes for j in range(TREE_DOCS)]
+    t0 = time.perf_counter()
+    kids = fl.merge_tree_children(lists, cid)
+    children_ms = (time.perf_counter() - t0) * 1e3
+    for j, k in enumerate(kids):
+        check(k == want[j % TREE_DISTINCT][1], f"tree one-shot: merge_tree_children doc {j} != oracle_tree's children")
+    # the call's stages, with the functions it runs
+    t0 = time.perf_counter()
+    extracted = [tb.extract_tree_from_payload(p, cid) for p in batch]
+    t1 = time.perf_counter()
+    cols_h, n = fl._stack_tree_cols(extracted)
+    d, m = cols_h.target.shape
+    upload_bytes = sum(c.nbytes for c in cols_h)
+    t2 = time.perf_counter()
+    cols = tb.TreeOpCols(*(fleet_mod._to_device(c, dev) for c in cols_h))
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    a, z = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    parents, eff = tb.tree_merge_batch(cols, n)
+    z.record()
+    deleted = tb.is_deleted_batch(parents)
+    z2 = torch.cuda.Event(enable_timing=True)
+    z2.record()
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    h_parents, h_eff, h_deleted = (x.cpu().numpy() for x in (parents, eff, deleted))
+    t5 = time.perf_counter()
+    staged = [fleet_mod._parent_map(nodes, h_parents[i], h_deleted[i]) for i, (_c, nodes, _p) in enumerate(extracted)]
+    t6 = time.perf_counter()
+    check(staged == got, "tree one-shot: the staged call != the call")
+    check((d, m, n) == (TREE_DOCS, TREE_MOVES, TREE_NODES), f"tree one-shot shape {(d, m, n)}")
+    k_rejected = [int((~h_eff[j]).sum()) for j in range(TREE_DISTINCT)]
+    check(k_rejected == rejected, f"rejected moves: kernel {k_rejected} != oracle {rejected}")
+    busy_ms, busy_wall_ms, busy_top = device_breakdown(torch, lambda: fl.merge_tree_payloads(batch, cid), calls=1,
+                                                       warm=False)
+    out["oneshot"] = {
+        "docs": TREE_DOCS, "distinct": TREE_DISTINCT, "m": m, "n": n, "first_call_s": first_s,
+        "wall_ms": statistics.median(walls), "walls_ms": walls, "children_wall_ms": children_ms,
+        "split_ms": {"explode_and_nodes": (t1 - t0) * 1e3, "stack": (t2 - t1) * 1e3, "upload": (t3 - t2) * 1e3,
+                     "kernel": a.elapsed_time(z), "is_deleted": z.elapsed_time(z2), "fetch": (t5 - t4) * 1e3,
+                     "dicts": (t6 - t5) * 1e3},
+        "upload_bytes": upload_bytes, "device_busy_ms": busy_ms, "device_busy_wall_ms": busy_wall_ms,
+        "device_busy_share": busy_ms / busy_wall_ms,
+        "device_busy_top": [[ms, name[:80], cnt] for ms, name, cnt in busy_top], "peak_device_bytes": peak,
+        "rejected_per_trace": rejected, "depth_per_trace": depths,
+    }
+    r = out["oneshot"]
+    print(f"tree one-shot on {kind} ({card}): merge_tree_payloads of {TREE_DOCS} payloads ({TREE_DISTINCT} distinct "
+          f"traces of {TREE_MOVES} moves, [{TREE_DOCS}, {m}] at n = {n}) in {r['wall_ms']:.1f} ms wall (median of 2; "
+          f"first call {first_s:.2f} s); split: " + ", ".join(f"{k} {v:.2f}" for k, v in r["split_ms"].items())
+          + f" ms (kernel and is_deleted by CUDA events); upload {upload_bytes} B; device busy {busy_ms:.2f} ms = "
+          f"{100 * r['device_busy_share']:.2f} % of one profiled call ({busy_wall_ms:.1f} ms); peak device memory "
+          f"{peak / 2**30:.3f} GiB; merge_tree_children {children_ms:.0f} ms; every doc == oracle_tree (parents and "
+          f"ordered children); moves rejected by the cycle check per trace {rejected} (== the kernel's); final depths "
+          f"{depths}; busy top: " + "; ".join(f"{name[:50]} x{cnt} {ms:.3f} ms" for ms, name, cnt in busy_top),
+          flush=True)
+
+    # (b) BASELINE config 5's batch: the traces' sorted columns tiled
+    big = tb.TreeOpCols(*(c[torch.arange(TREE_BIG_DOCS, device=dev) % TREE_DISTINCT].contiguous() for c in cols))
+    bp, be = tb.tree_merge_batch(big, n)
+    torch.cuda.synchronize()
+    check(torch.equal(bp, parents[:TREE_DISTINCT].repeat(TREE_BIG_DOCS // TREE_DISTINCT, 1))
+          and torch.equal(be, eff[:TREE_DISTINCT].repeat(TREE_BIG_DOCS // TREE_DISTINCT, 1)),
+          f"tree_merge_batch at [{TREE_BIG_DOCS}, {m}]: a doc != its trace's result")
+    del bp, be
+
+    # (c) resident fleet at the server's capacities
+    eps = [tracegen.tree_epoch_payloads(dd) for dd in tdocs]
+    n_epochs = tdocs[0].n_epochs
+    res_c = resident_rounds(torch, dev, DeviceTreeBatch, tdocs, eps, TREE_DOCS, TREE_RES_CAP, TREE_RES_NODES,
+                            n_epochs, profile_round=n_epochs)
+    out["resident"] = res_c
+    # (d) document depth
+    t0 = time.perf_counter()
+    ddocs = [tracegen.tree_doc(SEED * 1000 + 100 + i, n_moves=TREE_DEEP_MOVES, n_nodes=TREE_DEEP_NODES,
+                               sync_every=TREE_DEEP_SYNC) for i in range(TREE_DEEP_DOCS)]
+    deps = [tracegen.tree_epoch_payloads(dd) for dd in ddocs]
+    deep_gen_s = time.perf_counter() - t0
+    res_d = resident_rounds(torch, dev, DeviceTreeBatch, ddocs, deps, TREE_DEEP_DOCS, TREE_RES_CAP, TREE_RES_NODES,
+                            ddocs[0].n_epochs, profile_round=None)
+    res_d["gen_s"] = deep_gen_s
+    out["resident_deep"] = res_d
+    check(res_c["grew"] == [] and res_c["cap"] == TREE_RES_CAP,
+          f"resident tree fleet grew {res_c['grew']} (the server's capacities fit the traces)")
+    check(sum(g[1] != g[2] for g in res_d["grew"]) == 2 and sum(g[3] != g[4] for g in res_d["grew"]) == 1
+          and (res_d["cap"], res_d["node_cap"]) == (TREE_DEEP_MOVES, TREE_DEEP_NODES),
+          f"resident tree depth grew {res_d['grew']}, not the log twice and the nodes once")
+    launches = dict(tb.LAUNCHES)
+    out["launches"] = launches
+
+    # kernel vs plain version, timings and bounds (after the count)
+    t0 = time.perf_counter()
+    p_plain, e_plain, loads = tb.replay_plain(cols.target, cols.parent, cols.valid, n)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    check(torch.equal(p_plain, parents) and torch.equal(e_plain, eff), "tree kernel != plain version on the traces")
+    rng = np.random.default_rng(SEED)
+    rand = tb.TreeOpCols(torch.from_numpy(rng.integers(0, n, (TREE_DOCS, m)).astype(np.int32)).to(dev),
+                         torch.from_numpy(rng.integers(-2, n, (TREE_DOCS, m)).astype(np.int32)).to(dev),
+                         torch.ones((TREE_DOCS, m), dtype=torch.bool, device=dev))
+    t0 = time.perf_counter()
+    rp_plain, re_plain, rloads = tb.replay_plain(*rand, n)
+    torch.cuda.synchronize()
+    rand_plain_ms = (time.perf_counter() - t0) * 1e3
+    variants, max_err = {}, 0
+    for v in tb.VARIANTS:
+        for label, c, want_p, want_e in (("traces", cols, p_plain, e_plain), ("random", rand, rp_plain, re_plain)):
+            gp, ge = tb.launch_kernel(*c, n, variant=v)
+            torch.cuda.synchronize()
+            max_err = max(max_err, int((gp.long() - want_p.long()).abs().max()), int((ge != want_e).sum()))
+            check(torch.equal(gp, want_p) and torch.equal(ge, want_e), f"tree kernel ({v}) != plain on the {label} columns")
+        variants[v] = both_ms(torch, lambda: tb.launch_kernel(*cols, n, variant=v))
+    # the resident replays' permutation form (the sort's order given,
+    # effected written back by row) on each resident cell's last batch:
+    # (c) at 32 docs a CTA, (d) at n = 2,048, 28 docs a CTA, on the first
+    # TREE_DEEP_PLAIN_ROWS rows of its log (rounds 1-2; the plain version
+    # walks for minutes on the whole log)
+    resident_vs_plain = {}
+    for label, res, rows, per_cta in (("resident", res_c, None, 32), ("resident_deep", res_d, TREE_DEEP_PLAIN_ROWS, 28)):
+        rc = res["last_batch"].cols
+        if rows is not None:
+            rc = tb.TreeLogCols(*(c[:, :rows].contiguous() for c in rc))
+        nc = res["node_cap"]
+        check(tb.plan_variant(nc) == ("smem", per_cta), f"tree {label}: n = {nc} plans {tb.plan_variant(nc)}")
+        order = tb._sort_order(rc)
+        t0 = time.perf_counter()
+        want_p, want_e, _ = tb.replay_plain(rc.target, rc.parent, rc.valid, nc, order=order)
+        torch.cuda.synchronize()
+        resident_vs_plain[label] = {"shape": list(rc.target.shape), "n": nc, "docs_per_cta": per_cta,
+                                    "plain_ms": (time.perf_counter() - t0) * 1e3}
+        for v in tb.VARIANTS:
+            gp, ge = tb.launch_kernel(rc.target, rc.parent, rc.valid, nc, order=order.to(torch.int32), variant=v)
+            torch.cuda.synchronize()
+            max_err = max(max_err, int((gp.long() - want_p.long()).abs().max()), int((ge != want_e).sum()))
+            check(torch.equal(gp, want_p) and torch.equal(ge, want_e),
+                  f"tree kernel ({v}, permutation form) != plain on the {label} cell's log {list(rc.target.shape)}")
+        del rc, order, want_p, want_e, gp, ge
+    eager_ms, graph_ms = variants["smem"]
+    rand_eager, rand_graph = both_ms(torch, lambda: tb.tree_merge_batch(rand, n))
+    big_eager, big_graph = both_ms(torch, lambda: tb.tree_merge_batch(big, n))
+    load_cycles = tb.smem_load_cycles(dev)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm,clocks.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    max_mhz, cur_mhz = (float(x) for x in smi.stdout.strip().splitlines()[0].split(","))
+    # the least time: the longest doc's dependent loads (its moves plus its
+    # walk steps), each one shared-memory load latency, at the top SM
+    # clock; beside it the bytes (9 read and 1 written a move, 4 written a
+    # node) over the device memory rate
+    longest = int(loads.max())
+    bound = longest * load_cycles / (max_mhz * 1e3)
+    bytes_bound = TREE_DOCS * (10 * m + 4 * n) / HBM_BYTES_PER_S * 1e3
+    rand_bound = int(rloads.max()) * load_cycles / (max_mhz * 1e3)
+    deep_cols = res_d["last_batch"].cols
+    deep_ms = time_ms(torch, lambda: tb.tree_replay_log_batch(deep_cols, res_d["node_cap"]), warmup=1, reps=5)
+    order = tb._sort_order(deep_cols).to(torch.int32)
+    deep_kernel_ms = time_ms(torch, lambda: tb.launch_kernel(deep_cols.target, deep_cols.parent, deep_cols.valid,
+                                                             res_d["node_cap"], order=order), warmup=1, reps=5)
+    del res_d["last_batch"], res_c["last_batch"], deep_cols, order
+    out["kernel"] = {
+        "shape": [TREE_DOCS, m], "n": n, "max_abs_err": max_err, "ms": graph_ms, "eager_ms": eager_ms, "global_ms": variants["global"][1],
+        "global_eager_ms": variants["global"][0], "plain_ms": plain_ms, "bound_ms": bound, "bytes_bound_ms": bytes_bound,
+        "longest_doc_loads": longest, "median_doc_loads": float(loads.double().median()),
+        "smem_load_cycles": load_cycles, "sm_clock_max_mhz": max_mhz, "sm_clock_mhz": cur_mhz,
+        "moves_per_s": TREE_DOCS * m / (graph_ms / 1e3),
+        "random": {"ms": rand_graph, "eager_ms": rand_eager, "plain_ms": rand_plain_ms, "bound_ms": rand_bound,
+                   "longest_doc_loads": int(rloads.max())},
+        "big": {"shape": [TREE_BIG_DOCS, m], "ms": big_graph, "eager_ms": big_eager,
+                "moves_per_s": TREE_BIG_DOCS * m / (big_graph / 1e3)},
+        "deep": {"shape": [TREE_DEEP_DOCS, res_d["cap"]], "n": res_d["node_cap"], "replay_ms": deep_ms,
+                 "kernel_ms": deep_kernel_ms},
+        "resident_vs_plain": resident_vs_plain,
+    }
+    k = out["kernel"]
+    print(f"tree kernel on {kind} ({card}): [{TREE_DOCS}, {m}] n = {n} on the traces: graph {graph_ms:.4f} ms "
+          f"(eager {eager_ms:.4f}; global-table variant graph {variants['global'][1]:.4f}, eager "
+          f"{variants['global'][0]:.4f}) = {k['moves_per_s'] / 1e9:.3f}G moves/s; latency bound {bound:.4f} ms (the "
+          f"longest doc's {longest} dependent loads, median {k['median_doc_loads']:.0f}, x {load_cycles:.2f} cycles at "
+          f"{max_mhz:.0f} MHz; the clock read {cur_mhz:.0f}), bytes bound {bytes_bound:.5f} ms; plain {plain_ms:.0f} ms "
+          f"(bit-exact, both variants); bench_tree's random columns [{TREE_DOCS}, {m}]: graph {rand_graph:.4f} ms "
+          f"(eager {rand_eager:.4f}), bound {rand_bound:.4f} ms ({int(rloads.max())} loads), plain {rand_plain_ms:.0f} ms "
+          f"(bit-exact); [{TREE_BIG_DOCS}, {m}]: graph {big_graph:.4f} ms (eager {big_eager:.4f}) = "
+          f"{k['big']['moves_per_s'] / 1e9:.3f}G moves/s (each doc == its trace's result); resident depth "
+          f"[{TREE_DEEP_DOCS}, {res_d['cap']}] n = {res_d['node_cap']}: sort + replay {deep_ms:.3f} ms, kernel "
+          f"{deep_kernel_ms:.3f} ms; permutation form == plain (both variants) on "
+          + ", ".join(f"{lb} {x['shape']} n = {x['n']} ({x['docs_per_cta']} docs a CTA; plain {x['plain_ms']:.0f} ms)"
+                      for lb, x in resident_vs_plain.items())
+          + f"; launches in the phase's main path {launches}", flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def resident_rounds(torch, dev, cls, docs, eps, n_docs: int, cap: int, node_cap: int, n_rounds: int,
+                    profile_round=None) -> dict:
+    """A DeviceTreeBatch(n_docs, cap, node_cap, auto_grow=True) fed one sync
+    epoch of `docs` (cycled over n_docs) a round through append_payloads,
+    each round timed and split from outside (the native explode, the
+    block scatter and the grow by the host clock, the rest staging),
+    parent_maps() and children_maps() timed and checked against
+    oracle_tree of the prefix after every round; checkpointed after round
+    TREE_CKPT, the restored batch fed the rest to equal state bytes.
+    profile_round: the round run under the profiler."""
+    from loro_tpu_torch import native, tracegen
+    from loro_tpu_torch.parallel import fleet as fleet_mod
+
+    cid = tracegen.TREE_CID
+    nd = len(docs)
+    rows_of = [[sum(len(ch.ops) for ch in g) for g in dd.epoch_changes()] for dd in docs]
+    b = cls(n_docs, cap, node_cap, device=dev, auto_grow=True)
+    rounds, restored, ckpt = [], None, {}
+    torch.cuda.reset_peak_memory_stats(dev)
+    for e in range(n_rounds):
+        pls = [eps[j % nd][e] for j in range(n_docs)]
+        acc = {"explode": 0.0, "scatter": 0.0, "grow": 0.0}
+        real_explode, real_scatter, real_grow = native.explode_tree_payload, fleet_mod._scatter_rows, b.grow
+
+        def explode(p, i):
+            t = time.perf_counter()
+            try:
+                return real_explode(p, i)
+            finally:
+                acc["explode"] += (time.perf_counter() - t) * 1e3
+
+        def scatter(*args):
+            t = time.perf_counter()
+            real_scatter(*args)
+            torch.cuda.synchronize()
+            acc["scatter"] += (time.perf_counter() - t) * 1e3
+
+        def grow(*args, **kw):
+            t = time.perf_counter()
+            real_grow(*args, **kw)
+            torch.cuda.synchronize()
+            acc["grow"] += (time.perf_counter() - t) * 1e3
+
+        native.explode_tree_payload, fleet_mod._scatter_rows, b.grow = explode, scatter, grow
+        cap0, ncap0 = b.cap, b.node_cap
+        prof = {}
+        try:
+            if profile_round == e + 1:
+                busy, wall, rows_ = device_breakdown(torch, lambda: b.append_payloads(pls, cid), calls=1, warm=False,
+                                                     top=None)
+                # None where the profiler recorded no device event at all
+                prof = {"device_busy_ms": busy if rows_ else None,
+                        "device_busy_top": [[ms, name[:80], cnt] for ms, name, cnt in rows_[:6]]}
+            else:
+                t = time.perf_counter()
+                b.append_payloads(pls, cid)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t) * 1e3
+        finally:
+            native.explode_tree_payload, fleet_mod._scatter_rows = real_explode, real_scatter
+            del b.grow
+        n_rows = sum(rows_of[j % nd][e] for j in range(n_docs))
+        if restored is not None:
+            restored.append_payloads(pls, cid)
+        pre = [tracegen.oracle_tree(dd, e + 1) for dd in docs]
+        t = time.perf_counter()
+        pm = b.parent_maps()
+        t1 = time.perf_counter()
+        cm = b.children_maps()
+        t2 = time.perf_counter()
+        for j in range(n_docs):
+            check(pm[j] == pre[j % nd][0] and cm[j] == pre[j % nd][1],
+                  f"resident tree [{n_docs}, {b.cap}] round {e + 1}: doc {j} != oracle_tree of the prefix")
+        del pm, cm
+        rounds.append({"wall_ms": wall, "rows": n_rows, "rows_per_s": n_rows / (wall / 1e3),
+                       **{k + "_ms": v for k, v in acc.items()},
+                       "staging_ms": wall - acc["explode"] - acc["scatter"] - acc["grow"],
+                       "parent_maps_ms": (t1 - t) * 1e3, "children_maps_ms": (t2 - t1) * 1e3,
+                       "grew": (cap0, b.cap, ncap0, b.node_cap) if (cap0, ncap0) != (b.cap, b.node_cap) else None,
+                       **prof})
+        if e + 1 == TREE_CKPT:
+            t = time.perf_counter()
+            blob = b.export_state()
+            t1 = time.perf_counter()
+            restored = cls.import_state(blob, device=dev)
+            t2 = time.perf_counter()
+            ckpt = {"round": e + 1, "bytes": len(blob), "export_ms": (t1 - t) * 1e3, "import_ms": (t2 - t1) * 1e3}
+    blob = b.export_state()
+    check(restored is not None and restored.export_state() == blob,
+          f"the restored tree batch fed rounds {TREE_CKPT + 1}-{n_rounds} exports other bytes")
+    grew = [(i + 1, *r_["grew"]) for i, r_ in enumerate(rounds) if r_["grew"]]
+    steady = [r_["rows_per_s"] for r_ in rounds if not r_["grew"]]
+    res = {"docs": n_docs, "rounds": rounds, "cap": b.cap, "node_cap": b.node_cap, "grew": grew,
+           "median_rows_per_s": statistics.median(steady) if steady else None,
+           "best_rows_per_s": max(steady, default=None), "checkpoint": ckpt, "final_bytes": len(blob),
+           "peak_device_bytes": torch.cuda.max_memory_allocated(dev), "last_batch": b}
+    print(f"resident tree on {torch.cuda.get_device_name(0)}: DeviceTreeBatch [{n_docs}, {b.cap}] n = {b.node_cap} "
+          f"from [{n_docs}, {cap}] n = {node_cap} (grew {grew}), {n_rounds} rounds of {n_docs} epoch payloads; rows/s "
+          f"median {(res['median_rows_per_s'] or 0) / 1e6:.3f}M, best {(res['best_rows_per_s'] or 0) / 1e6:.3f}M; rounds "
+          "(rows, wall, explode, staging, scatter, grow, parent_maps, children_maps ms): "
+          + "; ".join(f"{i + 1}: {x['rows']}, {x['wall_ms']:.0f}, {x['explode_ms']:.0f}, {x['staging_ms']:.0f}, "
+                      f"{x['scatter_ms']:.1f}, {x['grow_ms']:.1f}, {x['parent_maps_ms']:.0f}, "
+                      f"{x['children_maps_ms']:.0f}" for i, x in enumerate(rounds))
+          + "".join((f"; round {i + 1} under the profiler: device busy {x['device_busy_ms']:.2f} ms = "
+                     f"{100 * x['device_busy_ms'] / x['wall_ms']:.3f} % of its wall; top: "
+                     + "; ".join(f"{name[:50]} x{cnt} {ms:.3f} ms" for ms, name, cnt in x["device_busy_top"]))
+                    if x["device_busy_ms"] is not None else
+                    f"; round {i + 1} under the profiler: device busy not measured (no device event recorded)"
+                    for i, x in enumerate(rounds) if "device_busy_ms" in x)
+          + f"; maps == oracle_tree of the prefix every round; checkpoint after round {ckpt['round']}: {ckpt['bytes']} "
+          f"bytes, export {ckpt['export_ms']:.0f} ms, import {ckpt['import_ms']:.0f} ms; restored batch fed the rest: "
+          f"equal state ({len(blob)} bytes); peak device memory {res['peak_device_bytes'] / 2**30:.3f} GiB", flush=True)
+    return res
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1086,11 +1507,12 @@ def main() -> int:
     test = subprocess.run(
         [sys.executable, "-m", "pytest", "-q", "-m", "cuda", "--noconftest", "-p", "no:cacheprovider",
          "-o", "markers=cuda: needs an NVIDIA GPU", "tests/test_torch_list_rank_cuda.py",
-         "tests/test_torch_fleet_cuda.py", "tests/test_torch_resident_cuda.py", "tests/test_torch_map_counter_cuda.py"],
+         "tests/test_torch_fleet_cuda.py", "tests/test_torch_resident_cuda.py", "tests/test_torch_map_counter_cuda.py",
+         "tests/test_torch_tree_cuda.py"],
         cwd=root, capture_output=True, text=True, timeout=600,
     )
     summary = (test.stdout.strip().splitlines() or ["(no output)"])[-1]
-    print(f"pytest -m cuda tests/test_torch_{{list_rank,fleet,resident,map_counter}}_cuda.py: rc {test.returncode}, "
+    print(f"pytest -m cuda tests/test_torch_{{list_rank,fleet,resident,map_counter,tree}}_cuda.py: rc {test.returncode}, "
           f"{summary} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     check(test.returncode == 0 and " passed" in summary and "skipped" not in summary,
@@ -1614,6 +2036,13 @@ def main() -> int:
     map_counter4f = map_counter_phase(torch, dev, kind, card)
     check(not any(list_rank.LAUNCHES.values()), f"the map and counter phase launched {list_rank.LAUNCHES}")
 
+    # ---- 4g. the movable-tree merge: its replay kernel, one-shot and resident
+    # (no list-rank kernel runs here, checked)
+    tree4g = tree_phase(torch, dev, kind, card)
+    check(not any(list_rank.LAUNCHES.values()), f"the tree phase launched {list_rank.LAUNCHES}")
+    check(sum(tree4g["launches"].values()) > 0 and tree4g["launches"]["smem"] > 0,
+          f"the tree phase's main path launched {tree4g['launches']}")
+
     # ---- 5. timings -------------------------------------------------------
     # each kernel at its main-path shape: the flagship chain rings for the
     # packed kernels, the element rings for the wide kernel
@@ -1809,7 +2238,7 @@ def main() -> int:
         "element_chunk_ops": echunk_ops, "build_s": build_s, "gen_s": gen_s, "element_gen_s": egen_s, **res,
         "bound_ms": bounds, "phases": phases, "full_card": full_card, "wyllie_over_budget": over_budget,
         "sweep": sweep, "sweep_graph": sweep_graph, "ingest": ingest, "fleet": fleet, "resident": resident4e,
-        "map_counter": map_counter4f,
+        "map_counter": map_counter4f, "tree": tree4g,
         "total_s": time.perf_counter() - t_start,
     }))
     # launches in the fleet phase's checked one-shot calls, one a call
@@ -1834,6 +2263,22 @@ def main() -> int:
         }
         for name in REPLACES
     ]
+    tk = tree4g["kernel"]
+    kernels.append({
+        "name": "tree_replay",
+        "route": "cuda",
+        "source": "loro_tpu_torch/csrc/tree_replay.cu",
+        "replaces": "loro_tpu/ops/tree_batch.py:43",
+        "launches": sum(tree4g["launches"].values()),
+        "max_abs_err": tk["max_abs_err"],
+        "ms": tk["ms"],
+        "eager_ms": tk["eager_ms"],
+        "plain_ms": tk["plain_ms"],
+        "bound_ms": tk["bound_ms"],
+        "bound_by": "latency",
+        "bytes_bound_ms": tk["bytes_bound_ms"],
+        "library_ms": None,
+    })
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -1,7 +1,8 @@
 """ctypes bindings of the port's native host code: the payload codec
 (seq_codec.cpp: the one-shot explode, the resident batch's delta
-explode and anchor metadata, and the map explode) and the resident
-batch's engines (order_idmap.cpp: NativeShadowOrder, NativeIdMap).
+explode and anchor metadata, the map explode and the tree explode) and
+the resident batch's engines (order_idmap.cpp: NativeShadowOrder,
+NativeIdMap).
 
 Each library is built with g++ at its first use (``_build.library``:
 ``build/torch_kernels/``, keyed by the source hash) and loaded with
@@ -51,6 +52,10 @@ def _lib() -> ctypes.CDLL:
         lib.loro_count_map_ops.argtypes = [ctypes.c_char_p, ctypes.c_longlong]
         lib.loro_explode_map.restype = ctypes.c_longlong
         lib.loro_explode_map.argtypes = [ctypes.c_char_p, ctypes.c_longlong] + [_P] * 6 + [ctypes.c_longlong]
+        lib.loro_count_tree_ops.restype = ctypes.c_longlong
+        lib.loro_count_tree_ops.argtypes = head
+        lib.loro_explode_tree.restype = ctypes.c_longlong
+        lib.loro_explode_tree.argtypes = head + [_P] * 10 + [ctypes.c_longlong]
         _lib_handle = lib
     return _lib_handle
 
@@ -182,6 +187,29 @@ def explode_map_payload(payload: bytes) -> dict:
         "keys": keys,
         "cids": cids,
     }
+
+
+def explode_tree_payload(payload: bytes, target_cid_index: int) -> Dict[str, np.ndarray]:
+    """Every TreeMove row of one container, in payload order, as numpy
+    columns: lamport, peer_idx, counter, target_peer_idx, target_ctr,
+    flags (1 create | 2 delete | 4 has a parent | 8 has a position),
+    parent_peer_idx, parent_ctr (where flags & 4), pos_off and pos_len
+    (the position's byte range in the payload).  Peer columns are wire
+    indexes into the payload's peer table.  Raises CodecDecodeError on
+    malformed payloads."""
+    lib = _lib()
+    payload = bytes(payload)
+    n = lib.loro_count_tree_ops(payload, len(payload), target_cid_index)
+    if n < 0:
+        raise CodecDecodeError("native decode failed (malformed payload?)")
+    cols = {f: np.empty(n, np.int32) for f in ("lamport", "peer_idx", "counter", "target_peer_idx", "target_ctr",
+                                               "flags", "parent_peer_idx", "parent_ctr")}
+    cols["pos_off"] = np.empty(n, np.int64)
+    cols["pos_len"] = np.empty(n, np.int32)
+    wrote = lib.loro_explode_tree(payload, len(payload), target_cid_index, *map(_ptr, cols.values()), n)
+    if wrote != n:
+        raise CodecDecodeError("native decode failed (count mismatch)")
+    return cols
 
 
 def decode_value_at(payload: bytes, offset: int, cids):

@@ -11,9 +11,11 @@
 // skipping, the two-pass explode, and the resident batch's delta
 // explode (rows whose parents lie in earlier payloads come back as
 // (peer index, counter) pairs, deletes as raw spans), its style-anchor
-// metadata pass and its delete count; and the map explode (every map
-// set and delete with its value's byte offset).  Tree and movable-list
-// code stay behind; the order engine and id map are in order_idmap.cpp.
+// metadata pass and its delete count; the map explode (every map set
+// and delete with its value's byte offset); and the tree explode (every
+// TreeMove of one container, its position as a byte range).  The
+// movable-list code stays behind; the order engine and id map are in
+// order_idmap.cpp.
 //
 // C ABI only (ctypes binding in loro_tpu_torch/native/__init__.py);
 // built with g++ -O3 -shared -fPIC -std=c++17.
@@ -810,6 +812,92 @@ long long loro_explode_map(const uint8_t* buf, long long len,
         if (!skip_op(r, kind, &atoms)) return -1;
         ctr += atoms;
       }
+    }
+  }
+  return row;
+}
+
+// ---------------------------------------------------------------------------
+// Tree explode: all TreeMove rows of one container, wire order.
+// Columns: lamport, peer_idx (wire), counter, target (peer_idx, ctr),
+// flags (1 create | 2 delete | 4 has-parent | 8 has-position), parent
+// (peer_idx, ctr; valid when flags&4), position byte range into the
+// payload.  Python sorts by (lamport, peer_u64, counter), builds the
+// node dictionary, and feeds ops/tree_batch.tree_merge_batch without
+// per-op Python objects.  Copied from the JAX package's native codec.
+long long loro_count_tree_ops(const uint8_t* buf, long long len, int target_cid) {
+  Reader r{buf, buf + len};
+  uint64_t n_peers; std::vector<int32_t> cid_types; std::vector<ChangeMeta> metas;
+  if (!parse_prelude(r, &n_peers, cid_types, metas)) return -1;
+  long long count = 0;
+  for (auto& m : metas) {
+    for (uint64_t k = 0; k < m.n_ops; k++) {
+      uint64_t cidx = r.varint();
+      uint8_t kind = r.u8();
+      if (!r.ok) return -1;
+      int64_t atoms;
+      if (kind == K_TREE && (long long)cidx == target_cid) count++;
+      if (!skip_op(r, kind, &atoms)) return -1;
+    }
+  }
+  return count;
+}
+
+long long loro_explode_tree(const uint8_t* buf, long long len, int target_cid,
+                            int32_t* out_lamport, int32_t* out_peer,
+                            int32_t* out_counter, int32_t* out_tpeer,
+                            int32_t* out_tctr, int32_t* out_flags,
+                            int32_t* out_ppeer, int32_t* out_pctr,
+                            int64_t* out_pos_off, int32_t* out_pos_len,
+                            long long n_rows) {
+  Reader r{buf, buf + len};
+  uint64_t n_peers; std::vector<int32_t> cid_types; std::vector<ChangeMeta> metas;
+  if (!parse_prelude(r, &n_peers, cid_types, metas)) return -1;
+  long long row = 0;
+  for (auto& m : metas) {
+    int64_t ctr = m.ctr;
+    for (uint64_t k = 0; k < m.n_ops; k++) {
+      uint64_t cidx = r.varint();
+      uint8_t kind = r.u8();
+      if (!r.ok) return -1;
+      if (kind != K_TREE || (long long)cidx != target_cid) {
+        int64_t atoms;
+        if (!skip_op(r, kind, &atoms)) return -1;
+        ctr += atoms;
+        continue;
+      }
+      uint64_t tpi = r.varint();
+      int64_t tctr = r.zigzag();
+      uint8_t flags = r.u8();
+      if (!r.ok || tpi >= n_peers) return -1;
+      int32_t ppeer = -1; int64_t pctr = 0;
+      if (flags & 4) {
+        uint64_t ppi = r.varint();
+        pctr = r.zigzag();
+        if (!r.ok || ppi >= n_peers) return -1;
+        ppeer = (int32_t)ppi;
+      }
+      int64_t pos_off = -1; int32_t pos_len = 0;
+      if (flags & 8) {
+        uint64_t nb;
+        const uint8_t* pb = r.bytes(&nb);
+        if (!r.ok) return -1;
+        pos_off = (int64_t)(pb - buf);  // offset of the raw bytes
+        pos_len = (int32_t)nb;
+      }
+      if (row >= n_rows) return -1;
+      out_lamport[row] = (int32_t)(m.lamport + (ctr - m.ctr));
+      out_peer[row] = (int32_t)m.peer_idx;
+      out_counter[row] = (int32_t)ctr;
+      out_tpeer[row] = (int32_t)tpi;
+      out_tctr[row] = (int32_t)tctr;
+      out_flags[row] = (int32_t)flags;
+      out_ppeer[row] = ppeer;
+      out_pctr[row] = (int32_t)pctr;
+      out_pos_off[row] = pos_off;
+      out_pos_len[row] = pos_len;
+      row++;
+      ctr += 1;
     }
   }
   return row;

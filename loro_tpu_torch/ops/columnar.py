@@ -176,6 +176,12 @@ def wire_peer_ranks(peers_wire: Sequence[int]) -> np.ndarray:
     return rank_of
 
 
+def pack_wire_ids(peer_idx, ctr) -> np.ndarray:
+    """(wire peer index, counter) packed into int64 for vectorized id
+    dictionaries (peer indexes are small; counters non-negative)."""
+    return (np.asarray(peer_idx, np.int64) << 32) | np.asarray(ctr, np.int64)
+
+
 def extract_seq_from_payload(payload: bytes, cid: ContainerID) -> SeqExtract:
     """The (peer, counter)-sorted element table of container `cid` in a
     binary updates payload, exploded by the native codec (no Python

@@ -1,9 +1,11 @@
 """Fleet merge front end: a batch of documents merged in one device call
 (the port of loro_tpu/parallel/fleet.py's one-shot merges:
 Fleet.merge_text_docs / merge_text_changes / merge_text_payloads,
-merge_map_docs and merge_counter_changes), and the resident batches that
+merge_map_docs, merge_counter_changes and merge_tree_changes /
+merge_tree_payloads / merge_tree_children), and the resident batches that
 keep documents on the device between syncs (DeviceDocBatch for text and
-lists, DeviceMapBatch for LWW maps, DeviceCounterBatch for counters).
+lists, DeviceMapBatch for LWW maps, DeviceCounterBatch for counters,
+DeviceTreeBatch for movable trees).
 
 One-shot, per call: every document's rows are padded to one bucketed
 row count (pad_bucket), the doc axis to `pad_docs` with all-invalid
@@ -20,15 +22,19 @@ each (doc, slot) LWW winner ([D, S] ops/lww.LwwResident) and folds each
 append's block of map ops into it; the values stay on the host, and a
 payload's values are decoded only when they win.  DeviceCounterBatch
 holds the [D, S] float32 sums and adds each append's block to them.
+DeviceTreeBatch holds each doc's move log ([D, capacity] TreeLogCols,
+append order); each read sorts the logs by the move key on the device
+and replays them in the replay kernel (ops/tree_batch).
 
 The JAX package binds all of them to a device mesh and pads the doc
 axis to a multiple of its doc dimension; here they are bound to one
 device, where that multiple is 1.  Not ported yet: the supervised launch
 and fetch with its DeviceFailure -> host degradation (a CUDA error
-propagates as it is), the obs counters and trace instants, the tree,
+propagates as it is), the obs counters and trace instants, the
 movable-list and richtext families, the op-sharded map merge, and the
 resident batches' coalesce group, doc release and export_select
-(DeviceDocBatch also lacks compaction and richtexts).
+(DeviceDocBatch and DeviceTreeBatch also lack compaction, DeviceDocBatch
+richtexts).
 """
 from __future__ import annotations
 
@@ -44,8 +50,8 @@ import numpy as np
 import torch
 
 from ..codec.binary import Reader, Writer, _Dicts, _read_cid, _read_value, _write_cid, _write_value, decode_changes, read_tables
-from ..core.change import Change, CounterIncr, MapSet, SeqDelete, SeqInsert, StyleAnchor, _RunCont
-from ..core.ids import ContainerID
+from ..core.change import Change, CounterIncr, MapSet, SeqDelete, SeqInsert, StyleAnchor, TreeMove, _RunCont
+from ..core.ids import ContainerID, TreeID
 from ..device import DeviceLike, resolve_device
 from ..errors import DecodeError, LoroError
 from ..ops.columnar import MapExtract, SeqExtract, extract_seq_container, extract_seq_from_payload
@@ -59,6 +65,19 @@ from ..ops.fugue_batch import (
     stack_seq_columns,
 )
 from ..ops.lww import NEG, LwwResident, MapOpCols, counter_merge_batch, counter_merge_doc, lww_merge_batch, lww_update_resident
+from ..ops.tree_batch import (
+    ABSENT,
+    ROOT,
+    TRASH,
+    TreeLogCols,
+    TreeOpCols,
+    extract_tree_from_payload,
+    extract_tree_ops,
+    is_deleted_batch,
+    positions_of,
+    tree_merge_batch,
+    tree_replay_log_batch,
+)
 from ..storage import MemKvStore
 from .idmap import make_idmap
 from .order_maintenance import ShadowOrder, split_keys
@@ -198,6 +217,72 @@ class Fleet:
         vi, _, _ = lww_merge_batch(cols, s, device=dev)
         return self._map_winner_values(vi.cpu().numpy(), extracts)
 
+    def merge_tree_changes(self, docs_changes: Sequence[Sequence[Change]], cid: ContainerID) -> List[dict]:
+        """Every doc's tree `cid` from its change list, in one replay
+        launch: {TreeID: parent TreeID | None} of the live nodes."""
+        return self._merge_tree_extracted([extract_tree_ops(chs, cid) for chs in docs_changes])
+
+    def merge_tree_payloads(self, payloads: Sequence[bytes], cid: ContainerID) -> List[dict]:
+        """merge_tree_changes from each doc's binary updates payload
+        (envelope-stripped): the native tree explode, and for a payload it
+        rejects (ValueError, CodecDecodeError among them) the Python
+        decode, counted in FLEET_FALLBACKS.  Tree ops carry no references
+        into other rows, so that fallback is total."""
+        extracted = []
+        for p in payloads:
+            try:
+                ex = extract_tree_from_payload(p, cid)
+            except ValueError:
+                FLEET_FALLBACKS["payload_extract"] += 1
+                ex = extract_tree_ops(decode_changes(p), cid)
+            extracted.append(ex)
+        return self._merge_tree_extracted(extracted)
+
+    def _stack_tree_cols(self, extracted) -> Tuple[TreeOpCols, int]:
+        """(the extracts' move logs as [D, M] numpy columns padded to
+        M = pad_bucket(longest log, 16) rows (target 0, parent ROOT,
+        invalid), n = max(1, most nodes))."""
+        m = pad_bucket(max(1, max(c.target.shape[0] for c, _, _ in extracted)), floor=16)
+        n = max(1, max(len(nodes) for _, nodes, _ in extracted))
+        d = len(extracted)
+        cols = TreeOpCols(np.zeros((d, m), np.int32), np.full((d, m), ROOT, np.int32), np.zeros((d, m), bool))
+        for i, (c, _, _) in enumerate(extracted):
+            for dst, src in zip(cols, c):
+                dst[i, : src.shape[0]] = src
+        return cols, n
+
+    def _tree_replay(self, extracted) -> List[np.ndarray]:
+        """(parents [D, n], effected [D, M], deleted [D, n]) of the
+        extracts: the stacked columns uploaded, the replay kernel and
+        is_deleted_batch, the results fetched."""
+        cols, n = self._stack_tree_cols(extracted)
+        parents, eff = tree_merge_batch(TreeOpCols(*(_to_device(c, self.device) for c in cols)), n)
+        return [t.cpu().numpy() for t in (parents, eff, is_deleted_batch(parents))]
+
+    def _merge_tree_extracted(self, extracted) -> List[dict]:
+        parents, _eff, deleted = self._tree_replay(extracted)
+        return [_parent_map(nodes, parents[i], deleted[i]) for i, (_c, nodes, _pos) in enumerate(extracted)]
+
+    def merge_tree_children(self, docs_changes: Sequence[Sequence[Change]], cid: ContainerID) -> List[dict]:
+        """Like merge_tree_changes, but ordered children maps {parent |
+        None: [child TreeIDs by (fractional index, the winning move's
+        key)]}: the materialized tree shape."""
+        extracted = [extract_tree_ops(chs, cid) for chs in docs_changes]
+        parents, eff, deleted = self._tree_replay(extracted)
+        out = []
+        for i, (c, nodes, row_pos) in enumerate(extracted):
+            n_rows = c.target.shape[0]
+            e_i = eff[i, :n_rows]
+            pos = positions_of(c, row_pos, e_i)
+            # the sibling tiebreak is the winning move's key; rows are
+            # sorted by (lamport, peer, counter), so its row index
+            last_eff_row: Dict[int, int] = {}
+            for j in range(n_rows):
+                if e_i[j]:
+                    last_eff_row[int(c.target[j])] = j
+            out.append(_children_map(nodes, parents[i], deleted[i], pos, last_eff_row))
+        return out
+
     def _map_winner_values(self, vi: np.ndarray, extracts) -> List[Dict[str, object]]:
         out: List[Dict[str, object]] = []
         for i, e in enumerate(extracts):
@@ -276,6 +361,32 @@ def _set_key_rows(key_hi: torch.Tensor, key_lo: torch.Tensor, d_idx: torch.Tenso
 def _set_deleted(deleted: torch.Tensor, d_idx: torch.Tensor, r_idx: torch.Tensor) -> None:
     """Tombstone (doc, row) pairs in place, one launch."""
     deleted.index_put_((d_idx, r_idx), torch.ones((), dtype=torch.bool, device=deleted.device))
+
+
+def _parent_map(nodes: list, parents: np.ndarray, deleted: np.ndarray) -> dict:
+    """{TreeID: parent TreeID | None} of one doc's live nodes from its
+    replayed parents row and trash reachability."""
+    res = {}
+    for j, tid in enumerate(nodes):
+        p = int(parents[j])
+        if p == ABSENT or deleted[j]:
+            continue
+        res[tid] = None if p == ROOT else nodes[p]
+    return res
+
+
+def _children_map(nodes: list, parents: np.ndarray, deleted: np.ndarray, pos: Dict[int, object],
+                  key: Dict[int, int]) -> dict:
+    """{parent TreeID | None: [live children]} of one doc, siblings by
+    (position, tiebreak): `pos` and `key` give a node ordinal's winning
+    position and the order of its winning move (b"" and 0 where none)."""
+    kids: Dict = {}
+    for j, tid in enumerate(nodes):
+        p = int(parents[j])
+        if p == ABSENT or deleted[j]:
+            continue
+        kids.setdefault(None if p == ROOT else nodes[p], []).append((pos.get(j) or b"", key.get(j, 0), tid))
+    return {k: [t for _, _, t in sorted(v, key=lambda x: (x[0], x[1]))] for k, v in kids.items()}
 
 
 def _to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
@@ -1214,33 +1325,57 @@ def _require_slots(batch, required: int, error: type) -> None:
     batch.grow(_grow_target(required, batch.s))
 
 
-def _read_meta(cls_name: str, meta_b: bytes, state_version: int):
-    """(n_docs, exporter's doc width, slot capacity, auto_grow, epoch) of a
-    map or counter batch's checkpoint meta."""
+# A resident batch's checkpoint meta after (version, n_docs, the
+# exporter's doc width): (batch attribute, name, kind, first state
+# version) a field.  "size" is a varint that _state_sane_sizes checks,
+# "flag" a u8, "counts" one varint a saved doc.
+_LWW_META = (("s", "slot_capacity", "size", 1), ("auto_grow", "auto_grow", "flag", 2), ("epoch", "epoch", "varint", 3))
+_TREE_META = (("cap", "move_capacity", "size", 1), ("node_cap", "node_capacity", "size", 1),
+              ("counts", "counts", "counts", 1), ("epoch", "epoch", "varint", 2), ("auto_grow", "auto_grow", "flag", 2))
+
+
+def _read_meta(cls_name: str, meta_b: bytes, state_version: int, fields=_LWW_META) -> tuple:
+    """(n_docs, exporter's doc width, *the values of `fields`) of a
+    resident batch's checkpoint meta; a field newer than the state reads
+    as False or 0."""
     try:
         r = Reader(meta_b)
         version = r.u8()
         if version > state_version:
             raise DecodeError(f"{cls_name} state v{version} too new")
-        n_docs, d_saved, s = r.varint(), r.varint(), r.varint()
-        auto_grow = (r.u8() == 1) if version >= 2 else False
-        epoch = r.varint() if version >= 3 else 0
+        n_docs, d_saved = r.varint(), r.varint()
+        vals = []
+        for _attr, _name, kind, since in fields:
+            if version < since:
+                vals.append(False if kind == "flag" else 0)
+            elif kind == "flag":
+                vals.append(r.u8() == 1)
+            elif kind == "counts":
+                vals.append([r.varint() for _ in range(d_saved)])
+            else:
+                vals.append(r.varint())
     except (IndexError, ValueError) as e:
         raise DecodeError(f"{cls_name} state: malformed meta ({e})") from None
-    _state_sane_sizes(cls_name, d_saved, slot_capacity=s)
+    _state_sane_sizes(cls_name, d_saved, **{name: v for (_a, name, kind, _s), v in zip(fields, vals) if kind == "size"})
     if not 0 < n_docs <= d_saved:
         raise DecodeError(f"{cls_name} state: implausible n_docs")
-    return n_docs, d_saved, s, auto_grow, epoch
+    return (n_docs, d_saved, *vals)
 
 
-def _write_meta(kv: MemKvStore, batch) -> None:
+def _write_meta(kv: MemKvStore, batch, fields=_LWW_META) -> None:
     meta = Writer()
     meta.u8(batch.STATE_VERSION)
     meta.varint(batch.n_docs)
     meta.varint(batch.n_docs)  # the exporter's doc width (JAX: mesh-padded)
-    meta.varint(batch.s)
-    meta.u8(1 if batch.auto_grow else 0)
-    meta.varint(batch.epoch)
+    for attr, _name, kind, _since in fields:
+        v = getattr(batch, attr)
+        if kind == "flag":
+            meta.u8(1 if v else 0)
+        elif kind == "counts":
+            for c in v:
+                meta.varint(int(c))
+        else:
+            meta.varint(v)
     kv.set(b"meta", bytes(meta.buf))
 
 
@@ -1624,3 +1759,388 @@ class DeviceCounterBatch:
                     raise DecodeError(f"DeviceCounterBatch state: malformed slots ({e})") from None
         batch.sums[:] = _to_device(grid[:n_docs], batch.device)
         return batch
+
+
+# ---- resident tree batch -----------------------------------------------------------
+
+# TreeLogCols tensor dtypes (peer halves: int64 holding uint32), their
+# fills, and the checkpoint's log columns with their dtypes, the JAX
+# package's
+_TREE_DTYPES = dict(lamport=torch.int32, peer_hi=torch.int64, peer_lo=torch.int64, counter=torch.int32,
+                    target=torch.int32, parent=torch.int32, valid=torch.bool)
+_TREE_FILLS = dict(lamport=0, peer_hi=0, peer_lo=0, counter=0, target=0, parent=ROOT, valid=False)
+
+
+class DeviceTreeBatch:
+    """Device-resident movable-tree move logs for a doc batch (the tree
+    member of the resident family).  Each append ships only the new moves
+    (one block scatter); each read sorts every standing log by the global
+    move key (lamport, peer, counter) on the device and replays it
+    (ops/tree_batch.tree_replay_log_batch, the replay kernel).  Tree
+    moves do not commute (a late concurrent move with a lower lamport
+    replays before moves already applied), so the resident state is the
+    log, not the folded parents; the reference's TreeCacheForDiff keeps
+    the same per-node move sets and re-walks them
+    (diff_calc/tree.rs:230-396).  Node dictionaries and each move's
+    metadata (lamport, peer, counter, target ordinal, is_delete,
+    position) stay on the host.  Bound to one device (default "cuda";
+    DeviceUnavailable without a card unless "cpu" is asked for)."""
+
+    def __init__(self, n_docs: int, move_capacity: int, node_capacity: int, device: DeviceLike = "cuda",
+                 auto_grow: bool = False):
+        """auto_grow=True grows the move log or the node ceiling to the
+        next bucket instead of raising when an append needs more."""
+        self.device = resolve_device(device)
+        self.n_docs = n_docs
+        self.cap = move_capacity
+        self.node_cap = node_capacity
+        self.auto_grow = auto_grow
+        self.counts = np.zeros(self.n_docs, np.int64)
+        # ingest epochs: every append ticks the clock, and each move row
+        # keeps the epoch that appended it
+        self.epoch = 0
+        self.move_epoch = np.full((self.n_docs, move_capacity), -1, np.int64)
+        # per-doc node dictionaries and host move metadata for sibling
+        # positions: (lamport, peer, counter, target ordinal, is_delete, position)
+        self.node_ids: List[Dict[TreeID, int]] = [dict() for _ in range(self.n_docs)]
+        self.nodes: List[list] = [[] for _ in range(self.n_docs)]
+        self.move_meta: List[list] = [[] for _ in range(self.n_docs)]
+        self.cols = TreeLogCols(**{
+            f: torch.full((self.n_docs, move_capacity), _TREE_FILLS[f], dtype=dt, device=self.device)
+            for f, dt in _TREE_DTYPES.items()
+        })
+
+    def append_changes(self, per_doc_changes: Sequence[Optional[Sequence[Change]]], cid: ContainerID) -> None:
+        """Each doc's new causally ordered changes (None = no update): the
+        TreeMove ops of `cid` become appended log rows.  Nodes and rows
+        are staged and committed only after the capacity check, so a
+        capacity error leaves the batch as it was."""
+        per_doc_changes = list(per_doc_changes) + [None] * (self.n_docs - len(per_doc_changes))
+        rows_per_doc: List[list] = []
+        staged_nodes: List[list] = []
+        for di, changes in enumerate(per_doc_changes):
+            rows: list = []
+            staged_order: list = []
+            rows_per_doc.append(rows)
+            staged_nodes.append(staged_order)
+            if changes:
+                self._explode_changes_into(di, changes, cid, rows, staged_order)
+        self._commit_moves(rows_per_doc, staged_nodes)
+
+    def append_payloads(self, per_doc_payloads: Sequence[Optional[bytes]], cid: ContainerID) -> None:
+        """Each doc's envelope-stripped binary payload (None = no update)
+        through the native tree explode (wire order: the replay sorts by
+        the move key anyway), then one block scatter.  A payload the
+        explode rejects (ValueError, CodecDecodeError among them) is
+        walked in Python, counted in FLEET_FALLBACKS["payload_decode"]."""
+        from ..native import explode_tree_payload
+
+        per_doc_payloads = list(per_doc_payloads) + [None] * (self.n_docs - len(per_doc_payloads))
+        rows_per_doc: List[list] = []
+        staged_nodes: List[list] = []
+        fallback: List[Tuple[int, bytes]] = []
+        for di, payload in enumerate(per_doc_payloads):
+            rows: list = []
+            staged: Dict[TreeID, int] = {}
+            staged_order: list = []
+            rows_per_doc.append(rows)
+            staged_nodes.append(staged_order)
+            if not payload:
+                continue
+            node_idx = _tree_node_stager(self.node_ids[di], len(self.nodes[di]), staged, staged_order)
+            try:
+                peers_wire, _keys, cids, _r = read_tables(payload)
+                if cid not in cids:
+                    continue  # no ops for this container
+                out = explode_tree_payload(payload, cids.index(cid))
+                cols = {f: a.tolist() for f, a in out.items()}
+                for i in range(len(cols["lamport"])):
+                    t = node_idx(TreeID(int(peers_wire[cols["target_peer_idx"][i]]), cols["target_ctr"][i]))
+                    fl = cols["flags"][i]
+                    if fl & 2:  # delete
+                        p = TRASH
+                    elif fl & 4:  # has a parent
+                        p = node_idx(TreeID(int(peers_wire[cols["parent_peer_idx"][i]]), cols["parent_ctr"][i]))
+                    else:
+                        p = ROOT
+                    pos = None
+                    if fl & 8:
+                        o = cols["pos_off"][i]
+                        pos = bytes(payload[o : o + cols["pos_len"][i]])
+                    rows.append((cols["lamport"][i], int(peers_wire[cols["peer_idx"][i]]), cols["counter"][i], t, p,
+                                 bool(fl & 2), pos))
+            except ValueError:
+                rows.clear()
+                staged.clear()
+                staged_order.clear()
+                fallback.append((di, payload))
+        for di, payload in fallback:  # the Python walk of each rejected payload
+            FLEET_FALLBACKS["payload_decode"] += 1
+            self._explode_changes_into(di, decode_changes(payload), cid, rows_per_doc[di], staged_nodes[di])
+        self._commit_moves(rows_per_doc, staged_nodes)
+
+    def _explode_changes_into(self, di: int, changes, cid: ContainerID, rows: list, staged_order: list) -> None:
+        """The Python change walk, appending into pre-staged row and node
+        lists (append_changes, and append_payloads' fallback)."""
+        staged = {tid: len(self.nodes[di]) + i for i, tid in enumerate(staged_order)}
+        node_idx = _tree_node_stager(self.node_ids[di], len(self.nodes[di]), staged, staged_order)
+        for ch in changes:
+            for op in ch.ops:
+                if op.container != cid or not isinstance(op.content, TreeMove):
+                    continue
+                c = op.content
+                lam = ch.lamport + (op.counter - ch.ctr_start)
+                t = node_idx(c.target)
+                if c.is_delete:
+                    p = TRASH
+                elif c.parent is None:
+                    p = ROOT
+                else:
+                    p = node_idx(c.parent)
+                rows.append((lam, ch.peer, op.counter, t, p, c.is_delete, c.position))
+
+    def grow(self, move_capacity: Optional[int] = None, node_capacity: Optional[int] = None) -> None:
+        """Repack the move log to a larger capacity, on the device, and/or
+        raise the node ceiling (a launch parameter of the replay: a scalar
+        bump)."""
+        if move_capacity is not None and move_capacity > self.cap:
+            self.cols = TreeLogCols(**_pad_axis1(self.cols._asdict(), move_capacity, _TREE_FILLS))
+            me = np.full((self.n_docs, move_capacity), -1, np.int64)
+            me[:, : self.cap] = self.move_epoch
+            self.move_epoch = me
+            self.cap = move_capacity
+        if node_capacity is not None and node_capacity > self.node_cap:
+            self.node_cap = node_capacity
+
+    def _commit_moves(self, rows_per_doc, staged_nodes) -> None:
+        """Shared tail of both appends: the capacity checks (grow or raise
+        RuntimeError) before any state changes, the epoch, then the staged
+        nodes and the block scatter of the new rows."""
+        max_new = pad_bucket(max(len(r) for r in rows_per_doc), floor=16) if any(rows_per_doc) else 0
+        req_moves = max((int(self.counts[di]) + max_new for di, rows in enumerate(rows_per_doc) if rows), default=0)
+        req_nodes = max((len(self.nodes[di]) + len(staged_nodes[di]) for di in range(self.n_docs)), default=0)
+        if req_moves > self.cap:
+            if not self.auto_grow:
+                raise RuntimeError(f"DeviceTreeBatch move capacity exceeded: a doc needs {req_moves} rows > {self.cap}")
+            self.grow(move_capacity=_grow_target(req_moves, self.cap))
+        if req_nodes > self.node_cap:
+            if not self.auto_grow:
+                raise RuntimeError(
+                    f"DeviceTreeBatch node capacity exceeded: a doc needs {req_nodes} nodes > {self.node_cap}")
+            self.grow(node_capacity=_grow_target(req_nodes, self.node_cap))
+        # every append ticks the clock, a round with no move rows too (the
+        # JAX server journals rounds against strictly monotone epochs)
+        self.epoch += 1
+        if not max_new:
+            return
+        for di, staged_order in enumerate(staged_nodes):
+            for tid in staged_order:
+                self.node_ids[di][tid] = len(self.nodes[di])
+                self.nodes[di].append(tid)
+        shape = (self.n_docs, max_new)
+        blk = {
+            "lamport": np.zeros(shape, np.int32),
+            "peer_hi": np.zeros(shape, np.uint32),
+            "peer_lo": np.zeros(shape, np.uint32),
+            "counter": np.zeros(shape, np.int32),
+            "target": np.zeros(shape, np.int32),
+            "parent": np.full(shape, ROOT, np.int32),
+            "valid": np.zeros(shape, bool),
+        }
+        offsets = np.zeros(self.n_docs, np.int64)
+        for di, rows in enumerate(rows_per_doc):
+            if not rows:
+                continue
+            k = len(rows)
+            arr = np.asarray([(r[0], r[2], r[3], r[4]) for r in rows], np.int64)
+            pu = np.asarray([r[1] for r in rows], np.uint64)
+            blk["lamport"][di, :k] = arr[:, 0]
+            blk["peer_hi"][di, :k] = pu >> np.uint64(32)
+            blk["peer_lo"][di, :k] = pu & np.uint64(0xFFFFFFFF)
+            blk["counter"][di, :k] = arr[:, 1]
+            blk["target"][di, :k] = arr[:, 2]
+            blk["parent"][di, :k] = arr[:, 3]
+            blk["valid"][di, :k] = True
+            base = int(self.counts[di])
+            offsets[di] = base
+            self.move_epoch[di, base : base + k] = self.epoch
+            self.counts[di] += k
+            self.move_meta[di].extend((r[0], r[1], r[2], r[3], r[5], r[6]) for r in rows)
+        _scatter_rows(self.cols._asdict(), {f: _to_device(a, self.device) for f, a in blk.items()},
+                      _to_device(offsets, self.device))
+
+    def _replay(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        return tree_replay_log_batch(self.cols, self.node_cap)
+
+    def parent_maps(self) -> List[dict]:
+        """{TreeID: parent TreeID | None} of the live nodes of every doc
+        (one replay launch; Fleet.merge_tree_changes' contract)."""
+        parents, _eff = self._replay()
+        parents, deleted = parents.cpu().numpy(), is_deleted_batch(parents).cpu().numpy()
+        return [_parent_map(self.nodes[di], parents[di], deleted[di]) for di in range(self.n_docs)]
+
+    def children_maps(self) -> List[dict]:
+        """{parent | None: [children by (fractional index, move key)]} of
+        every doc: the materialized tree shape (Fleet.merge_tree_children'
+        contract)."""
+        parents, eff = self._replay()
+        parents, eff, deleted = (t.cpu().numpy() for t in (parents, eff, is_deleted_batch(parents)))
+        out = []
+        for di in range(self.n_docs):
+            nodes = self.nodes[di]
+            # the winning position is the last effected non-delete move
+            # of a node in key order, the sibling tiebreak that move's key
+            # order (merge_tree_children's host walk)
+            meta = self.move_meta[di]
+            order = sorted(range(len(meta)), key=lambda i: meta[i][:3])
+            pos: Dict[int, object] = {}
+            last_eff: Dict[int, int] = {}
+            for oi, i in enumerate(order):
+                _lam, _peer, _ctr, t, is_del, p_ = meta[i]
+                if eff[di, i]:
+                    last_eff[t] = oi
+                    if not is_del:
+                        pos[t] = p_
+            out.append(_children_map(nodes, parents[di], deleted[di], pos, last_eff))
+        return out
+
+    # -- checkpoint and resume ------------------------------------------
+    STATE_VERSION = 2  # v2: + epoch clock, move-epoch columns
+    _STATE_SCHEMA = (
+        ("lamport", np.int32),
+        ("peer_hi", np.uint32),
+        ("peer_lo", np.uint32),
+        ("counter", np.int32),
+        ("target", np.int32),
+        ("parent", np.int32),
+    )
+
+    def export_state(self) -> bytes:
+        """The batch as an LTKV store: meta, each doc's move log, move
+        epochs, node dictionary and move metadata (positions); byte for
+        byte what the JAX package's DeviceTreeBatch exports after the same
+        appends."""
+        kv = MemKvStore()
+        _write_meta(kv, self, _TREE_META)
+        cols = {f: getattr(self.cols, f).cpu().numpy() for f, _ in self._STATE_SCHEMA}
+        for di in range(self.n_docs):
+            k = int(self.counts[di])
+            w = Writer()
+            for f, dt in self._STATE_SCHEMA:
+                w.bytes_(cols[f][di, :k].astype(dt).tobytes())
+            kv.set(b"doc/%08d/log" % di, bytes(w.buf))
+            if k:
+                kv.set(b"doc/%08d/moveepoch" % di, self.move_epoch[di, :k].astype(np.int64).tobytes())
+            w = Writer()
+            w.varint(len(self.nodes[di]))
+            for tid in self.nodes[di]:
+                w.u64le(tid.peer)
+                w.zigzag(tid.counter)
+            kv.set(b"doc/%08d/nodes" % di, bytes(w.buf))
+            w = Writer()
+            w.varint(len(self.move_meta[di]))
+            for lam, peer, ctr, t, is_del, pos in self.move_meta[di]:
+                w.varint(lam)
+                w.u64le(peer)
+                w.zigzag(ctr)
+                w.varint(t)
+                w.u8((1 if is_del else 0) | (2 if pos is not None else 0))
+                if pos is not None:
+                    w.bytes_(pos)
+            kv.set(b"doc/%08d/meta" % di, bytes(w.buf))
+        return kv.export_all()
+
+    @classmethod
+    def import_state(cls, data: bytes, device: DeviceLike = "cuda") -> "DeviceTreeBatch":
+        """Restore a batch from export_state bytes (the port's or the JAX
+        package's).  Malformed or implausible state raises DecodeError
+        before anything large is allocated."""
+        kv = MemKvStore()
+        kv.import_all(data)
+        meta_b = kv.get(b"meta")
+        if meta_b is None:
+            raise DecodeError("DeviceTreeBatch state: missing meta")
+        n_docs, d_saved, cap, node_cap, counts, epoch, auto_grow = _read_meta(
+            "DeviceTreeBatch", meta_b, cls.STATE_VERSION, _TREE_META)
+        batch = cls(n_docs, cap, node_cap, device=device, auto_grow=auto_grow)
+        batch.epoch = epoch
+        for di in range(n_docs, d_saved):
+            if counts[di]:
+                raise DecodeError("DeviceTreeBatch state: importer mesh too narrow")
+        host = {f: np.full((n_docs, cap), _TREE_FILLS[f], dt) for f, dt in
+                dict(cls._STATE_SCHEMA, valid=np.bool_).items()}
+        try:
+            for di in range(n_docs):
+                k = counts[di]
+                if k > cap:
+                    raise DecodeError("DeviceTreeBatch state: count exceeds capacity")
+                log_b = kv.get(b"doc/%08d/log" % di)
+                if k and log_b is None:
+                    raise DecodeError(f"DeviceTreeBatch state: missing log for doc {di}")
+                if log_b is not None:
+                    r = Reader(log_b)
+                    for f, dt in cls._STATE_SCHEMA:
+                        buf = np.frombuffer(r.bytes_(), dt)
+                        if len(buf) != k:
+                            raise DecodeError("DeviceTreeBatch state: log column length")
+                        host[f][di, :k] = buf
+                    host["valid"][di, :k] = True
+                    batch.counts[di] = k
+                    me_b = kv.get(b"doc/%08d/moveepoch" % di)
+                    if me_b is not None:
+                        me = np.frombuffer(me_b, np.int64)
+                        if len(me) != k:
+                            raise DecodeError("DeviceTreeBatch state: move epoch column length")
+                        batch.move_epoch[di, :k] = me
+                nodes_b = kv.get(b"doc/%08d/nodes" % di)
+                if nodes_b is not None:
+                    r = Reader(nodes_b)
+                    nodes = [TreeID(r.u64le(), r.zigzag()) for _ in range(r.varint())]
+                    if len(nodes) > node_cap:
+                        raise DecodeError("DeviceTreeBatch state: node overflow")
+                    batch.nodes[di] = nodes
+                    batch.node_ids[di] = {tid: i for i, tid in enumerate(nodes)}
+                mm_b = kv.get(b"doc/%08d/meta" % di)
+                if mm_b is not None:
+                    r = Reader(mm_b)
+                    mm = []
+                    for _ in range(r.varint()):
+                        lam = r.varint()
+                        peer = r.u64le()
+                        ctr = r.zigzag()
+                        t = r.varint()
+                        flags = r.u8()
+                        pos = r.bytes_() if flags & 2 else None
+                        mm.append((lam, peer, ctr, t, bool(flags & 1), pos))
+                    batch.move_meta[di] = mm
+                if k:
+                    # node ordinals must stay inside the node dictionary
+                    # (parent_maps would raise IndexError on nodes[p])
+                    n_nodes = len(batch.nodes[di])
+                    tgt = host["target"][di, :k].astype(np.int64)
+                    par = host["parent"][di, :k].astype(np.int64)
+                    if tgt.min() < 0 or tgt.max() >= n_nodes:
+                        raise DecodeError("DeviceTreeBatch state: target ordinal")
+                    if par.min() < -2 or par.max() >= n_nodes:
+                        raise DecodeError("DeviceTreeBatch state: parent ordinal")
+        except (IndexError, ValueError, struct.error) as e:
+            raise DecodeError(f"DeviceTreeBatch state: malformed doc ({e})") from None
+        batch.cols = TreeLogCols(**{f: _to_device(a, batch.device).to(_TREE_DTYPES[f]) for f, a in host.items()})
+        return batch
+
+
+def _tree_node_stager(ids: Dict[TreeID, int], n_committed: int, staged: Dict[TreeID, int], staged_order: list):
+    """node_idx(tid) of one doc's append: its committed ordinal, else its
+    staged one, else the next free ordinal, staged (first-seen order;
+    committed after the append's capacity check)."""
+
+    def node_idx(tid: TreeID) -> int:
+        i = ids.get(tid)
+        if i is None:
+            i = staged.get(tid)
+        if i is None:
+            i = staged[tid] = n_committed + len(staged_order)
+            staged_order.append(tid)
+        return i
+
+    return node_idx

@@ -42,8 +42,13 @@ bench's map trace), and ``counter_doc``, increments of per-item counters
 that appear epoch by epoch.  ``map_payload`` / ``map_epoch_payloads``
 encode a map history whole or one payload a sync epoch
 (``codec.binary.encode_changes``); ``oracle_map`` and ``oracle_counter``
-are their host oracles, plain walks over the changes.  These are not
-cached: a 65,536-op history takes about a second to generate.
+are their host oracles, plain walks over the changes.  ``tree_doc`` is
+a 4-peer movable-tree history (creates, moves, deletes of one root tree,
+each peer working on its own view between syncs, so concurrent moves
+form cycles the merge rejects); ``tree_payload`` / ``tree_epoch_payloads``
+encode it, and ``oracle_tree`` replays its moves in key order with the
+cycle check.  These are not cached: a 65,536-op history takes about a
+second to generate.
 """
 from __future__ import annotations
 
@@ -60,8 +65,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from .codec.binary import TextChange, TextDelete, TextInsert, encode_changes, encode_text_changes
-from .core.change import Change, CounterIncr, MapSet, Op
-from .core.ids import ID, ContainerID, ContainerType
+from .core.change import Change, CounterIncr, MapSet, Op, TreeMove
+from .core.ids import ID, ContainerID, ContainerType, TreeID
 from .core.version import Frontiers
 from .ops.columnar import SeqExtract
 from .ops.fugue_batch import SeqColumnsU, pad_rows
@@ -631,8 +636,9 @@ def _peer_ids(rng: random.Random, n_peers: int) -> Tuple[int, ...]:
 
 
 def _windowed_changes(rng: random.Random, peers: Sequence[int], n_ops: int, sync_every: int, make_op):
-    """(changes, epochs): a stream of n_ops ops, make_op(i) -> (container,
-    content) for op i, routed over the peers in windows of 32-256 ops,
+    """(changes, epochs): a stream of n_ops ops, make_op(i, p, counter,
+    lamport) -> (container, content) for op i, made by peer index p with
+    that counter and lamport, routed over the peers in windows of 32-256 ops,
     one change a window, a change never spanning a sync (one every
     sync_every ops).  Deps are causally sound: the peer's own last op
     when it already changed in this epoch, else the last op of every peer
@@ -661,7 +667,7 @@ def _windowed_changes(rng: random.Random, peers: Sequence[int], n_ops: int, sync
             deps = [(q, snap_ctr[q] - 1, snap_lam[q]) for q in range(n_peers) if snap_ctr[q] > 0]
         lamport = 1 + max((lam for _, _, lam in deps), default=-1)
         ctr0 = next_ctr[p]
-        ops = [Op(ctr0 + k, *make_op(i + k)) for k in range(w)]
+        ops = [Op(ctr0 + k, *make_op(i + k, p, ctr0 + k, lamport + k)) for k in range(w)]
         changes.append(Change(ID(peers[p], ctr0), lamport, Frontiers(ID(peers[q], c) for q, c, _ in deps), ops))
         epochs.append(epoch)
         next_ctr[p] += w
@@ -692,7 +698,7 @@ def map_doc(seed: int, n_ops: int = 65_536, n_keys: int = 4_096, sync_every: int
             return rng.random() < 0.5
         return None
 
-    def op(_i):
+    def op(_i, *_):
         key = keys[rng.randrange(n_keys)]
         if rng.random() < 1 / 16:
             return MAP_CID, MapSet(key, None, True)
@@ -743,7 +749,7 @@ def counter_doc(seed: int, n_incr: int = 4_096, n_counters: int = 96, epoch_incr
     n_epochs = -(-n_incr // epoch_incr)
     cids = [ContainerID.root(f"item{i:03d}", ContainerType.Counter) for i in range(n_counters)]
 
-    def op(i):
+    def op(i, *_):
         live = -(-n_counters * (i // epoch_incr + 1) // n_epochs)
         return cids[rng.randrange(live)], CounterIncr(rng.randint(-256, 256) / 4)
 
@@ -762,3 +768,206 @@ def oracle_counter(doc: OpTrace, n_epochs: Optional[int] = None) -> Dict[Contain
             if isinstance(op.content, CounterIncr):
                 out[op.container] = out.get(op.container, 0.0) + op.content.delta
     return out
+
+
+# ---- movable-tree traces ---------------------------------------------------------
+
+TREE_CID = ContainerID.root("tree", ContainerType.Tree)  # the tree a tree trace writes
+TREE_SYNC_EVERY = 512  # moves a sync epoch of a tree trace
+_TRASHED = TreeID(0xFFFF_FFFF_FFFF_FFFF, -1)  # the parent of a deleted node
+
+
+def _tree_ops(changes: Sequence[Change], epochs: Sequence[int], n_epochs: Optional[int]):
+    """((lamport, peer, counter), TreeMove) of every move of TREE_CID in
+    the first n_epochs sync epochs (default all), sorted by that key."""
+    out = []
+    for ch, e in zip(changes, epochs):
+        if n_epochs is not None and e >= n_epochs:
+            break
+        for op in ch.ops:
+            if op.container == TREE_CID and isinstance(op.content, TreeMove):
+                out.append(((ch.lamport + op.counter - ch.ctr_start, ch.peer, op.counter), op.content))
+    out.sort(key=lambda r: r[0])
+    return out
+
+
+def _tree_apply(state: Dict[TreeID, tuple], key, c: TreeMove) -> bool:
+    """Apply one move to {node: (parent | None | _TRASHED, position, move
+    key)} unless its new parent lies in the target's subtree (or is the
+    target): the walk up from the parent stops at the root, the trash or
+    a node never created.  Returns whether it was applied."""
+    parent = _TRASHED if c.is_delete else c.parent
+    cur = parent
+    while cur is not None and cur != _TRASHED:
+        if cur == c.target:
+            return False
+        node = state.get(cur)
+        cur = node[0] if node is not None else None
+    state[c.target] = (parent, c.position, key)
+    return True
+
+
+def _up(parents: Dict[TreeID, object], x: TreeID, t: Optional[TreeID] = None) -> Tuple[bool, int, bool]:
+    """(alive, depth, whether t is x or one of its ancestors) of node x in
+    a {node: parent | None | _TRASHED} view."""
+    depth, meets, cur = 0, False, x
+    while cur is not None:
+        if cur == _TRASHED:
+            return False, depth, meets
+        meets = meets or cur == t
+        cur = parents.get(cur)
+        depth += 1
+    return True, depth, meets
+
+
+def tree_doc(seed: int, n_moves: int = 2_048, n_nodes: int = 512, sync_every: int = TREE_SYNC_EVERY) -> OpTrace:
+    """A 4-peer movable-tree history on the root tree TREE_CID: n_moves
+    ops of which n_nodes are creates (about 1 in 4 at the defaults) spread
+    at random, 1 in 16 of the rest deletes and the others moves.  Each
+    peer works on its own view (the tree at the last sync, every peer's
+    ops merged, plus its own ops since), where every op it makes is
+    valid: a create or move goes under a live node that is not in the
+    target's subtree, or under the root (1 in 16); a delete trashes a
+    live leaf the peer created.  Concurrent peers' moves then form cycles
+    that the merge rejects.  A parent is the deeper of the peer's
+    last placed node and the deepest node at the last sync, where live
+    and outside the target's subtree, else the deeper of two live nodes
+    drawn at random, so the tree grows deep (to depths of 30-110 at the
+    defaults); positions are random 1-4 byte fractional indexes."""
+    rng = random.Random(seed)
+    peers = _peer_ids(rng, 4)
+    merged: Dict[TreeID, tuple] = {}
+    views: List[Dict[TreeID, object]] = [{} for _ in peers]
+    kids: List[Dict[object, int]] = [{} for _ in peers]  # children a node has in each view
+    known: List[List[TreeID]] = [[] for _ in peers]  # every node a view holds
+    tips: List[Optional[TreeID]] = [None] * len(peers)  # each peer's last placed node
+    mine: List[List[TreeID]] = [[] for _ in peers]  # the nodes each peer created
+    created: List[TreeID] = []
+    pending: list = []  # this epoch's (key, TreeMove)
+    st = {"epoch": 0, "creates_left": n_nodes, "deepest": None}
+
+    def sync() -> None:
+        for key, c in sorted(pending, key=lambda r: r[0]):
+            _tree_apply(merged, key, c)
+        pending.clear()
+        counts: Dict[object, int] = {}
+        for node in merged.values():
+            counts[node[0]] = counts.get(node[0], 0) + 1
+        for q in range(len(peers)):
+            views[q] = {t: node[0] for t, node in merged.items()}
+            kids[q] = dict(counts)
+            known[q] = list(created)
+        alive_depth = [(d, t) for t in created for alive, d, _ in [_up(views[0], t)] if alive]
+        st["deepest"] = max(alive_depth)[1] if alive_depth else None
+
+    def live(p: int):
+        """(node, depth) of a live node of peer p's view drawn at random
+        (16 tries), or None."""
+        for _ in range(16 if known[p] else 0):
+            x = known[p][rng.randrange(len(known[p]))]
+            alive, depth, _ = _up(views[p], x)
+            if alive:
+                return x, depth
+        return None
+
+    def deep(p: int, t: Optional[TreeID] = None) -> Optional[TreeID]:
+        """The deeper of p's last placed node and the deepest node at the
+        last sync, where live and outside t's subtree, else the deeper of
+        two live nodes drawn at random outside it; None (the root) if there
+        is none."""
+        best = None
+        for x in (tips[p], st["deepest"]):
+            if x is not None:
+                alive, depth, meets = _up(views[p], x, t)
+                if alive and not meets and (best is None or depth > best[1]):
+                    best = (x, depth)
+        for _ in range(0 if best else 2):
+            got = live(p)
+            if got is not None and not _up(views[p], got[0], t)[2] and (best is None or got[1] > best[1]):
+                best = got
+        return None if best is None else best[0]
+
+    def leaf(p: int) -> Optional[TreeID]:
+        """A live leaf of p's view among the nodes p created, or None."""
+        for _ in range(8 if mine[p] else 0):
+            x = mine[p][rng.randrange(len(mine[p]))]
+            if not kids[p].get(x) and _up(views[p], x)[0]:
+                return x
+        return None
+
+    def position() -> bytes:
+        return bytes(rng.randrange(256) for _ in range(rng.randint(1, 4)))
+
+    def op(i: int, p: int, ctr: int, lam: int):
+        if i // sync_every != st["epoch"]:
+            sync()
+            st["epoch"] = i // sync_every
+        view = views[p]
+        target = live(p)
+        if target is None or (st["creates_left"] and rng.random() * (n_moves - i) < st["creates_left"]):
+            # a create (past n_nodes only when the view holds no live node)
+            st["creates_left"] = max(0, st["creates_left"] - 1)
+            t = TreeID(peers[p], ctr)
+            c = TreeMove(t, deep(p) if rng.random() >= 1 / 16 else None, position(), is_create=True)
+            known[p].append(t)
+            mine[p].append(t)
+            created.append(t)
+        else:
+            gone = leaf(p) if rng.random() < 1 / 16 else None
+            if gone is not None:
+                c = TreeMove(gone, None, None, is_delete=True)
+            else:
+                # the target: the shallower of two live nodes, redrawn (up
+                # to 4 times) while it is an ancestor of p's last placed node
+                for _ in range(4):
+                    other = live(p)
+                    t = other[0] if other is not None and other[1] < target[1] else target[0]
+                    if tips[p] is None or not _up(view, tips[p], t)[2]:
+                        break
+                    target = live(p) or target
+                c = TreeMove(t, deep(p, t) if rng.random() >= 1 / 16 else None, position())
+        old = view.get(c.target, 0)
+        if old != 0:
+            kids[p][old] -= 1
+        new = _TRASHED if c.is_delete else c.parent
+        view[c.target] = new
+        kids[p][new] = kids[p].get(new, 0) + 1
+        if not c.is_delete:
+            tips[p] = c.target
+        pending.append(((lam, peers[p], ctr), c))
+        return TREE_CID, c
+
+    changes, epochs = _windowed_changes(rng, peers, n_moves, sync_every, op)
+    return OpTrace(peers, changes, epochs, n_moves)
+
+
+def tree_payload(doc: OpTrace) -> bytes:
+    """The binary updates payload of the whole history."""
+    return encode_changes(doc.changes)
+
+
+def tree_epoch_payloads(doc: OpTrace) -> List[bytes]:
+    """One binary updates payload a sync epoch, the input of a resident
+    batch's appends."""
+    return [encode_changes(g) for g in doc.epoch_changes()]
+
+
+def oracle_tree(doc: OpTrace, n_epochs: Optional[int] = None):
+    """(parents, children) of the tree TREE_CID after the first `n_epochs`
+    sync epochs (default all), by a plain replay of the moves in
+    (lamport, peer, counter) order with the cycle check: parents
+    {node: parent | None} of the live nodes (not under the trash), and
+    children {parent | None: [live children by (position, the key of the
+    move that put them there)]}.  Also the count of moves the cycle check
+    rejected, as a third item."""
+    state: Dict[TreeID, tuple] = {}
+    rejected = 0
+    for key, c in _tree_ops(doc.changes, doc.epochs, n_epochs):
+        rejected += not _tree_apply(state, key, c)
+    parents = {t: node[0] for t, node in state.items()}
+    live = {t for t in state if _up(parents, t)[0]}
+    kids: Dict[Optional[TreeID], list] = {}
+    for t in live:
+        kids.setdefault(parents[t], []).append((state[t][1] or b"", state[t][2], t))
+    children = {p: [t for _, _, t in sorted(v, key=lambda x: (x[0], x[1]))] for p, v in kids.items()}
+    return {t: parents[t] for t in live}, children, rejected

@@ -133,6 +133,21 @@ _BLOCKED_IMPORT = textwrap.dedent(
     assert DeviceCounterBatch.import_state(cb.export_state(), device="cpu").value_maps() == want
     assert fleet.merge_counter_changes([d.changes for d in cdocs]) == want
 
+    # the movable-tree merge: one-shot from payloads and change lists,
+    # and resident from epoch payloads, against the trace oracle
+    from loro_tpu_torch.parallel.fleet import DeviceTreeBatch
+
+    tdocs = [tracegen.tree_doc(s, n_moves=300, n_nodes=80, sync_every=100) for s in range(2)]
+    want = [tracegen.oracle_tree(d) for d in tdocs]
+    assert fleet.merge_tree_payloads([tracegen.tree_payload(d) for d in tdocs], tracegen.TREE_CID) == [w[0] for w in want]
+    assert fleet.merge_tree_children([d.changes for d in tdocs], tracegen.TREE_CID) == [w[1] for w in want]
+    teps = [tracegen.tree_epoch_payloads(d) for d in tdocs]
+    tbatch = DeviceTreeBatch(2, 64, 16, device="cpu", auto_grow=True)
+    for e in range(tdocs[0].n_epochs):
+        tbatch.append_payloads([ep[e] for ep in teps], tracegen.TREE_CID)
+    assert tbatch.parent_maps() == [w[0] for w in want] and tbatch.children_maps() == [w[1] for w in want]
+    assert DeviceTreeBatch.import_state(tbatch.export_state(), device="cpu").parent_maps() == [w[0] for w in want]
+
     # the port's entry point
     from loro_tpu_torch.entry import entry
 
@@ -167,7 +182,8 @@ def test_source_scan_finds_no_jax_or_loro_tpu_import():
     files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 5
     for name in ("parallel/fleet.py", "core/change.py", "core/version.py", "core/ids.py", "storage/kv.py",
-                 "parallel/order_maintenance.py", "parallel/idmap.py", "native/__init__.py", "ops/lww.py"):
+                 "parallel/order_maintenance.py", "parallel/idmap.py", "native/__init__.py", "ops/lww.py",
+                 "ops/tree_batch.py"):
         assert PKG / name in files, name
     for sub in ("codec", "core", "native", "ops", "parallel", "storage"):
         assert any(f.parent == PKG / sub for f in files), sub
@@ -178,7 +194,7 @@ def test_source_scan_finds_no_jax_or_loro_tpu_import():
     assert _IMPORT_RE.search("import jax.numpy as jnp") and _IMPORT_RE.search("from loro_tpu.ops import x")
     assert not _IMPORT_RE.search("from loro_tpu_torch.ops import x")
     native = sorted(PKG.rglob("*.cpp")) + sorted(PKG.rglob("*.cu")) + sorted(PKG.rglob("*.cuh"))
-    assert {f.name for f in native} >= {"seq_codec.cpp", "order_idmap.cpp", "list_rank.cu"}
+    assert {f.name for f in native} >= {"seq_codec.cpp", "order_idmap.cpp", "list_rank.cu", "tree_replay.cu"}
     includes = [(f, inc) for f in native for inc in _INCLUDE_RE.findall(f.read_text())]
     assert includes
     bad = [
@@ -207,7 +223,7 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
     cpu_cols = fugue_batch.chain_columns_to_torch(np_cols, device="cpu")
     from loro_tpu_torch.entry import entry, example_cols
     from loro_tpu_torch.ops import lww
-    from loro_tpu_torch.parallel.fleet import DeviceCounterBatch, DeviceDocBatch, DeviceMapBatch, Fleet
+    from loro_tpu_torch.parallel.fleet import DeviceCounterBatch, DeviceDocBatch, DeviceMapBatch, DeviceTreeBatch, Fleet
 
     np_seq = example_cols(d=1, n=8)
     seq = fugue_batch.seq_columns_to_torch(np_seq, device="cpu")
@@ -252,6 +268,8 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
         lambda: DeviceMapBatch.import_state(DeviceMapBatch(1, 4, device="cpu").export_state()),
         lambda: DeviceCounterBatch(1, 4),
         lambda: DeviceCounterBatch.import_state(DeviceCounterBatch(1, 4, device="cpu").export_state()),
+        lambda: DeviceTreeBatch(1, 16, 4),
+        lambda: DeviceTreeBatch.import_state(DeviceTreeBatch(1, 16, 4, device="cpu").export_state()),
     ]
     for call in calls:
         with pytest.raises(DeviceUnavailable):
@@ -263,3 +281,10 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
     assert int(counts[0]) == 7 and codes[0].tolist() == [97, 98, 99, 100, 101, 102, 104, -1]
     assert torch.equal(fugue_batch.merge_docs_u(seq_u, device="cpu")[0], codes)
     assert lww.lww_merge_batch(map_cols, 2, device="cpu")[0].tolist() == [[0, -2]]
+    # the tree replay dispatches on its tensors' device: CPU tensors take the plain version
+    from loro_tpu_torch.ops import tree_batch
+
+    parents, eff = tree_batch.tree_merge_batch(tree_batch.TreeOpCols(i32, i32, map_cols.valid), 1)
+    assert parents.tolist() == [[tree_batch.ABSENT]] and not eff.any()  # node 0 under itself: rejected
+    parents, eff = tree_batch.tree_merge_batch(tree_batch.TreeOpCols(i32, i32 + tree_batch.ROOT, map_cols.valid), 1)
+    assert parents.tolist() == [[tree_batch.ROOT]] and eff.all()
