@@ -16,7 +16,8 @@ checks it, end to end:
    cluster of 8, including a ring whose every pointer crosses a CTA
    slice; then runs tests/test_torch_list_rank_cuda.py,
    tests/test_torch_fleet_cuda.py, tests/test_torch_resident_cuda.py,
-   tests/test_torch_map_counter_cuda.py and tests/test_torch_tree_cuda.py
+   tests/test_torch_map_counter_cuda.py, tests/test_torch_tree_cuda.py,
+   tests/test_torch_richtext_cuda.py and tests/test_torch_movable_cuda.py
    (pytest -m cuda) as a subprocess;
 4. main paths, each with launch counts reset before and read after:
    a. chain merge: a full-size 8-doc chunk of automerge-perf-shaped
@@ -107,6 +108,28 @@ checks it, end to end:
       and eager beside its latency bound (the longest doc's dependent
       loads at a shared-memory load latency measured on the card) and
       its bytes bound;
+   h. rich text (its order solves launch the list-rank kernels):
+      Fleet.merge_richtext_changes on 512 change lists cycled over 8
+      tracegen.richtext_doc traces (3 peers, 12,288 chars and 768 marks,
+      bench_richtext's shape), every doc's segments checked against
+      oracle_richtext, the wall split by stage, device busy and peak
+      memory; richtext_chain_merge_batch on 32 chunks of 16 docs at
+      bench_richtext's pads (ops merged/s by bench.py's definition) and
+      the element path richtext_merge_batch on the same docs, both
+      checked; DeviceDocBatch(512, 16,384, as_text, auto_grow) fed one
+      sync epoch a round, richtexts() checked against the oracle's prefix
+      at a mid round and at the end, and texts(use_solver=True) against
+      its text;
+   i. MovableList (one-shot): Fleet.merge_movable_payloads on 1,024
+      tracegen.movable_payload payloads cycled over 8 traces (4 peers,
+      4,096 elements, 2,048 moves, 1,024 sets, 512 deletes; [1,024,
+      8,192] slots), every doc checked against oracle_movable, no payload
+      fallen back, the wall split by stage, device busy and peak memory,
+      and merge_movable_changes on the decoded change lists; then
+      bench_movable's random columns at [256, 8,192] (ops merged/s by
+      its definition), every doc equal to the CPU merge of one;
+      in h and i each list-rank launch's rings are rebuilt and the
+      route's kernel held bit for bit against its plain version on them;
 5. timings (CUDA events, warm-up then median; a kernel's ms is 20
    back-to-back calls of its wrapper replayed from a CUDA graph, and
    beside it eager_ms, the same 20 calls eager): merge ms per chunk and
@@ -125,7 +148,10 @@ checks it, end to end:
 Prints one {"kernels": [...]} line and ends with the line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}.
 Any failed check raises, so the script exits non-zero.  Usage:
-    python3 chip_smoke.py
+    python3 chip_smoke.py                          # the whole run, the verification
+    python3 chip_smoke.py --phase 4h [--phase 4i]  # build, card tests, those phases
+--phase takes 4f, 4g, 4h or 4i (the phases that stand alone); such a run
+prints its phases' results and no kernels line.
 """
 from __future__ import annotations
 
@@ -136,6 +162,7 @@ import statistics
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 from dataclasses import replace
 from pathlib import Path
 
@@ -188,6 +215,18 @@ TREE_DOCS, TREE_DISTINCT, TREE_MOVES, TREE_NODES, TREE_BIG_DOCS = 1024, 8, 2048,
 TREE_RES_CAP, TREE_RES_NODES, TREE_CKPT = 4096, 1024, 2
 TREE_DEEP_DOCS, TREE_DEEP_MOVES, TREE_DEEP_NODES, TREE_DEEP_SYNC = 8, 16_384, 2048, 2048
 TREE_DEEP_PLAIN_ROWS = 4096  # the deep log's rows held against the plain version
+# the rich-text phase: one-shot merges of RT_DOCS change lists cycled over
+# RT_DISTINCT tracegen.richtext_doc traces (bench_richtext's BENCH_RT_DOCS
+# and BENCH_RT_DISTINCT), the device call on RT_CHUNKS chunks of RT_CHUNK
+# docs at bench_richtext's pads, and DeviceDocBatch(RT_DOCS, RT_RES_CAP)
+# fed one sync epoch a round
+RT_DOCS, RT_DISTINCT, RT_CHUNK, RT_CHUNKS, RT_RES_CAP = 512, 8, 16, 32, 16_384
+# the movable-list phase: one-shot merges of MV_DOCS payloads cycled over
+# MV_DISTINCT tracegen.movable_doc traces, and bench_movable's random
+# columns at [MV_BENCH_DOCS, MV_BENCH_SLOTS]
+MV_DOCS, MV_DISTINCT, MV_BENCH_DOCS, MV_BENCH_SLOTS = 1024, 8, 256, 8192
+# phases `--phase` runs alone (after the build and the card tests)
+SELECTABLE = ("4f", "4g", "4h", "4i")
 
 
 def check(cond: bool, what: str) -> None:
@@ -382,9 +421,6 @@ def resident_phase(torch, dev, kind: str, card: str, fleet_docs, fleet_want, fla
     check([len(e) for e in r_epochs["document"]] == [RES_DOC_EPOCHS] * len(flag_docs), f"flagship docs: {RES_DOC_EPOCHS} sync epochs")
     resident4e = {"gen_s": r_gen_s, "max_abs_err": {}}
 
-    def since(before: dict) -> dict:
-        return {k: v - before[k] for k, v in list_rank.LAUNCHES.items() if v != before[k]}
-
     def ingest_round(batch, payloads) -> dict:
         """One append_payloads round, ended on a device sync so its wall
         holds the scatter; its rows, wall and stage split."""
@@ -413,36 +449,24 @@ def resident_phase(torch, dev, kind: str, card: str, fleet_docs, fleet_want, fla
         check(batch.texts(use_solver=True) == got, f"resident {label}: texts(use_solver=True) != texts()")
         out["solver_first_ms"] = (time.perf_counter() - t0) * 1e3
         out["budget"] = [c0, batch._c_pad]
-        out["solver_loop_launches"] = since(before)
+        out["solver_loop_launches"] = launched_since(list_rank, before)
         before = dict(list_rank.LAUNCHES)
         t0 = time.perf_counter()
         check(batch.texts(use_solver=True) == got, f"resident {label}: settled solver != texts()")
         out["solver_ms"] = (time.perf_counter() - t0) * 1e3
         out["solver_split_ms"] = batch.stage_ms()
-        out["solver_launches"] = since(before)
+        out["solver_launches"] = launched_since(list_rank, before)
         key = list_rank.launch_key(list_rank.plan_rank(fugue_batch.rank_bound(batch._c_pad)))
         check(out["solver_launches"] == {key: 1},
               f"resident {label}: the solver at c_pad {batch._c_pad} launched {out['solver_launches']}, not one {key}")
         out["solver_kernel"] = key
         # the settled call's rings, rebuilt at its c_pad: the route's kernel
-        # alone on them, held bit-exact against its plain version (the
-        # comparison's launch is taken back out of LAUNCHES)
+        # alone on them, held bit-exact against its plain version
         c_parent, c_side, c_valid, sib_keys, _, _ = fugue_batch._contract_u(batch.cols, batch._c_pad)
         ring, _ = fugue_batch._ring_and_anchors(c_parent, c_side, c_valid, sib_keys)
-        before = dict(list_rank.LAUNCHES)
-        got_k = list_rank.wyllie_rank(ring, device=dev)
-        ran = since(before)
-        ref = list_rank.wyllie_rank_reference(ring)
-        torch.cuda.synchronize()
-        list_rank.LAUNCHES.update(before)
-        err = int((got_k.to(torch.int64) - ref.to(torch.int64)).abs().max())
-        check(ran == {key: 1}, f"resident {label}: the kernel check on the solver's rings launched {ran}, not one {key}")
-        check(torch.equal(got_k, ref), f"resident {label}: {key} kernel != plain version on the solver's rings "
-                                       f"{list(ring.shape)} (max abs err {err})")
-        name = key.split("/")[0]
-        resident4e["max_abs_err"][name] = max(resident4e["max_abs_err"].get(name, 0), err)
-        out["solver_kernel_check"] = {"ring": list(ring.shape), "max_abs_err": err}
-        del c_parent, c_side, c_valid, sib_keys, ring, got_k, ref
+        out["solver_kernel_check"] = kernel_check(torch, dev, list_rank, ring, f"resident {label} solver",
+                                                  resident4e["max_abs_err"])
+        del c_parent, c_side, c_valid, sib_keys, ring
         return out
 
     def round_stats(rounds) -> dict:
@@ -602,33 +626,17 @@ def map_counter_phase(torch, dev, kind: str, card: str) -> dict:
     def timed_calls(fn, obj, names, reps: int = 2):
         """(walls ms, {name: [ms a call]}) of `reps` calls of fn, each
         ended on a device sync, with the host ms of obj's methods `names`
-        taken inside the same calls (the methods wrapped on the
-        instance)."""
-        acc = {n: [] for n in names}
-
-        def timed(n, real):
-            def run(*args, **kw):
-                t = time.perf_counter()
-                try:
-                    return real(*args, **kw)
-                finally:
-                    acc[n][-1] += (time.perf_counter() - t) * 1e3
-            return run
-
-        for n in names:
-            setattr(obj, n, timed(n, getattr(obj, n)))
-        walls = []
-        try:
-            for _ in range(reps):
-                for n in names:
-                    acc[n].append(0.0)
+        taken inside the same calls (stage_timer, with no sync of its own:
+        these host stages launch nothing)."""
+        walls, acc = [], {n: [] for n in names}
+        for _ in range(reps):
+            with stage_timer(torch, obj, names, sync=False) as st:
                 t = time.perf_counter()
                 fn()
                 torch.cuda.synchronize()
                 walls.append((time.perf_counter() - t) * 1e3)
-        finally:
             for n in names:
-                delattr(obj, n)
+                acc[n].append(st[n])
         return walls, acc
 
     out = {}
@@ -1207,6 +1215,465 @@ def tree_phase(torch, dev, kind: str, card: str) -> dict:
     return out
 
 
+@contextmanager
+def stage_timer(torch, obj, names, sync: bool = True):
+    """Within the block, each function `names` of `obj` (a module, or an
+    instance whose methods are wrapped on the instance) adds its wall ms,
+    ended on a device sync unless `sync` is False (host stages that
+    launch nothing), to the yielded dict: the stages of a call timed
+    inside the call whose wall is reported."""
+    acc = {n: 0.0 for n in names}
+    real = {n: getattr(obj, n) for n in names}
+    own = {n: n in vars(obj) for n in names}
+
+    def timed(n):
+        def run(*args, **kw):
+            t = time.perf_counter()
+            try:
+                return real[n](*args, **kw)
+            finally:
+                if sync:
+                    torch.cuda.synchronize()
+                acc[n] += (time.perf_counter() - t) * 1e3
+        return run
+
+    for n in names:
+        setattr(obj, n, timed(n))
+    try:
+        yield acc
+    finally:
+        for n in names:
+            if own[n]:
+                setattr(obj, n, real[n])
+            else:
+                delattr(obj, n)
+
+
+@contextmanager
+def uncounted(list_rank):
+    """list_rank.LAUNCHES as it was before the block: a check's or a
+    timing's launches are not the main path's."""
+    before = dict(list_rank.LAUNCHES)
+    try:
+        yield
+    finally:
+        list_rank.LAUNCHES.update(before)
+
+
+def kernel_check(torch, dev, list_rank, ring, label: str, errs: dict) -> dict:
+    """The default route's kernel launched once on `ring` [D, m] and held
+    bit for bit against list_rank.wyllie_rank_reference on the same CUDA
+    tensors; its launch is taken back out of LAUNCHES, its max abs error
+    folded into errs[kernel]."""
+    key = list_rank.launch_key(list_rank.plan_rank(ring.shape[1]))
+    with uncounted(list_rank):
+        before = dict(list_rank.LAUNCHES)
+        got = list_rank.wyllie_rank(ring, device=dev)
+        ran = launched_since(list_rank, before)
+        ref = list_rank.wyllie_rank_reference(ring)
+        torch.cuda.synchronize()
+    err = int((got.to(torch.int64) - ref.to(torch.int64)).abs().max())
+    check(ran == {key: 1}, f"{label}: the kernel check launched {ran}, not one {key}")
+    check(torch.equal(got, ref), f"{label}: {key} kernel != plain version on {list(ring.shape)} (max abs err {err})")
+    name = key.split("/")[0]
+    errs[name] = max(errs.get(name, 0), err)
+    return {"ring": list(ring.shape), "kernel": key, "max_abs_err": err}
+
+
+def launched_since(list_rank, before: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in list_rank.LAUNCHES.items() if v != before.get(k, 0)}
+
+
+def richtext_phase(torch, dev, kind: str, card: str) -> dict:
+    """Phase 4h, rich text: (a) Fleet.merge_richtext_changes on RT_DOCS
+    change lists cycled over RT_DISTINCT tracegen.richtext_doc traces
+    (bench_richtext's BENCH_RT_DOCS), every doc checked against
+    oracle_richtext, the wall split by stage (extract, stack and pad,
+    upload and device, fetch, segments, the host stages timed inside the
+    call), upload, device and fetch also timed alone on the call's batch,
+    device busy and peak memory; (b) richtext_chain_merge_batch at
+    bench_richtext's own pads on chunks of RT_CHUNK docs, RT_CHUNKS
+    chunks, ops merged/s by bench.py:566-577's definition, and the
+    element path richtext_merge_batch on the same docs, both checked
+    against the oracle; (c) DeviceDocBatch(RT_DOCS, RT_RES_CAP, as_text,
+    auto_grow) fed one richtext_epoch_payloads epoch a round,
+    richtexts() checked against the oracle's prefix at a mid round and at
+    the end, and texts(use_solver=True) against its text there.  Each
+    part's list-rank kernel is held bit for bit against its plain version
+    on the rings it ranked; the main path's launches are counted over
+    (a), (b)'s chunk merges and (c)'s reads."""
+    import numpy as np
+
+    from loro_tpu_torch import tracegen
+    from loro_tpu_torch.ops import fugue_batch, list_rank
+    from loro_tpu_torch.ops import richtext_batch as rb
+    from loro_tpu_torch.parallel import fleet as fleet_mod
+    from loro_tpu_torch.parallel.fleet import DeviceDocBatch, Fleet
+
+    cid = tracegen.TEXT_CID
+    out = {"max_abs_err": {}, "kernel_checks": {}}
+    errs = out["max_abs_err"]
+    t_phase = t0 = time.perf_counter()
+    docs = [tracegen.richtext_doc(SEED * 1000 + i) for i in range(RT_DISTINCT)]
+    want = [tracegen.oracle_richtext(d) for d in docs]
+    ex8 = [rb.extract_richtext_chain(d.changes, cid) for d in docs]
+    out["gen_s"] = time.perf_counter() - t0
+    out["docs"] = {"rows": [c.chain.chain_id.shape[0] for c, _, _ in ex8],
+                   "chains": [c.chain.c_parent.shape[0] for c, _, _ in ex8],
+                   "pairs": [c.pair_start.shape[0] for c, _, _ in ex8], "segments": [len(w) for w in want],
+                   "n_ops": [d.n_ops for d in docs], "epochs": [d.n_epochs for d in docs]}
+    check(all(any(p >> 63 for p in d.peers) for d in docs), "richtext traces: a peer id with bit 63 set")
+    check(all(any("attributes" in s for s in w) for w in want), "richtext traces: styled segments")
+    fl = Fleet(device=dev)
+    list_rank.reset_launches()
+
+    # (a) one-shot fleet, BENCH_RT_DOCS change lists
+    lists = [docs[j % RT_DISTINCT].changes for j in range(RT_DOCS)]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with stage_timer(torch, fleet_mod, ("extract_richtext_chain", "_stack_richtext", "richtext_chain_merge_batch",
+                                        "segments_from_device")) as st:
+        t0 = time.perf_counter()
+        got = fl.merge_richtext_changes(lists, cid)
+        wall = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated(dev)
+    oneshot_launches = dict(list_rank.LAUNCHES)
+    for j, g in enumerate(got):
+        check(g == want[j % RT_DISTINCT], f"richtext one-shot: doc {j} != oracle_richtext")
+    with uncounted(list_rank):
+        hb, n_keys = fleet_mod._stack_richtext([ex8[j % RT_DISTINCT] for j in range(RT_DOCS)])
+        t0 = time.perf_counter()
+        dcols = fugue_batch._on(hb, dev)
+        torch.cuda.synchronize()
+        upload_ms = (time.perf_counter() - t0) * 1e3
+        merge_ms = time_ms(torch, lambda: rb.richtext_chain_merge_batch(dcols, n_keys, device=dev), warmup=1, reps=5)
+        res = rb.richtext_chain_merge_batch(dcols, n_keys, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fetched = [t.cpu().numpy() for t in res]
+        fetch_ms = (time.perf_counter() - t0) * 1e3
+        busy_ms, busy_wall_ms, busy_top = device_breakdown(
+            torch, lambda: rb.richtext_chain_merge_batch(dcols, n_keys, device=dev), calls=3)
+    ring, _ = fugue_batch._ring_and_anchors(dcols.chain.c_parent, dcols.chain.c_side, dcols.chain.c_valid)
+    out["kernel_checks"]["oneshot"] = kernel_check(torch, dev, list_rank, ring, "richtext one-shot", errs)
+    staged = [rb.segments_from_device(*(o[i] for o in fetched), k, v) for i, (_, k, v) in
+              enumerate(ex8[j % RT_DISTINCT] for j in range(RT_DOCS))]
+    check(staged == got, "richtext one-shot: the staged merge != the call")
+    ops = sum(docs[j % RT_DISTINCT].n_ops for j in range(RT_DOCS))
+    shape = [int(x) for x in (hb.chain.chain_id.shape[1], hb.chain.c_parent.shape[1], hb.pair_start.shape[1])]
+    out["oneshot"] = {
+        "docs": RT_DOCS, "n_c_p": shape, "n_keys": n_keys, "ops": ops, "wall_ms": wall,
+        "split_ms": {"extract": st["extract_richtext_chain"], "stack_pad": st["_stack_richtext"],
+                     "upload_device": st["richtext_chain_merge_batch"], "segments": st["segments_from_device"],
+                     "fetch_rest": wall - sum(st.values())},
+        "alone_ms": {"upload": upload_ms, "device_merge": merge_ms, "fetch": fetch_ms},
+        "upload_bytes": sum(a.nbytes for a in hb.chain) + sum(a.nbytes for a in hb[1:]),
+        "fetch_bytes": sum(a.nbytes for a in fetched), "ops_per_s": ops / (wall / 1e3),
+        "device_busy_ms": busy_ms, "device_busy_wall_ms": busy_wall_ms, "device_busy_share": busy_ms / wall,
+        "device_busy_top": [[ms, name[:80], cnt] for ms, name, cnt in busy_top], "peak_device_bytes": peak,
+        "launches": {k: v for k, v in oneshot_launches.items() if v},
+    }
+    r = out["oneshot"]
+    print(f"richtext one-shot on {kind} ({card}): merge_richtext_changes of {RT_DOCS} docs ({RT_DISTINCT} distinct, "
+          f"(N, C, P) = {tuple(shape)}, {ops} ops) in {wall:.1f} ms = {r['ops_per_s'] / 1e6:.3f}M ops/s; split: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in r["split_ms"].items())
+          + f" ms; alone: upload {upload_ms:.2f} ms ({r['upload_bytes']} B), device {merge_ms:.3f} ms, fetch "
+          f"{fetch_ms:.2f} ms ({r['fetch_bytes']} B); device busy {busy_ms:.3f} ms = {100 * r['device_busy_share']:.3f} "
+          f"% of the call; peak {peak / 2**30:.3f} GiB; launches {r['launches']}; every doc == oracle_richtext; "
+          f"kernel check {out['kernel_checks']['oneshot']}", flush=True)
+    del dcols, res, ring
+
+    # (b) the device call at bench_richtext's own shape
+    def pad_to(n: int, q: int) -> int:
+        return -(-max(n, 1) // q) * q
+
+    pad_n = pad_to(max(out["docs"]["rows"]), 1024)
+    pad_c = pad_to(max(out["docs"]["chains"]), 256)
+    pad_p = pad_to(max(out["docs"]["pairs"]), 128)
+    idx0 = [j % RT_DISTINCT for j in range(RT_CHUNK)]
+    chunk = fugue_batch._on(rb.stack_richtext_chain_cols([ex8[i][0] for i in idx0], pad_n, pad_c, pad_p), dev)
+    n_keys = len(tracegen.RICHTEXT_KEYS)
+    res = rb.richtext_chain_merge_batch(chunk, n_keys, device=dev)
+    fetched = [t.cpu().numpy() for t in res]
+    chain_segs = [rb.segments_from_device(*(o[j] for o in fetched), ex8[i][1], ex8[i][2]) for j, i in enumerate(idx0)]
+    for j, i in enumerate(idx0):
+        check(chain_segs[j] == want[i], f"richtext bench chunk: doc {j} != oracle_richtext")
+    ops_per_chunk = sum(docs[i].n_ops for i in idx0)
+    t0 = time.perf_counter()
+    for _ in range(RT_CHUNKS):
+        res = rb.richtext_chain_merge_batch(chunk, n_keys, device=dev)
+    res[1].cpu()
+    dt = time.perf_counter() - t0
+    bench_launches = launched_since(list_rank, oneshot_launches)
+    with uncounted(list_rank):
+        chunk_ms = time_ms(torch, lambda: rb.richtext_chain_merge_batch(chunk, n_keys, device=dev))
+        cbusy, cwall, ctop = device_breakdown(torch, lambda: rb.richtext_chain_merge_batch(chunk, n_keys, device=dev))
+        # the element path on the same docs
+        el = [rb.extract_richtext(docs[i].changes, cid)[0] for i in idx0]
+        ne = fugue_batch.pad_bucket(max(c.seq.parent.shape[0] for c in el))
+        ecols = fugue_batch._on(rb.RichtextCols(
+            fugue_batch.stack_seq_columns([c.seq for c in el], ne),
+            *[fugue_batch.stack_rows([getattr(c, f) for c in el], pad_p, rb._PAIR_FILL[f]) for f in rb._PAIR_FIELDS]),
+            dev)
+        eres = [t.cpu().numpy() for t in rb.richtext_merge_batch(ecols, n_keys, device=dev)]
+        for j, i in enumerate(idx0):
+            check(rb.segments_from_device(*(o[j] for o in eres), ex8[i][1], ex8[i][2]) == chain_segs[j],
+                  f"richtext element path: doc {j} != the chain path's segments")
+        elem_ms = time_ms(torch, lambda: rb.richtext_merge_batch(ecols, n_keys, device=dev))
+    ring, _ = fugue_batch._ring_and_anchors(chunk.chain.c_parent, chunk.chain.c_side, chunk.chain.c_valid)
+    out["kernel_checks"]["bench_chain"] = kernel_check(torch, dev, list_rank, ring, "richtext bench chunk", errs)
+    ering, _ = fugue_batch._ring_and_anchors(ecols.seq.parent, ecols.seq.side, ecols.seq.valid)
+    out["kernel_checks"]["bench_element"] = kernel_check(torch, dev, list_rank, ering, "richtext element path", errs)
+    out["bench"] = {
+        "chunk": RT_CHUNK, "chunks": RT_CHUNKS, "pads": [pad_n, pad_c, pad_p], "ops_per_chunk": ops_per_chunk,
+        "loop_s": dt, "ops_per_s": ops_per_chunk * RT_CHUNKS / dt, "chunk_ms": chunk_ms,
+        "chunk_ops_per_s": ops_per_chunk / (chunk_ms / 1e3), "device_busy_ms": cbusy, "profiled_wall_ms": cwall,
+        "device_busy_top": [[ms, name[:80], cnt] for ms, name, cnt in ctop],
+        "element_n": ne, "element_chunk_ms": elem_ms, "launches": bench_launches,
+    }
+    b = out["bench"]
+    print(f"richtext bench chunk on {kind} ({card}): [{RT_CHUNK}, {pad_n}] (C {pad_c}, P {pad_p}) x {RT_CHUNKS} "
+          f"chunks in {dt * 1e3:.1f} ms = {b['ops_per_s'] / 1e6:.3f}M ops merged/s (bench.py's definition); a chunk "
+          f"{chunk_ms:.3f} ms by events ({b['chunk_ops_per_s'] / 1e6:.3f}M ops/s), device busy {cbusy:.3f} ms of "
+          f"{cwall:.3f}; element path [{RT_CHUNK}, {ne}] {elem_ms:.3f} ms, segments == the chain path's; launches "
+          f"{bench_launches}; top: " + "; ".join(f"{n[:40]} x{c} {ms:.3f}" for ms, n, c in ctop[:5]), flush=True)
+    del chunk, ecols, res, ring, ering
+
+    # (c) resident: one richtext_epoch_payloads epoch a round
+    eps = [tracegen.richtext_epoch_payloads(d) for d in docs]
+    n_ep = max(map(len, eps))
+    checks_at = sorted({(n_ep + 1) // 2, n_ep})
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    batch = DeviceDocBatch(RT_DOCS, RT_RES_CAP, device=dev, as_text=True, auto_grow=True)
+    rounds, reads = [], []
+    for e in range(n_ep):
+        pls = [eps[j % RT_DISTINCT][e] if e < len(eps[j % RT_DISTINCT]) else None for j in range(RT_DOCS)]
+        rows0 = int(batch.counts.sum())
+        t0 = time.perf_counter()
+        batch.append_payloads(pls, cid)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        rows = int(batch.counts.sum()) - rows0
+        rounds.append({"rows": rows, "wall_ms": wall, "rows_per_s": rows / (wall / 1e3), "cap": batch.cap,
+                       "stage_ms": batch.stage_ms()})
+        if e + 1 not in checks_at:
+            continue
+        pre = [tracegen.oracle_richtext(d, e + 1) for d in docs]
+        t0 = time.perf_counter()
+        segs = batch.richtexts()
+        rt_ms = (time.perf_counter() - t0) * 1e3
+        split = batch.stage_ms()
+        for j, s in enumerate(segs):
+            check(s == pre[j % RT_DISTINCT], f"resident richtext round {e}: doc {j} != oracle_richtext")
+        # the solver's budget loop launches once at each chain budget it
+        # visits (an overflowed one included): record each, and check the
+        # kernel on the rings of every one
+        visited, solve = [], fleet_mod.chain_merge_docs_u
+        fleet_mod.chain_merge_docs_u = lambda cols, c_pad, **kw: visited.append(c_pad) or solve(cols, c_pad, **kw)
+        before = dict(list_rank.LAUNCHES)
+        try:
+            t0 = time.perf_counter()
+            texts = batch.texts(use_solver=True)
+            solver_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            fleet_mod.chain_merge_docs_u = solve
+        solver_launches = launched_since(list_rank, before)
+        check(sum(solver_launches.values()) == len(visited),
+              f"resident round {e}: solver launches {solver_launches} != one at each budget {visited}")
+        for j, t in enumerate(texts):
+            check(t == "".join(s["insert"] for s in pre[j % RT_DISTINCT]), f"resident round {e}: solver text {j}")
+        kcs = []
+        for c_pad in sorted(set(visited)):
+            c_parent, c_side, c_valid, sib_keys, _, _ = fugue_batch._contract_u(batch.cols, c_pad)
+            ring, _ = fugue_batch._ring_and_anchors(c_parent, c_side, c_valid, sib_keys)
+            kcs.append(kernel_check(torch, dev, list_rank, ring, f"resident richtext round {e} solver c_pad {c_pad}",
+                                    errs))
+            del c_parent, c_side, c_valid, sib_keys, ring
+        reads.append({"round": e, "richtexts_ms": rt_ms, "richtexts_split_ms": split, "solver_ms": solver_ms,
+                      "c_pads": visited, "solver_launches": solver_launches, "kernel_checks": kcs})
+    out["resident"] = {
+        "docs": RT_DOCS, "cap": batch.cap, "rounds": rounds, "reads": reads,
+        "median_rows_per_s": statistics.median(r["rows_per_s"] for r in rounds),
+        "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
+    }
+    res_out = out["resident"]
+    print(f"richtext resident on {kind} ({card}): DeviceDocBatch({RT_DOCS}, {RT_RES_CAP}, auto_grow) fed {n_ep} "
+          f"epochs: rounds " + "; ".join(
+              f"{r['rows']} rows {r['wall_ms']:.0f} ms = {r['rows_per_s'] / 1e6:.3f}M rows/s ("
+              + ", ".join(f"{k} {v:.0f}" for k, v in r["stage_ms"].items()) + ")" for r in rounds)
+          + f"; median {res_out['median_rows_per_s'] / 1e6:.3f}M rows/s; reads " + "; ".join(
+              f"round {x['round']}: richtexts() {x['richtexts_ms']:.0f} ms ("
+              + ", ".join(f"{k} {v:.0f}" for k, v in x["richtexts_split_ms"].items())
+              + f"), solver {x['solver_ms']:.0f} ms at c_pads {x['c_pads']} launches {x['solver_launches']}"
+              for x in reads)
+          + f"; every read == oracle_richtext's prefix; peak {res_out['peak_device_bytes'] / 2**30:.3f} GiB",
+          flush=True)
+    out["launches"] = {k: v for k, v in list_rank.LAUNCHES.items() if v}
+    check(sum(out["launches"].values()) > 0, "phase 4h launched no list-rank kernel")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 4h: {out['seconds']:.1f} s (traces {out['gen_s']:.1f} s); main-path launches {out['launches']}",
+          flush=True)
+    return out
+
+
+def movable_phase(torch, dev, kind: str, card: str) -> dict:
+    """Phase 4i, the one-shot MovableList merge: (a)
+    Fleet.merge_movable_payloads on MV_DOCS tracegen.movable_payload
+    payloads cycled over MV_DISTINCT traces ([1,024, 8,192] slots), every
+    doc checked against oracle_movable and no payload fallen back, the
+    wall split by stage (the host stages timed inside the call), upload,
+    device and fetch also timed alone, device busy and peak memory; then
+    merge_movable_changes on the decoded change lists, checked the same;
+    (b) bench_movable's random columns (bench.py:437-473) at
+    [MV_BENCH_DOCS, MV_BENCH_SLOTS], slots merged/s by its definition,
+    every doc equal to the plain merge of one.  Each part's list-rank
+    kernel is held bit for bit against its plain version on the rings it
+    ranked; the main path's launches are counted over (a)'s two calls
+    and (b)'s timed calls."""
+    import numpy as np
+
+    from loro_tpu_torch import tracegen
+    from loro_tpu_torch.codec.binary import decode_changes
+    from loro_tpu_torch.ops import fugue_batch, list_rank
+    from loro_tpu_torch.ops import movable_batch as mb
+    from loro_tpu_torch.parallel import fleet as fleet_mod
+    from loro_tpu_torch.parallel.fleet import Fleet
+
+    cid = tracegen.MOVABLE_CID
+    out = {"max_abs_err": {}, "kernel_checks": {}}
+    errs = out["max_abs_err"]
+    t_phase = t0 = time.perf_counter()
+    docs = [tracegen.movable_doc(SEED * 1000 + i) for i in range(MV_DISTINCT)]
+    want = [tracegen.oracle_movable(d) for d in docs]
+    payloads = [tracegen.movable_payload(d) for d in docs]
+    out["gen_s"] = time.perf_counter() - t0
+    check(all(any(p >> 63 for p in d.peers) for d in docs), "movable traces: a peer id with bit 63 set")
+    fl = Fleet(device=dev)
+    list_rank.reset_launches()
+    fallbacks0 = fleet_mod.FLEET_FALLBACKS["payload_extract"]
+
+    # (a) one-shot fleet from payloads, then from change lists
+    batch = [payloads[j % MV_DISTINCT] for j in range(MV_DOCS)]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with stage_timer(torch, fleet_mod, ("extract_movable_from_payload", "_stack_movable", "movable_merge_batch",
+                                        "_movable_values")) as st:
+        t0 = time.perf_counter()
+        got = fl.merge_movable_payloads(batch, cid)
+        wall = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated(dev)
+    for j, g in enumerate(got):
+        check(g == want[j % MV_DISTINCT], f"movable one-shot: doc {j} != oracle_movable")
+    fallbacks = fleet_mod.FLEET_FALLBACKS["payload_extract"] - fallbacks0
+    check(fallbacks == 0, f"movable one-shot: {fallbacks} payloads fell back to the Python decode")
+    t0 = time.perf_counter()
+    changes = [decode_changes(p) for p in payloads]
+    decode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got_c = fl.merge_movable_changes([changes[j % MV_DISTINCT] for j in range(MV_DOCS)], cid)
+    changes_wall = (time.perf_counter() - t0) * 1e3
+    check(got_c == got, "movable one-shot: merge_movable_changes != merge_movable_payloads")
+    oneshot_launches = dict(list_rank.LAUNCHES)
+    with uncounted(list_rank):
+        ex8 = [mb.extract_movable_from_payload(p, cid) for p in payloads]
+        hb, n_elems = fleet_mod._stack_movable([ex8[j % MV_DISTINCT] for j in range(MV_DOCS)])
+        t0 = time.perf_counter()
+        dcols = fugue_batch._on(hb, dev)
+        torch.cuda.synchronize()
+        upload_ms = (time.perf_counter() - t0) * 1e3
+        merge_ms = time_ms(torch, lambda: mb.movable_merge_batch(dcols, n_elems, device=dev), warmup=1, reps=5)
+        res = mb.movable_merge_batch(dcols, n_elems, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fetched = [t.cpu().numpy() for t in res]
+        fetch_ms = (time.perf_counter() - t0) * 1e3
+        busy_ms, busy_wall_ms, busy_top = device_breakdown(
+            torch, lambda: mb.movable_merge_batch(dcols, n_elems, device=dev), calls=3)
+    check(fleet_mod._movable_values(*fetched, [ex8[j % MV_DISTINCT] for j in range(MV_DOCS)]) == got,
+          "movable one-shot: the staged merge != the call")
+    ring, _ = fugue_batch._ring_and_anchors(dcols.seq.parent, dcols.seq.side, dcols.seq.valid)
+    out["kernel_checks"]["oneshot"] = kernel_check(torch, dev, list_rank, ring, "movable one-shot", errs)
+    slots = sum(ex8[j % MV_DISTINCT][0].seq.parent.shape[0] for j in range(MV_DOCS))
+    out["oneshot"] = {
+        "docs": MV_DOCS, "s_k_elems": [int(hb.seq.parent.shape[1]), int(hb.set_elem.shape[1]), n_elems],
+        "slots": slots, "visible": [len(w) for w in want], "wall_ms": wall,
+        "split_ms": {"extract": st["extract_movable_from_payload"], "stack_pad": st["_stack_movable"],
+                     "upload_device": st["movable_merge_batch"], "values": st["_movable_values"],
+                     "fetch_rest": wall - sum(st.values())},
+        "alone_ms": {"upload": upload_ms, "device_merge": merge_ms, "fetch": fetch_ms},
+        "upload_bytes": sum(a.nbytes for a in hb.seq) + sum(a.nbytes for a in hb[1:]),
+        "slots_per_s": slots / (wall / 1e3), "fallbacks": fallbacks, "device_busy_ms": busy_ms,
+        "device_busy_wall_ms": busy_wall_ms, "device_busy_share": busy_ms / wall,
+        "device_busy_top": [[ms, name[:80], cnt] for ms, name, cnt in busy_top], "peak_device_bytes": peak,
+        "changes_wall_ms": changes_wall, "decode_changes_s": decode_s,
+        "launches": {k: v for k, v in oneshot_launches.items() if v},
+    }
+    r = out["oneshot"]
+    print(f"movable one-shot on {kind} ({card}): merge_movable_payloads of {MV_DOCS} payloads ({MV_DISTINCT} "
+          f"distinct, [S, K, elems] = {r['s_k_elems']}, {slots} slots) in {wall:.1f} ms = "
+          f"{r['slots_per_s'] / 1e6:.3f}M slots/s; split: " + ", ".join(f"{k} {v:.1f}" for k, v in r["split_ms"].items())
+          + f" ms; alone: upload {upload_ms:.2f} ms ({r['upload_bytes']} B), device {merge_ms:.3f} ms, fetch "
+          f"{fetch_ms:.2f} ms; device busy {busy_ms:.3f} ms = {100 * r['device_busy_share']:.3f} % of the call; peak "
+          f"{peak / 2**30:.3f} GiB; 0 fallbacks; merge_movable_changes {changes_wall:.1f} ms (decode_changes of the "
+          f"{MV_DISTINCT} payloads {decode_s:.2f} s); launches {r['launches']}; every doc == oracle_movable; kernel "
+          f"check {out['kernel_checks']['oneshot']}", flush=True)
+    del dcols, res, ring
+
+    # (b) bench_movable's own columns
+    rng = np.random.default_rng(0)
+    s, n_e, d = MV_BENCH_SLOTS, MV_BENCH_SLOTS // 2, MV_BENCH_DOCS
+    parent = np.concatenate([np.arange(-1, n_e - 1, dtype=np.int32), rng.integers(0, n_e, s - n_e).astype(np.int32)])
+    elem = np.concatenate([np.arange(n_e, dtype=np.int32), rng.integers(0, n_e, s - n_e).astype(np.int32)])
+    lam = np.concatenate([np.arange(n_e, dtype=np.int32), rng.integers(n_e, 4 * n_e, s - n_e).astype(np.int32)])
+
+    def tile(a, rows):
+        return np.broadcast_to(a, (rows,) + a.shape).copy()
+
+    def bench_cols(rows):
+        return mb.MovableCols(
+            seq=fugue_batch.SeqColumns(parent=tile(parent, rows), side=np.ones((rows, s), np.int32),
+                                       peer=np.zeros((rows, s), np.int32),
+                                       counter=tile(np.arange(s, dtype=np.int32), rows),
+                                       deleted=np.zeros((rows, s), bool), content=tile(elem, rows),
+                                       valid=np.ones((rows, s), bool)),
+            lamport=tile(lam, rows), set_elem=tile(np.arange(n_e, dtype=np.int32), rows),
+            set_lamport=np.zeros((rows, n_e), np.int32), set_peer=np.zeros((rows, n_e), np.int32),
+            set_value=tile(np.arange(n_e, dtype=np.int32), rows), set_valid=np.ones((rows, n_e), bool))
+
+    bcols = fugue_batch._on(bench_cols(d), dev)
+    res = mb.movable_merge_batch(bcols, n_e, device=dev)
+    torch.cuda.synchronize()
+    reps = 3
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        res = mb.movable_merge_batch(bcols, n_e, device=dev)
+    res[1].cpu()
+    dt = (time.perf_counter() - t0) / reps
+    bench_launches = launched_since(list_rank, oneshot_launches)
+    plain = mb.movable_merge_batch(bench_cols(1), n_e, device="cpu")
+    check(torch.equal(res[0].cpu(), plain[0].expand(d, -1)) and torch.equal(res[1].cpu(), plain[1].expand(d)),
+          "bench_movable columns: a card doc != the CPU merge of the same doc")
+    with uncounted(list_rank):
+        call_ms = time_ms(torch, lambda: mb.movable_merge_batch(bcols, n_e, device=dev))
+    ring, _ = fugue_batch._ring_and_anchors(bcols.seq.parent, bcols.seq.side, bcols.seq.valid)
+    out["kernel_checks"]["bench"] = kernel_check(torch, dev, list_rank, ring, "bench_movable columns", errs)
+    out["bench"] = {"docs": d, "slots": s, "loop_s_a_call": dt, "ops_per_s": d * s / dt, "call_ms": call_ms,
+                    "call_ops_per_s": d * s / (call_ms / 1e3), "count": int(plain[1][0]), "launches": bench_launches}
+    b = out["bench"]
+    print(f"movable bench on {kind} ({card}): bench_movable's columns [{d}, {s}]: {dt * 1e3:.3f} ms a call (host "
+          f"clock, {reps} calls and a fetch) = {b['ops_per_s'] / 1e9:.3f}G ops merged/s (bench.py's definition); "
+          f"{call_ms:.3f} ms by events = {b['call_ops_per_s'] / 1e9:.3f}G; launches {bench_launches}; every doc == the "
+          f"CPU merge; kernel check {out['kernel_checks']['bench']}", flush=True)
+    del bcols, res, ring
+    out["launches"] = {k: v for k, v in list_rank.LAUNCHES.items() if v}
+    check(sum(out["launches"].values()) > 0, "phase 4i launched no list-rank kernel")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 4i: {out['seconds']:.1f} s (traces {out['gen_s']:.1f} s); main-path launches {out['launches']}",
+          flush=True)
+    return out
+
+
 def resident_rounds(torch, dev, cls, docs, eps, n_docs: int, cap: int, node_cap: int, n_rounds: int,
                     profile_round=None) -> dict:
     """A DeviceTreeBatch(n_docs, cap, node_cap, auto_grow=True) fed one sync
@@ -1322,7 +1789,33 @@ def resident_rounds(torch, dev, cls, docs, eps, n_docs: int, cap: int, node_cap:
     return res
 
 
-def main() -> int:
+def card_tests() -> None:
+    """The port's card tests, tests/test_torch_*_cuda.py (pytest -m cuda),
+    as a subprocess; every one must pass and none skip."""
+    t0 = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    test = subprocess.run(
+        [sys.executable, "-m", "pytest", "-q", "-m", "cuda", "--noconftest", "-p", "no:cacheprovider",
+         "-o", "markers=cuda: needs an NVIDIA GPU", "tests/test_torch_list_rank_cuda.py",
+         "tests/test_torch_fleet_cuda.py", "tests/test_torch_resident_cuda.py", "tests/test_torch_map_counter_cuda.py",
+         "tests/test_torch_tree_cuda.py", "tests/test_torch_richtext_cuda.py", "tests/test_torch_movable_cuda.py"],
+        cwd=root, capture_output=True, text=True, timeout=600,
+    )
+    summary = (test.stdout.strip().splitlines() or ["(no output)"])[-1]
+    print(f"pytest -m cuda tests/test_torch_{{list_rank,fleet,resident,map_counter,tree,richtext,movable}}_cuda.py: "
+          f"rc {test.returncode}, {summary} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    check(test.returncode == 0 and " passed" in summary and "skipped" not in summary,
+          "the card tests failed on the card:\n" + test.stdout[-4000:] + test.stderr[-2000:])
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Run the PyTorch/CUDA port on one NVIDIA GPU and check it.")
+    ap.add_argument("--phase", action="append", choices=SELECTABLE, default=[],
+                    help="run the build, the card tests and this phase only (repeatable); "
+                         "without it the whole script runs")
+    args = ap.parse_args(argv)
     t_start = time.perf_counter()
     import torch
 
@@ -1357,6 +1850,20 @@ def main() -> int:
     budget = list_rank.smem_budget(dev)
     print(f"shared-memory budget per block: {budget} bytes", flush=True)
     check(budget >= list_rank.SMEM_LIMIT, f"the card gives {budget} bytes of shared memory a block, below SMEM_LIMIT")
+    if args.phase:  # a phase run: the card tests, then the named phases
+        card_tests()
+        phase_fns = {"4f": map_counter_phase, "4g": tree_phase, "4h": richtext_phase, "4i": movable_phase}
+        results = {}
+        for name in dict.fromkeys(args.phase):
+            list_rank.reset_launches()
+            results[name] = phase_fns[name](torch, dev, kind, card)
+            if name in ("4f", "4g"):  # torch scatters and the replay kernel: no list-rank launch
+                check(not any(list_rank.LAUNCHES.values()), f"phase {name} launched {list_rank.LAUNCHES}")
+        print("results " + json.dumps({"card": card, "kind": kind, "phases": results,
+                                       "total_s": time.perf_counter() - t_start}))
+        print(card)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+        return 0
 
     # ---- main-path data (generated here; the flagship ring feeds phase 3)
     t0 = time.perf_counter()
@@ -1502,21 +2009,7 @@ def main() -> int:
     compare("chain m=131072", cross_slice_ring(np, 131072, 131072), "ruling", v)
     for v in list_rank.LAUNCHES:
         check(v in variants_seen, f"variant {v} was not exercised")
-    t0 = time.perf_counter()
-    root = Path(__file__).resolve().parent
-    test = subprocess.run(
-        [sys.executable, "-m", "pytest", "-q", "-m", "cuda", "--noconftest", "-p", "no:cacheprovider",
-         "-o", "markers=cuda: needs an NVIDIA GPU", "tests/test_torch_list_rank_cuda.py",
-         "tests/test_torch_fleet_cuda.py", "tests/test_torch_resident_cuda.py", "tests/test_torch_map_counter_cuda.py",
-         "tests/test_torch_tree_cuda.py"],
-        cwd=root, capture_output=True, text=True, timeout=600,
-    )
-    summary = (test.stdout.strip().splitlines() or ["(no output)"])[-1]
-    print(f"pytest -m cuda tests/test_torch_{{list_rank,fleet,resident,map_counter,tree}}_cuda.py: rc {test.returncode}, "
-          f"{summary} "
-          f"({time.perf_counter() - t0:.1f} s)", flush=True)
-    check(test.returncode == 0 and " passed" in summary and "skipped" not in summary,
-          "the card tests failed on the card:\n" + test.stdout[-4000:] + test.stderr[-2000:])
+    card_tests()
 
     # ---- 4. main path ----------------------------------------------------
     def route_key(succ):
@@ -2043,6 +2536,16 @@ def main() -> int:
     check(sum(tree4g["launches"].values()) > 0 and tree4g["launches"]["smem"] > 0,
           f"the tree phase's main path launched {tree4g['launches']}")
 
+    # ---- 4h. rich text: one-shot, the bench's device call, resident ------
+    # ---- 4i. the one-shot MovableList merge -------------------------------
+    # (their order solves launch the list-rank kernels: counted, and each
+    # held against its plain version on the rings it ranked)
+    richtext4h = richtext_phase(torch, dev, kind, card)
+    movable4i = movable_phase(torch, dev, kind, card)
+    for phase in (richtext4h, movable4i):
+        for name, err in phase["max_abs_err"].items():
+            max_err[name] = max(max_err[name], err)
+
     # ---- 5. timings -------------------------------------------------------
     # each kernel at its main-path shape: the flagship chain rings for the
     # packed kernels, the element rings for the wide kernel
@@ -2238,7 +2741,7 @@ def main() -> int:
         "element_chunk_ops": echunk_ops, "build_s": build_s, "gen_s": gen_s, "element_gen_s": egen_s, **res,
         "bound_ms": bounds, "phases": phases, "full_card": full_card, "wyllie_over_budget": over_budget,
         "sweep": sweep, "sweep_graph": sweep_graph, "ingest": ingest, "fleet": fleet, "resident": resident4e,
-        "map_counter": map_counter4f, "tree": tree4g,
+        "map_counter": map_counter4f, "tree": tree4g, "richtext": richtext4h, "movable": movable4i,
         "total_s": time.perf_counter() - t_start,
     }))
     # launches in the fleet phase's checked one-shot calls, one a call
@@ -2253,6 +2756,8 @@ def main() -> int:
             "launches": launches[name],
             "launches_fleet": fleet_by_kernel[name],
             "launches_resident": sum(v for k, v in resident4e["launches"].items() if k.split("/")[0] == name),
+            "launches_richtext": sum(v for k, v in richtext4h["launches"].items() if k.split("/")[0] == name),
+            "launches_movable": sum(v for k, v in movable4i["launches"].items() if k.split("/")[0] == name),
             "max_abs_err": max_err[name],
             "ms": res[f"{name}_graph_ms"],
             "eager_ms": res[f"{name}_ms"],
@@ -2279,6 +2784,7 @@ def main() -> int:
         "bytes_bound_ms": tk["bytes_bound_ms"],
         "library_ms": None,
     })
+    print(f"script: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

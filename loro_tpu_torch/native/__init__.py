@@ -1,6 +1,7 @@
 """ctypes bindings of the port's native host code: the payload codec
 (seq_codec.cpp: the one-shot explode, the resident batch's delta
-explode and anchor metadata, the map explode and the tree explode) and
+explode and anchor metadata, the map explode, the tree explode and the
+one-shot movable-list explode) and
 the resident batch's engines (order_idmap.cpp: NativeShadowOrder,
 NativeIdMap).
 
@@ -56,6 +57,10 @@ def _lib() -> ctypes.CDLL:
         lib.loro_count_tree_ops.argtypes = head
         lib.loro_explode_tree.restype = ctypes.c_longlong
         lib.loro_explode_tree.argtypes = head + [_P] * 10 + [ctypes.c_longlong]
+        lib.loro_count_movable.restype = ctypes.c_longlong
+        lib.loro_count_movable.argtypes = head + [_P] * 3
+        lib.loro_explode_movable.restype = ctypes.c_longlong
+        lib.loro_explode_movable.argtypes = head + [_P] * 15 + [ctypes.c_longlong] * 3
         _lib_handle = lib
     return _lib_handle
 
@@ -210,6 +215,35 @@ def explode_tree_payload(payload: bytes, target_cid_index: int) -> Dict[str, np.
     if wrote != n:
         raise CodecDecodeError("native decode failed (count mismatch)")
     return cols
+
+
+def explode_movable_payload(payload: bytes, target_cid_index: int) -> Dict[str, Dict[str, np.ndarray]]:
+    """The slots, sets and delete spans of one MovableList container, in
+    payload order: {"slots": parent (row, -1 = the root), side, peer_idx,
+    counter, lamport, elem_peer_idx, elem_ctr; "sets": elem_peer_idx,
+    elem_ctr, lamport, peer_idx, value_off (the value's byte offset, for
+    decode_value_at); "dels": peer_idx, start, end}.  Inserted values
+    are sets too (their creation values).  Peer columns are wire indexes
+    into the payload's peer table.  Raises CodecDecodeError on malformed
+    payloads and on a parent outside the payload."""
+    lib = _lib()
+    payload = bytes(payload)
+    counts = [ctypes.c_longlong() for _ in range(3)]
+    if lib.loro_count_movable(payload, len(payload), target_cid_index, *map(ctypes.byref, counts)) < 0:
+        raise CodecDecodeError("native decode failed (malformed payload?)")
+    ns, nv, nd = (c.value for c in counts)
+    slots = {f: np.empty(ns, np.int32)
+             for f in ("parent", "side", "peer_idx", "counter", "lamport", "elem_peer_idx", "elem_ctr")}
+    sets = {f: np.empty(nv, np.int32) for f in ("elem_peer_idx", "elem_ctr", "lamport", "peer_idx")}
+    sets["value_off"] = np.empty(nv, np.int64)
+    dels = {"peer_idx": np.empty(nd, np.int32), "start": np.empty(nd, np.int64), "end": np.empty(nd, np.int64)}
+    wrote = lib.loro_explode_movable(
+        payload, len(payload), target_cid_index,
+        *[_ptr(a) for cols in (slots, sets, dels) for a in cols.values()], ns, nv, nd,
+    )
+    if wrote != ns:
+        raise CodecDecodeError("native decode failed (unresolvable references or count mismatch)")
+    return {"slots": slots, "sets": sets, "dels": dels}
 
 
 def decode_value_at(payload: bytes, offset: int, cids):

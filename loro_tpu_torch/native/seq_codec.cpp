@@ -13,9 +13,9 @@
 // (peer index, counter) pairs, deletes as raw spans), its style-anchor
 // metadata pass and its delete count; the map explode (every map set
 // and delete with its value's byte offset); and the tree explode (every
-// TreeMove of one container, its position as a byte range).  The
-// movable-list code stays behind; the order engine and id map are in
-// order_idmap.cpp.
+// TreeMove of one container, its position as a byte range); and the
+// one-shot movable-list explode (slots, sets with value offsets, delete
+// spans).  The order engine and id map are in order_idmap.cpp.
 //
 // C ABI only (ctypes binding in loro_tpu_torch/native/__init__.py);
 // built with g++ -O3 -shared -fPIC -std=c++17.
@@ -901,6 +901,184 @@ long long loro_explode_tree(const uint8_t* buf, long long len, int target_cid,
     }
   }
   return row;
+}
+
+
+// ---------------------------------------------------------------------------
+// Movable-list explode: slots (inserts + moves, parent rows resolved
+// through an in-payload id map like the seq explode), sets (creation
+// values + MSET, value byte offsets — winners decode lazily in
+// Python), delete spans.  Returns -1 on malformed input or an
+// unresolvable in-payload reference (caller falls back to Python).
+// Copied from the JAX package's native codec, one-shot mode only: a
+// parent that is not in the payload fails the walk.
+long long loro_count_movable(const uint8_t* buf, long long len, int target_cid,
+                             long long* n_slots, long long* n_sets,
+                             long long* n_dels) {
+  Reader r{buf, buf + len};
+  uint64_t n_peers; std::vector<int32_t> cid_types; std::vector<ChangeMeta> metas;
+  if (!parse_prelude(r, &n_peers, cid_types, metas)) return -1;
+  long long slots = 0, sets = 0, dels = 0;
+  for (auto& m : metas) {
+    for (uint64_t k = 0; k < m.n_ops; k++) {
+      uint64_t cidx = r.varint();
+      uint8_t kind = r.u8();
+      if (!r.ok) return -1;
+      bool mine = (long long)cidx == target_cid;
+      if (mine && kind == K_MMOVE) slots++;
+      else if (mine && kind == K_MSET) sets++;
+      else if (mine && kind == K_DELETE) {
+        uint64_t n = r.varint();
+        for (uint64_t i = 0; i < n && r.ok; i++) { r.varint(); r.zigzag(); r.varint(); }
+        if (!r.ok) return -1;
+        dels += (long long)n;
+        continue;
+      }
+      int64_t atoms;
+      if (!skip_op(r, kind, &atoms)) return -1;
+      if (mine && kind == K_INSERT_VALUES) {
+        slots += atoms;
+        sets += atoms;  // creation values
+      }
+    }
+  }
+  *n_slots = slots; *n_sets = sets; *n_dels = dels;
+  return 0;
+}
+
+long long loro_explode_movable(const uint8_t* buf, long long len, int target_cid,
+                               int32_t* s_parent, int32_t* s_side,
+                               int32_t* s_peer, int32_t* s_ctr,
+                               int32_t* s_lamport, int32_t* s_epeer,
+                               int32_t* s_ectr,
+                               int32_t* v_epeer, int32_t* v_ectr,
+                               int32_t* v_lamport, int32_t* v_peer,
+                               int64_t* v_off,
+                               int32_t* d_peer, int64_t* d_start, int64_t* d_end,
+                               long long n_slots, long long n_sets,
+                               long long n_dels) {
+  Reader r{buf, buf + len};
+  uint64_t n_peers; std::vector<int32_t> cid_types; std::vector<ChangeMeta> metas;
+  if (!parse_prelude(r, &n_peers, cid_types, metas)) return -1;
+  IdMap map((size_t)(n_slots > 16 ? n_slots : 16));
+  // an insert's or move's parent row: -1 at the list's start, else the
+  // row of its parent id, which must lie in the payload (-2: it does not)
+  auto parent_of = [&](const ChangeMeta& m, int64_t ctr, uint8_t ptag,
+                       uint32_t p_peer, int64_t p_ctr) -> int32_t {
+    if (ptag == PT_NONE) return -1;
+    int32_t row = ptag == PT_RUNCONT ? map.get(idkey(m.peer_idx, ctr - 1))
+                                     : map.get(idkey(p_peer, p_ctr));
+    return row < 0 ? -2 : row;
+  };
+  long long srow = 0, vrow = 0, drow = 0;
+  for (auto& m : metas) {
+    int64_t ctr = m.ctr;
+    for (uint64_t k = 0; k < m.n_ops; k++) {
+      uint64_t cidx = r.varint();
+      uint8_t kind = r.u8();
+      if (!r.ok) return -1;
+      if ((long long)cidx != target_cid) {
+        int64_t atoms;
+        if (!skip_op(r, kind, &atoms)) return -1;
+        ctr += atoms;
+        continue;
+      }
+      if (kind == K_INSERT_VALUES) {
+        uint8_t ptag = r.u8();
+        uint32_t p_peer = 0; int64_t p_ctr = 0;
+        if (ptag == PT_ID) {
+          uint64_t pi = r.varint();
+          if (!r.ok || pi >= n_peers) return -1;
+          p_peer = (uint32_t)pi; p_ctr = r.zigzag();
+        }
+        uint8_t side = r.u8();
+        uint64_t n = r.varint();
+        if (!r.ok) return -1;
+        int32_t parent_row = parent_of(m, ctr, ptag, p_peer, p_ctr);
+        if (parent_row == -2) return -1;
+        for (uint64_t j = 0; j < n; j++) {
+          int64_t voff = (int64_t)(r.p - buf);
+          if (!skip_value(r)) return -1;
+          if (srow >= n_slots || vrow >= n_sets) return -1;
+          s_parent[srow] = (j == 0) ? parent_row : (int32_t)(srow - 1);
+          s_side[srow] = (j == 0) ? (int32_t)side : 1;
+          s_peer[srow] = (int32_t)m.peer_idx;
+          s_ctr[srow] = (int32_t)(ctr + (int64_t)j);
+          s_lamport[srow] = (int32_t)(m.lamport + (ctr - m.ctr) + (int64_t)j);
+          s_epeer[srow] = (int32_t)m.peer_idx;  // insert: elem id == own id
+          s_ectr[srow] = (int32_t)(ctr + (int64_t)j);
+          map.put(idkey(m.peer_idx, ctr + (int64_t)j), (int32_t)srow);
+          v_epeer[vrow] = (int32_t)m.peer_idx;
+          v_ectr[vrow] = (int32_t)(ctr + (int64_t)j);
+          v_lamport[vrow] = (int32_t)(m.lamport + (ctr - m.ctr) + (int64_t)j);
+          v_peer[vrow] = (int32_t)m.peer_idx;
+          v_off[vrow] = voff;
+          srow++; vrow++;
+        }
+        ctr += (int64_t)n;
+      } else if (kind == K_MMOVE) {
+        uint64_t epi = r.varint();
+        int64_t ectr = r.zigzag();
+        if (!r.ok || epi >= n_peers) return -1;
+        uint8_t ptag = r.u8();
+        uint32_t p_peer = 0; int64_t p_ctr = 0;
+        if (ptag == PT_ID) {
+          uint64_t pi = r.varint();
+          if (!r.ok || pi >= n_peers) return -1;
+          p_peer = (uint32_t)pi; p_ctr = r.zigzag();
+        }
+        uint8_t side = r.u8();
+        if (!r.ok) return -1;
+        int32_t parent_row = parent_of(m, ctr, ptag, p_peer, p_ctr);
+        if (parent_row == -2) return -1;
+        if (srow >= n_slots) return -1;
+        s_parent[srow] = parent_row;
+        s_side[srow] = (int32_t)side;
+        s_peer[srow] = (int32_t)m.peer_idx;
+        s_ctr[srow] = (int32_t)ctr;
+        s_lamport[srow] = (int32_t)(m.lamport + (ctr - m.ctr));
+        s_epeer[srow] = (int32_t)epi;
+        s_ectr[srow] = (int32_t)ectr;
+        map.put(idkey(m.peer_idx, ctr), (int32_t)srow);
+        srow++;
+        ctr += 1;
+      } else if (kind == K_MSET) {
+        uint64_t epi = r.varint();
+        int64_t ectr = r.zigzag();
+        if (!r.ok || epi >= n_peers) return -1;
+        int64_t voff = (int64_t)(r.p - buf);
+        if (!skip_value(r)) return -1;
+        if (vrow >= n_sets) return -1;
+        v_epeer[vrow] = (int32_t)epi;
+        v_ectr[vrow] = (int32_t)ectr;
+        v_lamport[vrow] = (int32_t)(m.lamport + (ctr - m.ctr));
+        v_peer[vrow] = (int32_t)m.peer_idx;
+        v_off[vrow] = voff;
+        vrow++;
+        ctr += 1;
+      } else if (kind == K_DELETE) {
+        uint64_t n = r.varint();
+        for (uint64_t i = 0; i < n && r.ok; i++) {
+          uint64_t dpi = r.varint();
+          if (!r.ok || dpi >= n_peers) return -1;
+          int64_t ds = r.zigzag();
+          int64_t dl = (int64_t)r.varint();
+          if (drow >= n_dels) return -1;
+          d_peer[drow] = (int32_t)dpi;
+          d_start[drow] = ds;
+          d_end[drow] = ds + dl;
+          drow++;
+        }
+        if (!r.ok) return -1;
+        ctr += 1;
+      } else {
+        int64_t atoms;
+        if (!skip_op(r, kind, &atoms)) return -1;
+        ctr += atoms;
+      }
+    }
+  }
+  return srow;
 }
 
 }  // extern "C"

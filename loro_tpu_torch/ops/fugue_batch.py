@@ -153,6 +153,17 @@ def pad_rows(a: np.ndarray, n: int, fill) -> np.ndarray:
     return out
 
 
+def stack_rows(arrays: Sequence[np.ndarray], n: int, fill, d_pad: int = 0, dtype=None) -> np.ndarray:
+    """[max(d_pad, len(arrays)), n] numpy array of 1-D `arrays`: each
+    padded with `fill` to n rows, then all-`fill` filler rows (dtype:
+    the first array's unless given).  Padding each array (pad_rows) and
+    stacking, written into one array."""
+    out = np.full((max(d_pad, len(arrays)), n), fill, dtype or arrays[0].dtype)
+    for i, a in enumerate(arrays):
+        out[i, : a.shape[0]] = a
+    return out
+
+
 # fill of pad rows and of all-invalid filler docs: invalid, deleted, no content
 SEQ_FILL = SeqColumns(parent=-1, side=0, peer=0, counter=0, deleted=True, content=-1, valid=False)
 
@@ -169,15 +180,8 @@ def stack_seq_columns(per_doc, n: int, d_pad: Optional[int] = None) -> SeqColumn
     batch size).  The same arrays as padding each doc (pad_seq_columns)
     and stacking, written into one array a column: at fleet depth the
     per-doc padded copies cost several times the stack."""
-    d_pad = max(d_pad or 0, len(per_doc))
-    out = []
-    for f, fill in zip(SeqColumns._fields, SEQ_FILL):
-        a = np.full((d_pad, n), fill, getattr(per_doc[0], f).dtype)
-        for i, c in enumerate(per_doc):
-            col = getattr(c, f)
-            a[i, : col.shape[0]] = col
-        out.append(a)
-    return SeqColumns(*out)
+    return SeqColumns(*[stack_rows([getattr(c, f) for c in per_doc], n, fill, d_pad or 0)
+                        for f, fill in zip(SeqColumns._fields, SEQ_FILL)])
 
 
 def seq_columns_to_torch(np_cols, device: DeviceLike = "cuda"):
@@ -569,8 +573,8 @@ def _order_core(
     parent_in: torch.Tensor,
     side_in: torch.Tensor,
     valid_in: torch.Tensor,
-    rank_impl: Optional[str] = None,
     sib_keys: Optional[Sequence[torch.Tensor]] = None,
+    rank_impl: Optional[str] = None,
     ring_budget: Optional[int] = None,
 ) -> torch.Tensor:
     """Euler-tour in-order rank keys int32 [D, n] (ascending key =
@@ -590,9 +594,24 @@ def _order_core(
 
 
 def _on(cols, device: DeviceLike):
-    """The same column tuple with every tensor on `device`."""
+    """The same column tuple with every tensor on `device`; a numpy array
+    becomes a tensor there (uint32 as int64 holding the same values), and
+    a nested column tuple is carried whole."""
     dev = resolve_device(device)
-    return type(cols)(*[t.to(dev) for t in cols])
+    return _carry(cols, dev)
+
+
+def _carry(cols, dev: torch.device):
+    out = []
+    for c in cols:
+        if isinstance(c, tuple):
+            out.append(_carry(c, dev))
+        elif isinstance(c, torch.Tensor):
+            out.append(c.to(dev))
+        else:
+            a = np.asarray(c)
+            out.append(torch.from_numpy(np.ascontiguousarray(a.astype(np.int64) if a.dtype == np.uint32 else a)).to(dev))
+    return type(cols)(*out)
 
 
 def fugue_order(cols: SeqColumns, rank_impl: Optional[str] = None, device: DeviceLike = "cuda") -> torch.Tensor:
@@ -617,27 +636,40 @@ def visible_order(
     return perm.to(torch.int32), visible.sum(1).to(torch.int32)
 
 
-def _compact(
-    rank: torch.Tensor, visible: torch.Tensor, content: torch.Tensor
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Sort-free compaction [D, N] -> (codes int32 [D, N] padded with -1,
-    count int32 [D]): ranks of visible rows are distinct and below
-    rank_bound(N), so a rank histogram and its exclusive cumsum give each
-    visible row its final position; invisible rows go to the dump slot N
-    (JAX's mode="drop"), which is sliced away."""
+def _rank_positions(rank: torch.Tensor, visible: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(pos int64 [D, N], count int32 [D]): pos[row] = visible rows of
+    smaller rank, for every row (invisible rows included).  Ranks of
+    visible rows are distinct and below rank_bound(N), so a rank
+    histogram and its exclusive cumsum give each row its position, with
+    no sort."""
     n_docs, n = rank.shape
-    dev = rank.device
     i64 = torch.int64
     m = rank_bound(n)
     rk = rank.to(i64).clamp(0, m - 1)
     vis_i = visible.to(i64)
-    hist = torch.zeros((n_docs, m), dtype=i64, device=dev).scatter_add_(
+    hist = torch.zeros((n_docs, m), dtype=i64, device=rank.device).scatter_add_(
         1, torch.where(visible, rk, m - 1), vis_i
     )
-    pos = (hist.cumsum(1) - hist).gather(1, rk)
-    codes = torch.full((n_docs, n + 1), -1, dtype=torch.int32, device=dev)
-    codes.scatter_(1, torch.where(visible, pos, n), content)
-    return codes[:, :n], vis_i.sum(1).to(torch.int32)
+    return (hist.cumsum(1) - hist).gather(1, rk), vis_i.sum(1).to(torch.int32)
+
+
+def _place_codes(pos: torch.Tensor, visible: torch.Tensor, content: torch.Tensor) -> torch.Tensor:
+    """codes int32 [D, N], padded with -1: each visible row's content at
+    its position; invisible rows go to the dump slot N (JAX's
+    mode="drop"), which is sliced away."""
+    n_docs, n = content.shape
+    codes = torch.full((n_docs, n + 1), -1, dtype=torch.int32, device=content.device)
+    codes.scatter_(1, torch.where(visible, pos.to(torch.int64), n), content.to(torch.int32))
+    return codes[:, :n]
+
+
+def _compact(
+    rank: torch.Tensor, visible: torch.Tensor, content: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sort-free compaction [D, N] -> (codes int32 [D, N] padded with -1,
+    count int32 [D]) by the rank histogram (_rank_positions)."""
+    pos, count = _rank_positions(rank, visible)
+    return _place_codes(pos, visible, content), count
 
 
 def materialize_content(
@@ -842,12 +874,8 @@ def chain_positions(
 
 def _place_by_chain_scatter(crank, c_valid, chain_id, head_row, visible, content):
     """Histogram placement + positional scatter of the content codes."""
-    n_docs, n = chain_id.shape
     pos, count = chain_positions(crank, c_valid, chain_id, head_row, visible)
-    tgt = torch.where(visible, pos.to(torch.int64), n)  # n = dump slot
-    codes = torch.full((n_docs, n + 1), -1, dtype=torch.int32, device=content.device)
-    codes.scatter_(1, tgt, content)
-    return codes[:, :n], count
+    return _place_codes(pos, visible, content), count
 
 
 def _place_by_chain_sort(crank, c_valid, head_row, visible, content):

@@ -1,6 +1,7 @@
 """Fleet merge front end: a batch of documents merged in one device call
 (the port of loro_tpu/parallel/fleet.py's one-shot merges:
 Fleet.merge_text_docs / merge_text_changes / merge_text_payloads,
+merge_richtext_changes, merge_movable_changes / merge_movable_payloads,
 merge_map_docs, merge_counter_changes and merge_tree_changes /
 merge_tree_payloads / merge_tree_children), and the resident batches that
 keep documents on the device between syncs (DeviceDocBatch for text and
@@ -30,11 +31,10 @@ The JAX package binds all of them to a device mesh and pads the doc
 axis to a multiple of its doc dimension; here they are bound to one
 device, where that multiple is 1.  Not ported yet: the supervised launch
 and fetch with its DeviceFailure -> host degradation (a CUDA error
-propagates as it is), the obs counters and trace instants, the
-movable-list and richtext families, the op-sharded map merge, and the
-resident batches' coalesce group, doc release and export_select
-(DeviceDocBatch and DeviceTreeBatch also lack compaction, DeviceDocBatch
-richtexts).
+propagates as it is), the obs counters and trace instants, the resident
+movable-list batch (DeviceMovableBatch), the op-sharded map merge, and
+the resident batches' coalesce group, doc release and export_select
+(DeviceDocBatch and DeviceTreeBatch also lack compaction).
 """
 from __future__ import annotations
 
@@ -62,9 +62,25 @@ from ..ops.fugue_batch import (
     materialize_content_batch,
     pad_bucket,
     seq_columns_to_torch,
+    stack_rows,
     stack_seq_columns,
 )
 from ..ops.lww import NEG, LwwResident, MapOpCols, counter_merge_batch, counter_merge_doc, lww_merge_batch, lww_update_resident
+from ..ops.movable_batch import (
+    LazyPayloadValue,
+    MovableCols,
+    extract_movable,
+    extract_movable_from_payload,
+    movable_merge_batch,
+)
+from ..ops.richtext_batch import (
+    RichtextPairs,
+    extract_richtext_chain,
+    richtext_by_key_batch,
+    richtext_chain_merge_batch,
+    segments_from_device,
+    stack_richtext_chain_cols,
+)
 from ..ops.tree_batch import (
     ABSENT,
     ROOT,
@@ -145,6 +161,55 @@ class Fleet:
                     ) from e
             extracts.append(ex)
         return self.merge_text_docs(extracts)
+
+    def merge_richtext_changes(self, docs_changes: Sequence[Sequence[Change]], cid: ContainerID,
+                               pad_docs: Optional[int] = None) -> List[List[dict]]:
+        """Every doc's rich text `cid` from its change list, as Quill-style
+        segments [{insert, attributes?}] with resolved styles, in one
+        device call: the chain-contracted columns of each doc padded to
+        bucketed (N, C, P) rows and the doc axis to `pad_docs` (default:
+        the batch size), one upload a column, the chain merge with its
+        style resolution, one fetch of the outputs."""
+        extracts = [extract_richtext_chain(chs, cid) for chs in docs_changes]
+        batch, n_keys = _stack_richtext(extracts, pad_docs or 0)
+        out = [t.cpu().numpy() for t in richtext_chain_merge_batch(batch, n_keys, device=self.device)]
+        return [segments_from_device(*(o[i] for o in out), keys, values) for i, (_, keys, values) in enumerate(extracts)]
+
+    def merge_movable_changes(self, docs_changes: Sequence[Sequence[Change]], cid: ContainerID) -> List[list]:
+        """Every doc's MovableList `cid` from its change list, as its value
+        list, in one device call."""
+        return self._merge_movable_extracted([extract_movable(chs, cid) for chs in docs_changes])
+
+    def merge_movable_payloads(self, payloads: Sequence[bytes], cid: ContainerID) -> List[list]:
+        """merge_movable_changes from each doc's binary updates payload
+        (envelope-stripped, full history): the native movable explode,
+        values decoded only where they win, and for a payload it rejects
+        (ValueError, CodecDecodeError among them) the Python decode,
+        counted in FLEET_FALLBACKS.  A payload whose ops name slots
+        outside it raises ValueError."""
+        extracts = []
+        for p in payloads:
+            try:
+                ex = extract_movable_from_payload(p, cid)
+            except ValueError:
+                FLEET_FALLBACKS["payload_extract"] += 1
+                try:
+                    ex = extract_movable(decode_changes(p), cid)
+                except KeyError as e:
+                    raise ValueError(
+                        f"payload is not self-contained (references elements outside it: {e}); one-shot fleet "
+                        "merges need full-history payloads"
+                    ) from e
+            extracts.append(ex)
+        return self._merge_movable_extracted(extracts)
+
+    def _merge_movable_extracted(self, extracts) -> List[list]:
+        """The merge of (MovableCols, elems, values) extracts: stacked
+        (_stack_movable), one upload a column, movable_merge_batch, one
+        fetch, then each doc's winners' values (_movable_values)."""
+        batch, n_elems = _stack_movable(extracts)
+        out, counts = (t.cpu().numpy() for t in movable_merge_batch(batch, n_elems, device=self.device))
+        return _movable_values(out, counts, extracts)
 
     def merge_counter_changes(self, docs_changes: Sequence[Sequence[Change]]) -> List[Dict[ContainerID, float]]:
         """Every doc's counters {container: sum} from its change list, in
@@ -296,6 +361,48 @@ class Fleet:
 
 
 # ---- resident text batch ------------------------------------------------------
+
+
+def _stack_richtext(extracts, pad_docs: int = 0):
+    """(numpy RichtextChainCols [max(D, pad_docs), ...], n_keys) of
+    extract_richtext_chain outputs: rows padded to pad_bucket of the most
+    elements and chains, pairs to pad_bucket(most pairs, 16), the style
+    keys to pad_bucket(most keys, 4)."""
+    cols = [c for c, _, _ in extracts]
+    n = pad_bucket(max(1, max(c.chain.chain_id.shape[0] for c in cols)))
+    c_pad = pad_bucket(max(1, max(c.chain.c_parent.shape[0] for c in cols)))
+    p = pad_bucket(max(1, max(c.pair_start.shape[0] for c in cols)), floor=16)
+    n_keys = pad_bucket(max(1, max(len(k) for _, k, _ in extracts)), floor=4)
+    return stack_richtext_chain_cols(cols, n, c_pad, p, pad_docs), n_keys
+
+
+def _stack_movable(extracts):
+    """(numpy MovableCols [D, ...], n_elems) of movable extracts: slots
+    padded to pad_bucket(most slots), sets to pad_bucket(most sets, 16),
+    the element count to pad_bucket(most elements, 16)."""
+    cols = [c for c, _, _ in extracts]
+    s = pad_bucket(max(1, max(c.seq.parent.shape[0] for c in cols)))
+    k = pad_bucket(max(1, max(c.set_elem.shape[0] for c in cols)), floor=16)
+
+    def col(f, size, fill):
+        return stack_rows([getattr(c, f) for c in cols], size, fill, dtype=bool if f == "set_valid" else np.int32)
+
+    batch = MovableCols(stack_seq_columns([c.seq for c in cols], s), col("lamport", s, 0),
+                        *[col(f, k, False if f == "set_valid" else 0) for f in MovableCols._fields[2:]])
+    return batch, pad_bucket(max(1, max(len(e) for _, e, _ in extracts)), floor=16)
+
+
+def _movable_values(out: np.ndarray, counts: np.ndarray, extracts) -> List[list]:
+    """Each doc's value list from the merge's value indexes: a lazy
+    payload cell decodes here, so only winners ever decode."""
+    results = []
+    for i, (_, _, values) in enumerate(extracts):
+        row = []
+        for j in out[i, : counts[i]].tolist():
+            v = values[j] if j >= 0 else None
+            row.append(v.get() if isinstance(v, LazyPayloadValue) else v)
+        results.append(row)
+    return results
 
 
 def _grow_target(required: int, current: int) -> int:
@@ -986,6 +1093,63 @@ class DeviceDocBatch:
                     row.append(store[j])
                 out.append(row)
         return out
+
+    def richtexts(self) -> List[List[dict]]:
+        """Every doc as Quill-style segments [{insert, attributes?}] with
+        styles resolved on the device, in one launch: the standing-key
+        sort gives char-positions for every row (anchors are zero-width
+        rows), then winners resolve on the segment forest
+        (richtext_by_key_batch).  Pairs are built from the anchor
+        metadata: a start (p, c) with its end (p, c + 1); a dead start or
+        an unpaired anchor makes no pair, a dead end runs to EOF.  Keys
+        are numbered batch-wide, values and peer ranks a doc.  The
+        resident sibling of Fleet.merge_richtext_changes."""
+        if not self.as_text:
+            raise LoroError("richtexts() is for as_text=True batches")
+        self.clock.reset()
+        keys: List[str] = []
+        key_idx: Dict[str, int] = {}
+        doc_pairs: List[list] = []
+        doc_values: List[list] = []
+        with self.clock.host("pairs"):
+            for di in range(self.n_docs):
+                meta = self.anchor_meta[di]
+                values: list = []
+                pairs = []
+                prank = {pr: i for i, pr in enumerate(sorted({a["peer"] for a in meta.values()}))}
+                for (peer, ctr), a in meta.items():
+                    if not a["start"]:
+                        continue
+                    end = meta.get((peer, ctr + 1))
+                    if end is None or end["start"] or a["deleted"]:
+                        continue  # unpaired (mid-transfer), or a dead start: inactive
+                    ki = key_idx.setdefault(a["key"], len(keys))
+                    if ki == len(keys):
+                        keys.append(a["key"])
+                    vi = -1
+                    if a["value"] is not None:
+                        vi = len(values)
+                        values.append(a["value"])
+                    pairs.append((a["row"], -1 if end["deleted"] else end["row"], ki, vi, a["lamport"], prank[a["peer"]]))
+                doc_pairs.append(pairs)
+                doc_values.append(values)
+            n_keys = pad_bucket(max(1, len(keys)), floor=4)
+            p = pad_bucket(max(1, max((len(x) for x in doc_pairs), default=0)), floor=16)
+            arr = np.zeros((6, self.n_docs, p), np.int32)
+            arr[3] = -1
+            valid = np.zeros((self.n_docs, p), bool)
+            for di, pairs in enumerate(doc_pairs):
+                if pairs:
+                    arr[:, di, : len(pairs)] = np.asarray(pairs, np.int64).T
+                    valid[di, : len(pairs)] = True
+            pairs_np = RichtextPairs(*arr, valid)
+        with self.clock.device_stage("sort"):
+            out = richtext_by_key_batch(self.cols, self.key_hi, self.key_lo, pairs_np, n_keys, device=self.device)
+        with self.clock.host("fetch"):
+            codes, counts, bounds, win = (t.cpu().numpy() for t in out)
+        with self.clock.host("decode"):
+            return [segments_from_device(codes[i], counts[i], bounds[i], win[i], keys, doc_values[i])
+                    for i in range(self.n_docs)]
 
     # -- checkpoint and resume ------------------------------------------
     STATE_VERSION = 2  # v2: + ingest epoch in meta, tomb-epoch columns

@@ -49,6 +49,17 @@ form cycles the merge rejects); ``tree_payload`` / ``tree_epoch_payloads``
 encode it, and ``oracle_tree`` replays its moves in key order with the
 cycle check.  These are not cached: a 65,536-op history takes about a
 second to generate.
+
+The rich-text and MovableList traces are seeded stand-ins for the JAX
+package's bench_utils.richtext_bench_docs and for bench_movable's shape,
+generated on a Fugue sequence that each peer edits in its own view
+(_FugueSim): ``richtext_doc`` (3 peers inserting runs, deleting and
+marking or unmarking spans of the text) with ``richtext_payload``,
+``richtext_epoch_payloads`` and the host walk ``oracle_richtext``;
+``movable_doc`` (4 peers inserting, moving, setting and deleting list
+elements, moves meeting concurrently) with ``movable_payload`` and
+``oracle_movable``.  Both are cached under ``build/tracegen/`` as their
+payload bytes.
 """
 from __future__ import annotations
 
@@ -64,9 +75,22 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from .codec.binary import TextChange, TextDelete, TextInsert, encode_changes, encode_text_changes
-from .core.change import Change, CounterIncr, MapSet, Op, TreeMove
-from .core.ids import ID, ContainerID, ContainerType, TreeID
+from .codec.binary import TextChange, TextDelete, TextInsert, decode_changes, encode_changes, encode_text_changes
+from .core.change import (
+    Change,
+    CounterIncr,
+    MapSet,
+    MovableMove,
+    MovableSet,
+    Op,
+    SeqDelete,
+    SeqInsert,
+    Side,
+    StyleAnchor,
+    TreeMove,
+    _RunCont,
+)
+from .core.ids import ID, ContainerID, ContainerType, IdSpan, TreeID
 from .core.version import Frontiers
 from .ops.columnar import SeqExtract
 from .ops.fugue_batch import SeqColumnsU, pad_rows
@@ -174,15 +198,17 @@ class _View:
         blk = self.blocks[bi]
         return blk[j + 1] if j + 1 < len(blk) else self.blocks[bi + 1][0]
 
-    def insert_at(self, bi: int, j: int, e: int) -> None:
-        """Insert visible element e at offset j of block bi."""
+    def insert_at(self, bi: int, j: int, e: int, visible: bool = True) -> None:
+        """Insert element e at offset j of block bi (visible, or not: a
+        style anchor)."""
         blk = self.blocks[bi]
         blk.insert(j, e)
-        self.vis[e] = 1
-        self.bvis[bi] += 1
-        self.nvis += 1
-        if bi < self.cache_bi:
-            self.cache_before += 1
+        if visible:
+            self.vis[e] = 1
+            self.bvis[bi] += 1
+            self.nvis += 1
+            if bi < self.cache_bi:
+                self.cache_before += 1
         if len(blk) > 2 * _BLOCK:
             tail = blk[_BLOCK:]
             del blk[_BLOCK:]
@@ -635,15 +661,18 @@ def _peer_ids(rng: random.Random, n_peers: int) -> Tuple[int, ...]:
     return tuple(ids)
 
 
-def _windowed_changes(rng: random.Random, peers: Sequence[int], n_ops: int, sync_every: int, make_op):
-    """(changes, epochs): a stream of n_ops ops, make_op(i, p, counter,
-    lamport) -> (container, content) for op i, made by peer index p with
-    that counter and lamport, routed over the peers in windows of 32-256 ops,
-    one change a window, a change never spanning a sync (one every
-    sync_every ops).  Deps are causally sound: the peer's own last op
-    when it already changed in this epoch, else the last op of every peer
-    before the epoch's sync.  Lamport = 1 + the largest lamport among the
-    deps; each op takes one counter."""
+def _windowed_changes(rng: random.Random, peers: Sequence[int], n_ops: int, sync_every: int, make_op,
+                      window: Tuple[int, int] = (32, 256), done=None):
+    """(changes, epochs): a stream of n_ops draws, make_op(i, p, counter,
+    lamport) -> (container, content) for draw i, made by peer index p at
+    that counter and lamport (or a list of such ops, the later ones at
+    the counters after it, or none), routed over the peers in windows of
+    `window` draws, one change a window, a change never spanning a sync
+    (one every sync_every draws).  The stream ends early once done()
+    holds.  Deps are causally sound: the peer's own last op when it
+    already changed in this epoch, else the last op of every peer before
+    the epoch's sync.  Lamport = 1 + the largest lamport among the deps;
+    an op takes one counter (and one lamport) an atom."""
     n_peers = len(peers)
     next_ctr = [0] * n_peers
     last_lam = [-1] * n_peers
@@ -653,28 +682,53 @@ def _windowed_changes(rng: random.Random, peers: Sequence[int], n_ops: int, sync
     epochs: List[int] = []
     snap_epoch = 0
     i = 0
-    while i < n_ops:
+    while i < n_ops and not (done and done()):
         epoch = i // sync_every
         if epoch != snap_epoch:  # a full sync: every peer has seen every op so far
             snap_ctr, snap_lam = list(next_ctr), list(last_lam)
             snap_epoch = epoch
             changed = [False] * n_peers
         p = rng.randrange(n_peers)
-        w = min(rng.randint(32, 256), n_ops - i, (epoch + 1) * sync_every - i)
+        w = min(rng.randint(*window), n_ops - i, (epoch + 1) * sync_every - i)
         if changed[p]:
             deps = [(p, next_ctr[p] - 1, last_lam[p])]
         else:
             deps = [(q, snap_ctr[q] - 1, snap_lam[q]) for q in range(n_peers) if snap_ctr[q] > 0]
         lamport = 1 + max((lam for _, _, lam in deps), default=-1)
-        ctr0 = next_ctr[p]
-        ops = [Op(ctr0 + k, *make_op(i + k, p, ctr0 + k, lamport + k)) for k in range(w)]
+        ctr0 = ctr = next_ctr[p]
+        ops: List[Op] = []
+        for k in range(w):
+            if done and done():
+                w = k
+                break
+            made = make_op(i + k, p, ctr, lamport + ctr - ctr0)
+            for container, content in made if isinstance(made, list) else [made]:
+                ops.append(Op(ctr, container, content))
+                ctr = ops[-1].ctr_end
+        i += w
+        if not ops:
+            continue
         changes.append(Change(ID(peers[p], ctr0), lamport, Frontiers(ID(peers[q], c) for q, c, _ in deps), ops))
         epochs.append(epoch)
-        next_ctr[p] += w
-        last_lam[p] = lamport + w - 1
+        next_ctr[p] = ctr
+        last_lam[p] = lamport + ctr - ctr0 - 1
         changed[p] = True
-        i += w
     return changes, epochs
+
+
+def _random_value(rng: random.Random):
+    """A value of every scalar tag: mostly ints (a few past 32 bits), then
+    short strings, floats, bools and nulls."""
+    u = rng.random()
+    if u < 0.70:
+        return rng.randrange(-(1 << 20), 1 << 20) if u < 0.68 else rng.randrange(1 << 40)
+    if u < 0.82:
+        return "".join(rng.choice(_VALUE_CHARS) for _ in range(rng.randint(0, 8)))
+    if u < 0.92:
+        return rng.uniform(-1e6, 1e6)
+    if u < 0.97:
+        return rng.random() < 0.5
+    return None
 
 
 def map_doc(seed: int, n_ops: int = 65_536, n_keys: int = 4_096, sync_every: int = MAP_SYNC_EVERY) -> OpTrace:
@@ -686,23 +740,11 @@ def map_doc(seed: int, n_ops: int = 65_536, n_keys: int = 4_096, sync_every: int
     peers = _peer_ids(rng, 2)
     keys = [f"k{i:04d}" for i in range(n_keys)]
 
-    def value():
-        u = rng.random()
-        if u < 0.70:
-            return rng.randrange(-(1 << 20), 1 << 20) if u < 0.68 else rng.randrange(1 << 40)
-        if u < 0.82:
-            return "".join(rng.choice(_VALUE_CHARS) for _ in range(rng.randint(0, 8)))
-        if u < 0.92:
-            return rng.uniform(-1e6, 1e6)
-        if u < 0.97:
-            return rng.random() < 0.5
-        return None
-
     def op(_i, *_):
         key = keys[rng.randrange(n_keys)]
         if rng.random() < 1 / 16:
             return MAP_CID, MapSet(key, None, True)
-        return MAP_CID, MapSet(key, value())
+        return MAP_CID, MapSet(key, _random_value(rng))
 
     changes, epochs = _windowed_changes(rng, peers, n_ops, sync_every, op)
     return OpTrace(peers, changes, epochs, n_ops)
@@ -971,3 +1013,418 @@ def oracle_tree(doc: OpTrace, n_epochs: Optional[int] = None):
         kids.setdefault(parents[t], []).append((state[t][1] or b"", state[t][2], t))
     children = {p: [t for _, _, t in sorted(v, key=lambda x: (x[0], x[1]))] for p, v in kids.items()}
     return {t: parents[t] for t in live}, children, rejected
+
+
+# ---- rich-text and movable-list traces -------------------------------------------
+
+RICHTEXT_KEYS = ("bold", "italic", "color", "link")
+RICHTEXT_VALUES = (True, "red", "blue", 7)
+RICHTEXT_SYNC_EVERY = 1_024  # draws a sync epoch of a rich-text trace
+MOVABLE_CID = ContainerID.root("list", ContainerType.MovableList)  # the list a movable trace writes
+MOVABLE_SYNC_EVERY = 512  # draws a sync epoch of a movable-list trace
+_HOT = 16  # a movable trace's moves and deletes favour the first _HOT positions
+
+
+class _FugueSim:
+    """A Fugue sequence shared by peers that each edit their own view (the
+    sequence at the last sync, plus their own inserts since): element e
+    has id (peer index, counter), siblings sort by (peer id, counter),
+    and each view places an insert by the Fugue rule for a visible
+    position (the JAX package's placement_for_visible_pos)."""
+
+    def __init__(self, peers: Sequence[int], cap: int):
+        rank = {q: r for r, q in enumerate(sorted(peers))}
+        self.peers = peers
+        self.sib = [rank[q] for q in peers]
+        self.ids: List[Tuple[int, int]] = []
+        self.key: List[int] = []
+        self.lch: List[Optional[list]] = [None] * cap
+        self.rch: List[Optional[list]] = [None] * cap
+        self.root: List[int] = []
+        self.rcount = [0] * cap
+        self.views = [_View([], bytearray(cap), [0] * cap) for _ in peers]
+
+    def id_of(self, e: int) -> Optional[ID]:
+        return None if e < 0 else ID(self.peers[self.ids[e][0]], self.ids[e][1])
+
+    def after(self, p: int, bi: int, j: int) -> Tuple[int, int, int, int]:
+        """(parent, side, block, offset) of an insert directly after the
+        element at (bi, j) of view p: (a, Right) if a has no right child,
+        else (its successor, Left)."""
+        v = self.views[p]
+        a = v.blocks[bi][j]
+        if v.rcount[a] == 0:
+            return a, 1, bi, j + 1
+        return v.successor(bi, j), 0, bi, j + 1
+
+    def place(self, p: int, pos: int) -> Tuple[int, int, int, int]:
+        """after() the visible element pos - 1 of view p; at position 0,
+        (first element, Left), or (the root, Right) in an empty view."""
+        v = self.views[p]
+        if pos == 0:
+            return (v.blocks[0][0], 0, 0, 0) if v.blocks[0] else (-1, 1, 0, 0)
+        return self.after(p, *v.find(pos - 1))
+
+    def add(self, p: int, ctr: int, where: Tuple[int, int, int, int], visible: bool = True) -> int:
+        """A new element (p, ctr) at a place() of view p."""
+        parent, side, bi, j = where
+        e = len(self.ids)
+        self.ids.append((p, ctr))
+        self.key.append((self.sib[p] << 32) | ctr)
+        if parent < 0:
+            bisect.insort(self.root, e, key=self.key.__getitem__)
+        else:
+            kids = self.rch if side else self.lch
+            kids[parent] = kids[parent] or []
+            bisect.insort(kids[parent], e, key=self.key.__getitem__)
+            if side:
+                self.rcount[parent] += 1
+                self.views[p].rcount[parent] += 1
+        self.views[p].insert_at(bi, j, e, visible)
+        return e
+
+    def sync(self, visible: bytearray) -> None:
+        """Every view becomes the merged sequence, `visible` by element."""
+        order = _walk(self.root, self.lch, self.rch)
+        self.views = [_View(order, bytearray(visible), list(self.rcount)) for _ in self.peers]
+
+
+def _spans(ids: Sequence[Tuple[int, int]]) -> Tuple[IdSpan, ...]:
+    """(peer id, counter) ids as IdSpans, consecutive counters merged."""
+    out: List[IdSpan] = []
+    for peer, ctr in ids:
+        if out and out[-1].peer == peer and out[-1].end == ctr:
+            out[-1] = IdSpan(peer, out[-1].start, ctr + 1)
+        else:
+            out.append(IdSpan(peer, ctr, ctr + 1))
+    return tuple(out)
+
+
+def _cached_trace(kind: str, params: dict, make) -> OpTrace:
+    """make() -> OpTrace, cached under build/tracegen/ as its payload,
+    change epochs and peers (keyed by the generator version and every
+    parameter); a cached trace's changes are the payload decoded."""
+    params = {"kind": kind, "version": GENERATOR_VERSION, **params}
+    path = CACHE_DIR / f"{kind}_{hashlib.sha256(json.dumps(params, sort_keys=True).encode()).hexdigest()[:16]}.npz"
+    if path.exists():
+        try:
+            z = np.load(path)
+            if json.loads(str(z["params"])) == params:
+                return OpTrace(tuple(int(q) for q in z["peers"]), decode_changes(z["payload"].tobytes()),
+                               z["epochs"].tolist(), int(z["n_ops"]))
+        except (OSError, KeyError, ValueError, EOFError, zipfile.BadZipFile):
+            pass  # stale or truncated cache: regenerate
+    doc = make()
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(f".{os.getpid()}.tmp.npz")
+    np.savez(tmp, payload=np.frombuffer(encode_changes(doc.changes), np.uint8),
+             epochs=np.asarray(doc.epochs, np.int64), peers=np.asarray(doc.peers, np.uint64),
+             n_ops=np.int64(doc.n_ops), params=np.asarray(json.dumps(params, sort_keys=True)))
+    tmp.replace(path)
+    return doc
+
+
+def richtext_doc(seed: int, n_chars: int = 12_288, n_marks: int = 768,
+                 sync_every: int = RICHTEXT_SYNC_EVERY) -> OpTrace:
+    """A concurrent rich-text history on the root text TEXT_CID, the shape
+    of the JAX package's bench_utils.richtext_bench_docs: 3 peers
+    (random u64 ids, one past 2^63) in windows of 16-128 draws each, a
+    full sync every `sync_every` draws.  A draw is a mark when r < 0.12
+    and the peer's text has 2 chars (always, once the chars are used
+    up): [s, e) of up to 64 chars, a key of RICHTEXT_KEYS, 30 % unmarks
+    (value None), else a value of RICHTEXT_VALUES; else a delete of 1-4
+    chars when the text has more than 8 and r < 0.18; else an insert run
+    of 1-8 chars of "abcdefgh " at a random position.  The draws go on
+    until n_chars chars and n_marks marks are made.  Placement is the
+    Fugue rule on the peer's view (anchors and tombstones included); a
+    mark's start anchor goes where an insert at s would, its end anchor
+    directly after the char at e - 1 (TextHandler.mark), at the next
+    counter.  n_ops: chars + deleted chars + 2 a mark (the JAX bench's
+    count).  Cached under build/tracegen/."""
+
+    def make() -> OpTrace:
+        rng = random.Random(seed)
+        peers = _peer_ids(rng, 3)
+        cap = n_chars + 2 * n_marks
+        sim = _FugueSim(peers, cap)
+        dead = bytearray(cap)  # deleted chars, and every anchor: invisible after a sync
+        st = {"chars": n_chars, "marks": n_marks, "epoch": 0, "n_ops": 0}
+
+        def op(i: int, p: int, ctr: int, _lam: int):
+            if i // sync_every != st["epoch"]:
+                sim.sync(bytearray(1 - x for x in dead))
+                st["epoch"] = i // sync_every
+            v = sim.views[p]
+            n_vis = v.nvis
+            r = rng.random()
+            if st["marks"] and n_vis >= 2 and (st["chars"] == 0 or r < 0.12):
+                s = rng.randrange(n_vis - 1)
+                e = rng.randint(s + 1, min(n_vis, s + 1 + rng.randint(1, 64)))
+                key = rng.choice(RICHTEXT_KEYS)
+                value = None if rng.random() < 0.3 else rng.choice(RICHTEXT_VALUES)
+                start = sim.place(p, s)
+                dead[sim.add(p, ctr, start, visible=False)] = 1
+                end = sim.after(p, *v.find(e - 1))
+                dead[sim.add(p, ctr + 1, end, visible=False)] = 1
+                st["marks"] -= 1
+                st["n_ops"] += 2
+                return [(TEXT_CID, SeqInsert(sim.id_of(start[0]), Side(start[1]), StyleAnchor(key, value, True))),
+                        (TEXT_CID, SeqInsert(sim.id_of(end[0]), Side(end[1]), StyleAnchor(key, value, False)))]
+            if n_vis > 8 and r < 0.18:
+                q = rng.randrange(n_vis - 1)
+                gone = [v.delete_at(*v.find(q)) for _ in range(min(rng.randint(1, 4), n_vis - q))]
+                for x in gone:
+                    dead[x] = 1
+                st["n_ops"] += len(gone)
+                return TEXT_CID, SeqDelete(_spans([(peers[sim.ids[x][0]], sim.ids[x][1]) for x in gone]))
+            if st["chars"]:
+                run = min(rng.randint(1, 8), st["chars"])
+                pos = rng.randint(0, n_vis)
+                text = "".join(rng.choice("abcdefgh ") for _ in range(run))
+                first = sim.place(p, pos)
+                sim.add(p, ctr, first)
+                for k in range(1, run):  # the run's right spine: each char after the last
+                    sim.add(p, ctr + k, sim.place(p, pos + k))
+                st["chars"] -= run
+                st["n_ops"] += run
+                return TEXT_CID, SeqInsert(sim.id_of(first[0]), Side(first[1]), text)
+            return []
+
+        changes, epochs = _windowed_changes(rng, peers, 1 << 62, sync_every, op, window=(16, 128),
+                                            done=lambda: not (st["chars"] or st["marks"]))
+        return OpTrace(peers, changes, epochs, st["n_ops"])
+
+    params = {"seed": seed, "n_chars": n_chars, "n_marks": n_marks, "sync_every": sync_every}
+    return _cached_trace("richtext", params, make)
+
+
+def richtext_payload(doc: OpTrace) -> bytes:
+    """The binary updates payload of the whole history."""
+    return encode_changes(doc.changes)
+
+
+def richtext_epoch_payloads(doc: OpTrace) -> List[bytes]:
+    """One binary updates payload a sync epoch, the input of a resident
+    batch's appends."""
+    return [encode_changes(g) for g in doc.epoch_changes()]
+
+
+def _seq_nodes(doc: OpTrace, cid: ContainerID, n_epochs: Optional[int]):
+    """The Fugue tree of sequence container `cid` after the first
+    n_epochs sync epochs: (ids [(peer, counter)] by node, payload by node
+    (a char, a value, a StyleAnchor or a MovableMove), lamport by node,
+    the in-order walk, deleted ids, the container's other ops as (peer,
+    lamport, content)).  Siblings sort by (peer id, counter)."""
+    ids: List[Tuple[int, int]] = []
+    node_of: Dict[Tuple[int, int], int] = {}
+    links: List[Tuple[Optional[Tuple[int, int]], int]] = []  # (parent id, side) by node
+    items: list = []
+    lams: List[int] = []
+    deleted = set()
+    other = []
+    for ch, ep in zip(doc.changes, doc.epochs):
+        if n_epochs is not None and ep >= n_epochs:
+            break
+        for op in ch.ops:
+            if op.container != cid:
+                continue
+            c = op.content
+            lam = ch.lamport + op.counter - ch.ctr_start
+            if isinstance(c, (SeqInsert, MovableMove)):  # a move makes a slot too
+                body = list(c.content) if isinstance(c, SeqInsert) and not isinstance(c.content, StyleAnchor) else [
+                    c.content if isinstance(c, SeqInsert) else c]
+                if isinstance(c.parent, _RunCont):
+                    parent = (ch.peer, op.counter - 1)
+                else:
+                    parent = None if c.parent is None else (c.parent.peer, c.parent.counter)
+                for j, x in enumerate(body):
+                    node_of[(ch.peer, op.counter + j)] = len(ids)
+                    ids.append((ch.peer, op.counter + j))
+                    links.append((parent, int(c.side)) if j == 0 else ((ch.peer, op.counter + j - 1), 1))
+                    items.append(x)
+                    lams.append(lam + j)
+            elif isinstance(c, SeqDelete):
+                deleted.update((sp.peer, k) for sp in c.spans for k in range(sp.start, sp.end))
+            else:
+                other.append((ch.peer, lam, c))
+    lch: List[Optional[list]] = [None] * len(ids)
+    rch: List[Optional[list]] = [None] * len(ids)
+    root: List[int] = []
+    for e in sorted(range(len(ids)), key=ids.__getitem__):  # siblings in (peer, counter) order
+        parent, side = links[e]
+        if parent is None:
+            root.append(e)
+            continue
+        kids = rch if side else lch
+        a = node_of[parent]
+        kids[a] = kids[a] or []
+        kids[a].append(e)
+    return ids, items, lams, _walk(root, lch, rch), deleted, other
+
+
+def oracle_richtext(doc: OpTrace, n_epochs: Optional[int] = None) -> List[dict]:
+    """The Quill-style segments [{insert, attributes?}] of the text
+    TEXT_CID after the first `n_epochs` sync epochs (default all), by a
+    host walk of the element tree in order, the JAX package's
+    TextState._iter_char_attrs / _resolve_attrs: a live start anchor
+    opens its pair under its key, a live end anchor (p, c + 1) closes
+    the open pair (p, c); each live char takes, per key, the open pair
+    of the largest (lamport, peer id), unstyled where that pair's value
+    is None; neighbouring chars of equal attributes merge."""
+    ids, items, lams, order, deleted, _ = _seq_nodes(doc, TEXT_CID, n_epochs)
+    active: Dict[str, list] = {}
+    segs: List[dict] = []
+    for e in order:
+        x = items[e]
+        peer, ctr = ids[e]
+        if (peer, ctr) in deleted:
+            continue
+        if isinstance(x, StyleAnchor):
+            if x.is_start:
+                active.setdefault(x.key, []).append((lams[e], peer, x.value, ctr))
+            else:
+                lst = active.get(x.key, [])
+                for k, ent in enumerate(lst):
+                    if ent[1] == peer and ent[3] == ctr - 1:
+                        del lst[k]
+                        break
+            continue
+        attrs = {}
+        for key, lst in active.items():
+            if lst:
+                win = max(lst, key=lambda t: (t[0], t[1]))
+                if win[2] is not None:
+                    attrs[key] = win[2]
+        if segs and segs[-1].get("attributes") == (attrs or None):
+            segs[-1]["insert"] += x
+        else:
+            segs.append({"insert": x, "attributes": attrs} if attrs else {"insert": x})
+    return segs
+
+
+def movable_doc(seed: int, n_elems: int = 4_096, n_moves: int = 2_048, n_sets: int = 1_024, n_deletes: int = 512,
+                sync_every: int = MOVABLE_SYNC_EVERY) -> OpTrace:
+    """A 4-peer MovableList history on the root list MOVABLE_CID: inserts
+    of 1-4 values creating n_elems elements, n_moves moves, n_sets sets
+    and n_deletes single-element deletes, drawn in proportion to what is
+    left of each (inserts weighted by their mean run), in windows of
+    16-128 draws a peer and a full sync every `sync_every` draws.  Each
+    peer edits its own view, as the JAX MovableListHandler does: an
+    insert or a move's new slot goes by the Fugue rule for its visible
+    position, a delete tombstones the element's visible slot, a set
+    names the element.  Half the moves, sets and deletes take one of the
+    first _HOT positions, so peers move one element concurrently (the
+    winning slot's LWW decides) and move an element another peer deletes
+    (the move revives it).  Values are the map trace's tags."""
+
+    def make() -> OpTrace:
+        rng = random.Random(seed)
+        peers = _peer_ids(rng, 4)
+        cap = n_elems + n_moves
+        sim = _FugueSim(peers, cap)
+        elem_of: List[int] = []  # slot -> its element (the creating slot)
+        slot_key: List[Tuple[int, int]] = []  # slot -> (lamport, peer id)
+        win: Dict[int, int] = {}  # element -> winning slot, every op so far
+        tomb = bytearray(cap)
+        left = {"elems": n_elems, "moves": n_moves, "sets": n_sets, "deletes": n_deletes}
+        st = {"epoch": 0}
+
+        def new_slot(p: int, ctr: int, lam: int, where, elem: Optional[int]) -> int:
+            slot = sim.add(p, ctr, where)
+            elem = slot if elem is None else elem
+            elem_of.append(elem)
+            slot_key.append((lam, peers[p]))
+            if elem not in win or slot_key[slot] > slot_key[win[elem]]:
+                win[elem] = slot
+            return slot
+
+        def pick(n_vis: int) -> int:
+            return rng.randrange(min(n_vis, _HOT)) if rng.random() < 0.5 else rng.randrange(n_vis)
+
+        def op(i: int, p: int, ctr: int, lam: int):
+            if i // sync_every != st["epoch"]:
+                sim.sync(bytearray(int(win[elem_of[x]] == x and not tomb[x]) for x in range(len(elem_of)))
+                             + bytearray(cap - len(elem_of)))
+                st["epoch"] = i // sync_every
+            v = sim.views[p]
+            n_vis = v.nvis
+            weights = [left["elems"] / 2.5, left["moves"] if n_vis >= 2 else 0,
+                       left["sets"] if n_vis else 0, left["deletes"] if n_vis else 0]
+            if not sum(weights):
+                return []
+            u = rng.random() * sum(weights)
+            kind = max(k for k, w in enumerate(weights) if w)  # rounding past the sum
+            for k, acc in enumerate(np.cumsum(weights).tolist()):
+                if u < acc and weights[k]:
+                    kind = k
+                    break
+            if kind == 0:
+                run = min(rng.randint(1, 4), left["elems"])
+                pos = rng.randint(0, n_vis)
+                values = tuple(_random_value(rng) for _ in range(run))
+                first = sim.place(p, pos)
+                new_slot(p, ctr, lam, first, None)
+                for k in range(1, run):  # the run's right spine
+                    new_slot(p, ctr + k, lam + k, sim.place(p, pos + k), None)
+                left["elems"] -= run
+                return MOVABLE_CID, SeqInsert(sim.id_of(first[0]), Side(first[1]), values)
+            a = pick(n_vis)
+            bi, j = v.find(a)
+            slot = v.blocks[bi][j]
+            eid = sim.id_of(elem_of[slot])
+            if kind == 2:
+                left["sets"] -= 1
+                return MOVABLE_CID, MovableSet(eid, _random_value(rng))
+            if kind == 3:
+                tomb[v.delete_at(bi, j)] = 1
+                left["deletes"] -= 1
+                return MOVABLE_CID, SeqDelete(_spans([(peers[sim.ids[slot][0]], sim.ids[slot][1])]))
+            b = rng.randrange(n_vis - 1)
+            b += b >= a  # a target position other than a
+            where = sim.place(p, b if b < a else b + 1)  # placed as if the element stayed
+            new_slot(p, ctr, lam, where, elem_of[slot])
+            v.delete_at(*v.find(a + (b < a)))  # the old slot stops showing the element
+            left["moves"] -= 1
+            return MOVABLE_CID, MovableMove(eid, sim.id_of(where[0]), Side(where[1]))
+
+        changes, epochs = _windowed_changes(rng, peers, 1 << 62, sync_every, op, window=(16, 128),
+                                            done=lambda: not any(left.values()))
+        return OpTrace(peers, changes, epochs, n_elems + n_moves + n_sets + n_deletes)
+
+    params = {"seed": seed, "n_elems": n_elems, "n_moves": n_moves, "n_sets": n_sets, "n_deletes": n_deletes,
+              "sync_every": sync_every}
+    return _cached_trace("movable", params, make)
+
+
+def movable_payload(doc: OpTrace) -> bytes:
+    """The binary updates payload of the whole history."""
+    return encode_changes(doc.changes)
+
+
+def oracle_movable(doc: OpTrace, n_epochs: Optional[int] = None) -> list:
+    """The values of the list MOVABLE_CID after the first `n_epochs` sync
+    epochs (default all), by a host walk: the slots (inserted elements
+    and move destinations) in Fugue order; per element its winning slot,
+    the one of the largest (lamport, peer id), and its winning value, the
+    set (creation values included) of the largest (lamport, peer id); a
+    slot shows its element iff it is the winner and not tombstoned."""
+    ids, items, lams, order, deleted, other = _seq_nodes(doc, MOVABLE_CID, n_epochs)
+    elem_of: List[Tuple[int, int]] = []
+    best_slot: Dict[Tuple[int, int], Tuple[Tuple[int, int], int]] = {}
+    best_value: Dict[Tuple[int, int], Tuple[Tuple[int, int], object]] = {}
+    for e, (peer, ctr) in enumerate(ids):
+        x = items[e]
+        elem = (x.elem.peer, x.elem.counter) if isinstance(x, MovableMove) else (peer, ctr)
+        elem_of.append(elem)
+        k = (lams[e], peer)
+        if elem not in best_slot or k > best_slot[elem][0]:
+            best_slot[elem] = (k, e)
+        if not isinstance(x, MovableMove) and (elem not in best_value or k > best_value[elem][0]):
+            best_value[elem] = (k, x)
+    for peer, lam, c in other:
+        if isinstance(c, MovableSet):
+            elem = (c.elem.peer, c.elem.counter)
+            if elem not in best_value or (lam, peer) > best_value[elem][0]:
+                best_value[elem] = ((lam, peer), c.value)
+    return [best_value[elem_of[e]][1] for e in order
+            if best_slot[elem_of[e]][1] == e and ids[e] not in deleted]

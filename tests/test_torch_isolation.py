@@ -16,7 +16,7 @@ PKG = REPO / "loro_tpu_torch"
 
 _BLOCKED_IMPORT = textwrap.dedent(
     """
-    import importlib, pkgutil, sys
+    import importlib, pathlib, pkgutil, sys
 
     class Block:
         def find_spec(self, name, path=None, target=None):
@@ -148,6 +148,25 @@ _BLOCKED_IMPORT = textwrap.dedent(
     assert tbatch.parent_maps() == [w[0] for w in want] and tbatch.children_maps() == [w[1] for w in want]
     assert DeviceTreeBatch.import_state(tbatch.export_state(), device="cpu").parent_maps() == [w[0] for w in want]
 
+    # rich text: one-shot from change lists, resident from epoch payloads,
+    # and the one-shot MovableList merge from payloads and change lists,
+    # against the trace oracles
+    tracegen.CACHE_DIR = pathlib.Path(sys.argv[1])  # the test's own directory, not the shared cache
+    rdocs = [tracegen.richtext_doc(s, n_chars=600, n_marks=40, sync_every=100) for s in range(2)]
+    want = [tracegen.oracle_richtext(d) for d in rdocs]
+    assert fleet.merge_richtext_changes([d.changes for d in rdocs], tracegen.TEXT_CID, pad_docs=4) == want
+    reps = [tracegen.richtext_epoch_payloads(d) for d in rdocs]
+    rbatch = DeviceDocBatch(2, 64, device="cpu", auto_grow=True)
+    for e in range(max(map(len, reps))):
+        rbatch.append_payloads([ep[e] if e < len(ep) else None for ep in reps], tracegen.TEXT_CID)
+    assert rbatch.richtexts() == want and any("attributes" in seg for segs in want for seg in segs)
+    vdocs = [tracegen.movable_doc(s, n_elems=200, n_moves=100, n_sets=50, n_deletes=30, sync_every=80)
+             for s in range(2)]
+    want = [tracegen.oracle_movable(d) for d in vdocs]
+    assert fleet.merge_movable_payloads([tracegen.movable_payload(d) for d in vdocs], tracegen.MOVABLE_CID) == want
+    assert fleet.merge_movable_changes([d.changes for d in vdocs], tracegen.MOVABLE_CID) == want
+    assert FLEET_FALLBACKS["payload_extract"] == 0
+
     # the port's entry point
     from loro_tpu_torch.entry import entry
 
@@ -161,9 +180,9 @@ _BLOCKED_IMPORT = textwrap.dedent(
 )
 
 
-def test_imports_with_jax_and_loro_tpu_blocked():
+def test_imports_with_jax_and_loro_tpu_blocked(tmp_path):
     res = subprocess.run(
-        [sys.executable, "-c", _BLOCKED_IMPORT], cwd=REPO, capture_output=True, text=True, timeout=240
+        [sys.executable, "-c", _BLOCKED_IMPORT, str(tmp_path)], cwd=REPO, capture_output=True, text=True, timeout=240
     )
     assert res.returncode == 0, res.stdout + res.stderr
     assert res.stdout.strip().startswith("OK")
@@ -183,7 +202,7 @@ def test_source_scan_finds_no_jax_or_loro_tpu_import():
     assert len(files) > 5
     for name in ("parallel/fleet.py", "core/change.py", "core/version.py", "core/ids.py", "storage/kv.py",
                  "parallel/order_maintenance.py", "parallel/idmap.py", "native/__init__.py", "ops/lww.py",
-                 "ops/tree_batch.py"):
+                 "ops/tree_batch.py", "ops/richtext_batch.py", "ops/movable_batch.py"):
         assert PKG / name in files, name
     for sub in ("codec", "core", "native", "ops", "parallel", "storage"):
         assert any(f.parent == PKG / sub for f in files), sub
@@ -235,6 +254,15 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
     fn, _ = entry()
     i32 = torch.zeros((1, 4), dtype=torch.int32)
     map_cols = lww.MapOpCols(i32, i32, i32, i32, torch.ones((1, 4), dtype=torch.bool))
+    from loro_tpu_torch.ops import movable_batch, richtext_batch
+
+    p_i32, p_ok = np.zeros((1, 2), np.int32), np.ones((1, 2), bool)
+    pair_cols = (p_i32, p_i32 + 1, p_i32, p_i32, p_i32, p_i32, p_ok)
+    rt_cols = richtext_batch.RichtextCols(np_seq, *pair_cols)
+    rt_chain = richtext_batch.RichtextChainCols(np_cols, *pair_cols)
+    rt_pairs = richtext_batch.RichtextPairs(*pair_cols)
+    mv_cols = movable_batch.MovableCols(np_seq._replace(content=np_seq.content % 4), np_seq.counter, *pair_cols[:4],
+                                        p_ok)
     calls = [
         lambda: resolve_device(),
         lambda: list_rank.wyllie_rank(np.arange(4, dtype=np.int32)),
@@ -270,6 +298,11 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
         lambda: DeviceCounterBatch.import_state(DeviceCounterBatch(1, 4, device="cpu").export_state()),
         lambda: DeviceTreeBatch(1, 16, 4),
         lambda: DeviceTreeBatch.import_state(DeviceTreeBatch(1, 16, 4, device="cpu").export_state()),
+        lambda: richtext_batch.richtext_merge_batch(rt_cols, 4),
+        lambda: richtext_batch.richtext_chain_merge_batch(rt_chain, 4),
+        lambda: richtext_batch.richtext_by_key_batch(seq_u, u32, u32, rt_pairs, 4),
+        lambda: movable_batch.movable_merge_batch(mv_cols, 4),
+        lambda: movable_batch.movable_by_key_batch(np_seq.valid, np_seq.deleted, u32, u32, i32, i32, i32),
     ]
     for call in calls:
         with pytest.raises(DeviceUnavailable):
@@ -288,3 +321,7 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
     assert parents.tolist() == [[tree_batch.ABSENT]] and not eff.any()  # node 0 under itself: rejected
     parents, eff = tree_batch.tree_merge_batch(tree_batch.TreeOpCols(i32, i32 + tree_batch.ROOT, map_cols.valid), 1)
     assert parents.tolist() == [[tree_batch.ROOT]] and eff.all()
+    # the richtext and movable merges run when the CPU is asked for
+    codes, counts, bounds, win = richtext_batch.richtext_chain_merge_batch(rt_chain, 4, device="cpu")
+    assert int(counts[0]) == 4 and win.shape == (1, 5, 4)
+    assert int(movable_batch.movable_merge_batch(mv_cols, 4, device="cpu")[1][0]) > 0

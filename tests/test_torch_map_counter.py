@@ -131,7 +131,10 @@ def test_lww_update_resident_matches_jax(seed):
     rng = np.random.default_rng(seed)
     d, s, m = 4, 11, 64
     state = _resident(rng, d, s)
-    jres = jlww.LwwResident(*[np.asarray(a) for a in state])
+    # JAX gets copies: the port's int32 winners share memory with `state`
+    # and are written in place, while the CPU JAX call may still read its
+    # zero-copy inputs
+    jres = jlww.LwwResident(*[np.array(a) for a in state])
     pres = plww.LwwResident(*map(_t, state))
     for _ in range(4):
         slot, lam, _peer, val, valid = _map_cols(rng, d, m, s)
