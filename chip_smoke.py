@@ -17,8 +17,9 @@ checks it, end to end:
    slice; then runs tests/test_torch_list_rank_cuda.py,
    tests/test_torch_fleet_cuda.py, tests/test_torch_resident_cuda.py,
    tests/test_torch_map_counter_cuda.py, tests/test_torch_tree_cuda.py,
-   tests/test_torch_richtext_cuda.py and tests/test_torch_movable_cuda.py
-   (pytest -m cuda) as a subprocess;
+   tests/test_torch_richtext_cuda.py, tests/test_torch_movable_cuda.py,
+   tests/test_torch_movable_resident_cuda.py and
+   tests/test_torch_export_cuda.py (pytest -m cuda) as a subprocess;
 4. main paths, each with launch counts reset before and read after:
    a. chain merge: a full-size 8-doc chunk of automerge-perf-shaped
       documents (tracegen), chain-contracted, merged with
@@ -77,8 +78,8 @@ checks it, end to end:
       memory, and two card folds of tenths compared bit for bit; the
       native map explode held against the Python extract on the 8
       traces; DeviceMapBatch (1,024 docs from 1,024 slots, grown to
-      4,096 in round 1, 3 of the traces' 16 sync epochs, checkpointed
-      after round 2) and DeviceCounterBatch (1,024 docs from 64 slots,
+      4,096 in round 1, 2 of the traces' 16 sync epochs, checkpointed
+      after round 1) and DeviceCounterBatch (1,024 docs from 64 slots,
       grown once, 8 epochs, checkpointed after round 4) fed one epoch a
       round, checked against the oracles' prefixes, the restored batches
       fed the rest to equal state bytes, each round timed and split,
@@ -109,7 +110,7 @@ checks it, end to end:
       loads at a shared-memory load latency measured on the card) and
       its bytes bound;
    h. rich text (its order solves launch the list-rank kernels):
-      Fleet.merge_richtext_changes on 512 change lists cycled over 8
+      Fleet.merge_richtext_changes on 256 change lists cycled over 8
       tracegen.richtext_doc traces (3 peers, 12,288 chars and 768 marks,
       bench_richtext's shape), every doc's segments checked against
       oracle_richtext, the wall split by stage, device busy and peak
@@ -120,16 +121,29 @@ checks it, end to end:
       sync epoch a round, richtexts() checked against the oracle's prefix
       at a mid round and at the end, and texts(use_solver=True) against
       its text;
-   i. MovableList (one-shot): Fleet.merge_movable_payloads on 1,024
+   i. MovableList: Fleet.merge_movable_payloads on 1,024
       tracegen.movable_payload payloads cycled over 8 traces (4 peers,
       4,096 elements, 2,048 moves, 1,024 sets, 512 deletes; [1,024,
       8,192] slots), every doc checked against oracle_movable, no payload
       fallen back, the wall split by stage, device busy and peak memory,
-      and merge_movable_changes on the decoded change lists; then
-      bench_movable's random columns at [256, 8,192] (ops merged/s by
-      its definition), every doc equal to the CPU merge of one;
+      and merge_movable_changes on the first 256 decoded change lists;
+      then bench_movable's random columns at [256, 8,192] (ops merged/s
+      by its definition), every doc equal to the CPU merge of one; then
+      the resident DeviceMovableBatch(256, 8,192, 4,096, auto_grow) fed
+      the traces' sync epochs one a round through append_payloads,
+      value_lists() checked against oracle_movable of the prefix at the
+      middle and the last round, checkpointed after the middle round and
+      the restored batch fed the rest to equal bytes, no fallback, each
+      round split by stage (no list-rank kernel, checked);
       in h and i each list-rank launch's rings are rebuilt and the
       route's kernel held bit for bit against its plain version on them;
+   j. the read plane (torch sorts and gathers; no list-rank kernel,
+      checked): an ExportIndex over 1,024 docs fed the 40,000-patch text
+      traces' epochs, 16 windows of 256 pull requests (VVs at epoch ends,
+      straddling, empty, naming an absent peer), every selection checked
+      against tracegen.oracle_export, a commit round to 64 docs between
+      windows (the dirty-doc delta upload), and export_select on each of
+      the five resident batch kinds;
 5. timings (CUDA events, warm-up then median; a kernel's ms is 20
    back-to-back calls of its wrapper replayed from a CUDA graph, and
    beside it eager_ms, the same 20 calls eager): merge ms per chunk and
@@ -149,9 +163,9 @@ Prints one {"kernels": [...]} line and ends with the line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}.
 Any failed check raises, so the script exits non-zero.  Usage:
     python3 chip_smoke.py                          # the whole run, the verification
-    python3 chip_smoke.py --phase 4h [--phase 4i]  # build, card tests, those phases
---phase takes 4f, 4g, 4h or 4i (the phases that stand alone); such a run
-prints its phases' results and no kernels line.
+    python3 chip_smoke.py --phase 4i [--phase 4j]  # build, card tests, those phases
+--phase takes 4f, 4g, 4h, 4i or 4j (the phases that stand alone); such a
+run prints its phases' results and no kernels line.
 """
 from __future__ import annotations
 
@@ -196,12 +210,13 @@ RES_DOC_EPOCHS, RES_DOC_CAP, RES_DOC_C_PAD, RES_CKPT_ROUND, RES_CHECK_EVERY = 65
 # JAX bench's map shape; counters: COUNTER_INCR increments on
 # COUNTER_ITEMS counters), and the resident batches fed one sync epoch a
 # round from the server's default slot capacities (MAP_RES_CAP,
-# COUNTER_CAP), the map batch for MAP_RES_ROUNDS rounds with a checkpoint
-# after MAP_RES_CKPT, the counter batch for all its epochs with a
+# COUNTER_CAP), the map batch for MAP_RES_ROUNDS rounds (cut from 3 to
+# 2 to fit the time limit) with a checkpoint after MAP_RES_CKPT, the
+# counter batch for all its epochs with a
 # checkpoint after COUNTER_CKPT
 MAP_DOCS, MAP_DISTINCT, MAP_OPS, MAP_KEYS = 1024, 8, 65_536, 4_096
 COUNTER_INCR, COUNTER_ITEMS = 4_096, 96
-MAP_RES_CAP, MAP_RES_ROUNDS, MAP_RES_CKPT = 1024, 3, 2
+MAP_RES_CAP, MAP_RES_ROUNDS, MAP_RES_CKPT = 1024, 2, 1
 COUNTER_CAP, COUNTER_CKPT = 64, 4
 # the tree phase: one-shot merges of TREE_DOCS payloads cycled over
 # TREE_DISTINCT tracegen.tree_doc traces (TREE_MOVES moves on TREE_NODES
@@ -215,18 +230,29 @@ TREE_DOCS, TREE_DISTINCT, TREE_MOVES, TREE_NODES, TREE_BIG_DOCS = 1024, 8, 2048,
 TREE_RES_CAP, TREE_RES_NODES, TREE_CKPT = 4096, 1024, 2
 TREE_DEEP_DOCS, TREE_DEEP_MOVES, TREE_DEEP_NODES, TREE_DEEP_SYNC = 8, 16_384, 2048, 2048
 TREE_DEEP_PLAIN_ROWS = 4096  # the deep log's rows held against the plain version
-# the rich-text phase: one-shot merges of RT_DOCS change lists cycled over
-# RT_DISTINCT tracegen.richtext_doc traces (bench_richtext's BENCH_RT_DOCS
-# and BENCH_RT_DISTINCT), the device call on RT_CHUNKS chunks of RT_CHUNK
-# docs at bench_richtext's pads, and DeviceDocBatch(RT_DOCS, RT_RES_CAP)
-# fed one sync epoch a round
+# the rich-text phase: one-shot merges of RT_ONESHOT_DOCS change lists
+# cycled over RT_DISTINCT tracegen.richtext_doc traces (bench_richtext's
+# BENCH_RT_DISTINCT; its BENCH_RT_DOCS, RT_DOCS, cut to 256 to fit the
+# time limit), the device call on RT_CHUNKS chunks of RT_CHUNK docs at
+# bench_richtext's pads, and DeviceDocBatch(RT_DOCS, RT_RES_CAP) fed one
+# sync epoch a round
 RT_DOCS, RT_DISTINCT, RT_CHUNK, RT_CHUNKS, RT_RES_CAP = 512, 8, 16, 32, 16_384
+RT_ONESHOT_DOCS = 256
 # the movable-list phase: one-shot merges of MV_DOCS payloads cycled over
-# MV_DISTINCT tracegen.movable_doc traces, and bench_movable's random
-# columns at [MV_BENCH_DOCS, MV_BENCH_SLOTS]
-MV_DOCS, MV_DISTINCT, MV_BENCH_DOCS, MV_BENCH_SLOTS = 1024, 8, 256, 8192
+# MV_DISTINCT tracegen.movable_doc traces (merge_movable_changes on the
+# first MV_CHANGES_DOCS of them, cut from 1,024 to fit the time limit),
+# bench_movable's random columns at [MV_BENCH_DOCS, MV_BENCH_SLOTS], and
+# DeviceMovableBatch(MV_RES_DOCS, MV_RES_CAP, MV_RES_ELEMS, auto_grow) fed
+# one sync epoch of the traces a round, checkpointed after the middle round
+MV_DOCS, MV_DISTINCT, MV_BENCH_DOCS, MV_BENCH_SLOTS, MV_CHANGES_DOCS = 1024, 8, 256, 8192, 256
+MV_RES_DOCS, MV_RES_CAP, MV_RES_ELEMS = 256, 8192, 4096
+# the read-plane phase: an ExportIndex over RP_DOCS docs cycled over the
+# element path's 40,000-patch text traces, fed epoch by epoch, then
+# RP_WINDOWS windows of RP_WINDOW requests (ReadBatcher's max_window), a
+# commit round to RP_COMMIT_DOCS docs between windows
+RP_DOCS, RP_WINDOWS, RP_WINDOW, RP_COMMIT_DOCS = 1024, 16, 256, 64
 # phases `--phase` runs alone (after the build and the card tests)
-SELECTABLE = ("4f", "4g", "4h", "4i")
+SELECTABLE = ("4f", "4g", "4h", "4i", "4j")
 
 
 def check(cond: bool, what: str) -> None:
@@ -1285,9 +1311,9 @@ def launched_since(list_rank, before: dict) -> dict:
 
 
 def richtext_phase(torch, dev, kind: str, card: str) -> dict:
-    """Phase 4h, rich text: (a) Fleet.merge_richtext_changes on RT_DOCS
-    change lists cycled over RT_DISTINCT tracegen.richtext_doc traces
-    (bench_richtext's BENCH_RT_DOCS), every doc checked against
+    """Phase 4h, rich text: (a) Fleet.merge_richtext_changes on
+    RT_ONESHOT_DOCS change lists cycled over RT_DISTINCT
+    tracegen.richtext_doc traces, every doc checked against
     oracle_richtext, the wall split by stage (extract, stack and pad,
     upload and device, fetch, segments, the host stages timed inside the
     call), upload, device and fetch also timed alone on the call's batch,
@@ -1327,8 +1353,8 @@ def richtext_phase(torch, dev, kind: str, card: str) -> dict:
     fl = Fleet(device=dev)
     list_rank.reset_launches()
 
-    # (a) one-shot fleet, BENCH_RT_DOCS change lists
-    lists = [docs[j % RT_DISTINCT].changes for j in range(RT_DOCS)]
+    # (a) one-shot fleet, RT_ONESHOT_DOCS change lists
+    lists = [docs[j % RT_DISTINCT].changes for j in range(RT_ONESHOT_DOCS)]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     with stage_timer(torch, fleet_mod, ("extract_richtext_chain", "_stack_richtext", "richtext_chain_merge_batch",
@@ -1341,7 +1367,7 @@ def richtext_phase(torch, dev, kind: str, card: str) -> dict:
     for j, g in enumerate(got):
         check(g == want[j % RT_DISTINCT], f"richtext one-shot: doc {j} != oracle_richtext")
     with uncounted(list_rank):
-        hb, n_keys = fleet_mod._stack_richtext([ex8[j % RT_DISTINCT] for j in range(RT_DOCS)])
+        hb, n_keys = fleet_mod._stack_richtext([ex8[j % RT_DISTINCT] for j in range(RT_ONESHOT_DOCS)])
         t0 = time.perf_counter()
         dcols = fugue_batch._on(hb, dev)
         torch.cuda.synchronize()
@@ -1357,12 +1383,12 @@ def richtext_phase(torch, dev, kind: str, card: str) -> dict:
     ring, _ = fugue_batch._ring_and_anchors(dcols.chain.c_parent, dcols.chain.c_side, dcols.chain.c_valid)
     out["kernel_checks"]["oneshot"] = kernel_check(torch, dev, list_rank, ring, "richtext one-shot", errs)
     staged = [rb.segments_from_device(*(o[i] for o in fetched), k, v) for i, (_, k, v) in
-              enumerate(ex8[j % RT_DISTINCT] for j in range(RT_DOCS))]
+              enumerate(ex8[j % RT_DISTINCT] for j in range(RT_ONESHOT_DOCS))]
     check(staged == got, "richtext one-shot: the staged merge != the call")
-    ops = sum(docs[j % RT_DISTINCT].n_ops for j in range(RT_DOCS))
+    ops = sum(docs[j % RT_DISTINCT].n_ops for j in range(RT_ONESHOT_DOCS))
     shape = [int(x) for x in (hb.chain.chain_id.shape[1], hb.chain.c_parent.shape[1], hb.pair_start.shape[1])]
     out["oneshot"] = {
-        "docs": RT_DOCS, "n_c_p": shape, "n_keys": n_keys, "ops": ops, "wall_ms": wall,
+        "docs": RT_ONESHOT_DOCS, "n_c_p": shape, "n_keys": n_keys, "ops": ops, "wall_ms": wall,
         "split_ms": {"extract": st["extract_richtext_chain"], "stack_pad": st["_stack_richtext"],
                      "upload_device": st["richtext_chain_merge_batch"], "segments": st["segments_from_device"],
                      "fetch_rest": wall - sum(st.values())},
@@ -1374,7 +1400,7 @@ def richtext_phase(torch, dev, kind: str, card: str) -> dict:
         "launches": {k: v for k, v in oneshot_launches.items() if v},
     }
     r = out["oneshot"]
-    print(f"richtext one-shot on {kind} ({card}): merge_richtext_changes of {RT_DOCS} docs ({RT_DISTINCT} distinct, "
+    print(f"richtext one-shot on {kind} ({card}): merge_richtext_changes of {RT_ONESHOT_DOCS} docs ({RT_DISTINCT} distinct, "
           f"(N, C, P) = {tuple(shape)}, {ops} ops) in {wall:.1f} ms = {r['ops_per_s'] / 1e6:.3f}M ops/s; split: "
           + ", ".join(f"{k} {v:.1f}" for k, v in r["split_ms"].items())
           + f" ms; alone: upload {upload_ms:.2f} ms ({r['upload_bytes']} B), device {merge_ms:.3f} ms, fetch "
@@ -1518,7 +1544,7 @@ def richtext_phase(torch, dev, kind: str, card: str) -> dict:
 
 
 def movable_phase(torch, dev, kind: str, card: str) -> dict:
-    """Phase 4i, the one-shot MovableList merge: (a)
+    """Phase 4i, the MovableList merge: (a)
     Fleet.merge_movable_payloads on MV_DOCS tracegen.movable_payload
     payloads cycled over MV_DISTINCT traces ([1,024, 8,192] slots), every
     doc checked against oracle_movable and no payload fallen back, the
@@ -1527,10 +1553,11 @@ def movable_phase(torch, dev, kind: str, card: str) -> dict:
     merge_movable_changes on the decoded change lists, checked the same;
     (b) bench_movable's random columns (bench.py:437-473) at
     [MV_BENCH_DOCS, MV_BENCH_SLOTS], slots merged/s by its definition,
-    every doc equal to the plain merge of one.  Each part's list-rank
-    kernel is held bit for bit against its plain version on the rings it
-    ranked; the main path's launches are counted over (a)'s two calls
-    and (b)'s timed calls."""
+    every doc equal to the plain merge of one; (c) the resident batch
+    (movable_resident), which launches no list-rank kernel (checked).
+    Each part's list-rank kernel is held bit for bit against its plain
+    version on the rings it ranked; the main path's launches are counted
+    over (a)'s two calls, (b)'s timed calls and (c)."""
     import numpy as np
 
     from loro_tpu_torch import tracegen
@@ -1571,9 +1598,9 @@ def movable_phase(torch, dev, kind: str, card: str) -> dict:
     changes = [decode_changes(p) for p in payloads]
     decode_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    got_c = fl.merge_movable_changes([changes[j % MV_DISTINCT] for j in range(MV_DOCS)], cid)
+    got_c = fl.merge_movable_changes([changes[j % MV_DISTINCT] for j in range(MV_CHANGES_DOCS)], cid)
     changes_wall = (time.perf_counter() - t0) * 1e3
-    check(got_c == got, "movable one-shot: merge_movable_changes != merge_movable_payloads")
+    check(got_c == got[:MV_CHANGES_DOCS], "movable one-shot: merge_movable_changes != merge_movable_payloads")
     oneshot_launches = dict(list_rank.LAUNCHES)
     with uncounted(list_rank):
         ex8 = [mb.extract_movable_from_payload(p, cid) for p in payloads]
@@ -1606,7 +1633,7 @@ def movable_phase(torch, dev, kind: str, card: str) -> dict:
         "slots_per_s": slots / (wall / 1e3), "fallbacks": fallbacks, "device_busy_ms": busy_ms,
         "device_busy_wall_ms": busy_wall_ms, "device_busy_share": busy_ms / wall,
         "device_busy_top": [[ms, name[:80], cnt] for ms, name, cnt in busy_top], "peak_device_bytes": peak,
-        "changes_wall_ms": changes_wall, "decode_changes_s": decode_s,
+        "changes_docs": MV_CHANGES_DOCS, "changes_wall_ms": changes_wall, "decode_changes_s": decode_s,
         "launches": {k: v for k, v in oneshot_launches.items() if v},
     }
     r = out["oneshot"]
@@ -1615,7 +1642,8 @@ def movable_phase(torch, dev, kind: str, card: str) -> dict:
           f"{r['slots_per_s'] / 1e6:.3f}M slots/s; split: " + ", ".join(f"{k} {v:.1f}" for k, v in r["split_ms"].items())
           + f" ms; alone: upload {upload_ms:.2f} ms ({r['upload_bytes']} B), device {merge_ms:.3f} ms, fetch "
           f"{fetch_ms:.2f} ms; device busy {busy_ms:.3f} ms = {100 * r['device_busy_share']:.3f} % of the call; peak "
-          f"{peak / 2**30:.3f} GiB; 0 fallbacks; merge_movable_changes {changes_wall:.1f} ms (decode_changes of the "
+          f"{peak / 2**30:.3f} GiB; 0 fallbacks; merge_movable_changes of the first {MV_CHANGES_DOCS} {changes_wall:.1f} ms "
+          f"(decode_changes of the "
           f"{MV_DISTINCT} payloads {decode_s:.2f} s); launches {r['launches']}; every doc == oracle_movable; kernel "
           f"check {out['kernel_checks']['oneshot']}", flush=True)
     del dcols, res, ring
@@ -1666,11 +1694,256 @@ def movable_phase(torch, dev, kind: str, card: str) -> dict:
           f"{call_ms:.3f} ms by events = {b['call_ops_per_s'] / 1e9:.3f}G; launches {bench_launches}; every doc == the "
           f"CPU merge; kernel check {out['kernel_checks']['bench']}", flush=True)
     del bcols, res, ring
+
+    # (c) resident: DeviceMovableBatch fed one sync epoch a round (no
+    # list-rank kernel: its read is one sort by the standing keys)
+    before = dict(list_rank.LAUNCHES)
+    out["resident"] = movable_resident(torch, dev, kind, card, docs)
+    out["resident"]["launches"] = launched_since(list_rank, before)
+    check(not out["resident"]["launches"], f"the resident movable batch launched {out['resident']['launches']}")
     out["launches"] = {k: v for k, v in list_rank.LAUNCHES.items() if v}
     check(sum(out["launches"].values()) > 0, "phase 4i launched no list-rank kernel")
     out["seconds"] = time.perf_counter() - t_phase
     print(f"phase 4i: {out['seconds']:.1f} s (traces {out['gen_s']:.1f} s); main-path launches {out['launches']}",
           flush=True)
+    return out
+
+
+def movable_resident(torch, dev, kind: str, card: str, docs) -> dict:
+    """Phase 4i (c), the resident MovableList batch: a
+    DeviceMovableBatch(MV_RES_DOCS, MV_RES_CAP, MV_RES_ELEMS, auto_grow)
+    fed one tracegen.movable_epoch_payloads epoch of `docs` (cycled over
+    the batch) a round through append_payloads, each round timed by the
+    host clock ending on a device sync and split by the batch's
+    stage_ms(), the last round under the profiler (device busy); every
+    doc's value_lists() checked against oracle_movable of the prefix
+    after the middle and the last round; checkpointed after the middle
+    round, the restored batch fed the rest to equal bytes; no payload
+    fallen back."""
+    from loro_tpu_torch import tracegen
+    from loro_tpu_torch.parallel import fleet as fleet_mod
+    from loro_tpu_torch.parallel.fleet import DeviceMovableBatch
+
+    cid = tracegen.MOVABLE_CID
+    nd = len(docs)
+    eps = [tracegen.movable_epoch_payloads(d) for d in docs]
+    n_ep = max(map(len, eps))
+    mid = n_ep // 2
+    # ops a round: an inserted element, a move, a set and a delete op one each
+    ops_of = [[sum(op.atom_len() for ch in g for op in ch.ops) for g in d.epoch_changes()] for d in docs]
+    fallbacks0 = fleet_mod.FLEET_FALLBACKS["payload_decode"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    b = DeviceMovableBatch(MV_RES_DOCS, MV_RES_CAP, MV_RES_ELEMS, device=dev, auto_grow=True)
+    rounds, reads, restored, ckpt = [], {}, None, {}
+    for e in range(n_ep):
+        pls = [eps[j % nd][e] if e < len(eps[j % nd]) else None for j in range(MV_RES_DOCS)]
+        caps = (b.seq.cap, b.e_cap)
+        prof = {}
+        if e + 1 == n_ep:
+            busy, wall, rows_ = device_breakdown(torch, lambda: b.append_payloads(pls, cid), calls=1, warm=False,
+                                                 top=None)
+            prof = {"device_busy_ms": busy if rows_ else None,
+                    "device_busy_top": [[ms, name[:80], cnt] for ms, name, cnt in rows_[:6]]}
+        else:
+            t0 = time.perf_counter()
+            b.append_payloads(pls, cid)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        stages = b.stage_ms()
+        if restored is not None:
+            restored.append_payloads(pls, cid)
+        n_ops = sum(ops_of[j % nd][e] for j in range(MV_RES_DOCS) if e < len(ops_of[j % nd]))
+        rounds.append({"wall_ms": wall, "ops": n_ops, "ops_per_s": n_ops / (wall / 1e3), "stage_ms": stages,
+                       "grew": (caps, (b.seq.cap, b.e_cap)) if caps != (b.seq.cap, b.e_cap) else None, **prof})
+        if e + 1 in (mid, n_ep):
+            want = [tracegen.oracle_movable(d, e + 1) for d in docs]
+            t0 = time.perf_counter()
+            got = b.value_lists()
+            reads[e + 1] = (time.perf_counter() - t0) * 1e3
+            for j, g in enumerate(got):
+                check(g == want[j % nd], f"resident movable round {e + 1}: doc {j} != oracle_movable of the prefix")
+            del got
+        if e + 1 == mid:
+            t0 = time.perf_counter()
+            blob = b.export_state()
+            t1 = time.perf_counter()
+            restored = DeviceMovableBatch.import_state(blob, device=dev)
+            t2 = time.perf_counter()
+            ckpt = {"round": e + 1, "bytes": len(blob), "export_ms": (t1 - t0) * 1e3, "import_ms": (t2 - t1) * 1e3}
+            del blob
+    t0 = time.perf_counter()
+    blob = b.export_state()
+    final = {"bytes": len(blob), "export_ms": (time.perf_counter() - t0) * 1e3}
+    check(restored is not None and restored.export_state() == blob,
+          f"the restored movable batch fed rounds {mid + 1}-{n_ep} exports other bytes")
+    fallbacks = fleet_mod.FLEET_FALLBACKS["payload_decode"] - fallbacks0
+    check(fallbacks == 0, f"resident movable: {fallbacks} payloads fell back to the Python walk")
+    del restored, blob
+    grew = [(i + 1, *r_["grew"]) for i, r_ in enumerate(rounds) if r_["grew"]]
+    res = {"docs": MV_RES_DOCS, "cap": [b.seq.cap, b.e_cap], "rounds": rounds, "grew": grew,
+           "median_ops_per_s": statistics.median(r_["ops_per_s"] for r_ in rounds[:-1]),
+           "value_lists_ms": reads, "checkpoint": ckpt, "final_export": final, "fallbacks": fallbacks,
+           "peak_device_bytes": torch.cuda.max_memory_allocated(dev)}
+    last = rounds[-1]
+    print(f"movable resident on {kind} ({card}): DeviceMovableBatch({MV_RES_DOCS}, {MV_RES_CAP}, {MV_RES_ELEMS}, "
+          f"auto_grow) fed {n_ep} epochs of {nd} traces (grew {grew}); ops/s median "
+          f"{res['median_ops_per_s'] / 1e6:.3f}M (rounds 1-{n_ep - 1}); rounds (ops, wall ms; stages ms): "
+          + "; ".join(f"{i + 1}: {x['ops']}, {x['wall_ms']:.0f}; "
+                      + ", ".join(f"{k} {v:.0f}" for k, v in x["stage_ms"].items()) for i, x in enumerate(rounds))
+          + (f"; round {n_ep} under the profiler: device busy {last['device_busy_ms']:.2f} ms = "
+             f"{100 * last['device_busy_ms'] / last['wall_ms']:.3f} % of its wall; top: "
+             + "; ".join(f"{name[:50]} x{cnt} {ms:.3f} ms" for ms, name, cnt in last["device_busy_top"])
+             if last["device_busy_ms"] is not None else
+             f"; round {n_ep} under the profiler: device busy not measured (no device event recorded)")
+          + f"; value_lists() ms {reads}, == oracle_movable of the prefix; checkpoint after round {ckpt['round']}: "
+          f"{ckpt['bytes']} bytes, export {ckpt['export_ms']:.0f} ms, import {ckpt['import_ms']:.0f} ms; restored "
+          f"batch fed the rest: equal state ({final['bytes']} bytes, export {final['export_ms']:.0f} ms); 0 "
+          f"fallbacks; peak device memory {res['peak_device_bytes'] / 2**30:.3f} GiB", flush=True)
+    return res
+
+
+def read_plane_phase(torch, dev, kind: str, card: str) -> dict:
+    """Phase 4j, the read plane: an ExportIndex(RP_DOCS) on the card fed,
+    epoch by epoch, the change lists of the element path's 40,000-patch
+    text traces (tracegen.fleet_docs(2, n_patches=ELEMENT_PATCHES), cycled
+    over the docs), each epoch's tracegen.epoch_payloads payload decoded
+    by codec.binary.decode_changes as the sync commit path feeds them, the
+    last epoch held back; warm() over the window buckets; then RP_WINDOWS
+    windows of RP_WINDOW requests (a seeded mix: 50 % a VV at an earlier
+    epoch's end, 25 % a straddling VV, 15 % an empty VV, 10 % a VV naming
+    an absent peer), every selection checked against
+    tracegen.oracle_export, and between windows one commit round of the
+    held-back epoch to RP_COMMIT_DOCS docs (the dirty-doc delta upload).
+    Reports rows and capacity, the full and delta uploads (ms by the host
+    clock ending on a device sync, bytes), a window's ms by CUDA events
+    (median), selected rows/s, device busy of a window; and export_select
+    once on a small batch of each of the five resident kinds, equal to
+    index.select."""
+    import random
+
+    import numpy as np
+
+    from loro_tpu_torch import tracegen
+    from loro_tpu_torch.codec.binary import decode_changes
+    from loro_tpu_torch.core.version import VersionVector
+    from loro_tpu_torch.ops.export_batch import ExportIndex
+    from loro_tpu_torch.parallel.fleet import (DeviceCounterBatch, DeviceDocBatch, DeviceMapBatch,
+                                              DeviceMovableBatch, DeviceTreeBatch)
+
+    t_phase = t0 = time.perf_counter()
+    docs = tracegen.fleet_docs(2, n_patches=ELEMENT_PATCHES, seed=SEED)
+    groups = [[decode_changes(p) for p in tracegen.epoch_payloads(d)] for d in docs]
+    nd = len(docs)
+    # each distinct doc's head VV at the end of every epoch
+    ends = []
+    for gs in groups:
+        vv, e_ends = {}, [{}]
+        for g in gs:
+            for ch in g:
+                vv[ch.peer] = max(vv.get(ch.peer, 0), ch.ctr_end)
+            e_ends.append(dict(vv))
+        ends.append(e_ends)
+    gen_s = time.perf_counter() - t0
+    idx = ExportIndex(RP_DOCS, family="seq", device=dev)
+    fed = [len(groups[j % nd]) - 1 for j in range(RP_DOCS)]  # epochs fed a doc
+    t0 = time.perf_counter()
+    for j in range(RP_DOCS):
+        for g in groups[j % nd][: fed[j]]:
+            idx.note_changes(j, g)
+    feed_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cols = idx._device_cols()
+    torch.cuda.synchronize()
+    full = {"ms": (time.perf_counter() - t0) * 1e3, "bytes": sum(t.numel() * t.element_size() for t in cols)}
+    t0 = time.perf_counter()
+    warmed = idx.warm(RP_WINDOW)
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    rng = random.Random(SEED + 4)
+    absent = (1 << 62) + 12345
+
+    def request(j: int) -> dict:
+        gs, e_ends, k = groups[j % nd], ends[j % nd], fed[j]
+        u = rng.random()
+        e = rng.randrange(k + 1)
+        if u < 0.5:
+            return dict(e_ends[e])
+        if u < 0.75:  # a peer's counter inside one of the doc's changes of more than one op
+            chs = [ch for g in gs[:k] for ch in g if ch.ctr_end - ch.ctr_start > 1]
+            ch = rng.choice(chs)
+            e = next(i for i, g in enumerate(gs) if any(c is ch for c in g))
+            vv = dict(e_ends[e])
+            vv[ch.peer] = ch.ctr_start + rng.randrange(1, ch.ctr_end - ch.ctr_start)
+            return vv
+        if u < 0.9:
+            return {}
+        return {**e_ends[e], absent: 7}
+
+    windows, deltas, selected = [], [], 0
+    busy = None
+    commit_order = rng.sample(range(RP_DOCS), RP_DOCS)
+    for w in range(RP_WINDOWS):
+        reqs = []
+        for _ in range(RP_WINDOW):
+            j = rng.randrange(RP_DOCS)
+            reqs.append((j, request(j)))
+        vreqs = [(j, VersionVector(m)) for j, m in reqs]
+        a, b_ = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        got = idx.select(vreqs)
+        b_.record()
+        b_.synchronize()
+        ms = a.elapsed_time(b_)
+        rows = sum(len(g) for g in got)
+        selected += rows
+        for (j, m), g in zip(reqs, got):
+            want = tracegen.oracle_export(groups[j % nd][: fed[j]], m)
+            check(g.tolist() == want, f"read plane window {w + 1}: doc {j} from {m} != oracle_export")
+        windows.append({"ms": ms, "rows": rows})
+        if w == 1:
+            busy_ms, busy_wall, top = device_breakdown(torch, lambda: idx.select(vreqs), calls=3)
+            busy = {"device_busy_ms": busy_ms, "wall_ms": busy_wall, "share": busy_ms / busy_wall,
+                    "top": [[ms_, name[:80], cnt] for ms_, name, cnt in top[:6]]}
+        if w + 1 < RP_WINDOWS:  # a commit round: the held-back epoch to the next docs
+            for j in commit_order[w * RP_COMMIT_DOCS : (w + 1) * RP_COMMIT_DOCS]:
+                idx.note_changes(j, groups[j % nd][fed[j]])
+                fed[j] += 1
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cols = idx._device_cols()
+            torch.cuda.synchronize()
+            deltas.append((time.perf_counter() - t0) * 1e3)
+    # the windows, and the profiled window's four calls
+    check(idx._dev is cols and idx.launches == RP_WINDOWS + 4, f"read plane launches {idx.report()}")
+    delta_bytes = RP_COMMIT_DOCS * sum(t[0].numel() * t.element_size() for t in cols[:5]) + \
+        cols[5].numel() * cols[5].element_size()
+    # export_select on each resident kind (a small batch of each)
+    vreqs = [(j, VersionVector(request(j))) for j in range(0, RP_DOCS, max(1, RP_DOCS // 64))]
+    want = idx.select(vreqs)
+    kinds = {"seq": DeviceDocBatch(4, 16, device=dev), "map": DeviceMapBatch(4, 16, device=dev),
+             "counter": DeviceCounterBatch(4, 16, device=dev), "tree": DeviceTreeBatch(4, 16, 4, device=dev),
+             "movable": DeviceMovableBatch(4, 16, 4, device=dev)}
+    for name, batch in kinds.items():
+        got = batch.export_select(idx, vreqs)
+        check(len(got) == len(want) and all(np.array_equal(g, x) for g, x in zip(got, want)),
+              f"{name} batch export_select != index.select")
+    ms_ = [x["ms"] for x in windows]
+    out = {"docs": RP_DOCS, "report": idx.report(), "gen_s": gen_s, "feed_s": feed_s, "full_upload": full,
+           "delta_upload": {"ms": deltas, "median_ms": statistics.median(deltas), "bytes": delta_bytes},
+           "warm": {"calls": warmed, "ms": warm_ms}, "windows": windows, "window_median_ms": statistics.median(ms_),
+           "selected_rows": selected, "selected_rows_per_s": selected / (sum(ms_) / 1e3), "device_busy": busy,
+           "export_select_kinds": list(kinds), "seconds": time.perf_counter() - t_phase}
+    print(f"read plane on {kind} ({card}): ExportIndex({RP_DOCS}) of {nd} distinct 40,000-patch traces' epochs, "
+          f"{out['report']['rows']} rows at capacity {out['report']['capacity']} (fed in {feed_s:.2f} s); full upload "
+          f"{full['ms']:.2f} ms ({full['bytes']} B), delta upload of {RP_COMMIT_DOCS} docs median "
+          f"{out['delta_upload']['median_ms']:.3f} ms ({delta_bytes} B); warm {warmed} calls {warm_ms:.0f} ms; "
+          f"{RP_WINDOWS} windows of {RP_WINDOW} requests: median {out['window_median_ms']:.3f} ms by events (min "
+          f"{min(ms_):.3f}, max {max(ms_):.3f}), {selected} rows selected = {out['selected_rows_per_s'] / 1e6:.3f}M "
+          f"rows/s; device busy {busy['device_busy_ms']:.3f} ms of a {busy['wall_ms']:.3f} ms window = "
+          f"{100 * busy['share']:.2f} %; top: " + "; ".join(f"{n[:50]} x{c} {m:.3f} ms" for m, n, c in busy["top"])
+          + f"; every selection == oracle_export; export_select == index.select on {list(kinds)}; "
+          f"phase {out['seconds']:.1f} s", flush=True)
     return out
 
 
@@ -1798,11 +2071,13 @@ def card_tests() -> None:
         [sys.executable, "-m", "pytest", "-q", "-m", "cuda", "--noconftest", "-p", "no:cacheprovider",
          "-o", "markers=cuda: needs an NVIDIA GPU", "tests/test_torch_list_rank_cuda.py",
          "tests/test_torch_fleet_cuda.py", "tests/test_torch_resident_cuda.py", "tests/test_torch_map_counter_cuda.py",
-         "tests/test_torch_tree_cuda.py", "tests/test_torch_richtext_cuda.py", "tests/test_torch_movable_cuda.py"],
+         "tests/test_torch_tree_cuda.py", "tests/test_torch_richtext_cuda.py", "tests/test_torch_movable_cuda.py",
+         "tests/test_torch_movable_resident_cuda.py", "tests/test_torch_export_cuda.py"],
         cwd=root, capture_output=True, text=True, timeout=600,
     )
     summary = (test.stdout.strip().splitlines() or ["(no output)"])[-1]
-    print(f"pytest -m cuda tests/test_torch_{{list_rank,fleet,resident,map_counter,tree,richtext,movable}}_cuda.py: "
+    print(f"pytest -m cuda tests/test_torch_{{list_rank,fleet,resident,map_counter,tree,richtext,movable,"
+          f"movable_resident,export}}_cuda.py: "
           f"rc {test.returncode}, {summary} ({time.perf_counter() - t0:.1f} s)", flush=True)
     check(test.returncode == 0 and " passed" in summary and "skipped" not in summary,
           "the card tests failed on the card:\n" + test.stdout[-4000:] + test.stderr[-2000:])
@@ -1852,12 +2127,13 @@ def main(argv=None) -> int:
     check(budget >= list_rank.SMEM_LIMIT, f"the card gives {budget} bytes of shared memory a block, below SMEM_LIMIT")
     if args.phase:  # a phase run: the card tests, then the named phases
         card_tests()
-        phase_fns = {"4f": map_counter_phase, "4g": tree_phase, "4h": richtext_phase, "4i": movable_phase}
+        phase_fns = {"4f": map_counter_phase, "4g": tree_phase, "4h": richtext_phase, "4i": movable_phase,
+                     "4j": read_plane_phase}
         results = {}
         for name in dict.fromkeys(args.phase):
             list_rank.reset_launches()
             results[name] = phase_fns[name](torch, dev, kind, card)
-            if name in ("4f", "4g"):  # torch scatters and the replay kernel: no list-rank launch
+            if name in ("4f", "4g", "4j"):  # torch ops and the replay kernel: no list-rank launch
                 check(not any(list_rank.LAUNCHES.values()), f"phase {name} launched {list_rank.LAUNCHES}")
         print("results " + json.dumps({"card": card, "kind": kind, "phases": results,
                                        "total_s": time.perf_counter() - t_start}))
@@ -2546,6 +2822,13 @@ def main(argv=None) -> int:
         for name, err in phase["max_abs_err"].items():
             max_err[name] = max(max_err[name], err)
 
+    # ---- 4j. the read plane's batched export selection -------------------
+    # (torch sorts and gathers: no list-rank kernel runs here, checked)
+    before = dict(list_rank.LAUNCHES)
+    read4j = read_plane_phase(torch, dev, kind, card)
+    read4j["launches"] = launched_since(list_rank, before)
+    check(not read4j["launches"], f"the read-plane phase launched {read4j['launches']}")
+
     # ---- 5. timings -------------------------------------------------------
     # each kernel at its main-path shape: the flagship chain rings for the
     # packed kernels, the element rings for the wide kernel
@@ -2742,7 +3025,7 @@ def main(argv=None) -> int:
         "bound_ms": bounds, "phases": phases, "full_card": full_card, "wyllie_over_budget": over_budget,
         "sweep": sweep, "sweep_graph": sweep_graph, "ingest": ingest, "fleet": fleet, "resident": resident4e,
         "map_counter": map_counter4f, "tree": tree4g, "richtext": richtext4h, "movable": movable4i,
-        "total_s": time.perf_counter() - t_start,
+        "read_plane": read4j, "total_s": time.perf_counter() - t_start,
     }))
     # launches in the fleet phase's checked one-shot calls, one a call
     fleet_by_kernel = {name: sum(v for ran in fleet_launches.values() for k, v in ran.items()
@@ -2758,6 +3041,7 @@ def main(argv=None) -> int:
             "launches_resident": sum(v for k, v in resident4e["launches"].items() if k.split("/")[0] == name),
             "launches_richtext": sum(v for k, v in richtext4h["launches"].items() if k.split("/")[0] == name),
             "launches_movable": sum(v for k, v in movable4i["launches"].items() if k.split("/")[0] == name),
+            "launches_read_plane": sum(v for k, v in read4j["launches"].items() if k.split("/")[0] == name),
             "max_abs_err": max_err[name],
             "ms": res[f"{name}_graph_ms"],
             "eager_ms": res[f"{name}_ms"],

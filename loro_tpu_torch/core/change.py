@@ -185,7 +185,8 @@ class _RunCont:
     """Sentinel parent meaning "the previous counter of the same peer":
     the implicit right-spine parent of a run's continuation.  In the JAX
     package it lives in loro_tpu/oplog/oplog.py, beside the run slicing
-    that produces it; the port has no oplog yet."""
+    that produces it; the port's oplog/oplog.py takes it from here (the
+    decoder needs it too)."""
 
     def __repr__(self) -> str:
         return "<run-cont>"

@@ -1,7 +1,7 @@
 """ctypes bindings of the port's native host code: the payload codec
 (seq_codec.cpp: the one-shot explode, the resident batch's delta
 explode and anchor metadata, the map explode, the tree explode and the
-one-shot movable-list explode) and
+movable-list explode, one-shot and delta) and
 the resident batch's engines (order_idmap.cpp: NativeShadowOrder,
 NativeIdMap).
 
@@ -61,6 +61,8 @@ def _lib() -> ctypes.CDLL:
         lib.loro_count_movable.argtypes = head + [_P] * 3
         lib.loro_explode_movable.restype = ctypes.c_longlong
         lib.loro_explode_movable.argtypes = head + [_P] * 15 + [ctypes.c_longlong] * 3
+        lib.loro_explode_movable_delta.restype = ctypes.c_longlong
+        lib.loro_explode_movable_delta.argtypes = head + [_P] * 15 + [ctypes.c_longlong] * 3 + [_P] * 2
         _lib_handle = lib
     return _lib_handle
 
@@ -226,6 +228,19 @@ def explode_movable_payload(payload: bytes, target_cid_index: int) -> Dict[str, 
     are sets too (their creation values).  Peer columns are wire indexes
     into the payload's peer table.  Raises CodecDecodeError on malformed
     payloads and on a parent outside the payload."""
+    return _explode_movable(payload, target_cid_index, delta=False)
+
+
+def explode_movable_delta_payload(payload: bytes, target_cid_index: int) -> Dict[str, Dict[str, np.ndarray]]:
+    """The delta form of explode_movable_payload (a resident batch's
+    append): a slot whose parent is not in the payload has parent -2 and
+    that parent's (wire peer index, counter) in slots["ext_peer_idx"] /
+    slots["ext_counter"] (-1 on every other slot), for the batch's id
+    maps to resolve.  Raises CodecDecodeError on malformed payloads."""
+    return _explode_movable(payload, target_cid_index, delta=True)
+
+
+def _explode_movable(payload: bytes, target_cid_index: int, delta: bool) -> Dict[str, Dict[str, np.ndarray]]:
     lib = _lib()
     payload = bytes(payload)
     counts = [ctypes.c_longlong() for _ in range(3)]
@@ -237,10 +252,14 @@ def explode_movable_payload(payload: bytes, target_cid_index: int) -> Dict[str, 
     sets = {f: np.empty(nv, np.int32) for f in ("elem_peer_idx", "elem_ctr", "lamport", "peer_idx")}
     sets["value_off"] = np.empty(nv, np.int64)
     dels = {"peer_idx": np.empty(nd, np.int32), "start": np.empty(nd, np.int64), "end": np.empty(nd, np.int64)}
-    wrote = lib.loro_explode_movable(
-        payload, len(payload), target_cid_index,
-        *[_ptr(a) for cols in (slots, sets, dels) for a in cols.values()], ns, nv, nd,
-    )
+    args = [payload, len(payload), target_cid_index,
+            *[_ptr(a) for cols in (slots, sets, dels) for a in cols.values()], ns, nv, nd]
+    if delta:
+        ext = {"ext_peer_idx": np.empty(ns, np.int32), "ext_counter": np.empty(ns, np.int64)}
+        wrote = lib.loro_explode_movable_delta(*args, *[_ptr(a) for a in ext.values()])
+        slots.update(ext)
+    else:
+        wrote = lib.loro_explode_movable(*args)
     if wrote != ns:
         raise CodecDecodeError("native decode failed (unresolvable references or count mismatch)")
     return {"slots": slots, "sets": sets, "dels": dels}

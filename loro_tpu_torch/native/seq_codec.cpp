@@ -14,8 +14,8 @@
 // metadata pass and its delete count; the map explode (every map set
 // and delete with its value's byte offset); and the tree explode (every
 // TreeMove of one container, its position as a byte range); and the
-// one-shot movable-list explode (slots, sets with value offsets, delete
-// spans).  The order engine and id map are in order_idmap.cpp.
+// movable-list explode (slots, sets with value offsets, delete spans),
+// one-shot and delta.  The order engine and id map are in order_idmap.cpp.
 //
 // C ABI only (ctypes binding in loro_tpu_torch/native/__init__.py);
 // built with g++ -O3 -shared -fPIC -std=c++17.
@@ -910,8 +910,10 @@ long long loro_explode_tree(const uint8_t* buf, long long len, int target_cid,
 // values + MSET, value byte offsets — winners decode lazily in
 // Python), delete spans.  Returns -1 on malformed input or an
 // unresolvable in-payload reference (caller falls back to Python).
-// Copied from the JAX package's native codec, one-shot mode only: a
-// parent that is not in the payload fails the walk.
+// Copied from the JAX package's native codec, in both of its modes:
+// the one-shot walk fails on a parent outside the payload; the delta
+// walk (s_extpeer / s_extctr given) returns it as row -2 with its
+// (peer index, counter) for the resident batch's id maps.
 long long loro_count_movable(const uint8_t* buf, long long len, int target_cid,
                              long long* n_slots, long long* n_sets,
                              long long* n_dels) {
@@ -946,29 +948,37 @@ long long loro_count_movable(const uint8_t* buf, long long len, int target_cid,
   return 0;
 }
 
-long long loro_explode_movable(const uint8_t* buf, long long len, int target_cid,
-                               int32_t* s_parent, int32_t* s_side,
-                               int32_t* s_peer, int32_t* s_ctr,
-                               int32_t* s_lamport, int32_t* s_epeer,
-                               int32_t* s_ectr,
-                               int32_t* v_epeer, int32_t* v_ectr,
-                               int32_t* v_lamport, int32_t* v_peer,
-                               int64_t* v_off,
-                               int32_t* d_peer, int64_t* d_start, int64_t* d_end,
-                               long long n_slots, long long n_sets,
-                               long long n_dels) {
+}  // extern "C"
+
+static long long movable_walk(const uint8_t* buf, long long len, int target_cid,
+                              int32_t* s_parent, int32_t* s_side,
+                              int32_t* s_peer, int32_t* s_ctr,
+                              int32_t* s_lamport, int32_t* s_epeer,
+                              int32_t* s_ectr,
+                              int32_t* v_epeer, int32_t* v_ectr,
+                              int32_t* v_lamport, int32_t* v_peer,
+                              int64_t* v_off,
+                              int32_t* d_peer, int64_t* d_start, int64_t* d_end,
+                              long long n_slots, long long n_sets,
+                              long long n_dels,
+                              int32_t* s_extpeer, int64_t* s_extctr) {
   Reader r{buf, buf + len};
   uint64_t n_peers; std::vector<int32_t> cid_types; std::vector<ChangeMeta> metas;
   if (!parse_prelude(r, &n_peers, cid_types, metas)) return -1;
   IdMap map((size_t)(n_slots > 16 ? n_slots : 16));
   // an insert's or move's parent row: -1 at the list's start, else the
-  // row of its parent id, which must lie in the payload (-2: it does not)
+  // row of its parent id in the payload, else -2 with the parent's
+  // (peer index, counter) in *ext_peer / *ext_ctr
   auto parent_of = [&](const ChangeMeta& m, int64_t ctr, uint8_t ptag,
-                       uint32_t p_peer, int64_t p_ctr) -> int32_t {
+                       uint32_t p_peer, int64_t p_ctr, uint32_t* ext_peer,
+                       int64_t* ext_ctr) -> int32_t {
     if (ptag == PT_NONE) return -1;
-    int32_t row = ptag == PT_RUNCONT ? map.get(idkey(m.peer_idx, ctr - 1))
-                                     : map.get(idkey(p_peer, p_ctr));
-    return row < 0 ? -2 : row;
+    if (ptag == PT_RUNCONT) { p_peer = m.peer_idx; p_ctr = ctr - 1; }
+    int32_t row = map.get(idkey(p_peer, p_ctr));
+    if (row >= 0) return row;
+    *ext_peer = p_peer;
+    *ext_ctr = p_ctr;
+    return -2;
   };
   long long srow = 0, vrow = 0, drow = 0;
   for (auto& m : metas) {
@@ -994,8 +1004,9 @@ long long loro_explode_movable(const uint8_t* buf, long long len, int target_cid
         uint8_t side = r.u8();
         uint64_t n = r.varint();
         if (!r.ok) return -1;
-        int32_t parent_row = parent_of(m, ctr, ptag, p_peer, p_ctr);
-        if (parent_row == -2) return -1;
+        uint32_t ext_peer = 0; int64_t ext_ctr = -1;
+        int32_t parent_row = parent_of(m, ctr, ptag, p_peer, p_ctr, &ext_peer, &ext_ctr);
+        if (parent_row == -2 && !s_extpeer) return -1;  // one-shot mode: must resolve
         for (uint64_t j = 0; j < n; j++) {
           int64_t voff = (int64_t)(r.p - buf);
           if (!skip_value(r)) return -1;
@@ -1007,6 +1018,10 @@ long long loro_explode_movable(const uint8_t* buf, long long len, int target_cid
           s_lamport[srow] = (int32_t)(m.lamport + (ctr - m.ctr) + (int64_t)j);
           s_epeer[srow] = (int32_t)m.peer_idx;  // insert: elem id == own id
           s_ectr[srow] = (int32_t)(ctr + (int64_t)j);
+          if (s_extpeer) {
+            s_extpeer[srow] = (parent_row == -2 && j == 0) ? (int32_t)ext_peer : -1;
+            s_extctr[srow] = (parent_row == -2 && j == 0) ? ext_ctr : -1;
+          }
           map.put(idkey(m.peer_idx, ctr + (int64_t)j), (int32_t)srow);
           v_epeer[vrow] = (int32_t)m.peer_idx;
           v_ectr[vrow] = (int32_t)(ctr + (int64_t)j);
@@ -1029,8 +1044,9 @@ long long loro_explode_movable(const uint8_t* buf, long long len, int target_cid
         }
         uint8_t side = r.u8();
         if (!r.ok) return -1;
-        int32_t parent_row = parent_of(m, ctr, ptag, p_peer, p_ctr);
-        if (parent_row == -2) return -1;
+        uint32_t ext_peer = 0; int64_t ext_ctr = -1;
+        int32_t parent_row = parent_of(m, ctr, ptag, p_peer, p_ctr, &ext_peer, &ext_ctr);
+        if (parent_row == -2 && !s_extpeer) return -1;
         if (srow >= n_slots) return -1;
         s_parent[srow] = parent_row;
         s_side[srow] = (int32_t)side;
@@ -1039,6 +1055,10 @@ long long loro_explode_movable(const uint8_t* buf, long long len, int target_cid
         s_lamport[srow] = (int32_t)(m.lamport + (ctr - m.ctr));
         s_epeer[srow] = (int32_t)epi;
         s_ectr[srow] = (int32_t)ectr;
+        if (s_extpeer) {
+          s_extpeer[srow] = parent_row == -2 ? (int32_t)ext_peer : -1;
+          s_extctr[srow] = parent_row == -2 ? ext_ctr : -1;
+        }
         map.put(idkey(m.peer_idx, ctr), (int32_t)srow);
         srow++;
         ctr += 1;
@@ -1079,6 +1099,48 @@ long long loro_explode_movable(const uint8_t* buf, long long len, int target_cid
     }
   }
   return srow;
+}
+
+
+extern "C" {
+
+long long loro_explode_movable(const uint8_t* buf, long long len, int target_cid,
+                               int32_t* s_parent, int32_t* s_side,
+                               int32_t* s_peer, int32_t* s_ctr,
+                               int32_t* s_lamport, int32_t* s_epeer,
+                               int32_t* s_ectr,
+                               int32_t* v_epeer, int32_t* v_ectr,
+                               int32_t* v_lamport, int32_t* v_peer,
+                               int64_t* v_off,
+                               int32_t* d_peer, int64_t* d_start, int64_t* d_end,
+                               long long n_slots, long long n_sets,
+                               long long n_dels) {
+  return movable_walk(buf, len, target_cid, s_parent, s_side, s_peer, s_ctr,
+                      s_lamport, s_epeer, s_ectr, v_epeer, v_ectr, v_lamport,
+                      v_peer, v_off, d_peer, d_start, d_end, n_slots, n_sets,
+                      n_dels, nullptr, nullptr);
+}
+
+// Delta variant: parents that do not resolve inside this payload come
+// back as s_parent == -2 with (s_extpeer, s_extctr) pairs for host
+// resolution against the resident batch's id map (the movable analog
+// of loro_explode_seq_delta's ext-ref protocol).
+long long loro_explode_movable_delta(const uint8_t* buf, long long len, int target_cid,
+                                     int32_t* s_parent, int32_t* s_side,
+                                     int32_t* s_peer, int32_t* s_ctr,
+                                     int32_t* s_lamport, int32_t* s_epeer,
+                                     int32_t* s_ectr,
+                                     int32_t* v_epeer, int32_t* v_ectr,
+                                     int32_t* v_lamport, int32_t* v_peer,
+                                     int64_t* v_off,
+                                     int32_t* d_peer, int64_t* d_start, int64_t* d_end,
+                                     long long n_slots, long long n_sets,
+                                     long long n_dels,
+                                     int32_t* s_extpeer, int64_t* s_extctr) {
+  return movable_walk(buf, len, target_cid, s_parent, s_side, s_peer, s_ctr,
+                      s_lamport, s_epeer, s_ectr, v_epeer, v_ectr, v_lamport,
+                      v_peer, v_off, d_peer, d_start, d_end, n_slots, n_sets,
+                      n_dels, s_extpeer, s_extctr);
 }
 
 }  // extern "C"

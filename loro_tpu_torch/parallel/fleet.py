@@ -6,7 +6,8 @@ merge_map_docs, merge_counter_changes and merge_tree_changes /
 merge_tree_payloads / merge_tree_children), and the resident batches that
 keep documents on the device between syncs (DeviceDocBatch for text and
 lists, DeviceMapBatch for LWW maps, DeviceCounterBatch for counters,
-DeviceTreeBatch for movable trees).
+DeviceTreeBatch for movable trees, DeviceMovableBatch for movable
+lists).
 
 One-shot, per call: every document's rows are padded to one bucketed
 row count (pad_bucket), the doc axis to `pad_docs` with all-invalid
@@ -29,12 +30,14 @@ and replays them in the replay kernel (ops/tree_batch).
 
 The JAX package binds all of them to a device mesh and pads the doc
 axis to a multiple of its doc dimension; here they are bound to one
-device, where that multiple is 1.  Not ported yet: the supervised launch
-and fetch with its DeviceFailure -> host degradation (a CUDA error
-propagates as it is), the obs counters and trace instants, the resident
-movable-list batch (DeviceMovableBatch), the op-sharded map merge, and
-the resident batches' coalesce group, doc release and export_select
-(DeviceDocBatch and DeviceTreeBatch also lack compaction).
+device, where that multiple is 1.  DeviceMovableBatch holds MovableList
+position slots in an inner DeviceDocBatch and the element winners as two
+LWW folds; every resident batch answers the read plane's batched export
+selection (export_select over ops/export_batch.ExportIndex).  Not ported
+yet: the supervised launch and fetch with its DeviceFailure -> host
+degradation (a CUDA error propagates as it is), the obs counters and
+trace instants, the op-sharded map merge, and the resident batches'
+coalesce group, doc release and compaction.
 """
 from __future__ import annotations
 
@@ -50,7 +53,8 @@ import numpy as np
 import torch
 
 from ..codec.binary import Reader, Writer, _Dicts, _read_cid, _read_value, _write_cid, _write_value, decode_changes, read_tables
-from ..core.change import Change, CounterIncr, MapSet, SeqDelete, SeqInsert, StyleAnchor, TreeMove, _RunCont
+from ..core.change import (Change, CounterIncr, MapSet, MovableMove, MovableSet, SeqDelete, SeqInsert, StyleAnchor,
+                           TreeMove, _RunCont)
 from ..core.ids import ContainerID, TreeID
 from ..device import DeviceLike, resolve_device
 from ..errors import DecodeError, LoroError
@@ -71,6 +75,7 @@ from ..ops.movable_batch import (
     MovableCols,
     extract_movable,
     extract_movable_from_payload,
+    movable_by_key_batch,
     movable_merge_batch,
 )
 from ..ops.richtext_batch import (
@@ -403,6 +408,19 @@ def _movable_values(out: np.ndarray, counts: np.ndarray, extracts) -> List[list]
             row.append(v.get() if isinstance(v, LazyPayloadValue) else v)
         results.append(row)
     return results
+
+
+def _batch_export_select(batch, family: str, index, requests) -> List[np.ndarray]:
+    """The read plane's selection entry, shared by every resident batch:
+    one call answers a window of (doc, frontier) pull requests against
+    the change-span index (ops/export_batch.ExportIndex.select), under
+    the batch's device lock (the selection reads no batch state, but
+    must not interleave with a grow on the same device).  `family` names
+    the batch kind, as in the JAX package, where it labels the
+    supervised launch.  Not ported yet: the supervisor thunk and its
+    export_launch fault site (they come with the supervision layer)."""
+    with batch._dev_lock:
+        return index.select(requests)
 
 
 def _grow_target(required: int, current: int) -> int:
@@ -1040,6 +1058,10 @@ class DeviceDocBatch:
     def resolve_row(self, doc: int, peer: int, counter: int) -> Optional[int]:
         return self.id2row[doc].get((peer, counter))
 
+    def export_select(self, index, requests) -> List[np.ndarray]:
+        """The read plane's batched selection for the sync pull path."""
+        return _batch_export_select(self, "seq", index, requests)
+
     def _materialize(self, use_solver: bool = False) -> Tuple[np.ndarray, np.ndarray]:
         """(codes, counts) of the whole batch on the host, from one launch.
 
@@ -1567,13 +1589,15 @@ class DeviceMapBatch:
         self.values: List[List] = [[] for _ in range(n_docs)]
         # ingest epochs (the JAX server journals rounds against them)
         self.epoch = 0
+        self._dev_lock = threading.RLock()
 
     def grow(self, new_slot_capacity: int) -> None:
         """Repack the winners to a larger slot capacity, on the device."""
         if new_slot_capacity <= self.s:
             return
-        self.res = LwwResident(**_pad_axis1(self.res._asdict(), new_slot_capacity, _lww_fills(-2)))
-        self.s = new_slot_capacity
+        with self._dev_lock:
+            self.res = LwwResident(**_pad_axis1(self.res._asdict(), new_slot_capacity, _lww_fills(-2)))
+            self.s = new_slot_capacity
 
     def append_changes(self, per_doc_changes: Sequence[Optional[Sequence[Change]]]) -> None:
         """Fold each doc's new changes (None = no update) into the
@@ -1676,8 +1700,9 @@ class DeviceMapBatch:
             blk["hi"][di, :k] = pu >> np.uint64(32)
             blk["lo"][di, :k] = pu & np.uint64(0xFFFFFFFF)
             blk["valid"][di, :k] = True
-        t = {f: _to_device(a, self.device) for f, a in blk.items()}
-        lww_update_resident(self.res, t["slot"], t["lam"], t["hi"], t["lo"], t["valid"], self.s, value=t["value"])
+        with self._dev_lock:
+            t = {f: _to_device(a, self.device) for f, a in blk.items()}
+            lww_update_resident(self.res, t["slot"], t["lam"], t["hi"], t["lo"], t["valid"], self.s, value=t["value"])
 
     def value_maps(self) -> List[Dict[Tuple[ContainerID, str], object]]:
         """{(container, key): value} per doc (the container in the key, so
@@ -1697,6 +1722,12 @@ class DeviceMapBatch:
                     m[(cid, key)] = v
             out.append(m)
         return out
+
+    def export_select(self, index, requests) -> List[np.ndarray]:
+        """The read plane's batched selection (the fold keeps no op
+        history: deltas come from the change-span index, as for every
+        family)."""
+        return _batch_export_select(self, "map", index, requests)
 
     def root_value_maps(self, name: str) -> List[Dict[str, object]]:
         """Flat {key: value} per doc for the root map container `name`."""
@@ -1813,13 +1844,15 @@ class DeviceCounterBatch:
         self.sums = torch.zeros((n_docs, slot_capacity), dtype=torch.float32, device=self.device)
         # ingest epochs (the JAX server journals rounds against them)
         self.epoch = 0
+        self._dev_lock = threading.RLock()
 
     def grow(self, new_slot_capacity: int) -> None:
         """Repack the sums to a larger slot capacity, on the device."""
         if new_slot_capacity <= self.s:
             return
-        self.sums = _pad_axis1({"sums": self.sums}, new_slot_capacity, {"sums": 0.0})["sums"]
-        self.s = new_slot_capacity
+        with self._dev_lock:
+            self.sums = _pad_axis1({"sums": self.sums}, new_slot_capacity, {"sums": 0.0})["sums"]
+            self.s = new_slot_capacity
 
     def append_changes(self, per_doc_changes: Sequence[Optional[Sequence[Change]]]) -> None:
         """Add each doc's new increments (None = no update).  New slots
@@ -1859,7 +1892,13 @@ class DeviceCounterBatch:
             if rows:
                 slot[di, : len(rows)] = [r[0] for r in rows]
                 delta[di, : len(rows)] = [r[1] for r in rows]
-        _fold_counter_rows(self.sums, _to_device(slot, self.device), _to_device(delta, self.device))
+        with self._dev_lock:
+            _fold_counter_rows(self.sums, _to_device(slot, self.device), _to_device(delta, self.device))
+
+    def export_select(self, index, requests) -> List[np.ndarray]:
+        """The read plane's batched selection (the sums keep no op
+        history: deltas come from the change-span index, as for maps)."""
+        return _batch_export_select(self, "counter", index, requests)
 
     def value_maps(self) -> List[Dict[ContainerID, float]]:
         sums = self.sums.cpu().numpy()
@@ -1973,6 +2012,7 @@ class DeviceTreeBatch:
             f: torch.full((self.n_docs, move_capacity), _TREE_FILLS[f], dtype=dt, device=self.device)
             for f, dt in _TREE_DTYPES.items()
         })
+        self._dev_lock = threading.RLock()
 
     def append_changes(self, per_doc_changes: Sequence[Optional[Sequence[Change]]], cid: ContainerID) -> None:
         """Each doc's new causally ordered changes (None = no update): the
@@ -2068,7 +2108,8 @@ class DeviceTreeBatch:
         raise the node ceiling (a launch parameter of the replay: a scalar
         bump)."""
         if move_capacity is not None and move_capacity > self.cap:
-            self.cols = TreeLogCols(**_pad_axis1(self.cols._asdict(), move_capacity, _TREE_FILLS))
+            with self._dev_lock:
+                self.cols = TreeLogCols(**_pad_axis1(self.cols._asdict(), move_capacity, _TREE_FILLS))
             me = np.full((self.n_docs, move_capacity), -1, np.int64)
             me[:, : self.cap] = self.move_epoch
             self.move_epoch = me
@@ -2130,8 +2171,13 @@ class DeviceTreeBatch:
             self.move_epoch[di, base : base + k] = self.epoch
             self.counts[di] += k
             self.move_meta[di].extend((r[0], r[1], r[2], r[3], r[5], r[6]) for r in rows)
-        _scatter_rows(self.cols._asdict(), {f: _to_device(a, self.device) for f, a in blk.items()},
-                      _to_device(offsets, self.device))
+        with self._dev_lock:
+            _scatter_rows(self.cols._asdict(), {f: _to_device(a, self.device) for f, a in blk.items()},
+                          _to_device(offsets, self.device))
+
+    def export_select(self, index, requests) -> List[np.ndarray]:
+        """The read plane's batched selection for the sync pull path."""
+        return _batch_export_select(self, "tree", index, requests)
 
     def _replay(self) -> Tuple[torch.Tensor, torch.Tensor]:
         return tree_replay_log_batch(self.cols, self.node_cap)
@@ -2308,3 +2354,442 @@ def _tree_node_stager(ids: Dict[TreeID, int], n_committed: int, staged: Dict[Tre
         return i
 
     return node_idx
+
+
+# ---- resident MovableList batch ------------------------------------------------------
+
+# the movable batch's checkpoint meta (the _read_meta / _write_meta form)
+_MOVABLE_META = (("e_cap", "elem_capacity", "size", 1), ("auto_grow", "auto_grow", "flag", 2))
+
+
+def _lww_resident(n_docs: int, n: int, value_fill: int, dev: torch.device) -> LwwResident:
+    """Fresh [n_docs, n] LWW winners on `dev` (every slot untouched)."""
+    return LwwResident(**{f: torch.full((n_docs, n), fill, dtype=_LWW_DTYPES[f], device=dev)
+                          for f, fill in _lww_fills(value_fill).items()})
+
+
+class DeviceMovableBatch:
+    """Device-resident MovableList state for a doc batch (the movable-list
+    member of the resident family).
+
+    Position slots are sequence elements: they ride an inner
+    DeviceDocBatch(as_text=False) (standing order keys, O(delta) ingest,
+    tombstones), each slot row's content being its element's ordinal.  Per
+    element the winning slot (the move of the largest (lamport, peer)) and
+    the winning value (the set of the largest (lamport, peer); creation
+    values count) are LWW folds kept on the device ([D, E] LwwResident:
+    `moves` folds the slot row, `vals` the value ordinal).  A read is one
+    sort of the elements by their winning slot's standing key
+    (movable_by_key_batch): a tombstoned winner hides its element, a newer
+    concurrent move revives it.  Element dictionaries and value stores stay
+    on the host.  Bound to one device (default "cuda"; DeviceUnavailable
+    without a card unless "cpu" is asked for).
+
+    Not ported yet, as for every resident batch: the coalesce group,
+    release_doc and compact."""
+
+    def __init__(self, n_docs: int, capacity: int, elem_capacity: int, device: DeviceLike = "cuda",
+                 auto_grow: bool = False):
+        """capacity: slot rows a doc; elem_capacity: elements a doc.
+        auto_grow=True grows either to the next bucket instead of raising
+        when an append needs more."""
+        self._setup(DeviceDocBatch(n_docs, capacity, device=device, as_text=False, auto_grow=auto_grow),
+                    n_docs, elem_capacity, auto_grow)
+
+    def _setup(self, seq: DeviceDocBatch, n_docs: int, elem_capacity: int, auto_grow: bool) -> None:
+        self.seq = seq
+        self.device = seq.device
+        self.n_docs = n_docs
+        self.e_cap = elem_capacity
+        self.auto_grow = auto_grow
+        self.elem_ids: List[Dict[Tuple[int, int], int]] = [dict() for _ in range(n_docs)]
+        self.values: List[list] = [[] for _ in range(n_docs)]
+        self.moves = _lww_resident(n_docs, elem_capacity, 0, self.device)  # value: the winning slot row
+        self.vals = _lww_resident(n_docs, elem_capacity, -2, self.device)  # value: the winning value ordinal
+        self._dev_lock = threading.RLock()
+        self.clock = StageClock(self.device)
+
+    @property
+    def epoch(self) -> int:
+        """The ingest-epoch clock (the inner seq batch's)."""
+        return self.seq.epoch
+
+    def stage_ms(self) -> Dict[str, float]:
+        """Per-stage ms of the last append (waits for its device stages):
+        explode (read_tables and the native explode, or the Python walk),
+        stage (the per-row staging of slots, sets and deletes), grow, the
+        inner seq batch's commit, block, order, upload_scatter and
+        tombstone (DeviceDocBatch.stage_ms), and fold (both element folds,
+        built, uploaded and folded)."""
+        out = self.seq.stage_ms()
+        for k, v in self.clock.read().items():
+            out[k] = out.get(k, 0.0) + v
+        return out
+
+    def _reset_clocks(self) -> None:
+        self.clock.reset()
+        self.seq.clock.reset()
+
+    def append_changes(self, per_doc_changes: Sequence[Optional[Sequence[Change]]], cid: ContainerID) -> None:
+        """Each doc's new causally ordered changes (None = no update): slots
+        append into the inner seq batch (one block scatter), element
+        winners fold (two in-place LWW updates).  Staged before the
+        capacity checks, so a capacity error leaves the batch as it was."""
+        self._reset_clocks()
+        per_doc_changes = list(per_doc_changes) + [None] * (self.n_docs - len(per_doc_changes))
+        staging = ([], [], [], [], [], [])
+        del_pairs: List[Tuple[int, int]] = []
+        with self.clock.host("explode"):
+            for di, changes in enumerate(per_doc_changes):
+                stage = self._stage_doc(*staging)
+                if changes:
+                    self._walk_movable_changes(di, changes, cid, *stage, del_pairs)
+        self._commit_movable(*staging, del_pairs)
+
+    @staticmethod
+    def _stage_doc(rows_per_doc, overlays, move_rows, set_rows, staged_elems, staged_vals):
+        """One doc's staging structures, appended to the per-doc lists
+        (both appends commit the same shapes): (slot rows, id overlay,
+        move fold rows, set fold rows, staged element ids, their order,
+        staged values)."""
+        rows: list = []
+        overlay: Dict[Tuple[int, int], int] = {}
+        mrows: list = []
+        srows: list = []
+        e_staged: Dict[Tuple[int, int], int] = {}
+        e_order: list = []
+        v_staged: list = []
+        rows_per_doc.append(rows)
+        overlays.append(overlay)
+        move_rows.append(mrows)
+        set_rows.append(srows)
+        staged_elems.append(e_order)
+        staged_vals.append(v_staged)
+        return rows, overlay, mrows, srows, e_staged, e_order, v_staged
+
+    def _elem_registrar(self, di: int, e_staged: dict, e_order: list):
+        """eidx(eid): an element's committed ordinal, else its staged one,
+        else the next free one, staged (both appends number elements this
+        way, in lockstep with the commit)."""
+        eids = self.elem_ids[di]
+
+        def eidx(eid) -> int:
+            i = eids.get(eid)
+            if i is None:
+                i = e_staged.get(eid)
+            if i is None:
+                i = len(eids) + len(e_order)
+                e_staged[eid] = i
+                e_order.append(eid)
+            return i
+
+        return eidx
+
+    def _walk_movable_changes(self, di, changes, cid, rows, overlay, mrows, srows, e_staged, e_order, v_staged,
+                              del_pairs) -> None:
+        """One doc's Python change walk (append_changes, and append_payloads'
+        fallback): slot rows (parent row, side, counter, element ordinal,
+        peer), move and set fold rows (element, lamport, peer, slot row or
+        value ordinal), staged elements and values, delete pairs.  An
+        insert registers its element and its value op by op."""
+        idmap = self.seq.id2row[di]
+        base = int(self.seq.counts[di])
+        n_vals = len(self.values[di])
+        eidx = self._elem_registrar(di, e_staged, e_order)
+
+        def vidx(v) -> int:
+            v_staged.append(v)
+            return n_vals + len(v_staged) - 1
+
+        def resolve_parent(c, peer: int, counter: int) -> int:
+            if isinstance(c.parent, _RunCont):
+                key = (peer, counter - 1)
+            elif c.parent is None:
+                return -1
+            else:
+                key = (c.parent.peer, c.parent.counter)
+            return _resolve_row(overlay, idmap, key, di, "movable op parent")
+
+        for ch in changes:
+            for op in ch.ops:
+                if op.container != cid:
+                    continue
+                c = op.content
+                lam = ch.lamport + (op.counter - ch.ctr_start)
+                if isinstance(c, SeqInsert):
+                    body = c.content
+                    for j in range(len(body)):
+                        if j == 0:
+                            prow = resolve_parent(c, ch.peer, op.counter)
+                            side = int(c.side)
+                        else:
+                            prow = base + len(rows) - 1
+                            side = 1
+                        row = base + len(rows)
+                        eid = (ch.peer, op.counter + j)
+                        ei = eidx(eid)
+                        overlay[eid] = row
+                        rows.append((prow, side, op.counter + j, ei, ch.peer))
+                        mrows.append((ei, lam + j, ch.peer, row))
+                        srows.append((ei, lam + j, ch.peer, vidx(body[j])))
+                elif isinstance(c, MovableMove):
+                    prow = resolve_parent(c, ch.peer, op.counter)
+                    row = base + len(rows)
+                    ei = eidx((c.elem.peer, c.elem.counter))
+                    overlay[(ch.peer, op.counter)] = row
+                    rows.append((prow, int(c.side), op.counter, ei, ch.peer))
+                    mrows.append((ei, lam, ch.peer, row))
+                elif isinstance(c, MovableSet):
+                    ei = eidx((c.elem.peer, c.elem.counter))
+                    srows.append((ei, lam, ch.peer, vidx(c.value)))
+                elif isinstance(c, SeqDelete):
+                    # deletes tolerate unknown targets (as the native path
+                    # does): a missing target means its insert is missing
+                    # too, which the parent resolution flags
+                    for sp in c.spans:
+                        for ctr in range(sp.start, sp.end):
+                            row_d = overlay.get((sp.peer, ctr))
+                            if row_d is None:
+                                row_d = idmap.get((sp.peer, ctr))
+                            if row_d is not None:
+                                del_pairs.append((di, row_d))
+
+    def append_payloads(self, per_doc_payloads: Sequence[Optional[bytes]], cid: ContainerID) -> None:
+        """Each doc's envelope-stripped binary payload (None = no update)
+        through the native movable delta explode: slot parents in earlier
+        epochs resolve through the payload's overlay, then the inner seq
+        batch's id map; every set's value is decoded.  Elements are
+        registered slots first, then sets.  A payload the native path
+        rejects (KeyError, ValueError) has its staging cleared and is
+        walked in Python, counted in FLEET_FALLBACKS["payload_decode"].
+        Then one block scatter and two folds, as append_changes."""
+        from ..native import decode_value_at, explode_movable_delta_payload
+
+        self._reset_clocks()
+        clock = self.clock
+        per_doc_payloads = list(per_doc_payloads) + [None] * (self.n_docs - len(per_doc_payloads))
+        staging = ([], [], [], [], [], [])
+        del_pairs: List[Tuple[int, int]] = []
+        for di, payload in enumerate(per_doc_payloads):
+            stage = self._stage_doc(*staging)
+            rows, overlay, mrows, srows, e_staged, e_order, v_staged = stage
+            if not payload:
+                continue
+            idmap = self.seq.id2row[di]
+            base = int(self.seq.counts[di])
+            n_vals = len(self.values[di])
+            n_dels_start = len(del_pairs)
+            eidx = self._elem_registrar(di, e_staged, e_order)
+            try:
+                with clock.host("explode"):
+                    peers_wire, _keys, cids, _r = read_tables(payload)
+                    if cid not in cids:
+                        continue  # no ops for this container
+                    out = explode_movable_delta_payload(payload, cids.index(cid))
+                with clock.host("stage"):
+                    sl = {f: a.tolist() for f, a in out["slots"].items()}
+                    for i in range(len(sl["parent"])):
+                        prow = sl["parent"][i]
+                        if prow >= 0:
+                            prow = base + prow
+                        elif prow == -2:  # a parent in an earlier epoch: the id map
+                            key = (peers_wire[sl["ext_peer_idx"][i]], sl["ext_counter"][i])
+                            r_ = overlay.get(key)
+                            prow = idmap[key] if r_ is None else r_
+                        peer = peers_wire[sl["peer_idx"][i]]
+                        ctr_v = sl["counter"][i]
+                        ei = eidx((peers_wire[sl["elem_peer_idx"][i]], sl["elem_ctr"][i]))
+                        row = base + i
+                        overlay[(peer, ctr_v)] = row
+                        rows.append((prow, sl["side"][i], ctr_v, ei, peer))
+                        mrows.append((ei, sl["lamport"][i], peer, row))
+                    st = {f: a.tolist() for f, a in out["sets"].items()}
+                    for i in range(len(st["lamport"])):
+                        ei = eidx((peers_wire[st["elem_peer_idx"][i]], st["elem_ctr"][i]))
+                        v_staged.append(decode_value_at(payload, st["value_off"][i], cids))
+                        srows.append((ei, st["lamport"][i], peers_wire[st["peer_idx"][i]], n_vals + len(v_staged) - 1))
+                    dl = out["dels"]
+                    for dpi, start, end in zip(dl["peer_idx"].tolist(), dl["start"].tolist(), dl["end"].tolist()):
+                        dp = peers_wire[dpi]
+                        for ctr_v in range(start, end):
+                            row = overlay.get((dp, ctr_v))
+                            if row is None:
+                                row = idmap.get((dp, ctr_v))
+                            if row is not None:
+                                del_pairs.append((di, row))
+            except (KeyError, ValueError):
+                FLEET_FALLBACKS["payload_decode"] += 1
+                for part in stage:
+                    part.clear()
+                del del_pairs[n_dels_start:]
+                with clock.host("explode"):
+                    self._walk_movable_changes(di, decode_changes(payload), cid, *stage, del_pairs)
+        self._commit_movable(*staging, del_pairs)
+
+    def grow(self, capacity: Optional[int] = None, elem_capacity: Optional[int] = None) -> None:
+        """Repack: slot rows grow through the inner seq batch, the element
+        folds re-pad here, on the device."""
+        if capacity is not None:
+            self.seq.grow(capacity)
+        if elem_capacity is not None and elem_capacity > self.e_cap:
+            with self._dev_lock:
+                for name, vfill in (("moves", 0), ("vals", -2)):
+                    res = getattr(self, name)
+                    setattr(self, name, LwwResident(**_pad_axis1(res._asdict(), elem_capacity, _lww_fills(vfill))))
+                self.e_cap = elem_capacity
+
+    def _commit_movable(self, rows_per_doc, overlays, move_rows, set_rows, staged_elems, staged_vals,
+                        del_pairs) -> None:
+        """Shared tail of both appends: the element-capacity check (grow or
+        raise RuntimeError) before the seq batch commits its rows (which
+        checks its own capacity first), then the staged elements and
+        values, then the move fold and the value fold."""
+        req_elems = max((len(self.elem_ids[di]) + len(staged_elems[di]) for di in range(self.n_docs)), default=0)
+        if req_elems > self.e_cap:
+            if not self.auto_grow:
+                raise RuntimeError(f"DeviceMovableBatch element capacity exceeded: a doc needs {req_elems} elements "
+                                   f"> {self.e_cap}")
+            with self.clock.host("grow"):
+                self.grow(elem_capacity=_grow_target(req_elems, self.e_cap))
+        self.seq._commit_rows(rows_per_doc, overlays, del_pairs)
+        for di in range(self.n_docs):
+            for eid in staged_elems[di]:
+                self.elem_ids[di][eid] = len(self.elem_ids[di])
+            self.values[di].extend(staged_vals[di])
+        for rows_set, res_name in ((move_rows, "moves"), (set_rows, "vals")):
+            if any(rows_set):
+                self._device_fold_elem(rows_set, res_name)
+
+    def _device_fold_elem(self, rows_set, res_name: str) -> None:
+        """One block [D, M] of (element, lamport, peer, value) rows, pads on
+        the dump element e_cap with value -2, uploaded and folded into the
+        `res_name` winners in place."""
+        with self._dev_lock, self.clock.device_stage("fold"):
+            m = pad_bucket(max(len(r) for r in rows_set), floor=16)
+            shape = (self.n_docs, m)
+            blk = dict(elem=np.full(shape, self.e_cap, np.int32), lam=np.zeros(shape, np.int32),
+                       hi=np.zeros(shape, np.uint32), lo=np.zeros(shape, np.uint32),
+                       valid=np.zeros(shape, bool), value=np.full(shape, -2, np.int32))
+            for di, rws in enumerate(rows_set):
+                if not rws:
+                    continue
+                k = len(rws)
+                arr = np.asarray([(r[0], r[1], r[3]) for r in rws], np.int64)
+                pu = np.asarray([r[2] for r in rws], np.uint64)
+                blk["elem"][di, :k] = arr[:, 0]
+                blk["lam"][di, :k] = arr[:, 1]
+                blk["value"][di, :k] = arr[:, 2]
+                blk["hi"][di, :k] = pu >> np.uint64(32)
+                blk["lo"][di, :k] = pu & np.uint64(0xFFFFFFFF)
+                blk["valid"][di, :k] = True
+            t = {f: _to_device(a, self.device) for f, a in blk.items()}
+            lww_update_resident(getattr(self, res_name), t["elem"], t["lam"], t["hi"], t["lo"], t["valid"], self.e_cap,
+                                value=t["value"])
+
+    def value_lists(self) -> List[list]:
+        """Every doc's element values in list order, from one sort
+        (Fleet.merge_movable_changes' contract a doc)."""
+        out_idx, counts = movable_by_key_batch(
+            self.seq.cols.valid, self.seq.cols.deleted, self.seq.key_hi, self.seq.key_lo,
+            self.moves.value, self.moves.lamport, self.vals.value, device=self.device,
+        )
+        counts = counts.cpu().numpy()
+        out_idx = out_idx[:, : int(counts.max(initial=0))].cpu().numpy()
+        return [[self.values[di][j] if j >= 0 else None for j in out_idx[di, : counts[di]].tolist()]
+                for di in range(self.n_docs)]
+
+    def export_select(self, index, requests) -> List[np.ndarray]:
+        """The read plane's batched selection for the sync pull path."""
+        return _batch_export_select(self, "movable", index, requests)
+
+    # -- checkpoint and resume ------------------------------------------
+    STATE_VERSION = 2  # v2: + auto_grow flag
+
+    def export_state(self) -> bytes:
+        """The batch as an LTKV store: meta, the inner seq batch's own
+        export, the two [D, E] fold grids, each doc's element dictionary
+        and value store; byte for byte what the JAX package's
+        DeviceMovableBatch exports after the same appends."""
+        kv = MemKvStore()
+        d = _Dicts()
+        _write_meta(kv, self, _MOVABLE_META)
+        kv.set(b"seq", self.seq.export_state())
+        for name in ("moves", "vals"):
+            res = getattr(self, name)
+            _state_write_grid(kv, name.encode(), [getattr(res, f).cpu().numpy().astype(dt) for f, dt in _LWW_GRID.items()])
+        for di in range(self.n_docs):
+            w = Writer()
+            w.varint(len(self.elem_ids[di]))
+            for (peer, ctr), i in self.elem_ids[di].items():
+                w.u64le(peer)
+                w.zigzag(ctr)
+                w.varint(i)
+            kv.set(b"doc/%08d/elems" % di, bytes(w.buf))
+            w = Writer()
+            _state_write_values(w, d, self.values[di])
+            kv.set(b"doc/%08d/values" % di, bytes(w.buf))
+        kv.set(b"dicts", _state_dicts_blob(d))
+        return kv.export_all()
+
+    @classmethod
+    def import_state(cls, data: bytes, device: DeviceLike = "cuda") -> "DeviceMovableBatch":
+        """Restore a batch from export_state bytes (the port's or the JAX
+        package's).  Malformed or implausible state raises DecodeError
+        before anything large is allocated: a folded winner row outside
+        the seq batch's capacity, a folded value ordinal outside its
+        doc's value store and an element ordinal at or past the element
+        capacity among them."""
+        kv = MemKvStore()
+        kv.import_all(data)
+        meta_b, dicts_b, seq_b = kv.get(b"meta"), kv.get(b"dicts"), kv.get(b"seq")
+        if meta_b is None or dicts_b is None or seq_b is None:
+            raise DecodeError("DeviceMovableBatch state: missing sections")
+        n_docs, d_saved, e_cap, auto_grow = _read_meta("DeviceMovableBatch", meta_b, cls.STATE_VERSION, _MOVABLE_META)
+        _peers, cids = _state_read_dicts(dicts_b)
+        seq = DeviceDocBatch.import_state(seq_b, device=device)
+        if seq.n_docs != n_docs:
+            raise DecodeError("DeviceMovableBatch state: seq batch width")
+        batch = cls.__new__(cls)
+        batch._setup(seq, n_docs, e_cap, auto_grow)
+        host = {}
+        for name in ("moves", "vals"):
+            blob = kv.get(name.encode())
+            if blob is None:
+                raise DecodeError(f"DeviceMovableBatch state: missing {name}")
+            grids = _state_read_grid(blob, [((d_saved, e_cap), dt) for dt in _LWW_GRID.values()])
+            host[name] = {f: g[:n_docs] for f, g in zip(_LWW_GRID, grids)}
+        # folded slot rows must stay inside the seq buffer (the read
+        # gathers with them)
+        folded = host["moves"]["lamport"] != NEG
+        wrow = host["moves"]["value"][folded].astype(np.int64)
+        if wrow.size and (wrow.min() < 0 or wrow.max() >= seq.cap):
+            raise DecodeError("DeviceMovableBatch state: winner row")
+        try:
+            for di in range(n_docs):
+                elems_b = kv.get(b"doc/%08d/elems" % di)
+                if elems_b is not None:
+                    r = Reader(elems_b)
+                    eids: Dict[Tuple[int, int], int] = {}
+                    for _ in range(r.varint()):
+                        peer = r.u64le()
+                        ctr = r.zigzag()
+                        i = r.varint()
+                        if i >= e_cap:
+                            raise DecodeError("DeviceMovableBatch state: elem ordinal")
+                        eids[(peer, ctr)] = i
+                    batch.elem_ids[di] = eids
+                vals_b = kv.get(b"doc/%08d/values" % di)
+                if vals_b is not None:
+                    batch.values[di] = _state_read_values(vals_b, cids)
+                # folded value ordinals must stay inside the value store
+                vv = host["vals"]["value"][di].astype(np.int64)
+                vv = vv[vv >= 0]
+                if vv.size and vv.max() >= len(batch.values[di]):
+                    raise DecodeError("DeviceMovableBatch state: value ordinal")
+        except (IndexError, ValueError, struct.error) as e:
+            raise DecodeError(f"DeviceMovableBatch state: malformed doc ({e})") from None
+        for name, grids in host.items():
+            res = getattr(batch, name)
+            for f, g in grids.items():
+                getattr(res, f)[:] = _to_device(g, batch.device)
+        return batch

@@ -57,9 +57,12 @@ generated on a Fugue sequence that each peer edits in its own view
 marking or unmarking spans of the text) with ``richtext_payload``,
 ``richtext_epoch_payloads`` and the host walk ``oracle_richtext``;
 ``movable_doc`` (4 peers inserting, moving, setting and deleting list
-elements, moves meeting concurrently) with ``movable_payload`` and
-``oracle_movable``.  Both are cached under ``build/tracegen/`` as their
-payload bytes.
+elements, moves meeting concurrently) with ``movable_payload``,
+``movable_epoch_payloads`` and ``oracle_movable``.  Both are cached
+under ``build/tracegen/`` as their payload bytes.
+
+``oracle_export`` is the read plane's host reference: the changes a pull
+from a version vector exports, in the OpLog's export order.
 """
 from __future__ import annotations
 
@@ -1401,6 +1404,12 @@ def movable_payload(doc: OpTrace) -> bytes:
     return encode_changes(doc.changes)
 
 
+def movable_epoch_payloads(doc: OpTrace) -> List[bytes]:
+    """One binary updates payload a sync epoch, the input of a resident
+    batch's appends."""
+    return [encode_changes(g) for g in doc.epoch_changes()]
+
+
 def oracle_movable(doc: OpTrace, n_epochs: Optional[int] = None) -> list:
     """The values of the list MOVABLE_CID after the first `n_epochs` sync
     epochs (default all), by a host walk: the slots (inserted elements
@@ -1428,3 +1437,23 @@ def oracle_movable(doc: OpTrace, n_epochs: Optional[int] = None) -> list:
                 best_value[elem] = ((lam, peer), c.value)
     return [best_value[elem_of[e]][1] for e in order
             if best_slot[elem_of[e]][1] == e and ids[e] not in deleted]
+
+
+def oracle_export(changes, vv) -> List[int]:
+    """What a pull from version vector `vv` (a VersionVector, or a dict
+    peer -> end counter; an absent peer reads 0) exports of a document's
+    stored changes: `changes` is their list, or their lists by epoch,
+    concatenated in order.  Returns the positions in that concatenation of
+    every change whose ctr_end is above vv[peer], ordered as
+    OpLog.changes_since exports them, by (lamport + max(0, f - ctr_start),
+    peer, max(ctr_start, f)) with f = vv[peer]: a change the pull half
+    holds exports trimmed to its unknown tail.  A plain walk, for changes
+    that never repeat a counter (what an index fed them stores as they
+    are)."""
+    flat = [ch for group in changes for ch in group] if changes and isinstance(changes[0], list) else list(changes)
+    keyed = []
+    for i, ch in enumerate(flat):
+        f = vv.get(ch.peer) or 0
+        if ch.ctr_end > f:
+            keyed.append(((ch.lamport + max(0, f - ch.ctr_start), ch.peer, max(ch.ctr_start, f)), i))
+    return [i for _, i in sorted(keyed)]

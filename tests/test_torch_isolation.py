@@ -167,6 +167,29 @@ _BLOCKED_IMPORT = textwrap.dedent(
     assert fleet.merge_movable_changes([d.changes for d in vdocs], tracegen.MOVABLE_CID) == want
     assert FLEET_FALLBACKS["payload_extract"] == 0
 
+    # the resident MovableList batch from epoch payloads, and the read
+    # plane's selection over the text traces' epochs
+    from loro_tpu_torch.core.version import VersionVector
+    from loro_tpu_torch.ops.export_batch import ExportIndex
+    from loro_tpu_torch.parallel.fleet import DeviceMovableBatch
+
+    veps = [tracegen.movable_epoch_payloads(d) for d in vdocs]
+    vbatch = DeviceMovableBatch(2, 16, 8, device="cpu", auto_grow=True)
+    for e in range(max(map(len, veps))):
+        vbatch.append_payloads([ep[e] if e < len(ep) else None for ep in veps], tracegen.MOVABLE_CID)
+    assert vbatch.value_lists() == want and FLEET_FALLBACKS["payload_decode"] == 0
+    assert DeviceMovableBatch.import_state(vbatch.export_state(), device="cpu").value_lists() == want
+    index = ExportIndex(len(docs), capacity=8, device="cpu")
+    groups = [[decode_changes(p) for p in ep] for ep in eps]
+    for di, gs in enumerate(groups):
+        for g in gs:
+            index.note_changes(di, g)
+    mid = [{ch.peer: ch.ctr_end for g in gs[: len(gs) // 2] for ch in g} for gs in groups]
+    reqs = [(di, VersionVector(m)) for di, m in enumerate(mid)] + [(0, VersionVector())]
+    got = vbatch.export_select(index, reqs)
+    for (di, vv), g in zip(reqs, got):
+        assert g.tolist() == tracegen.oracle_export(groups[di], vv)
+
     # the port's entry point
     from loro_tpu_torch.entry import entry
 
@@ -202,9 +225,10 @@ def test_source_scan_finds_no_jax_or_loro_tpu_import():
     assert len(files) > 5
     for name in ("parallel/fleet.py", "core/change.py", "core/version.py", "core/ids.py", "storage/kv.py",
                  "parallel/order_maintenance.py", "parallel/idmap.py", "native/__init__.py", "ops/lww.py",
-                 "ops/tree_batch.py", "ops/richtext_batch.py", "ops/movable_batch.py"):
+                 "ops/tree_batch.py", "ops/richtext_batch.py", "ops/movable_batch.py", "ops/export_batch.py",
+                 "oplog/oplog.py"):
         assert PKG / name in files, name
-    for sub in ("codec", "core", "native", "ops", "parallel", "storage"):
+    for sub in ("codec", "core", "native", "oplog", "ops", "parallel", "storage"):
         assert any(f.parent == PKG / sub for f in files), sub
     offenders = [
         f"{f.relative_to(REPO)}: {m.group(0).strip()}" for f in files for m in _IMPORT_RE.finditer(f.read_text())
@@ -242,7 +266,9 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
     cpu_cols = fugue_batch.chain_columns_to_torch(np_cols, device="cpu")
     from loro_tpu_torch.entry import entry, example_cols
     from loro_tpu_torch.ops import lww
-    from loro_tpu_torch.parallel.fleet import DeviceCounterBatch, DeviceDocBatch, DeviceMapBatch, DeviceTreeBatch, Fleet
+    from loro_tpu_torch.ops.export_batch import ExportIndex
+    from loro_tpu_torch.parallel.fleet import (DeviceCounterBatch, DeviceDocBatch, DeviceMapBatch, DeviceMovableBatch,
+                                              DeviceTreeBatch, Fleet)
 
     np_seq = example_cols(d=1, n=8)
     seq = fugue_batch.seq_columns_to_torch(np_seq, device="cpu")
@@ -303,6 +329,9 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
         lambda: richtext_batch.richtext_by_key_batch(seq_u, u32, u32, rt_pairs, 4),
         lambda: movable_batch.movable_merge_batch(mv_cols, 4),
         lambda: movable_batch.movable_by_key_batch(np_seq.valid, np_seq.deleted, u32, u32, i32, i32, i32),
+        lambda: DeviceMovableBatch(1, 16, 4),
+        lambda: DeviceMovableBatch.import_state(DeviceMovableBatch(1, 16, 4, device="cpu").export_state()),
+        lambda: ExportIndex(1),
     ]
     for call in calls:
         with pytest.raises(DeviceUnavailable):
@@ -325,3 +354,8 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
     codes, counts, bounds, win = richtext_batch.richtext_chain_merge_batch(rt_chain, 4, device="cpu")
     assert int(counts[0]) == 4 and win.shape == (1, 5, 4)
     assert int(movable_batch.movable_merge_batch(mv_cols, 4, device="cpu")[1][0]) > 0
+    # the resident movable batch and the export index run when the CPU is asked for
+    from loro_tpu_torch.core.version import VersionVector
+
+    assert DeviceMovableBatch(1, 16, 4, device="cpu").value_lists() == [[]]
+    assert [g.tolist() for g in ExportIndex(1, device="cpu").select([(0, VersionVector())])] == [[]]
