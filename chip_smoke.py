@@ -104,11 +104,16 @@ checks it, end to end:
       against its plain version (both table variants) on the traces and
       on bench_tree's random columns at [1,024, 2,048], and in the
       resident replays' permutation form on the resident fleet's last
-      log (32 docs a CTA) and the first 4,096 rows of the depth cell's
-      (n = 2,048, 28 docs a CTA), timed by graph
-      and eager beside its latency bound (the longest doc's dependent
-      loads at a shared-memory load latency measured on the card) and
-      its bytes bound;
+      log and the first 4,096 rows of the depth cell's (n = 2,048),
+      timed by graph and eager beside its latency bound (the longest
+      doc's dependent loads at a shared-memory load latency measured on
+      the card) and its bytes bound; its timed split (tree_batch.
+      launch_timed: cycles of walk steps, waits for staged moves and
+      bookkeeping, cycles a step beside the chase's a load, active
+      lanes, mean and warp walks a move) on the traces and the random
+      columns; and the docs-a-warp sweep (1 to 32, each held against the
+      planned launch) at [1,024, 2,048], [10,240, 2,048] and on the
+      depth cell's whole last log in the permutation form;
    h. rich text (its order solves launch the list-rank kernels):
       Fleet.merge_richtext_changes on 256 change lists cycled over 8
       tracegen.richtext_doc traces (3 peers, 12,288 chars and 768 marks,
@@ -991,9 +996,12 @@ def tree_phase(torch, dev, kind: str, card: str) -> dict:
     to equal state bytes; the permutation form the resident replays
     launch held bit for bit against the plain version on (c)'s last log
     and on the first TREE_DEEP_PLAIN_ROWS rows of (d)'s, both table
-    variants.  The main path's replay launches are counted
-    over (a), (c), (d) and (b)'s [10,240, 2,048] call; the comparisons
-    and timings run after that count is read."""
+    variants; then the kernel's timed split (tree_split) on the traces
+    and the random columns, and the docs-a-warp sweep (tree_sweep) at
+    [1,024, 2,048], [10,240, 2,048] and on (d)'s whole last log in the
+    permutation form.  The main path's replay launches are counted
+    over (a), (c), (d) and (b)'s [10,240, 2,048] call; the comparisons,
+    timings, split and sweep run after that count is read."""
     import numpy as np
 
     from loro_tpu_torch import tracegen
@@ -1164,21 +1172,22 @@ def tree_phase(torch, dev, kind: str, card: str) -> dict:
         variants[v] = both_ms(torch, lambda: tb.launch_kernel(*cols, n, variant=v))
     # the resident replays' permutation form (the sort's order given,
     # effected written back by row) on each resident cell's last batch:
-    # (c) at 32 docs a CTA, (d) at n = 2,048, 28 docs a CTA, on the first
-    # TREE_DEEP_PLAIN_ROWS rows of its log (rounds 1-2; the plain version
-    # walks for minutes on the whole log)
+    # (c) whole, (d) at n = 2,048 on the first TREE_DEEP_PLAIN_ROWS rows
+    # of its log (rounds 1-2; the plain version walks for minutes on the
+    # whole log)
     resident_vs_plain = {}
-    for label, res, rows, per_cta in (("resident", res_c, None, 32), ("resident_deep", res_d, TREE_DEEP_PLAIN_ROWS, 28)):
+    for label, res, rows in (("resident", res_c, None), ("resident_deep", res_d, TREE_DEEP_PLAIN_ROWS)):
         rc = res["last_batch"].cols
         if rows is not None:
             rc = tb.TreeLogCols(*(c[:, :rows].contiguous() for c in rc))
         nc = res["node_cap"]
-        check(tb.plan_variant(nc) == ("smem", per_cta), f"tree {label}: n = {nc} plans {tb.plan_variant(nc)}")
+        plan = tb.plan_replay(rc.target.shape[0], nc, tb.sm_count(dev))
+        check(plan.variant == "smem", f"tree {label}: n = {nc} plans {plan}")
         order = tb._sort_order(rc)
         t0 = time.perf_counter()
         want_p, want_e, _ = tb.replay_plain(rc.target, rc.parent, rc.valid, nc, order=order)
         torch.cuda.synchronize()
-        resident_vs_plain[label] = {"shape": list(rc.target.shape), "n": nc, "docs_per_cta": per_cta,
+        resident_vs_plain[label] = {"shape": list(rc.target.shape), "n": nc, "docs_per_warp": plan.docs_per_warp,
                                     "plain_ms": (time.perf_counter() - t0) * 1e3}
         for v in tb.VARIANTS:
             gp, ge = tb.launch_kernel(rc.target, rc.parent, rc.valid, nc, order=order.to(torch.int32), variant=v)
@@ -1207,6 +1216,18 @@ def tree_phase(torch, dev, kind: str, card: str) -> dict:
     order = tb._sort_order(deep_cols).to(torch.int32)
     deep_kernel_ms = time_ms(torch, lambda: tb.launch_kernel(deep_cols.target, deep_cols.parent, deep_cols.valid,
                                                              res_d["node_cap"], order=order), warmup=1, reps=5)
+    # where a warp's time goes (the timed instantiation), and the
+    # docs-a-warp sweep behind plan_replay's rule
+    split = {"traces": tree_split(torch, tb, cols, n), "random": tree_split(torch, tb, rand, n)}
+    for label, sp in split.items():
+        print(f"tree split on the {label} [{TREE_DOCS}, {m}] ({sp['docs_per_warp']} docs a warp, median of 10; the "
+              f"chase {load_cycles:.2f} cycles a load): " + tree_split_line(sp), flush=True)
+    sweep = {
+        "traces": tree_sweep(torch, dev, tb, f"traces [{TREE_DOCS}, {m}]", cols, n, want=(parents, eff)),
+        "big": tree_sweep(torch, dev, tb, f"traces tiled [{TREE_BIG_DOCS}, {m}]", big, n),
+        "deep": tree_sweep(torch, dev, tb, f"resident depth [{TREE_DEEP_DOCS}, {res_d['cap']}], permutation form",
+                           deep_cols[4:7], res_d["node_cap"], order=order, light=True),
+    }
     del res_d["last_batch"], res_c["last_batch"], deep_cols, order
     out["kernel"] = {
         "shape": [TREE_DOCS, m], "n": n, "max_abs_err": max_err, "ms": graph_ms, "eager_ms": eager_ms, "global_ms": variants["global"][1],
@@ -1220,7 +1241,9 @@ def tree_phase(torch, dev, kind: str, card: str) -> dict:
                 "moves_per_s": TREE_BIG_DOCS * m / (big_graph / 1e3)},
         "deep": {"shape": [TREE_DEEP_DOCS, res_d["cap"]], "n": res_d["node_cap"], "replay_ms": deep_ms,
                  "kernel_ms": deep_kernel_ms},
-        "resident_vs_plain": resident_vs_plain,
+        "resident_vs_plain": resident_vs_plain, "plan": {"docs_per_warp": tb.plan_replay(
+            TREE_DOCS, n, tb.sm_count(dev)).docs_per_warp, "big_docs_per_warp": tb.plan_replay(
+            TREE_BIG_DOCS, n, tb.sm_count(dev)).docs_per_warp}, "split": split, "sweep": sweep,
     }
     k = out["kernel"]
     print(f"tree kernel on {kind} ({card}): [{TREE_DOCS}, {m}] n = {n} on the traces: graph {graph_ms:.4f} ms "
@@ -1234,10 +1257,70 @@ def tree_phase(torch, dev, kind: str, card: str) -> dict:
           f"{k['big']['moves_per_s'] / 1e9:.3f}G moves/s (each doc == its trace's result); resident depth "
           f"[{TREE_DEEP_DOCS}, {res_d['cap']}] n = {res_d['node_cap']}: sort + replay {deep_ms:.3f} ms, kernel "
           f"{deep_kernel_ms:.3f} ms; permutation form == plain (both variants) on "
-          + ", ".join(f"{lb} {x['shape']} n = {x['n']} ({x['docs_per_cta']} docs a CTA; plain {x['plain_ms']:.0f} ms)"
+          + ", ".join(f"{lb} {x['shape']} n = {x['n']} ({x['docs_per_warp']} docs a warp; plain {x['plain_ms']:.0f} ms)"
                       for lb, x in resident_vs_plain.items())
           + f"; launches in the phase's main path {launches}", flush=True)
     torch.cuda.empty_cache()
+    return out
+
+
+def tree_split(torch, tb, cols, n: int, reps: int = 10) -> dict:
+    """The replay kernel's timed instantiation on [D, M] columns at its
+    planned layout: tree_batch.replay_split's fields, each the median of
+    `reps` launches after 3 warm-ups."""
+    d, m = cols[0].shape
+    splits = []
+    for i in range(3 + reps):
+        _p, _e, plan, st = tb.launch_timed(*cols, n)
+        torch.cuda.synchronize()
+        if i >= 3:
+            splits.append(tb.replay_split(st, d, m, plan.docs_per_warp))
+    return {**{k: statistics.median(sp[k] for sp in splits) for k in splits[0]},
+            "warps": splits[0]["warps"], "docs_per_warp": splits[0]["docs_per_warp"]}
+
+
+def tree_split_line(sp: dict) -> str:
+    """One line of a replay_split."""
+    return (f"longest warp {sp['longest_warp_cycles']:.0f} cycles; walk {100 * sp['walk_share']:.1f} %, wait "
+            f"{100 * sp['wait_share']:.1f} %, bookkeeping {100 * sp['book_share']:.1f} % of the warps' cycles; "
+            f"{sp['walk_cycles_per_step']:.1f} cycles a walk step, {sp['book_cycles_per_move']:.1f} bookkeeping a "
+            f"move; active lanes {100 * sp['active_lanes_of_32']:.1f} % of 32, {100 * sp['active_lanes_of_docs']:.1f} "
+            f"% of the warp's docs; walk a move: lanes' mean {sp['mean_walk_per_move']:.2f}, the warp's "
+            f"{sp['warp_walk_per_move']:.2f}")
+
+
+def tree_sweep(torch, dev, tb, label: str, cols, n: int, order=None, want=None, light: bool = False) -> dict:
+    """The replay kernel at each docs a warp (1 to 32) whose tables and
+    move tile fit a CTA, on [D, M] columns (in the permutation form with
+    `order`): each result held against `want` or the planned launch's,
+    timed by graph and eager (light: by graph only, 2 launches, 3
+    samples: the depth cell's log).  Returns {docs a warp: times, ...,
+    "plan": the planned docs a warp}."""
+    d = cols[0].shape[0]
+    auto = tb.plan_replay(d, n, tb.sm_count(dev))
+    ref = want if want is not None else tb.launch_plan(*cols, n, auto, order=order)
+    out = {"plan": auto.docs_per_warp}
+    for g in tb.DOCS_PER_WARP:
+        plan = replace(auto, docs_per_warp=g)
+        if plan.smem_bytes > tb.SMEM_LIMIT:
+            continue
+        got = tb.launch_plan(*cols, n, plan, order=order)
+        torch.cuda.synchronize()
+        check(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]),
+              f"tree sweep {label}: {g} docs a warp != the planned launch")
+
+        def run(plan=plan):
+            return tb.launch_plan(*cols, n, plan, order=order)
+
+        if light:
+            out[g] = {"ms": kernel_ms(torch, run, calls=2, reps=3)}
+        else:
+            eager, graph = both_ms(torch, run)
+            out[g] = {"ms": graph, "eager_ms": eager}
+    print(f"tree sweep {label} n = {n}, ms by graph" + (" (eager)" if not light else "") + " at docs a warp: "
+          + ", ".join(f"{g}: {v['ms']:.4f}" + (f" ({v['eager_ms']:.4f})" if "eager_ms" in v else "")
+                      for g, v in out.items() if g != "plan")
+          + f"; plan_replay picks {auto.docs_per_warp} ({auto.variant})", flush=True)
     return out
 
 

@@ -8,8 +8,9 @@ TRASH.
 
 The replay is sequential within a doc and independent across docs.  On
 a CUDA tensor tree_merge_batch and tree_replay_log_batch launch the
-hand-written kernel csrc/tree_replay.cu (one thread replays one doc,
-its parent table in shared memory) or raise; on a CPU tensor they run
+hand-written kernel csrc/tree_replay.cu (one lane replays one doc, its
+parent table in shared memory, 1 to 32 docs a warp by plan_replay) or
+raise; on a CPU tensor they run
 tree_merge_batch_plain, the same replay vectorized over docs with a
 Python loop over moves and an inner loop while any doc still walks.
 chip_smoke.py holds the kernel against the plain version on the card.
@@ -21,6 +22,7 @@ positions_of, pad_tree_cols) is numpy, as in the JAX package.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -33,7 +35,14 @@ ROOT = -1
 TRASH = -2
 ABSENT = -3
 SMEM_LIMIT = 232_448  # opt-in dynamic shared memory of one block on sm_90
-DOCS_PER_CTA = 32  # one warp of docs, one doc a thread
+SM_SMEM = 233_472  # shared memory of one SM on sm_90 (228 KB)
+CTA_RESERVED_SMEM = 1024  # the system's shared memory of each CTA on sm_90
+MAX_CTAS_PER_SM = 32  # resident CTAs of one SM on sm_90
+MAX_DOCS_PER_WARP = 32  # one lane a doc
+DOCS_PER_WARP = (1, 2, 4, 8, 16, 32)
+WARPS_PER_SM = 8  # the warps (CTAs) a SM is planned to hold at once: two a scheduler
+WARP_SLOTS, TILE_CAP, SLOT_BYTES = 512, 32, 13  # the move tile: moves a warp, moves a doc, bytes a move
+STAMPS = 8  # int64 a warp of the timed kernel
 VARIANTS = ("smem", "global")
 
 # Launches of the replay kernel by where its tables live, incremented
@@ -148,7 +157,7 @@ def tree_merge_batch(cols: TreeOpCols, n_nodes: int, d_max: Optional[int] = None
 
     `d_max` bounds the cycle-check walk; the default (n_nodes) is always
     sound, a smaller bound only where the workload caps the depth.  On
-    CUDA tensors the kernel runs (its table variant by plan_variant); on
+    CUDA tensors the kernel runs (its layout by plan_replay); on
     CPU tensors (numpy arrays are taken as such) the plain version."""
     target, parent, valid = _as_cols(cols)
     if target.device.type == "cpu":
@@ -344,6 +353,7 @@ def extract_tree_from_payload(payload: bytes, cid):
 # ---- the CUDA kernel ---------------------------------------------------------------
 
 _lib_handle: Optional[ctypes.CDLL] = None
+_sm_count: Dict[int, int] = {}
 
 
 def _lib() -> ctypes.CDLL:
@@ -355,6 +365,8 @@ def _lib() -> ctypes.CDLL:
         lib = library("tree_replay")
         lib.tree_replay_launch.argtypes = [ptr] * 6 + [i32] * 7 + [ptr]
         lib.tree_replay_launch.restype = i32
+        lib.tree_replay_launch_timed.argtypes = [ptr] * 7 + [i32] * 7 + [ptr]
+        lib.tree_replay_launch_timed.restype = i32
         lib.tree_smem_chase.argtypes = [i32, i32, ptr, ptr, ptr]
         lib.tree_smem_chase.restype = i32
         lib.tree_replay_error_string.argtypes = [i32]
@@ -370,36 +382,100 @@ def _check(err: int, what: str) -> None:
 
 
 def table_stride(n_nodes: int) -> int:
-    """Words between two docs' tables in shared memory: n_nodes rounded
-    up to an odd count, so 32 lanes at one index hit 32 banks."""
-    return n_nodes | 1
+    """Words between two docs' walk tables in shared memory: the n_nodes
+    + 1 slots (slot n stands for every ordinal past n - 1) rounded up to
+    an odd count, so lanes at one index hit distinct banks."""
+    return (n_nodes + 1) | 1
+
+
+def tile_moves(docs_per_warp: int) -> int:
+    """Moves of each doc a warp stages in shared memory at a time: 32,
+    or 16 at 32 docs a warp (WARP_SLOTS moves a warp)."""
+    return TILE_CAP if docs_per_warp * TILE_CAP <= WARP_SLOTS else WARP_SLOTS // docs_per_warp
+
+
+@dataclass(frozen=True)
+class ReplayPlan:
+    """How a launch lays out its docs: `variant` ("smem" or "global",
+    where the tables live) and `docs_per_warp` (a power of two in 1..32;
+    one warp a CTA, one lane a doc)."""
+
+    variant: str
+    docs_per_warp: int
+    n_nodes: int
+
+    @property
+    def stride(self) -> int:
+        return table_stride(self.n_nodes) if self.variant == "smem" else self.n_nodes
+
+    @property
+    def tile(self) -> int:
+        return tile_moves(self.docs_per_warp)
+
+    @property
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory a CTA: the walk tables and their stop
+        word (smem variant), and the move tile."""
+        tables = 4 * (self.docs_per_warp * self.stride + 1) if self.variant == "smem" else 0
+        return tables + SLOT_BYTES * self.docs_per_warp * self.tile
+
+    def warps(self, n_docs: int) -> int:
+        return -(-n_docs // self.docs_per_warp)
 
 
 def plan_variant(n_nodes: int, variant: Optional[str] = None) -> Tuple[str, int]:
-    """(variant, docs a CTA): "smem" with as many docs a CTA (up to 32)
-    as have their tables fit SMEM_LIMIT, else "global" (the tables in
-    the parents output) at 32 docs a CTA.  An explicit "smem" whose one
-    table does not fit raises ValueError."""
+    """(variant, the most docs a warp): "smem" where one doc's table and
+    its move tile fit SMEM_LIMIT, with the largest power of two of docs
+    (up to 32) whose tables and tile fit, else "global" (the tables in
+    the parents output) at up to 32.  An explicit "smem" whose one table
+    does not fit raises ValueError."""
     if variant not in (None,) + VARIANTS:
         raise ValueError(f"tree_replay variant {variant!r}: accepted {VARIANTS} or None")
-    per_cta = min(DOCS_PER_CTA, SMEM_LIMIT // (4 * table_stride(n_nodes)))
-    if variant == "smem" and per_cta < 1:
-        raise ValueError(f"n_nodes={n_nodes}: one table of {4 * table_stride(n_nodes)} bytes passes {SMEM_LIMIT}")
-    if variant == "global" or per_cta < 1:
-        return "global", DOCS_PER_CTA
-    return "smem", per_cta
+    if n_nodes < 1:
+        raise ValueError(f"n_nodes must be >= 1, got {n_nodes}")
+    fits = [g for g in DOCS_PER_WARP if ReplayPlan("smem", g, n_nodes).smem_bytes <= SMEM_LIMIT]
+    if variant == "smem" and not fits:
+        raise ValueError(f"n_nodes={n_nodes}: one table of {4 * table_stride(n_nodes)} bytes and its move tile "
+                         f"pass {SMEM_LIMIT}")
+    if variant == "global" or not fits:
+        return "global", MAX_DOCS_PER_WARP
+    return "smem", fits[-1]
 
 
-def launch_kernel(target: torch.Tensor, parent: torch.Tensor, valid: torch.Tensor, n_nodes: int,
-                  d_max: Optional[int] = None, order: Optional[torch.Tensor] = None,
-                  variant: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch csrc/tree_replay.cu on [D, M] CUDA columns (int32 target and
-    parent, bool valid, optional int32 `order`): (parents int32
-    [D, n_nodes], effected bool [D, M]).  `variant` forces a table
-    variant (plan_variant), else the automatic route.  No device-to-host
-    sync.  Raises on anything the kernel does not take and on a launch
-    error."""
-    d_max = n_nodes if d_max is None else min(int(d_max), 2**31 - 1)  # past any walk: an int32 for the kernel
+def plan_replay(n_docs: int, n_nodes: int, n_sm: int, variant: Optional[str] = None) -> ReplayPlan:
+    """The launch's layout, from the number of docs and the card's SMs:
+    the docs a warp that replay every doc in the fewest waves of warps
+    (a SM planned to hold WARPS_PER_SM warps, or fewer where its shared
+    memory or its CTA cap holds fewer of that layout's CTAs), the fewest
+    docs a warp among those (a doc's walk then waits on fewer lanes').
+    No argument here is a tuning knob: `variant` only forces where the
+    tables live (plan_variant)."""
+    if n_docs < 0 or n_sm < 1:
+        raise ValueError(f"plan_replay needs n_docs >= 0 and n_sm >= 1, got {n_docs}, {n_sm}")
+    var, most = plan_variant(n_nodes, variant)
+
+    def waves(plan: ReplayPlan) -> int:
+        per_sm = min(WARPS_PER_SM, MAX_CTAS_PER_SM, SM_SMEM // (plan.smem_bytes + CTA_RESERVED_SMEM))
+        return -(-plan.warps(n_docs) // (n_sm * per_sm))
+
+    plans = [ReplayPlan(var, g, n_nodes) for g in DOCS_PER_WARP if g <= most]
+    return min(plans, key=lambda p: (waves(p), p.docs_per_warp))
+
+
+def sm_count(device) -> int:
+    """The SMs of a CUDA device (cached)."""
+    idx = torch.device(device).index
+    idx = torch.cuda.current_device() if idx is None else idx
+    if idx not in _sm_count:
+        _sm_count[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _sm_count[idx]
+
+
+def _launch(target: torch.Tensor, parent: torch.Tensor, valid: torch.Tensor, n_nodes: int,
+            d_max: Optional[int], order: Optional[torch.Tensor], plan: Optional[ReplayPlan],
+            variant: Optional[str] = None, stamps: bool = False):
+    """Check the columns, plan (unless `plan` is given), launch, raise on
+    a launch error: (parents, effected, plan, stamps or None)."""
     tensors = {"target": target, "parent": parent, "valid": valid}
     if order is not None:
         tensors["order"] = order
@@ -415,21 +491,83 @@ def launch_kernel(target: torch.Tensor, parent: torch.Tensor, valid: torch.Tenso
             raise ValueError(f"tree_replay needs contiguous columns ({name} is not)")
     if n_nodes < 1:
         raise ValueError(f"n_nodes must be >= 1, got {n_nodes}")
+    d_max = n_nodes if d_max is None else min(int(d_max), 2**31 - 1)  # past any walk: an int32 for the kernel
     d, m = target.shape
-    var, per_cta = plan_variant(n_nodes, variant)
     dev = target.device
+    if plan is None:
+        plan = plan_replay(d, n_nodes, sm_count(dev), variant)
+    if plan.n_nodes != n_nodes or plan.docs_per_warp not in DOCS_PER_WARP or plan.smem_bytes > SMEM_LIMIT:
+        raise ValueError(f"tree_replay plan {plan} does not fit n_nodes={n_nodes} and {SMEM_LIMIT} bytes")
     parents = torch.empty((d, n_nodes), dtype=torch.int32, device=dev)
     eff = torch.empty((d, m), dtype=torch.bool, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    st = torch.zeros((plan.warps(d), STAMPS), dtype=torch.int64, device=dev) if stamps else None
+    args = [target.data_ptr(), parent.data_ptr(), valid.data_ptr(), None if order is None else order.data_ptr(),
+            parents.data_ptr(), eff.data_ptr()]
+    if st is not None:
+        args.append(st.data_ptr())
+    args += [d, m, n_nodes, d_max, int(plan.variant == "smem"), plan.docs_per_warp, plan.stride,
+             torch.cuda.current_stream(dev).cuda_stream]
     with torch.cuda.device(dev):
-        err = _lib().tree_replay_launch(
-            target.data_ptr(), parent.data_ptr(), valid.data_ptr(), None if order is None else order.data_ptr(),
-            parents.data_ptr(), eff.data_ptr(), d, m, n_nodes, d_max, int(var == "smem"), per_cta,
-            table_stride(n_nodes), stream,
-        )
+        err = (_lib().tree_replay_launch_timed if stamps else _lib().tree_replay_launch)(*args)
     _check(err, "kernel launch")
-    LAUNCHES[var] += 1
+    return parents, eff, plan, st
+
+
+def launch_kernel(target: torch.Tensor, parent: torch.Tensor, valid: torch.Tensor, n_nodes: int,
+                  d_max: Optional[int] = None, order: Optional[torch.Tensor] = None,
+                  variant: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch csrc/tree_replay.cu on [D, M] CUDA columns (int32 target and
+    parent, bool valid, optional int32 `order`): (parents int32
+    [D, n_nodes], effected bool [D, M]).  The layout is plan_replay's;
+    `variant` forces a table variant (plan_variant), else the automatic
+    route.  No device-to-host sync.  Raises on anything the kernel does
+    not take and on a launch error."""
+    parents, eff, plan, _ = _launch(target, parent, valid, n_nodes, d_max, order, None, variant)
+    LAUNCHES[plan.variant] += 1
     return parents, eff
+
+
+def launch_timed(target: torch.Tensor, parent: torch.Tensor, valid: torch.Tensor, n_nodes: int,
+                 d_max: Optional[int] = None, order: Optional[torch.Tensor] = None,
+                 plan: Optional[ReplayPlan] = None):
+    """The timed instantiation of launch_kernel (clock64 counters inside;
+    not counted in LAUNCHES): (parents, effected, plan, int64 stamps
+    [warps, STAMPS], read by replay_split).  `plan` replaces
+    plan_replay's layout (the docs-a-warp sweep)."""
+    return _launch(target, parent, valid, n_nodes, d_max, order, plan, stamps=True)
+
+
+def launch_plan(target: torch.Tensor, parent: torch.Tensor, valid: torch.Tensor, n_nodes: int, plan: ReplayPlan,
+                d_max: Optional[int] = None, order: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """launch_kernel at a given layout (`dataclasses.replace` of a plan:
+    the docs-a-warp sweep and the card tests), counted in LAUNCHES."""
+    parents, eff, _, _ = _launch(target, parent, valid, n_nodes, d_max, order, plan)
+    LAUNCHES[plan.variant] += 1
+    return parents, eff
+
+
+def replay_split(stamps: torch.Tensor, n_docs: int, m: int, docs_per_warp: int) -> Dict[str, float]:
+    """A timed launch's stamps ([warps, STAMPS] int64, SM cycles) read as
+    where a warp's time goes: the longest warp's cycles and the shares,
+    summed over warps, of walk steps, of waits for staged moves and of
+    move bookkeeping; cycles a warp walk step; the active lanes a step
+    over 32 and over the warp's docs; a doc's mean walk a move and the
+    warp's walk a move (the lanes waiting on the longest walk at each
+    meeting: a move, or a tile)."""
+    st = stamps.to(torch.float64).cpu()
+    tot = st.sum(dim=0)
+    total, walk, wait, book, iters, active, steps, max_steps = (float(x) for x in tot)
+    live = float(st[:, 0].max())
+    return {
+        "warps": int(st.shape[0]), "docs_per_warp": docs_per_warp, "longest_warp_cycles": live,
+        "mean_warp_cycles": total / st.shape[0], "walk_share": walk / total, "wait_share": wait / total,
+        "book_share": book / total, "walk_cycles_per_step": walk / max(iters, 1.0),
+        "book_cycles_per_move": book / max(st.shape[0] * m, 1), "wait_cycles": wait / st.shape[0],
+        "active_lanes_of_32": active / max(32.0 * iters, 1.0),
+        "active_lanes_of_docs": active / max(min(docs_per_warp, n_docs) * iters, 1.0),
+        "mean_walk_per_move": steps / max(n_docs * m, 1), "warp_walk_per_move": max_steps / max(st.shape[0] * m, 1),
+    }
 
 
 CHASE_STEPS = 4096

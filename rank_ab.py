@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Compares the list-rank kernels of several source trees on one
-NVIDIA GPU, in turns, in one process.
+"""Compares the list-rank kernels and the tree replay kernel of several
+source trees on one NVIDIA GPU, in turns, in one process.
 
 Each TREE is a checkout of this repository (for instance the parent
 commit unpacked with `git archive` under build/).  Its
@@ -32,6 +32,22 @@ bit-exact against the plain version first:
   it stood before that entry point existed; `instrument` finds them);
   and Wyllie's rounds taken and cycles per round on the flagship rings,
   for a tree with list_rank_wyllie_launch_timed.
+
+The tree replay kernel: each tree's loro_tpu_torch/csrc/tree_replay.cu
+built into build/rank_ab/ and called through its C interface
+(tree_replay_launch), at its own layout: a tree with the timed entry
+point (tree_replay_launch_timed) at this tree's plan_replay, an older
+tree (one thread a doc, one warp a CTA) at its own rule.  Cases, each
+result held bit-exact against this tree's replay_plain first: the
+tree_doc traces at [1,024, 2,048] (n = 512, bench_tree's shape),
+bench_tree's random columns there, the traces tiled to BASELINE config
+5's [10,240, 2,048] (each doc held against its trace's plain result),
+and the deep cell's 8 traces of 16,384 moves on 2,048 nodes in the
+permutation form (each log shuffled, the kernel given the order; held
+against the plain version on each log's first 4,096 moves, and whole
+against the first tree's result).  Then each tree's timed split on the
+traces and the random columns: the timed entry point, or for an older
+tree a copy of its source with counters written in (instrument_tree).
 
 Times, two for each tree and case (chip_smoke.both_ms): CUDA events
 over 20 back-to-back launches ("eager_ms", the yardstick of
@@ -89,6 +105,285 @@ def instrument(src: str) -> str:
         src = src.replace(anchor, new)
     return src + ('\nextern "C" int list_rank_read_stamps(long long* out, int n) {\n'
                   "  return (int)cudaMemcpyFromSymbol(out, g_rank_stamps, (size_t)n * 8 * sizeof(long long));\n}\n")
+
+
+# counters written into the PR 10 tree replay kernel (one thread a doc,
+# no timed entry point), in the fields of the timed kernel: per CTA the
+# lanes' longest total, walk, wait and bookkeeping cycles, then the
+# warp's walk iterations, the active lanes summed over them, the lanes'
+# walk steps and over moves the longest lane's walk
+_TREE_HEAD = "#include <stdint.h>\n"
+_TREE_START = "  if (doc >= n_docs) return;  // no block barrier below: a lane may leave\n"
+_TREE_LOOP = """    int32_t cur = p;
+    bool hit = false;
+    for (int steps = 0; cur >= 0 && !hit && steps < d_max; ++steps) {
+      hit = cur == t;
+      cur = hit ? kRoot - 10 : table[clip(cur, n)];
+    }
+    const bool ok = v && !((hit || cur == t) && p >= 0);
+    if (ok) table[clip(t, n)] = p;
+    effected[base + row] = ok;
+"""
+_TREE_PREFETCH = "    // the next move's row, loaded before this move's walk\n"
+_TREE_END = "    for (int i = 0; i < n; ++i) out[i] = table[i];\n}\n"
+
+
+def instrument_tree(src: str) -> str:
+    """A tree_replay.cu of one thread a doc (no tree_replay_launch_timed)
+    with clock64 counters around each move's wait for its row (a
+    volatile shared store of it), its walk and its bookkeeping, written
+    to a device array at the kernel's end and read back (and zeroed)
+    with tree_replay_read_stamps."""
+    for anchor in (_TREE_HEAD, _TREE_START, _TREE_LOOP, _TREE_PREFETCH, _TREE_END):
+        assert src.count(anchor) == 1, f"tree anchor not found once: {anchor[:60]!r}"
+    src = src.replace(_TREE_HEAD, _TREE_HEAD + "__device__ unsigned long long g_tree_stamps[4096 * 8];\n")
+    src = src.replace(_TREE_START, _TREE_START + (
+        "  __shared__ volatile int32_t tree_sink[32];\n"
+        "  const long long T_START = clock64();\n"
+        "  long long c_walk = 0, c_wait = 0, c_book = 0, w_iters = 0, w_active = 0, l_steps = 0, m_steps = 0;\n"))
+    src = src.replace(_TREE_PREFETCH, "    const long long s0 = clock64();\n" + _TREE_PREFETCH)
+    src = src.replace(_TREE_LOOP, """    tree_sink[threadIdx.x] = t ^ p ^ row ^ (int)v;
+    const long long s1 = clock64();
+    int32_t cur = p;
+    bool hit = false;
+    int walked = 0;
+    for (int steps = 0; cur >= 0 && !hit && steps < d_max; ++steps) {
+      const unsigned a = __activemask();
+      if ((int)threadIdx.x == __ffs(a) - 1) { ++w_iters; w_active += __popc(a); }
+      hit = cur == t;
+      cur = hit ? kRoot - 10 : table[clip(cur, n)];
+      ++walked;
+    }
+    const long long s2 = clock64();
+    const bool ok = v && !((hit || cur == t) && p >= 0);
+    if (ok) table[clip(t, n)] = p;
+    effected[base + row] = ok;
+    const long long s3 = clock64();
+    c_wait += s1 - s0; c_walk += s2 - s1; c_book += s3 - s2;
+    l_steps += walked;
+    m_steps += __reduce_max_sync(__activemask(), walked);
+""")
+    src = src.replace(_TREE_END, """    for (int i = 0; i < n; ++i) out[i] = table[i];
+  unsigned long long* st = g_tree_stamps + (size_t)blockIdx.x * 8;
+  atomicMax(st + 0, (unsigned long long)(clock64() - T_START));
+  atomicMax(st + 1, (unsigned long long)c_walk);
+  atomicMax(st + 2, (unsigned long long)c_wait);
+  atomicMax(st + 3, (unsigned long long)c_book);
+  atomicAdd(st + 4, (unsigned long long)w_iters);
+  atomicAdd(st + 5, (unsigned long long)w_active);
+  atomicAdd(st + 6, (unsigned long long)l_steps);
+  atomicMax(st + 7, (unsigned long long)m_steps);
+}
+""")
+    return src + ('\nextern "C" int tree_replay_read_stamps(long long* out, int n) {\n'
+                  "  cudaError_t e = cudaMemcpyFromSymbol(out, g_tree_stamps, (size_t)n * 8 * sizeof(long long));\n"
+                  "  if (e != cudaSuccess) return (int)e;\n"
+                  "  void* at = nullptr;\n"
+                  "  e = cudaGetSymbolAddress(&at, g_tree_stamps);\n"
+                  "  return (int)(e != cudaSuccess ? e : cudaMemset(at, 0, (size_t)n * 8 * sizeof(long long)));\n"
+                  "}\n")
+
+
+def build_tree(tag: str, source: str) -> ctypes.CDLL:
+    """A tree's tree_replay.cu (or an instrumented copy) built with this
+    tree's nvcc flags and bound."""
+    from loro_tpu_torch import _build
+
+    out_dir = ROOT / "build" / "rank_ab"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cu = out_dir / f"{tag}.cu"
+    cu.write_text(source)
+    so = out_dir / f"lib{tag}.so"
+    r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)], capture_output=True, text=True)
+    if r.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {tag}:\\n{r.stdout}{r.stderr}")
+    lib = ctypes.CDLL(str(so))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.tree_replay_launch.argtypes = [ptr] * 6 + [i32] * 7 + [ptr]
+    lib.tree_replay_launch.restype = i32
+    if hasattr(lib, "tree_replay_launch_timed"):
+        lib.tree_replay_launch_timed.argtypes = [ptr] * 7 + [i32] * 7 + [ptr]
+        lib.tree_replay_launch_timed.restype = i32
+    if hasattr(lib, "tree_replay_read_stamps"):
+        lib.tree_replay_read_stamps.argtypes = [ptr, i32]
+        lib.tree_replay_read_stamps.restype = i32
+    return lib
+
+
+def tree_ab_cases(torch, dev) -> dict:
+    """label -> (target, parent, valid, order or None, n, plain check):
+    the A/B's tree cases on the card (the class docstring's list); the
+    check takes a tree's (parents, effected) and raises unless they equal
+    this tree's replay_plain (a prefix for the deep case)."""
+    import numpy as np
+
+    import chip_smoke as cs
+    from loro_tpu_torch import tracegen
+    from loro_tpu_torch.ops import tree_batch as tb
+    from loro_tpu_torch.parallel.fleet import Fleet
+
+    cid = tracegen.TREE_CID
+    docs = [tracegen.tree_doc(cs.SEED * 1000 + i, n_moves=cs.TREE_MOVES, n_nodes=cs.TREE_NODES)
+            for i in range(cs.TREE_DISTINCT)]
+    cols_h, n = Fleet(device=dev)._stack_tree_cols([tb.extract_tree_from_payload(tracegen.tree_payload(d), cid)
+                                                    for d in docs])
+    tile = torch.arange(cs.TREE_DOCS) % cs.TREE_DISTINCT
+    traces = [torch.from_numpy(c)[tile].contiguous().to(dev) for c in cols_h]
+    m = traces[0].shape[1]
+    rng = np.random.default_rng(cs.SEED)
+    rand = [torch.from_numpy(rng.integers(0, n, (cs.TREE_DOCS, m)).astype(np.int32)).to(dev),
+            torch.from_numpy(rng.integers(-2, n, (cs.TREE_DOCS, m)).astype(np.int32)).to(dev),
+            torch.ones((cs.TREE_DOCS, m), dtype=torch.bool, device=dev)]
+    big = [c[torch.arange(cs.TREE_BIG_DOCS, device=dev) % cs.TREE_DISTINCT].contiguous() for c in traces]
+    ddocs = [tracegen.tree_doc(cs.SEED * 1000 + 100 + i, n_moves=cs.TREE_DEEP_MOVES, n_nodes=cs.TREE_DEEP_NODES,
+                               sync_every=cs.TREE_DEEP_SYNC) for i in range(cs.TREE_DEEP_DOCS)]
+    dcols, dn = Fleet(device=dev)._stack_tree_cols([tb.extract_tree_from_payload(tracegen.tree_payload(d), cid)
+                                                    for d in ddocs])
+    dn = max(dn, cs.TREE_DEEP_NODES)
+    order = np.stack([rng.permutation(dcols.target.shape[1]) for _ in range(cs.TREE_DEEP_DOCS)]).astype(np.int32)
+    rows = np.arange(cs.TREE_DEEP_DOCS)[:, None]
+    shuffled = []
+    for c in dcols:  # row order[k] holds the k-th move
+        u = np.empty_like(c)
+        u[rows, order] = c
+        shuffled.append(torch.from_numpy(u).to(dev))
+    dorder = torch.from_numpy(order).to(dev)
+    pre = cs.TREE_DEEP_PLAIN_ROWS  # the deep logs' first moves, shuffled alone, held against the plain version
+    porder = np.stack([rng.permutation(pre) for _ in range(cs.TREE_DEEP_DOCS)]).astype(np.int32)
+    pshuffled = []
+    for c in dcols:
+        u = np.empty((cs.TREE_DEEP_DOCS, pre), c.dtype)
+        u[rows, porder] = c[:, :pre]
+        pshuffled.append(torch.from_numpy(u).to(dev))
+    porder_t = torch.from_numpy(porder).to(dev)
+    tile_dev = torch.arange(cs.TREE_BIG_DOCS, device=dev) % cs.TREE_DISTINCT
+    want = tb.replay_plain(*traces, n)
+    want_rand = tb.replay_plain(*rand, n)
+    return [
+        {"label": f"traces [{cs.TREE_DOCS}, {m}] n = {n}", "cols": traces, "order": None, "n": n, "want": want[:2],
+         "loads": int(want[2].max()), "split": True},
+        {"label": f"random [{cs.TREE_DOCS}, {m}] n = {n}", "cols": rand, "order": None, "n": n,
+         "want": want_rand[:2], "loads": int(want_rand[2].max()), "split": True},
+        {"label": f"traces tiled [{cs.TREE_BIG_DOCS}, {m}] n = {n}", "cols": big, "order": None, "n": n,
+         "want": [x[tile_dev] for x in want[:2]], "loads": int(want[2].max()), "split": False},
+        {"label": f"deep first {pre} moves, permutation form [{cs.TREE_DEEP_DOCS}, {pre}] n = {dn}", "cols": pshuffled,
+         "order": porder_t, "n": dn, "want": tb.replay_plain(*pshuffled, dn, order=porder_t)[:2], "split": False,
+         "untimed": True},
+        {"label": f"deep permutation form [{cs.TREE_DEEP_DOCS}, {dcols.target.shape[1]}] n = {dn}", "cols": shuffled,
+         "order": dorder, "n": dn, "want": None, "split": False},
+    ]
+
+
+def tree_parent_docs_per_cta(n: int) -> tuple:
+    """(use_smem, docs a CTA, stride) of the PR 10 kernel: as many docs
+    (one a thread, up to 32) as have their n | 1 word tables fit
+    232,448 bytes, else the global variant at 32."""
+    per = min(32, 232_448 // (4 * (n | 1)))
+    return (1, per, n | 1) if per >= 1 else (0, 32, n)
+
+
+def tree_ab(torch, dev, trees, card: str, cases=None) -> dict:
+    """The tree replay A/B (the module docstring's tree cases, or
+    `cases` from tree_ab_cases) over `trees` in the order given; returns
+    {case: {...}} and prints one line a case and one a timed split."""
+    import numpy as np
+
+    import chip_smoke as cs
+    from loro_tpu_torch.ops import tree_batch as tb
+
+    t0 = time.perf_counter()
+    libs = {}
+    for i, tree in enumerate(dict.fromkeys(trees)):
+        src = (tree / "loro_tpu_torch" / "csrc" / "tree_replay.cu").read_text()
+        lib = build_tree(f"tree{i}_replay", src)
+        libs[tree] = (lib, lib if hasattr(lib, "tree_replay_launch_timed")
+                      else build_tree(f"tree{i}_replay_stamped", instrument_tree(src)))
+        print(f"built {tree} tree_replay ({'timed entry: this design' if libs[tree][1] is lib else 'PR 10 design, stamped copy'})",
+              flush=True)
+    cases = tree_ab_cases(torch, dev) if cases is None else cases
+    print(f"tree build and cases {time.perf_counter() - t0:.1f} s", flush=True)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    load_cycles = tb.smem_load_cycles(dev)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    max_mhz = float(smi.stdout.strip().splitlines()[0])
+    print(f"tree latency bound: a dependent shared-memory load {load_cycles:.2f} cycles at {max_mhz:.0f} MHz", flush=True)
+
+    def layout(lib, d, n):
+        if hasattr(lib, "tree_replay_launch_timed"):
+            plan = tb.plan_replay(d, n, n_sm)
+            return int(plan.variant == "smem"), plan.docs_per_warp, plan.stride, f"{plan.variant}, {plan.docs_per_warp} docs a warp"
+        use, per, stride = tree_parent_docs_per_cta(n)
+        return use, per, stride, f"{'smem' if use else 'global'}, {per} docs a CTA (a thread each)"
+
+    def launch(lib, case, stamps=None):
+        target, parent, valid = case["cols"]
+        order, n = case["order"], case["n"]
+        d, m = target.shape
+        use, per, stride, _ = layout(lib, d, n)
+        parents = torch.empty((d, n), dtype=torch.int32, device=dev)
+        eff = torch.empty((d, m), dtype=torch.bool, device=dev)
+        args = [target.data_ptr(), parent.data_ptr(), valid.data_ptr(), None if order is None else order.data_ptr(),
+                parents.data_ptr(), eff.data_ptr()]
+        rest = [d, m, n, n, use, per, stride, torch.cuda.current_stream(dev).cuda_stream]
+        if stamps is not None:
+            err = lib.tree_replay_launch_timed(*args, stamps.data_ptr(), *rest)
+        else:
+            err = lib.tree_replay_launch(*args, *rest)
+        if err:
+            raise RuntimeError(f"tree launch failed: cudaError {err}")
+        return parents, eff
+
+    out = {}
+    for case in cases:
+        label = case["label"]
+        first = None
+        for tree in dict.fromkeys(trees):
+            got = launch(libs[tree][0], case)
+            torch.cuda.synchronize()
+            ref = case["want"] if case["want"] is not None else first
+            if ref is not None and not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
+                raise RuntimeError(f"tree {label}: {tree} kernel != "
+                                   + ("plain version" if case["want"] is not None else f"{trees[0]}'s result"))
+            first = got if first is None else first
+        if case.get("untimed"):
+            print(f"tree {label}: every tree == plain version", flush=True)
+            continue
+        eager, times = zip(*[cs.both_ms(torch, lambda: launch(libs[tree][0], case)) for tree in trees])
+        layouts = [layout(libs[tree][0], case["cols"][0].shape[0], case["n"])[3] for tree in trees]
+        bound = case["loads"] * load_cycles / (max_mhz * 1e3) if "loads" in case else None
+        out[label] = {"ms": list(times), "eager_ms": list(eager), "layout": layouts, "bound_ms": bound}
+        print(f"tree {label} ({'; '.join(dict.fromkeys(layouts))}): ms (graph) " + ", ".join(f"{t:.4f}" for t in times)
+              + "; eager ms " + ", ".join(f"{t:.4f}" for t in eager)
+              + ("" if bound is None else f"; latency bound {bound:.4f} ms ({case['loads']} loads)")
+              + ("" if case["want"] is not None else f" (each == {trees[0]}'s result)"), flush=True)
+    for case in cases:
+        if not case["split"]:
+            continue
+        d, m = case["cols"][0].shape
+        for tree in dict.fromkeys(trees):
+            lib, timed = libs[tree]
+            _, per, _, desc = layout(lib, d, case["n"])
+            rows = []
+            for _ in range(3 + 10):
+                if timed is lib:
+                    st = torch.zeros((-(-d // per), tb.STAMPS), dtype=torch.int64, device=dev)
+                    launch(lib, case, st)
+                    torch.cuda.synchronize()
+                else:
+                    launch(timed, case)
+                    torch.cuda.synchronize()
+                    host = np.zeros((-(-d // per), tb.STAMPS), np.int64)
+                    if timed.tree_replay_read_stamps(host.ctypes.data, host.shape[0]):
+                        raise RuntimeError("reading the tree stamps failed")
+                    st = torch.from_numpy(host)
+                rows.append(st.cpu())
+            splits = [tb.replay_split(r, d, m, per) for r in rows[3:]]
+            med = {k: float(np.median([sp[k] for sp in splits])) for k in splits[0]}
+            out.setdefault(f"split {case['label']}", []).append({"tree": str(tree), "layout": desc, **med})
+            print(f"tree split {case['label']} {tree} ({desc}; median of 10): " + cs.tree_split_line(med), flush=True)
+    return out
 
 
 def build(tag: str, source: str) -> ctypes.CDLL:
@@ -296,6 +591,7 @@ def main() -> int:
         print(f"wyllie rounds [{CHUNK}, {plan.mp}] {tree}: rounds {info['rounds']}, load {info['load_cycles']:.0f}, "
               f"rounds {info['rounds_cycles']:.0f}, store {info['store_cycles']:.0f} cycles; per round "
               + " ".join(f"{c:.0f}" for c in info["round_cycles"]), flush=True)
+    out["tree"] = tree_ab(torch, dev, trees, card)
     print("rank_ab " + json.dumps(out))
     return 0
 

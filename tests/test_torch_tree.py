@@ -162,6 +162,90 @@ def test_plain_order_form_equals_the_sorted_form():
     assert bool((l1 >= 64).all()) and bool((l1 > 64).any())
 
 
+# ---- the kernel's layout (plan_replay) and its timed split, on the host -----------
+
+# docs a warp plan_replay picks on an H100's 132 SMs: 1 where the warps
+# fit the card in one wave, more past that; n = 2,048 fits 16 docs' tables
+# a CTA, n = 60,000 none (the global variant)
+PLAN_CHOICE = {
+    (1, 512): ("smem", 1), (8, 512): ("smem", 1), (1024, 512): ("smem", 1), (10240, 512): ("smem", 16),
+    (1, 2048): ("smem", 1), (8, 2048): ("smem", 1), (1024, 2048): ("smem", 1), (10240, 2048): ("smem", 4),
+    (1, 60000): ("global", 1), (8, 60000): ("global", 1), (1024, 60000): ("global", 1),
+    (10240, 60000): ("global", 16),
+}
+
+
+@pytest.mark.parametrize("d,n", sorted(PLAN_CHOICE))
+def test_plan_replay_choice(d, n):
+    """The layout rule at D in {1, 8, 1,024, 10,240} x n in {512, 2,048,
+    60,000}: the docs a warp, the variant, a CTA's shared memory within
+    the limit, and the fewest waves of warps among the layouts."""
+    plan = ptb.plan_replay(d, n, 132)
+    assert (plan.variant, plan.docs_per_warp) == PLAN_CHOICE[d, n]
+    assert plan.smem_bytes <= ptb.SMEM_LIMIT and plan.n_nodes == n
+    assert plan.warps(d) == -(-d // plan.docs_per_warp)
+    assert ptb.plan_replay(d, n, 132, plan.variant) == plan
+    if n < 60000:
+        assert ptb.plan_replay(d, n, 132, "global").variant == "global"
+
+
+def test_plan_replay_layout_sizes_and_errors():
+    """Tiles of 32 moves a doc (16 at 32 docs a warp), the odd stride, a
+    CTA's bytes, plan_variant's largest power of two of tables, and the
+    errors of both plan functions."""
+    assert [ptb.tile_moves(g) for g in ptb.DOCS_PER_WARP] == [32, 32, 32, 32, 32, 16]
+    plan = ptb.ReplayPlan("smem", 32, 512)
+    assert plan.stride == 513 and plan.tile == 16 and plan.smem_bytes == (32 * 513 + 1) * 4 + 13 * 32 * 16
+    assert ptb.ReplayPlan("smem", 1, 513).stride == 515 and ptb.table_stride(2048) == 2049
+    assert ptb.ReplayPlan("global", 4, 512).smem_bytes == 13 * 4 * 32 and ptb.ReplayPlan("global", 4, 512).stride == 512
+    assert ptb.plan_variant(512) == ("smem", 32) and ptb.plan_variant(2048) == ("smem", 16)
+    assert ptb.plan_variant(4000) == ("smem", 8) and ptb.plan_variant(60000) == ("global", 32)
+    assert ptb.plan_variant(512, "global") == ("global", 32)
+    last = max(n for n in range(57_900, 58_100) if ptb.plan_variant(n)[0] == "smem")
+    assert ptb.ReplayPlan("smem", 1, last).smem_bytes <= ptb.SMEM_LIMIT < ptb.ReplayPlan("smem", 1, last + 2).smem_bytes
+    with pytest.raises(ValueError):
+        ptb.plan_variant(512, "texture")
+    with pytest.raises(ValueError):
+        ptb.plan_variant(60000, "smem")
+    with pytest.raises(ValueError):
+        ptb.plan_variant(0)
+    with pytest.raises(ValueError):
+        ptb.plan_replay(-1, 512, 132)
+    with pytest.raises(ValueError):
+        ptb.plan_replay(8, 512, 0)
+    assert ptb.plan_replay(0, 512, 132).docs_per_warp == 1
+    # fewer SMs: more docs a warp for the same docs
+    assert ptb.plan_replay(1024, 512, 8).docs_per_warp > ptb.plan_replay(1024, 512, 132).docs_per_warp
+
+
+def test_replay_split_reads_the_stamps():
+    """replay_split on two warps' stamps: shares of the summed cycles,
+    cycles a walk step, active lanes over 32 and over the docs, and the
+    mean and warp walks a move."""
+    st = torch.tensor([[1000, 600, 100, 200, 10, 40, 50, 30],
+                       [800, 500, 100, 100, 10, 20, 30, 20]], dtype=torch.int64)
+    sp = ptb.replay_split(st, n_docs=8, m=5, docs_per_warp=4)
+    assert sp["warps"] == 2 and sp["longest_warp_cycles"] == 1000 and sp["mean_warp_cycles"] == 900
+    assert sp["walk_share"] == 1100 / 1800 and sp["wait_share"] == 200 / 1800 and sp["book_share"] == 300 / 1800
+    assert sp["walk_cycles_per_step"] == 1100 / 20 and sp["book_cycles_per_move"] == 300 / 10
+    assert sp["active_lanes_of_32"] == 60 / 640 and sp["active_lanes_of_docs"] == 60 / 80
+    assert sp["mean_walk_per_move"] == 80 / 40 and sp["warp_walk_per_move"] == 50 / 10
+
+
+def test_launch_wrappers_reject_cpu_tensors():
+    """The kernel's wrappers take CUDA tensors only: a CPU column raises
+    before any launch (tree_merge_batch routes CPU tensors to the plain
+    version instead)."""
+    t = torch.zeros((2, 4), dtype=torch.int32)
+    v = torch.ones((2, 4), dtype=torch.bool)
+    before = dict(ptb.LAUNCHES)
+    for call in (lambda: ptb.launch_kernel(t, t, v, 4), lambda: ptb.launch_timed(t, t, v, 4),
+                 lambda: ptb.launch_plan(t, t, v, 4, ptb.plan_replay(2, 4, 132))):
+        with pytest.raises(ValueError):
+            call()
+    assert ptb.LAUNCHES == before
+
+
 def test_is_deleted_batch_matches_jax():
     """Trash reachability by pointer doubling on replayed parents (deep
     chains under trashed nodes)."""

@@ -9,6 +9,8 @@ machine without jax:
 Every test is marked `cuda` and skips without a card.  Tolerance: none;
 parents and effected are integers, held bit for bit.
 """
+from dataclasses import replace
+
 import numpy as np
 import pytest
 import torch
@@ -68,6 +70,91 @@ def _check(cols, n: int, d_max=None, order=None):
     return want
 
 
+def _check_at(cols, n: int, g: int, d_max=None, order=None):
+    """The kernel at `g` docs a warp (launch_plan), both table variants,
+    against replay_plain on the same columns; each launch counted once
+    under its variant."""
+    want = tb.replay_plain(*cols, n, d_max, order=order)[:2]
+    dev = [c.cuda() for c in cols]
+    for v in tb.VARIANTS:
+        plan = replace(tb.plan_replay(dev[0].shape[0], n, tb.sm_count("cuda"), v), docs_per_warp=g)
+        if plan.smem_bytes > tb.SMEM_LIMIT:
+            continue
+        before = dict(tb.LAUNCHES)
+        got = tb.launch_plan(*dev, n, plan, d_max, None if order is None else order.cuda())
+        torch.cuda.synchronize()
+        assert tb.LAUNCHES[v] == before[v] + 1 and sum(tb.LAUNCHES.values()) == sum(before.values()) + 1
+        for x, w in zip(got, want):
+            assert x.is_cuda and x.dtype == w.dtype and torch.equal(x.cpu(), w), (v, g, d_max)
+    return want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", tb.DOCS_PER_WARP)
+@pytest.mark.parametrize("permuted", [False, True])
+def test_kernel_every_docs_a_warp(g, permuted):
+    """Each layout plan_replay can choose: 70 docs (not a multiple of any
+    docs a warp past 2), 75 moves (past two tiles, not a multiple of
+    one), invalid rows between valid ones, sorted and permutation forms."""
+    _needs_card()
+    rng = np.random.default_rng(100 + g)
+    d, m, n = 70, 75, 40
+    order = torch.from_numpy(np.argsort(rng.random((d, m)), axis=1).astype(np.int32)) if permuted else None
+    _check_at(_cols(rng, d, m, n, valid_frac=0.7), n, g, order=order)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [0, 1, 5, 16, 31, 32, 33, 100])
+@pytest.mark.parametrize("g", [1, 4, 32])
+def test_kernel_logs_shorter_and_longer_than_a_tile(m, g):
+    """M = 0, M < 32, M on and off a tile (32 moves a doc, 16 at 32 docs
+    a warp), in the permutation form."""
+    _needs_card()
+    rng = np.random.default_rng(7 * m + g)
+    d, n = 41, 30
+    order = torch.from_numpy(np.argsort(rng.random((d, m)), axis=1).astype(np.int32))
+    _check_at(_cols(rng, d, m, n), n, g, order=order)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [1, 8, 32])
+def test_kernel_all_invalid_and_interleaved_rows(g):
+    """A log of invalid rows only (nothing written, nothing effected), and
+    one whose rows alternate valid and invalid, at a layout's docs a warp."""
+    _needs_card()
+    rng = np.random.default_rng(3 + g)
+    target, parent, _ = _cols(rng, 40, 96, 30)
+    parents, eff = _check_at((target, parent, torch.zeros_like(target, dtype=torch.bool)), 30, g)
+    assert bool((parents == tb.ABSENT).all()) and not bool(eff.any())
+    alt = torch.from_numpy(np.tile(np.arange(96) % 2 == 0, (40, 1)))
+    _check_at((target, parent, alt), 30, g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [1, 2, 16, 32])
+@pytest.mark.parametrize("d_max", [None, 1, 3, 40])
+def test_kernel_deep_chains_at_every_layout(g, d_max):
+    """Chains deeper than a tile walked by lanes that share a warp, with a
+    small d_max (unsound, but the same on both) and with none."""
+    _needs_card()
+    _check_at(_chains(37, 90, 200), 90, g, d_max)
+
+
+@pytest.mark.cuda
+def test_kernel_out_of_range_ordinals_at_every_layout():
+    """Targets and parents past n and below TRASH (JAX's clip, kept),
+    written into the table and walked through, at each docs a warp."""
+    _needs_card()
+    rng = np.random.default_rng(5)
+    d, m, n = 45, 120, 20
+    target = torch.from_numpy(rng.integers(-5, n + 5, (d, m)).astype(np.int32))
+    parent = torch.from_numpy(rng.integers(-5, n + 5, (d, m)).astype(np.int32))
+    valid = torch.from_numpy(rng.random((d, m)) < 0.9)
+    for g in tb.DOCS_PER_WARP:
+        _check_at((target, parent, valid), n, g)
+        _check_at((target, parent, valid), n, g, d_max=2)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("d,m,n", [(37, 200, 50), (1, 0, 1), (5, 64, 1), (33, 17, 3)])
 def test_kernel_matches_plain_on_random_columns(d, m, n):
@@ -119,17 +206,20 @@ def test_kernel_permutation_form():
 @pytest.mark.parametrize("permuted", [False, True])
 def test_kernel_fewer_docs_a_cta(permuted):
     """n = 2,048 (the resident depth cell's node cap): the tables of only
-    28 docs fit a CTA's shared memory, so 61 docs take three CTAs of 28,
-    28 and 5; chains deeper than a warp, plain and permutation forms."""
+    16 docs (a power of two) and their move tile fit a CTA's shared
+    memory, so at 16 docs a warp 61 docs take four CTAs of 16, 16, 16
+    and 13; chains deeper than a warp, plain and permutation forms, by
+    the automatic route and at 16 docs a warp."""
     _needs_card()
     d, m, n = 61, 260, 2048
-    assert tb.plan_variant(n) == ("smem", 28)
+    assert tb.plan_variant(n) == ("smem", 16)
     target, parent, valid = _chains(d, 120, m)
     rng = np.random.default_rng(11)
     target[:, 200:] = torch.from_numpy(rng.integers(0, n, (d, m - 200)).astype(np.int32))
     parent[:, 200:] = torch.from_numpy(rng.integers(-2, 120, (d, m - 200)).astype(np.int32))
     order = torch.from_numpy(np.argsort(rng.random((d, m)), axis=1).astype(np.int32)) if permuted else None
     _check((target, parent, valid), n, order=order)
+    _check_at((target, parent, valid), n, 16, order=order)
 
 
 @pytest.mark.cuda
@@ -144,8 +234,15 @@ def test_kernel_rejects_what_it_does_not_take():
         tb.launch_kernel(t, p, v, 0)
     with pytest.raises(ValueError):
         tb.launch_kernel(t, p, v, 70_000, variant="smem")
-    assert tb.plan_variant(70_000) == ("global", tb.DOCS_PER_CTA) and tb.plan_variant(512) == ("smem", 32)
-    assert tb.plan_variant(4000)[1] == tb.SMEM_LIMIT // (4 * 4001)
+    assert tb.plan_variant(70_000) == ("global", tb.MAX_DOCS_PER_WARP) and tb.plan_variant(512) == ("smem", 32)
+    assert tb.plan_variant(4000)[1] == 8
+    plan = tb.plan_replay(4, 5, tb.sm_count("cuda"))
+    with pytest.raises(ValueError):
+        tb.launch_plan(t, p, v, 5, replace(plan, docs_per_warp=3))
+    with pytest.raises(ValueError):
+        tb.launch_plan(t, p, v, 6, plan)
+    with pytest.raises(ValueError):
+        tb.launch_plan(t, p, v, 60_000, replace(tb.plan_replay(4, 60_000, 132), variant="smem"))
 
 
 @pytest.mark.cuda
