@@ -18,8 +18,9 @@ checks it, end to end:
    tests/test_torch_fleet_cuda.py, tests/test_torch_resident_cuda.py,
    tests/test_torch_map_counter_cuda.py, tests/test_torch_tree_cuda.py,
    tests/test_torch_richtext_cuda.py, tests/test_torch_movable_cuda.py,
-   tests/test_torch_movable_resident_cuda.py and
-   tests/test_torch_export_cuda.py (pytest -m cuda) as a subprocess;
+   tests/test_torch_movable_resident_cuda.py,
+   tests/test_torch_export_cuda.py and tests/test_torch_doc_cuda.py
+   (pytest -m cuda) as a subprocess;
 4. main paths, each with launch counts reset before and read after:
    a. chain merge: a full-size 8-doc chunk of automerge-perf-shaped
       documents (tracegen), chain-contracted, merged with
@@ -149,6 +150,21 @@ checks it, end to end:
       against tracegen.oracle_export, a commit round to 64 docs between
       windows (the dirty-doc delta upload), and export_select on each of
       the five resident batch kinds;
+   k. the host engine (LoroDoc, pure Python on the card's host, and
+      resilience.hostpath): 259,778 automerge-perf-shaped patches applied
+      one a call through a LoroDoc's text handler (patches/s; the text
+      equal to a plain list replay) and its payload merged on the card as
+      8 docs; the three flagship docs imported (ops/s), snapshot and
+      updates round trips; 4f-4i's traces at their bench shapes imported
+      into LoroDocs, equal to their oracles, and cycled to 64 docs
+      through each family's one-shot card merge, equal to the LoroDocs,
+      the card merge of the distinct docs timed beside their host import;
+      64 LoroDoc-made docs (tracegen.loro_fleet) through every family's
+      one-shot merge against host_merge_changes and get_deep_value();
+      HostEngine against the resident batches every round; 4j's first
+      window framed by frame_columnar_updates, equal to the LoroDoc's
+      export(Updates(vv)); every list-rank and tree-replay launch of the
+      phase captured and held bit for bit against its plain version;
 5. timings (CUDA events, warm-up then median; a kernel's ms is 20
    back-to-back calls of its wrapper replayed from a CUDA graph, and
    beside it eager_ms, the same 20 calls eager): merge ms per chunk and
@@ -169,8 +185,8 @@ Prints one {"kernels": [...]} line and ends with the line
 Any failed check raises, so the script exits non-zero.  Usage:
     python3 chip_smoke.py                          # the whole run, the verification
     python3 chip_smoke.py --phase 4i [--phase 4j]  # build, card tests, those phases
---phase takes 4f, 4g, 4h, 4i or 4j (the phases that stand alone); such a
-run prints its phases' results and no kernels line.
+--phase takes 4f, 4g, 4h, 4i, 4j or 4k (the phases that stand alone);
+such a run prints its phases' results and no kernels line.
 """
 from __future__ import annotations
 
@@ -256,8 +272,26 @@ MV_RES_DOCS, MV_RES_CAP, MV_RES_ELEMS = 256, 8192, 4096
 # RP_WINDOWS windows of RP_WINDOW requests (ReadBatcher's max_window), a
 # commit round to RP_COMMIT_DOCS docs between windows
 RP_DOCS, RP_WINDOWS, RP_WINDOW, RP_COMMIT_DOCS = 1024, 16, 256, 64
+# the host-engine phase: (a) HE_PATCHES automerge-perf-shaped patches
+# applied to one LoroDoc and its payload merged as HE_TEXT_DOCS docs; (b)
+# the flagship docs of that trace imported; (c) 4f-4i's traces at their
+# bench shapes (HE_SHAPES; HE_DISTINCT docs a family, HE_TREE_DOCS trees,
+# the host tree state being slow) imported, their payloads cycled to
+# HE_CYCLE docs a card merge; (d) a LoroDoc-made fleet of HE_FLEET_DOCS
+# docs of HE_FLEET_ROUNDS rounds of up to HE_FLEET_EDITS edits a peer;
+# (e) HostEngine against the resident batches on HE_MIRROR_DOCS of them;
+# (f) 4j's first window framed, HE_FRAME_CHECKS pulls imported.  Cut
+# toward 4k's 90 s: (b)'s snapshot and updates round trips on flagship
+# doc HE_ROUND_TRIPS only (~7.5 s a doc on the card's host), (f)'s
+# imports to 2 pulls (a fork of a 40,000-patch doc each)
+HE_PATCHES, HE_TEXT_DOCS, HE_ROUND_TRIPS = 259_778, CHUNK, (1,)
+HE_DISTINCT, HE_TREE_DOCS, HE_CYCLE = 8, 2, 64
+HE_SHAPES = {"map": {"n_ops": MAP_OPS, "n_keys": MAP_KEYS},
+             "counter": {"n_incr": COUNTER_INCR, "n_counters": COUNTER_ITEMS},
+             "tree": {"n_moves": TREE_MOVES, "n_nodes": TREE_NODES}, "richtext": {}, "movable": {}}
+HE_FLEET_DOCS, HE_FLEET_ROUNDS, HE_FLEET_EDITS, HE_MIRROR_DOCS, HE_FRAME_CHECKS = 64, 8, 12, 8, 2
 # phases `--phase` runs alone (after the build and the card tests)
-SELECTABLE = ("4f", "4g", "4h", "4i", "4j")
+SELECTABLE = ("4f", "4g", "4h", "4i", "4j", "4k")
 
 
 def check(cond: bool, what: str) -> None:
@@ -1886,35 +1920,23 @@ def movable_resident(torch, dev, kind: str, card: str, docs) -> dict:
     return res
 
 
-def read_plane_phase(torch, dev, kind: str, card: str) -> dict:
-    """Phase 4j, the read plane: an ExportIndex(RP_DOCS) on the card fed,
-    epoch by epoch, the change lists of the element path's 40,000-patch
-    text traces (tracegen.fleet_docs(2, n_patches=ELEMENT_PATCHES), cycled
-    over the docs), each epoch's tracegen.epoch_payloads payload decoded
-    by codec.binary.decode_changes as the sync commit path feeds them, the
-    last epoch held back; warm() over the window buckets; then RP_WINDOWS
-    windows of RP_WINDOW requests (a seeded mix: 50 % a VV at an earlier
-    epoch's end, 25 % a straddling VV, 15 % an empty VV, 10 % a VV naming
-    an absent peer), every selection checked against
-    tracegen.oracle_export, and between windows one commit round of the
-    held-back epoch to RP_COMMIT_DOCS docs (the dirty-doc delta upload).
-    Reports rows and capacity, the full and delta uploads (ms by the host
-    clock ending on a device sync, bytes), a window's ms by CUDA events
-    (median), selected rows/s, device busy of a window; and export_select
-    once on a small batch of each of the five resident kinds, equal to
-    index.select."""
-    import random
-
-    import numpy as np
+def read_plane_setup(dev):
+    """The read plane's data and index as phase 4j starts them: the
+    element path's 40,000-patch text traces (tracegen.fleet_docs(2,
+    n_patches=ELEMENT_PATCHES)), each epoch's payload decoded by
+    codec.binary.decode_changes, and an ExportIndex(RP_DOCS) on `dev` fed
+    every doc (cycled over the traces) all its epochs but the last.
+    `request(rng, j)` draws a pull request of doc j from `rng` (50 % a VV
+    at an earlier epoch's end, 25 % a straddling VV, 15 % an empty VV,
+    10 % a VV naming an absent peer); 4j's windows and 4k's framed
+    first window draw them from random.Random(SEED + 4)."""
+    from types import SimpleNamespace
 
     from loro_tpu_torch import tracegen
     from loro_tpu_torch.codec.binary import decode_changes
-    from loro_tpu_torch.core.version import VersionVector
     from loro_tpu_torch.ops.export_batch import ExportIndex
-    from loro_tpu_torch.parallel.fleet import (DeviceCounterBatch, DeviceDocBatch, DeviceMapBatch,
-                                              DeviceMovableBatch, DeviceTreeBatch)
 
-    t_phase = t0 = time.perf_counter()
+    t0 = time.perf_counter()
     docs = tracegen.fleet_docs(2, n_patches=ELEMENT_PATCHES, seed=SEED)
     groups = [[decode_changes(p) for p in tracegen.epoch_payloads(d)] for d in docs]
     nd = len(docs)
@@ -1935,18 +1957,9 @@ def read_plane_phase(torch, dev, kind: str, card: str) -> dict:
         for g in groups[j % nd][: fed[j]]:
             idx.note_changes(j, g)
     feed_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    cols = idx._device_cols()
-    torch.cuda.synchronize()
-    full = {"ms": (time.perf_counter() - t0) * 1e3, "bytes": sum(t.numel() * t.element_size() for t in cols)}
-    t0 = time.perf_counter()
-    warmed = idx.warm(RP_WINDOW)
-    warm_ms = (time.perf_counter() - t0) * 1e3
-    rng = random.Random(SEED + 4)
     absent = (1 << 62) + 12345
 
-    def request(j: int) -> dict:
+    def request(rng, j: int) -> dict:
         gs, e_ends, k = groups[j % nd], ends[j % nd], fed[j]
         u = rng.random()
         e = rng.randrange(k + 1)
@@ -1962,6 +1975,54 @@ def read_plane_phase(torch, dev, kind: str, card: str) -> dict:
         if u < 0.9:
             return {}
         return {**e_ends[e], absent: 7}
+
+    return SimpleNamespace(docs=docs, groups=groups, nd=nd, fed=fed, idx=idx, gen_s=gen_s, feed_s=feed_s,
+                           request=request)
+
+
+def read_plane_phase(torch, dev, kind: str, card: str, first=None) -> dict:
+    """Phase 4j, the read plane: an ExportIndex(RP_DOCS) on the card fed,
+    epoch by epoch, the change lists of the element path's 40,000-patch
+    text traces (tracegen.fleet_docs(2, n_patches=ELEMENT_PATCHES), cycled
+    over the docs), each epoch's tracegen.epoch_payloads payload decoded
+    by codec.binary.decode_changes as the sync commit path feeds them, the
+    last epoch held back; warm() over the window buckets; then RP_WINDOWS
+    windows of RP_WINDOW requests (a seeded mix: 50 % a VV at an earlier
+    epoch's end, 25 % a straddling VV, 15 % an empty VV, 10 % a VV naming
+    an absent peer), every selection checked against
+    tracegen.oracle_export, and between windows one commit round of the
+    held-back epoch to RP_COMMIT_DOCS docs (the dirty-doc delta upload).
+    Reports rows and capacity, the full and delta uploads (ms by the host
+    clock ending on a device sync, bytes), a window's ms by CUDA events
+    (median), selected rows/s, device busy of a window; and export_select
+    once on a small batch of each of the five resident kinds, equal to
+    index.select.  A dict given as `first` receives the first window (its
+    requests, selections, and the traces and epochs fed each doc then),
+    which phase 4k frames."""
+    import random
+
+    import numpy as np
+
+    from loro_tpu_torch import tracegen
+    from loro_tpu_torch.core.version import VersionVector
+    from loro_tpu_torch.parallel.fleet import (DeviceCounterBatch, DeviceDocBatch, DeviceMapBatch,
+                                              DeviceMovableBatch, DeviceTreeBatch)
+
+    t_phase = time.perf_counter()
+    rp = read_plane_setup(dev)
+    docs, groups, nd, fed, idx, gen_s, feed_s = rp.docs, rp.groups, rp.nd, rp.fed, rp.idx, rp.gen_s, rp.feed_s
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cols = idx._device_cols()
+    torch.cuda.synchronize()
+    full = {"ms": (time.perf_counter() - t0) * 1e3, "bytes": sum(t.numel() * t.element_size() for t in cols)}
+    t0 = time.perf_counter()
+    warmed = idx.warm(RP_WINDOW)
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    rng = random.Random(SEED + 4)
+
+    def request(j: int) -> dict:
+        return rp.request(rng, j)
 
     windows, deltas, selected = [], [], 0
     busy = None
@@ -1980,6 +2041,8 @@ def read_plane_phase(torch, dev, kind: str, card: str) -> dict:
         ms = a.elapsed_time(b_)
         rows = sum(len(g) for g in got)
         selected += rows
+        if w == 0 and first is not None:
+            first.update(docs=docs, groups=groups, nd=nd, fed=list(fed), reqs=reqs, sel=got)
         for (j, m), g in zip(reqs, got):
             want = tracegen.oracle_export(groups[j % nd][: fed[j]], m)
             check(g.tolist() == want, f"read plane window {w + 1}: doc {j} from {m} != oracle_export")
@@ -2027,6 +2090,504 @@ def read_plane_phase(torch, dev, kind: str, card: str) -> dict:
           f"{100 * busy['share']:.2f} %; top: " + "; ".join(f"{n[:50]} x{c} {m:.3f} ms" for m, n, c in busy["top"])
           + f"; every selection == oracle_export; export_select == index.select on {list(kinds)}; "
           f"phase {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def envelope(payload: bytes) -> bytes:
+    """A bare updates payload framed as the columnar-updates envelope that
+    LoroDoc.import_ takes (the bytes frame_columnar_updates would write
+    for the changes it encodes)."""
+    import zlib
+
+    from loro_tpu_torch.doc import MAGIC, EncodeMode, _min_version_for_mode
+
+    mode = EncodeMode.ColumnarUpdates
+    return MAGIC + bytes([_min_version_for_mode(mode), mode.value]) + zlib.crc32(payload).to_bytes(4, "little") + payload
+
+
+class Capture:
+    """What captured_launches records: `seen`, one entry a launch, and
+    `paused(...)`, a block whose launches are neither recorded nor
+    counted (timing calls beside the main path)."""
+
+    def __init__(self, list_rank, tb):
+        self.seen = []
+        self.on = True
+        self._mods = (list_rank, tb)
+
+    @contextmanager
+    def paused(self):
+        before = [dict(m.LAUNCHES) for m in self._mods]
+        self.on = False
+        try:
+            yield
+        finally:
+            self.on = True
+            for m, b in zip(self._mods, before):
+                m.LAUNCHES.update(b)
+
+
+@contextmanager
+def captured_launches(list_rank, tb):
+    """Within the block, every list_rank.launch_kernel and
+    tree_batch.launch_kernel call (the one place each counts a launch) is
+    recorded with copies of its inputs and outputs in the yielded
+    Capture's `seen`: ("rank", succ_p, w_p, plan, dist) and ("tree",
+    target, parent, valid, n_nodes, d_max, order, parents, effected).
+    check_captured holds each against its plain version; nothing is
+    launched again."""
+    cap = Capture(list_rank, tb)
+    real_rank, real_tree = list_rank.launch_kernel, tb.launch_kernel
+
+    def rank(succ_p, w_p, plan):
+        dist = real_rank(succ_p, w_p, plan)
+        if cap.on:
+            cap.seen.append(("rank", succ_p.clone(), w_p.clone(), plan, dist.clone()))
+        return dist
+
+    def tree(target, parent, valid, n_nodes, d_max=None, order=None, variant=None):
+        parents, eff = real_tree(target, parent, valid, n_nodes, d_max, order, variant)
+        if cap.on:
+            cap.seen.append(("tree", target.clone(), parent.clone(), valid.clone(), n_nodes, d_max,
+                             None if order is None else order.clone(), parents.clone(), eff.clone()))
+        return parents, eff
+
+    list_rank.launch_kernel, tb.launch_kernel = rank, tree
+    try:
+        yield cap
+    finally:
+        list_rank.launch_kernel, tb.launch_kernel = real_rank, real_tree
+
+
+def check_captured(torch, list_rank, tb, seen, errs: dict) -> list:
+    """Each captured launch held bit for bit against its plain version on
+    its own inputs: the list-rank kernels against list_rank.rank_plain on
+    the card, the tree replay against tree_batch.replay_plain (on the
+    CPU, where its per-move loop is quicker at these sizes).  Max abs
+    errors fold into errs[kernel]; returns one line a launch."""
+    import hashlib
+
+    out = []
+    plain = {}  # the plain result of inputs seen before (a read that replays the same log twice)
+
+    def input_key(*ts):
+        h = hashlib.sha256()
+        for t in ts:
+            h.update(repr((None if t is None else (t.dtype, tuple(t.shape)))).encode())
+            if t is not None:
+                h.update(t.contiguous().cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    for rec in seen:
+        if rec[0] == "rank":
+            _, succ_p, w_p, plan, dist = rec
+            want = list_rank.rank_plain(succ_p, w_p, plan)
+            err = int((dist.to(torch.int64) - want.to(torch.int64)).abs().max()) if dist.numel() else 0
+            key = list_rank.launch_key(plan)
+            check(torch.equal(dist, want), f"4k: {key} kernel != plain version on {list(succ_p.shape)} (max abs err {err})")
+            name = key.split("/")[0]
+        else:
+            _, target, parent, valid, n, d_max, order, parents, eff = rec
+            k = input_key(target, parent, valid, order) + repr((n, d_max))
+            if k not in plain:
+                cpu = [t.cpu() for t in (target, parent, valid)]
+                plain[k] = tb.replay_plain(*cpu, n, d_max, order=None if order is None else order.cpu())[:2]
+            want_p, want_e = plain[k]
+            err = int((parents.cpu().to(torch.int64) - want_p.to(torch.int64)).abs().max()) if parents.numel() else 0
+            err = max(err, int((eff.cpu() != want_e).sum()))
+            check(torch.equal(parents.cpu(), want_p) and torch.equal(eff.cpu(), want_e),
+                  f"4k: tree replay kernel != plain version on {list(target.shape)} (max abs err {err})")
+            key, name = f"tree_replay{'/permuted' if order is not None else ''}", "tree_replay"
+        errs[name] = max(errs.get(name, 0), err)
+        out.append({"kernel": key, "shape": list(rec[1].shape), "max_abs_err": err})
+    return out
+
+
+def host_engine_phase(torch, dev, kind: str, card: str, first_window=None) -> dict:
+    """Phase 4k, the host engine (loro_tpu_torch.doc.LoroDoc and
+    resilience.hostpath) on the card's host and as the oracle of the
+    card's merges.  (a) Local edits: automerge_like_patches(SEED,
+    HE_PATCHES) applied one patch a call through a LoroDoc's
+    get_text("text").insert / delete, the text held against a plain list
+    replay of the patches, then its export_updates() payload merged by
+    Fleet.merge_text_payloads as HE_TEXT_DOCS docs (bench.py's chunk).
+    (b) Concurrent import: the three flagship docs
+    (tracegen.fleet_docs(2, HE_PATCHES)) imported from their payloads,
+    each text equal to tracegen.oracle_text and to the card's
+    merge_text_payloads; on the docs HE_ROUND_TRIPS, export_snapshot()
+    through LoroDoc.from_snapshot and export_updates() through import_
+    into a fresh doc, both equal.
+    (c) The other families at their bench shapes (4f-4i's traces): each
+    imported into HostEngine LoroDocs, equal to its tracegen oracle, and
+    its payloads cycled to HE_CYCLE docs through the family's one-shot
+    card merge, equal to the LoroDocs; the card merge of the distinct
+    docs alone timed beside the host import of the same docs.  (d) A
+    LoroDoc-made fleet (tracegen.loro_fleet(SEED, HE_FLEET_DOCS)): every
+    family's one-shot card merge checked against host_merge_changes and
+    get_deep_value().  (e) The mirror: a HostEngine of HE_MIRROR_DOCS docs
+    a family fed the same epoch payloads as the resident batches on the
+    card, every read equal every round.  (f) Read-plane bytes: 4j's first
+    window (read_plane_setup, random.Random(SEED + 4)) selected on the
+    card, each pull's rows mapped to their changes, trimmed to the
+    request and framed by frame_columnar_updates, equal to the LoroDoc's
+    export(ExportMode.Updates(vv)) (a pull repeating an earlier one's doc
+    and VV is held to the same rows and framed once); HE_FRAME_CHECKS
+    framed pulls imported into a peer at the request's version reach the
+    doc's state.  Every
+    list-rank and tree-replay launch of (a)-(f) is captured and held bit
+    for bit against its plain version afterwards (check_captured); the
+    card merges of (c)'s distinct docs, timed beside their host import,
+    are not counted.  `first_window`, when phase 4j filled it, gives (f)
+    4j's own first window (its requests, selections and the epochs each
+    doc had then) instead of a new index."""
+    import random
+    from types import SimpleNamespace
+
+    from loro_tpu_torch import tracegen
+    from loro_tpu_torch.codec.binary import decode_changes, encode_changes
+    from loro_tpu_torch.core.ids import TreeID
+    from loro_tpu_torch.core.version import VersionVector
+    from loro_tpu_torch.doc import ExportMode, LoroDoc, frame_columnar_updates, strip_envelope
+    from loro_tpu_torch.ops import columnar, fugue_batch, list_rank
+    from loro_tpu_torch.ops import tree_batch as tb
+    from loro_tpu_torch.oplog.oplog import trim_known_prefix
+    from loro_tpu_torch.parallel.fleet import (DeviceCounterBatch, DeviceDocBatch, DeviceMapBatch,
+                                              DeviceMovableBatch, DeviceTreeBatch, Fleet)
+    from loro_tpu_torch.resilience.hostpath import HostEngine, host_merge_changes
+
+    out = {"max_abs_err": {}}
+    t_phase = time.perf_counter()
+    fl = Fleet(device=dev)
+    list_rank.reset_launches()
+    tb.reset_launches()
+    over0 = dict(fugue_batch.RANK_ROUTES)
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, (time.perf_counter() - t0) * 1e3
+
+    with captured_launches(list_rank, tb) as cap:
+        # (a) local edits through the text handler, one patch a call
+        pos, ins, chars = tracegen.automerge_like_patches(SEED, HE_PATCHES)
+        pos, ins, chars = pos.tolist(), ins.tolist(), [chr(c) for c in chars.tolist()]
+        doc = LoroDoc(peer=1)
+        text = doc.get_text(tracegen.TEXT_CID.name)
+        t0 = time.perf_counter()
+        for p, i, c in zip(pos, ins, chars):
+            if i:
+                text.insert(p, c)
+            else:
+                text.delete(p, 1)
+        doc.commit()
+        apply_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        buf = []
+        for p, i, c in zip(pos, ins, chars):
+            if i:
+                buf.insert(p, c)
+            else:
+                del buf[p]
+        want = "".join(buf)
+        replay_s = time.perf_counter() - t0
+        check(text.to_string() == want, "4k (a): the LoroDoc's text != the plain list replay of the patches")
+        blob, export_ms = timed(doc.export_updates)
+        payload = strip_envelope(blob)
+        got, merge_ms = timed(lambda: fl.merge_text_payloads([payload] * HE_TEXT_DOCS, tracegen.TEXT_CID).texts)
+        check(got == [want] * HE_TEXT_DOCS, "4k (a): merge_text_payloads of the local doc != its text")
+        out["local"] = {"patches": len(pos), "apply_s": apply_s, "patches_per_s": len(pos) / apply_s,
+                        "list_replay_s": replay_s,
+                        "text_len": len(want), "export_updates_ms": export_ms, "payload_bytes": len(payload),
+                        "card_merge_docs": HE_TEXT_DOCS, "card_merge_ms": merge_ms}
+        r = out["local"]
+        print(f"host engine (a) on {kind} ({card}): {r['patches']} patches applied through get_text().insert/delete "
+              f"in {apply_s:.2f} s = {r['patches_per_s']:.0f} patches/s (host CPU), text {r['text_len']} chars == the "
+              f"list replay ({replay_s:.2f} s); export_updates {export_ms:.1f} ms ({len(payload)} B); merge_text_payloads of "
+              f"{HE_TEXT_DOCS} copies on the card {merge_ms:.1f} ms, texts equal", flush=True)
+        del doc, text, buf
+
+        # (b) the flagship concurrent docs imported, and round-tripped
+        fdocs = tracegen.fleet_docs(2, n_patches=HE_PATCHES, seed=SEED)
+        fpay = [tracegen.trace_payload(d) for d in fdocs]
+        dev_texts, card_ms = timed(lambda: fl.merge_text_payloads(fpay, tracegen.TEXT_CID).texts)
+        rows = []
+        for i, (d, p) in enumerate(zip(fdocs, fpay)):
+            ld = LoroDoc(peer=(1 << 40) + i)
+            _, imp_ms = timed(lambda: ld.import_(envelope(p)))
+            t = ld.get_text(tracegen.TEXT_CID.name).to_string()
+            check(t == tracegen.oracle_text(d.extract) == dev_texts[i],
+                  f"4k (b): flagship doc {i}: the LoroDoc's text != oracle_text / the card's merge")
+            row = {"ops": d.n_ops, "changes": ld.len_changes(), "import_ms": imp_ms,
+                   "import_ops_per_s": d.n_ops / (imp_ms / 1e3)}
+            if i in HE_ROUND_TRIPS:
+                snap, snap_ms = timed(ld.export_snapshot)
+                s2, from_ms = timed(lambda: LoroDoc.from_snapshot(snap))
+                upd, upd_ms = timed(ld.export_updates)
+                u2 = LoroDoc(peer=(1 << 41) + i)
+                _, upd_imp_ms = timed(lambda: u2.import_(upd))
+                deep = ld.get_deep_value()
+                check(s2.get_deep_value() == deep and u2.get_deep_value() == deep,
+                      f"4k (b): flagship doc {i}: snapshot or updates round trip != the doc")
+                row.update({"snapshot_bytes": len(snap), "export_snapshot_ms": snap_ms, "from_snapshot_ms": from_ms,
+                            "updates_bytes": len(upd), "export_updates_ms": upd_ms, "import_updates_ms": upd_imp_ms})
+                del s2, u2, snap, upd
+            rows.append(row)
+            del ld
+        out["concurrent"] = {"docs": rows, "card_merge_ms": card_ms,
+                             "over_cap_routes": fugue_batch.RANK_ROUTES["torch:wyllie/over_cap"]
+                             - over0["torch:wyllie/over_cap"]}
+        for i, r in enumerate(rows):
+            trip = (f"; snapshot {r['snapshot_bytes']} B exported {r['export_snapshot_ms']:.1f} ms, from_snapshot "
+                    f"{r['from_snapshot_ms']:.1f} ms; updates {r['updates_bytes']} B exported "
+                    f"{r['export_updates_ms']:.1f} ms, imported {r['import_updates_ms']:.1f} ms; both round trips "
+                    "equal") if "snapshot_bytes" in r else ""
+            print(f"host engine (b) on {kind} ({card}): flagship doc {i}: {r['ops']} ops ({r['changes']} changes) "
+                  f"imported in {r['import_ms']:.1f} ms = {r['import_ops_per_s']:.0f} ops/s (host CPU); text == "
+                  f"oracle_text == the card's merge{trip}", flush=True)
+
+        # (c) the other families at their bench shapes
+        fam = {}
+        mdoc = tracegen.map_doc(SEED * 1000, **HE_SHAPES["map"])
+        cdocs = [tracegen.counter_doc(SEED * 1000 + i, **HE_SHAPES["counter"]) for i in range(HE_DISTINCT)]
+        tdocs = [tracegen.tree_doc(SEED * 1000 + i, **HE_SHAPES["tree"]) for i in range(HE_TREE_DOCS)]
+        rdocs = [tracegen.richtext_doc(SEED * 1000 + i, **HE_SHAPES["richtext"]) for i in range(HE_DISTINCT)]
+        vdocs = [tracegen.movable_doc(SEED * 1000 + i, **HE_SHAPES["movable"]) for i in range(HE_DISTINCT)]
+        specs = {
+            "map": ([mdoc], [tracegen.map_payload(mdoc)], None),
+            "counter": (cdocs, [encode_changes(d.changes) for d in cdocs], None),
+            "tree": (tdocs, [tracegen.tree_payload(d) for d in tdocs], tracegen.TREE_CID),
+            "richtext": (rdocs, [tracegen.richtext_payload(d) for d in rdocs], tracegen.TEXT_CID),
+            "movable": (vdocs, [tracegen.movable_payload(d) for d in vdocs], tracegen.MOVABLE_CID),
+        }
+        for family, (tdocs_f, pays, cid) in specs.items():
+            nd = len(pays)
+            eng = HostEngine(family, nd)
+
+            def host_import():  # decode and import, as HostEngine.apply does with bytes
+                decoded = [decode_changes(p) for p in pays]
+                eng.apply(decoded, cid)
+                return decoded
+
+            chs, host_ms = timed(host_import)
+            ops = sum(d.n_ops for d in tdocs_f)
+            cyc = [j % nd for j in range(HE_CYCLE)]
+            if family == "map":
+                host = eng.root_value_maps(tracegen.MAP_CID.name)
+                check(host == [tracegen.oracle_map(mdoc)], "4k (c): the map LoroDoc != oracle_map")
+                exts = [columnar.extract_map_ops(c) for c in chs]
+                merge = lambda idx: fl.merge_map_docs([exts[j] for j in idx])  # noqa: E731
+            elif family == "counter":
+                host = eng.value_maps()
+                check(host == [tracegen.oracle_counter(d) for d in cdocs], "4k (c): a counter LoroDoc != oracle_counter")
+                merge = lambda idx: fl.merge_counter_changes([chs[j] for j in idx])  # noqa: E731
+            elif family == "tree":
+                host = [(p_, c_) for p_, c_ in zip(eng.parent_maps(), eng.children_maps())]
+                check(host == [tracegen.oracle_tree(d)[:2] for d in tdocs], "4k (c): a tree LoroDoc != oracle_tree")
+                merge = lambda idx: list(zip(fl.merge_tree_payloads([pays[j] for j in idx], cid),  # noqa: E731
+                                             fl.merge_tree_children([chs[j] for j in idx], cid)))
+            elif family == "richtext":
+                host = eng.richtexts()
+                check(host == [tracegen.oracle_richtext(d) for d in rdocs], "4k (c): a rich text != oracle_richtext")
+                merge = lambda idx: fl.merge_richtext_changes([chs[j] for j in idx], cid)  # noqa: E731
+            else:
+                host = eng.value_lists()
+                check(host == [tracegen.oracle_movable(d) for d in vdocs], "4k (c): a movable list != oracle_movable")
+                merge = lambda idx: fl.merge_movable_payloads([pays[j] for j in idx], cid)  # noqa: E731
+            got, card_ms = timed(lambda: merge(cyc))
+            check(got == [host[j] for j in cyc], f"4k (c): the card's {family} merge of {HE_CYCLE} docs != the LoroDocs")
+            with cap.paused():
+                same, same_ms = timed(lambda: merge(list(range(nd))))
+            check(same == host, f"4k (c): the card's {family} merge of the distinct docs != the LoroDocs")
+            fam[family] = {"distinct": nd, "ops": ops, "host_import_ms": host_ms,
+                           "import_ops_per_s": ops / (host_ms / 1e3), "card_docs": HE_CYCLE, "card_ms": card_ms,
+                           "card_same_docs_ms": same_ms, "host_over_card_same_docs": host_ms / same_ms}
+            r = fam[family]
+            print(f"host engine (c) {family} on {kind} ({card}): {nd} distinct docs, {ops} ops imported into LoroDocs "
+                  f"in {host_ms:.1f} ms = {r['import_ops_per_s']:.0f} ops/s (host CPU), == the oracle; card merge "
+                  f"of {HE_CYCLE} cycled docs {card_ms:.1f} ms, of the {nd} distinct docs {same_ms:.1f} ms "
+                  f"(host import / card merge of the same docs {r['host_over_card_same_docs']:.1f}x), == the "
+                  f"LoroDocs", flush=True)
+        out["families"] = fam
+        del specs, mdoc, cdocs, tdocs, rdocs, vdocs
+
+        # (d) a LoroDoc-made fleet through every family's one-shot merge
+        lf, gen_ms = timed(lambda: tracegen.loro_fleet(SEED, HE_FLEET_DOCS, n_rounds=HE_FLEET_ROUNDS,
+                                                          max_edits=HE_FLEET_EDITS))
+        changes = [d.changes() for d in lf]
+        pays = [d.payload() for d in lf]
+        deeps = [d.doc.get_deep_value() for d in lf]
+
+        def deep_tree(nodes, parent=None, parents=None, kids=None):
+            """(parents, children) maps of a deep tree value."""
+            parents = {} if parents is None else parents
+            kids = {} if kids is None else kids
+            for nd_ in nodes:
+                t = TreeID.parse(nd_["id"])
+                parents[t] = parent
+                kids.setdefault(parent, []).append(t)
+                deep_tree(nd_["children"], t, parents, kids)
+            return parents, kids
+
+        trees = [deep_tree(dv.get(tracegen.TREE_CID.name, [])) for dv in deeps]
+        fleet_rows = {}
+        calls = {
+            "text": (lambda: fl.merge_text_payloads(pays, tracegen.TEXT_CID).texts, tracegen.TEXT_CID,
+                     [dv.get("text", "") for dv in deeps]),
+            "richtext": (lambda: fl.merge_richtext_changes(changes, tracegen.RICH_CID), tracegen.RICH_CID,
+                         [d.doc.get_text(tracegen.RICH_CID.name).get_richtext_value() for d in lf]),
+            "movable": (lambda: fl.merge_movable_payloads(pays, tracegen.MOVABLE_CID), tracegen.MOVABLE_CID,
+                        [dv.get(tracegen.MOVABLE_CID.name, []) for dv in deeps]),
+            "tree": (lambda: fl.merge_tree_payloads(pays, tracegen.TREE_CID), tracegen.TREE_CID,
+                     [t[0] for t in trees]),
+            "tree_children": (lambda: fl.merge_tree_children(changes, tracegen.TREE_CID), tracegen.TREE_CID,
+                              [t[1] for t in trees]),
+            "counter": (lambda: fl.merge_counter_changes(changes), None, None),
+        }
+        for family, (call, cid, from_deep) in calls.items():
+            got, card_ms = timed(call)
+            host, host_ms = timed(lambda: host_merge_changes(family, changes, cid))
+            check(got == host, f"4k (d): the card's {family} merge != host_merge_changes")
+            if family == "counter":
+                from_deep = [{c: dv[c.name] for c in g} for g, dv in zip(got, deeps)]
+            check(got == from_deep, f"4k (d): the card's {family} merge != get_deep_value()")
+            fleet_rows[family] = {"card_ms": card_ms, "host_ms": host_ms}
+        exts = [columnar.extract_map_ops(c) for c in changes]
+        got, card_ms = timed(lambda: fl.merge_map_docs(exts))
+        check(got == [dv.get(tracegen.MAP_CID.name, {}) for dv in deeps], "4k (d): the card's map merge != get_deep_value()")
+        fleet_rows["map"] = {"card_ms": card_ms}
+        out["loro_fleet"] = {"docs": HE_FLEET_DOCS, "rounds": HE_FLEET_ROUNDS, "gen_ms": gen_ms,
+                             "ops": sum(ch.ctr_end - ch.ctr_start for c in changes for ch in c),
+                             "changes": sum(len(c) for c in changes), "payload_bytes": sum(map(len, pays)),
+                             "families": fleet_rows}
+        print(f"host engine (d) on {kind} ({card}): loro_fleet of {HE_FLEET_DOCS} docs ({HE_FLEET_ROUNDS} rounds, "
+              f"{out['loro_fleet']['changes']} changes, {out['loro_fleet']['ops']} ops, made in {gen_ms:.0f} ms); "
+              f"card merge vs host_merge_changes ms: " + ", ".join(
+                  f"{k} {v['card_ms']:.1f}/{v.get('host_ms', float('nan')):.1f}" for k, v in fleet_rows.items())
+              + "; every family == host_merge_changes and get_deep_value()", flush=True)
+
+        # (e) the mirror: HostEngine against the resident batches, every round
+        mirror = lf[:HE_MIRROR_DOCS]
+        n = len(mirror)
+        batches = {
+            "text": (DeviceDocBatch(n, 64, device=dev, auto_grow=True), tracegen.TEXT_CID),
+            "list": (DeviceDocBatch(n, 64, device=dev, as_text=False, auto_grow=True), tracegen.LIST_CID),
+            "richtext": (DeviceDocBatch(n, 64, device=dev, auto_grow=True), tracegen.RICH_CID),
+            "map": (DeviceMapBatch(n, 16, device=dev, auto_grow=True), None),
+            "counter": (DeviceCounterBatch(n, 4, device=dev, auto_grow=True), None),
+            "tree": (DeviceTreeBatch(n, 64, 16, device=dev, auto_grow=True), tracegen.TREE_CID),
+            "movable": (DeviceMovableBatch(n, 64, 16, device=dev, auto_grow=True), tracegen.MOVABLE_CID),
+        }
+        reads = {"text": ("texts",), "list": ("values",), "richtext": ("richtexts",),
+                 "map": ("value_maps", "root_value_maps"), "counter": ("value_maps",),
+                 "tree": ("parent_maps", "children_maps"), "movable": ("value_lists",)}
+        engines = {f: HostEngine(f, n) for f in batches}
+        mirror_ms = {f: 0.0 for f in batches}
+        n_reads = 0
+        for r in range(HE_FLEET_ROUNDS):
+            eps = [d.epochs[r] for d in mirror]
+            for f, (batch, cid) in batches.items():
+                engines[f].apply(eps, cid)
+                t0 = time.perf_counter()
+                if f == "counter":
+                    batch.append_changes([decode_changes(p) for p in eps])
+                elif f == "map":
+                    batch.append_payloads(eps)
+                else:
+                    batch.append_payloads(eps, cid)
+                for name in reads[f]:
+                    args = (tracegen.MAP_CID.name,) if name == "root_value_maps" else ()
+                    b, h = getattr(batch, name)(*args), getattr(engines[f], name)(*args)
+                    check(b == h, f"4k (e): round {r}: {f} batch.{name}() != HostEngine.{name}()")
+                    n_reads += 1
+                if f == "text":
+                    check(batch.texts(use_solver=True) == engines[f].texts(), f"4k (e): round {r}: the solver's texts")
+                torch.cuda.synchronize()
+                mirror_ms[f] += (time.perf_counter() - t0) * 1e3
+        out["mirror"] = {"docs": n, "rounds": HE_FLEET_ROUNDS, "reads_checked": n_reads, "batch_ms": mirror_ms}
+        print(f"host engine (e) on {kind} ({card}): HostEngine({n}) per family == the resident batches on every read "
+              f"of {HE_FLEET_ROUNDS} rounds ({n_reads} reads); batch append + read ms: "
+              + ", ".join(f"{k} {v:.1f}" for k, v in mirror_ms.items()), flush=True)
+        del batches, engines
+
+        # (f) the read plane's first window, framed: 4j's own, or drawn
+        # anew from the same seeded index
+        t0 = time.perf_counter()
+        if first_window:
+            rp = SimpleNamespace(**first_window)
+        else:
+            rp = read_plane_setup(dev)
+            rng = random.Random(SEED + 4)
+            rp.reqs = []
+            for _ in range(RP_WINDOW):
+                j = rng.randrange(RP_DOCS)
+                rp.reqs.append((j, rp.request(rng, j)))
+            rp.sel = rp.idx.select([(j, VersionVector(m)) for j, m in rp.reqs])
+        reqs, sel = rp.reqs, rp.sel
+        setup_s = time.perf_counter() - t0
+        hosts = {}
+        for di in sorted({j % rp.nd for j, _ in reqs}):
+            ld = LoroDoc(peer=(1 << 42) + di)
+            for p in tracegen.epoch_payloads(rp.docs[di])[: rp.fed[di]]:
+                ld.import_(envelope(p))
+            hosts[di] = ld
+        frame_ms = export_ms = 0.0
+        n_bytes = 0
+        # a pull that repeats an earlier one (the same doc, epochs and VV:
+        # the window's empty and epoch-end VVs repeat) must select the same
+        # rows, and is then framed once
+        framed_by = {}
+        for (j, m), rows_ in zip(reqs, sel):
+            rows_l = rows_.tolist()
+            pk = (j % rp.nd, rp.fed[j], tuple(sorted(m.items())))
+            if pk in framed_by:
+                check(framed_by[pk][0] == rows_l, f"4k (f): doc {j} from {m}: rows != an identical pull's")
+                n_bytes += len(framed_by[pk][1])
+                continue
+            flat = [ch for g in rp.groups[j % rp.nd][: rp.fed[j]] for ch in g]
+            t0 = time.perf_counter()
+            framed = frame_columnar_updates([trim_known_prefix(ch, m[ch.peer]) if m.get(ch.peer, 0) > ch.ctr_start
+                                             else ch for ch in (flat[i] for i in rows_l)])
+            frame_ms += (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            want_b = hosts[j % rp.nd].export(ExportMode.Updates(VersionVector(m)))
+            export_ms += (time.perf_counter() - t0) * 1e3
+            check(framed == want_b, f"4k (f): doc {j} from {m}: framed rows != the LoroDoc's export(Updates(vv))")
+            framed_by[pk] = (rows_l, framed)
+            n_bytes += len(framed)
+        imported = 0
+        for (di, _fed, items), (_rows, framed) in list(framed_by.items())[:HE_FRAME_CHECKS]:
+            src, m = hosts[di], dict(items)
+            known = {p: c for p, c in m.items() if c and src.oplog_vv().get(p)}
+            peer = src.fork_at(src.vv_to_frontiers(VersionVector(known))) if known else LoroDoc(peer=(1 << 43) + di)
+            peer.import_(framed)
+            check(peer.get_deep_value() == src.get_deep_value(), f"4k (f): doc {di}: a peer at {m} importing the "
+                  "framed pull != the doc")
+            imported += 1
+        out["read_plane"] = {"requests": len(reqs), "distinct_pulls": len(framed_by), "from_4j": bool(first_window),
+                             "setup_s": setup_s, "bytes": n_bytes, "frame_ms": frame_ms, "loro_export_ms": export_ms,
+                             "imported": imported, "rows": sum(len(x) for x in sel)}
+        print(f"host engine (f) on {kind} ({card}): 4j's first window of {len(reqs)} pulls ({out['read_plane']['rows']} "
+              f"rows, {len(framed_by)} distinct): frame_columnar_updates of the selected changes == "
+              f"LoroDoc.export(Updates(vv)) every pull ({n_bytes} B; framing {frame_ms:.1f} ms, the LoroDoc's exports "
+              f"{export_ms:.1f} ms, host CPU); {imported} framed pulls imported into a peer at their version reach "
+              "the doc", flush=True)
+        del rp, hosts
+
+    out["launches"] = {**{k: v for k, v in list_rank.LAUNCHES.items() if v},
+                       **{f"tree_replay/{k}": v for k, v in tb.LAUNCHES.items() if v}}
+    if dev.type == "cuda":
+        check(sum(list_rank.LAUNCHES.values()) > 0 and sum(tb.LAUNCHES.values()) > 0,
+              f"phase 4k launched list rank {list_rank.LAUNCHES} and tree replay {tb.LAUNCHES}")
+        check(len(cap.seen) == sum(list_rank.LAUNCHES.values()) + sum(tb.LAUNCHES.values()),
+              f"4k captured {len(cap.seen)} launches, counted {out['launches']}")
+    t0 = time.perf_counter()
+    out["kernel_checks"] = check_captured(torch, list_rank, tb, cap.seen, out["max_abs_err"])
+    out["kernel_check_s"] = time.perf_counter() - t0
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 4k: {out['seconds']:.1f} s; main-path launches {out['launches']}; {len(cap.seen)} launches held "
+          f"against their plain versions in {out['kernel_check_s']:.1f} s, max abs err {out['max_abs_err']}",
+          flush=True)
     return out
 
 
@@ -2155,12 +2716,12 @@ def card_tests() -> None:
          "-o", "markers=cuda: needs an NVIDIA GPU", "tests/test_torch_list_rank_cuda.py",
          "tests/test_torch_fleet_cuda.py", "tests/test_torch_resident_cuda.py", "tests/test_torch_map_counter_cuda.py",
          "tests/test_torch_tree_cuda.py", "tests/test_torch_richtext_cuda.py", "tests/test_torch_movable_cuda.py",
-         "tests/test_torch_movable_resident_cuda.py", "tests/test_torch_export_cuda.py"],
+         "tests/test_torch_movable_resident_cuda.py", "tests/test_torch_export_cuda.py", "tests/test_torch_doc_cuda.py"],
         cwd=root, capture_output=True, text=True, timeout=600,
     )
     summary = (test.stdout.strip().splitlines() or ["(no output)"])[-1]
     print(f"pytest -m cuda tests/test_torch_{{list_rank,fleet,resident,map_counter,tree,richtext,movable,"
-          f"movable_resident,export}}_cuda.py: "
+          f"movable_resident,export,doc}}_cuda.py: "
           f"rc {test.returncode}, {summary} ({time.perf_counter() - t0:.1f} s)", flush=True)
     check(test.returncode == 0 and " passed" in summary and "skipped" not in summary,
           "the card tests failed on the card:\n" + test.stdout[-4000:] + test.stderr[-2000:])
@@ -2211,11 +2772,13 @@ def main(argv=None) -> int:
     if args.phase:  # a phase run: the card tests, then the named phases
         card_tests()
         phase_fns = {"4f": map_counter_phase, "4g": tree_phase, "4h": richtext_phase, "4i": movable_phase,
-                     "4j": read_plane_phase}
+                     "4j": read_plane_phase, "4k": host_engine_phase}
         results = {}
+        first_window = {}  # 4j's first window, framed by 4k when both run (4j first)
+        extra = {"4j": {"first": first_window}, "4k": {"first_window": first_window}}
         for name in dict.fromkeys(args.phase):
             list_rank.reset_launches()
-            results[name] = phase_fns[name](torch, dev, kind, card)
+            results[name] = phase_fns[name](torch, dev, kind, card, **extra.get(name, {}))
             if name in ("4f", "4g", "4j"):  # torch ops and the replay kernel: no list-rank launch
                 check(not any(list_rank.LAUNCHES.values()), f"phase {name} launched {list_rank.LAUNCHES}")
         print("results " + json.dumps({"card": card, "kind": kind, "phases": results,
@@ -2908,9 +3471,18 @@ def main(argv=None) -> int:
     # ---- 4j. the read plane's batched export selection -------------------
     # (torch sorts and gathers: no list-rank kernel runs here, checked)
     before = dict(list_rank.LAUNCHES)
-    read4j = read_plane_phase(torch, dev, kind, card)
+    first_window = {}
+    read4j = read_plane_phase(torch, dev, kind, card, first=first_window)
     read4j["launches"] = launched_since(list_rank, before)
     check(not read4j["launches"], f"the read-plane phase launched {read4j['launches']}")
+
+    # ---- 4k. the host engine: LoroDoc on the card's host, and as the
+    # oracle of every family's card merge (list-rank and tree-replay
+    # launches counted, each held against its plain version)
+    host4k = host_engine_phase(torch, dev, kind, card, first_window=first_window)
+    for name, err in host4k["max_abs_err"].items():
+        if name in max_err:
+            max_err[name] = max(max_err[name], err)
 
     # ---- 5. timings -------------------------------------------------------
     # each kernel at its main-path shape: the flagship chain rings for the
@@ -3108,7 +3680,7 @@ def main(argv=None) -> int:
         "bound_ms": bounds, "phases": phases, "full_card": full_card, "wyllie_over_budget": over_budget,
         "sweep": sweep, "sweep_graph": sweep_graph, "ingest": ingest, "fleet": fleet, "resident": resident4e,
         "map_counter": map_counter4f, "tree": tree4g, "richtext": richtext4h, "movable": movable4i,
-        "read_plane": read4j, "total_s": time.perf_counter() - t_start,
+        "read_plane": read4j, "host_engine": host4k, "total_s": time.perf_counter() - t_start,
     }))
     # launches in the fleet phase's checked one-shot calls, one a call
     fleet_by_kernel = {name: sum(v for ran in fleet_launches.values() for k, v in ran.items()
@@ -3125,6 +3697,7 @@ def main(argv=None) -> int:
             "launches_richtext": sum(v for k, v in richtext4h["launches"].items() if k.split("/")[0] == name),
             "launches_movable": sum(v for k, v in movable4i["launches"].items() if k.split("/")[0] == name),
             "launches_read_plane": sum(v for k, v in read4j["launches"].items() if k.split("/")[0] == name),
+            "launches_host_engine": sum(v for k, v in host4k["launches"].items() if k.split("/")[0] == name),
             "max_abs_err": max_err[name],
             "ms": res[f"{name}_graph_ms"],
             "eager_ms": res[f"{name}_ms"],
@@ -3142,7 +3715,8 @@ def main(argv=None) -> int:
         "source": "loro_tpu_torch/csrc/tree_replay.cu",
         "replaces": "loro_tpu/ops/tree_batch.py:43",
         "launches": sum(tree4g["launches"].values()),
-        "max_abs_err": tk["max_abs_err"],
+        "launches_host_engine": sum(v for k, v in host4k["launches"].items() if k.startswith("tree_replay/")),
+        "max_abs_err": max(tk["max_abs_err"], host4k["max_abs_err"].get("tree_replay", 0)),
         "ms": tk["ms"],
         "eager_ms": tk["eager_ms"],
         "plain_ms": tk["plain_ms"],

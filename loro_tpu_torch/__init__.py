@@ -1,24 +1,51 @@
-"""loro_tpu_torch — the PyTorch/CUDA port of the loro_tpu fleet merge.
+"""loro_tpu_torch — the PyTorch/CUDA port of loro_tpu.
 
 The JAX package ``loro_tpu`` stays the reference; this package imports
-nothing of it (and never imports jax).  It covers the fleet text merge,
-element-level and chain-contracted, from payload bytes, the LWW-map,
-counter and movable-tree merges, and their resident batches:
+nothing of it (and never imports jax).  It covers the host engine (the
+LoroDoc and its layers, pure Python copied from the JAX package), the
+fleet text merge, element-level and chain-contracted, from payload
+bytes, the LWW-map, counter, movable-tree, rich-text and MovableList
+merges, their resident batches and the read plane:
 
-    core              ids, the op/change model, Frontiers
+    core              ids, the op/change model, versions, values
+    config, errors    Configure; the exception types
+    utils             the order-statistic treap, fractional indexes,
+                      tracing spans
+    obs.metrics       the process-wide metrics registry
+    event             diffs and events
+    models            container states (FugueSeq text/list/movable list,
+                      LWW map, counter, movable tree, unknown) and the
+                      user-facing handlers
+    oplog             the OpLog: DAG, pending queue, cold change store
+    state, txn        the document state and transactions
+    doc               LoroDoc: edits, commits, import/export, checkout,
+                      diff, fork, the envelope helpers
+                      (frame_columnar_updates, parse_envelope_header,
+                      strip_envelope)
+    history_cache, cursor, jsonpath
+                      checkout's state cache, stable cursors, JSONPath
+    resilience.hostpath
+                      HostEngine (per-doc LoroDoc replicas with the
+                      resident batches' read names) and
+                      host_merge_changes, the host oracle of every
+                      device merge
     codec.binary      the payload decoder (decode_changes) and encoder
+    codec.snapshot, codec.json_schema
+                      the state snapshot codec; the JSON updates schema
+                      and redact_json_updates
     native            the native payload explodes (seq_codec.cpp: seq,
-                      delta, map and tree), order engine and id map
-                      (order_idmap.cpp)
+                      delta, map, tree and movable), order engine and id
+                      map (order_idmap.cpp)
     ops.columnar      host numpy element tables -> SeqColumns / ChainColumns
     ops.fugue_batch   Euler-tour ring, list-rank dispatch, placement,
                       batch entry points (explicit leading doc axis), the
                       resident path's device ops on SeqColumnsU
-    parallel.fleet    Fleet: one-shot batched text, map, counter and
-                      tree merges of docs, change lists or payloads; the
-                      resident batches DeviceDocBatch (text),
-                      DeviceMapBatch, DeviceCounterBatch and
-                      DeviceTreeBatch (appends, reads, checkpoints)
+    parallel.fleet    Fleet: one-shot batched text, map, counter, tree,
+                      rich-text and MovableList merges of docs, change
+                      lists or payloads; the resident batches
+                      DeviceDocBatch (text), DeviceMapBatch,
+                      DeviceCounterBatch, DeviceTreeBatch and
+                      DeviceMovableBatch (appends, reads, checkpoints)
     parallel.order_maintenance, parallel.idmap
                       the resident batch's host order engine and id maps
     storage           the LTKV key-value store of its checkpoints
@@ -27,14 +54,95 @@ counter and movable-tree merges, and their resident batches:
     ops.lww           the LWW-map and counter merges (torch scatters)
     ops.tree_batch    the movable-tree merge: the hand-written replay
                       kernel (csrc/tree_replay.cu) + its plain version
+    ops.richtext_batch, ops.movable_batch
+                      the rich-text and MovableList merges
+    ops.export_batch  the read plane's batched export selection
     entry             entry(): the element merge of an example batch
     tracegen          seeded traces (automerge-perf-shaped text, map,
-                      counter and tree histories) + host oracles
+                      counter, tree, rich-text and movable histories,
+                      LoroDoc-made fleets) + host oracles
 
-Public entry points take ``device=`` (default ``"cuda"``) and raise
+Host-only classes (LoroDoc, HostEngine) take no ``device=``.  Public
+device entry points take ``device=`` (default ``"cuda"``) and raise
 DeviceUnavailable without a card unless given ``device="cpu"``.
 """
+from .codec.json_schema import RedactError, redact_json_updates
+from .core.change import Change, Op, Side
+from .core.ids import ContainerID, ContainerType, ID, IdSpan, TreeID
+from .core.version import Frontiers, VersionRange, VersionVector
+from .cursor import AbsolutePosition, Cursor, CursorSide, get_cursor, get_cursor_pos
 from .device import resolve_device
-from .errors import ConfigError, DeviceUnavailable, LoroError
+from .doc import EncodeMode, ExportMode, ImportStatus, LoroDoc
+from .errors import ConfigError, DecodeError, DeviceUnavailable, LoroError
+from .event import (
+    ContainerDiff,
+    CounterDiff,
+    Delete,
+    Delta,
+    DocDiff,
+    EventTriggerKind,
+    Insert,
+    MapDiff,
+    Retain,
+    TreeDiff,
+    TreeDiffAction,
+    TreeDiffItem,
+)
+from .models.handlers import (
+    CounterHandler,
+    Handler,
+    ListHandler,
+    MapHandler,
+    MovableListHandler,
+    TextHandler,
+    TreeHandler,
+)
 
-__all__ = ["resolve_device", "ConfigError", "DeviceUnavailable", "LoroError"]
+__all__ = [
+    "resolve_device",
+    "ConfigError",
+    "DeviceUnavailable",
+    "LoroDoc",
+    "LoroError",
+    "DecodeError",
+    "RedactError",
+    "redact_json_updates",
+    "ExportMode",
+    "EncodeMode",
+    "ImportStatus",
+    "ContainerID",
+    "ContainerType",
+    "ID",
+    "IdSpan",
+    "TreeID",
+    "Frontiers",
+    "VersionVector",
+    "VersionRange",
+    "Change",
+    "Op",
+    "Side",
+    "Delta",
+    "Retain",
+    "Insert",
+    "Delete",
+    "MapDiff",
+    "TreeDiff",
+    "TreeDiffAction",
+    "TreeDiffItem",
+    "CounterDiff",
+    "DocDiff",
+    "ContainerDiff",
+    "EventTriggerKind",
+    "TextHandler",
+    "ListHandler",
+    "MapHandler",
+    "MovableListHandler",
+    "TreeHandler",
+    "CounterHandler",
+    "Handler",
+    "Cursor",
+    "CursorSide",
+    "AbsolutePosition",
+    "get_cursor",
+    "get_cursor_pos",
+]

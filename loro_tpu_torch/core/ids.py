@@ -173,3 +173,33 @@ class TreeID(NamedTuple):
     def parse(s: str) -> "TreeID":
         c, p = s.split("@")
         return TreeID(int(p), int(c))
+
+
+# Reserved root-name namespace for mergeable child containers
+# (MapHandler.ensure_mergeable_*): the name deterministically encodes
+# (parent cid, key, type), so concurrent creation on different replicas
+# yields the SAME container and edits merge.  The \x00 prefix keeps user
+# root names from colliding.
+MERGEABLE_PREFIX = "\x00m:"
+
+
+def mergeable_root_name(parent_cid: "ContainerID", key: str, ctype: "ContainerType") -> str:
+    return f"{MERGEABLE_PREFIX}{parent_cid}\x00{key}\x00{int(ctype)}"
+
+
+def is_internal_root_name(name: str) -> bool:
+    return name.startswith(MERGEABLE_PREFIX)
+
+
+def parse_mergeable_root_name(name: str):
+    """(parent ContainerID, key) of a mergeable root name, or None."""
+    if not name.startswith(MERGEABLE_PREFIX):
+        return None
+    body = name[len(MERGEABLE_PREFIX):]
+    try:
+        # rsplit: the parent cid string may itself embed \x00 (nested
+        # mergeable containers)
+        parent_s, key, _t = body.rsplit("\x00", 2)
+        return ContainerID.parse(parent_s), key
+    except (ValueError, KeyError):
+        return None

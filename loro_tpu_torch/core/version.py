@@ -1,9 +1,10 @@
-"""Version types, the port's copy of loro_tpu/core/version.py's
-VersionVector (with its wire form and varint helpers) and Frontiers.
+"""Version types, the port's copy of loro_tpu/core/version.py:
+VersionVector (with its wire form and varint helpers), Frontiers and
+VersionRange.
 
 A VersionVector maps peer -> next-expected counter (the number of known
-ops); Frontiers are the DAG heads (a change's deps).  VersionRange
-stays in the JAX package until a slice needs it.
+ops); Frontiers are the DAG heads (a change's deps); a VersionRange
+maps peers to counter ranges (the pending report of an import).
 """
 from __future__ import annotations
 
@@ -219,3 +220,49 @@ class Frontiers:
 
     def __repr__(self) -> str:
         return f"Frontiers[{', '.join(map(str, self._ids))}]"
+
+    def to_json(self) -> List[str]:
+        return [str(i) for i in self._ids]
+
+    @staticmethod
+    def from_json(v: List[str]) -> "Frontiers":
+        return Frontiers(ID.parse(s) for s in v)
+
+    def encode(self) -> bytes:
+        """Compact binary form: varint count + (u64 peer, varint ctr)."""
+        return _encode_u64_varint_pairs((i.peer, i.counter) for i in self._ids)
+
+    @staticmethod
+    def decode(data: bytes) -> "Frontiers":
+        """Raises ValueError on malformed input."""
+        return Frontiers(ID(p, c) for p, c in _decode_u64_varint_pairs(data))
+
+
+class VersionRange:
+    """peer -> (start, end) counter ranges, the pending report of
+    ImportStatus."""
+
+    __slots__ = ("_m",)
+
+    def __init__(self, m: Optional[Dict[PeerID, Tuple[Counter, Counter]]] = None):
+        self._m: Dict[PeerID, Tuple[Counter, Counter]] = dict(m) if m else {}
+
+    def is_empty(self) -> bool:
+        return not self._m
+
+    def extend_to_include(self, span: IdSpan) -> None:
+        if span.peer in self._m:
+            s, e = self._m[span.peer]
+            self._m[span.peer] = (min(s, span.start), max(e, span.end))
+        else:
+            self._m[span.peer] = (span.start, span.end)
+
+    def items(self) -> Iterable[Tuple[PeerID, Tuple[Counter, Counter]]]:
+        return self._m.items()
+
+    def __eq__(self, other):
+        return isinstance(other, VersionRange) and self._m == other._m
+
+    def __repr__(self):
+        inner = ", ".join(f"{p}:[{s},{e})" for p, (s, e) in sorted(self._m.items()))
+        return f"VersionRange{{{inner}}}"

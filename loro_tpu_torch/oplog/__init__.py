@@ -1,3 +1,3 @@
-"""The port's op history (loro_tpu/oplog): for now only the known-prefix
-trim that the read plane (ops/export_batch.py) shares with import and
-ranged export."""
+"""The port's op history (loro_tpu/oplog): the OpLog with its DAG
+(dag.py), pending queue and known-prefix trim (oplog.py), and the
+block-chunked cold change store (change_store.py)."""

@@ -1457,3 +1457,136 @@ def oracle_export(changes, vv) -> List[int]:
         if ch.ctr_end > f:
             keyed.append(((ch.lamport + max(0, f - ch.ctr_start), ch.peer, max(ch.ctr_start, f)), i))
     return [i for _, i in sorted(keyed)]
+
+
+# -- LoroDoc-made fleets --------------------------------------------------------
+
+RICH_CID = ContainerID.root("rich", ContainerType.Text)  # the rich text of a LoroDoc-made doc
+LIST_CID = ContainerID.root("l", ContainerType.List)  # its list (scalars and nested texts)
+COUNTER_CIDS = tuple(ContainerID.root(f"c{i}", ContainerType.Counter) for i in range(2))
+LORO_FLEET_PEERS = 3
+# counter steps: every sum of them is exact in float32, the device
+# counter's precision
+_COUNTER_STEPS = (1, 2, 3, -1, 0.5, -0.25)
+
+
+@dataclass
+class LoroFleetDoc:
+    """One document of a LoroDoc-made fleet: `epochs`, one
+    envelope-stripped updates payload a sync round (what peer 0 learnt
+    that round, trimmed to what it did not know: the deltas a resident
+    batch appends), and `doc`, peer 0 after the last round (it holds the
+    whole history and is the host oracle)."""
+
+    epochs: List[bytes]
+    doc: object  # a LoroDoc
+
+    def payload(self) -> bytes:
+        """The whole history as one envelope-stripped updates payload."""
+        from .doc import strip_envelope
+
+        return strip_envelope(self.doc.export_updates())
+
+    def changes(self) -> List[Change]:
+        return decode_changes(self.payload())
+
+
+def loro_fleet(seed: int, n_docs: int, n_rounds: int = 6, max_edits: int = 10) -> List[LoroFleetDoc]:
+    """n_docs seeded random 3-peer LoroDoc histories over all six container
+    kinds: each round every peer makes 1 to max_edits random edits on the
+    text TEXT_CID, the rich text RICH_CID (inserts, deletes, marks and
+    unmarks), the MovableList MOVABLE_CID (inserts, moves, sets,
+    deletes), the tree TREE_CID (creates, moves that may form cycles,
+    deletes; fractional indexes on), the counters COUNTER_CIDS, the map
+    MAP_CID (sets of every scalar tag, deletes) and the list LIST_CID
+    (scalars and nested texts), then commits; two random one-way syncs
+    follow, and peer 0 pulls every other peer.  Concurrent edits between
+    syncs make concurrent siblings, moves and sets as between real
+    replicas."""
+    from .core.version import VersionVector
+    from .doc import LoroDoc, strip_envelope
+
+    out = []
+    for di in range(n_docs):
+        rng = random.Random((seed << 24) ^ (di * 0x9E3779B1))
+        peers = [LoroDoc(peer=p) for p in _peer_ids(rng, LORO_FLEET_PEERS)]
+        for d in peers:
+            d.get_tree(TREE_CID.name).enable_fractional_index(0)
+        last = VersionVector()
+        epochs = []
+        for _ in range(n_rounds):
+            for d in peers:
+                for _ in range(rng.randint(1, max_edits)):
+                    _loro_edit(rng, d)
+                d.commit()
+            for _ in range(2):
+                a, b = rng.sample(range(LORO_FLEET_PEERS), 2)
+                peers[b].import_(peers[a].export_updates(peers[b].oplog_vv()))
+            for d in peers[1:]:
+                peers[0].import_(d.export_updates(peers[0].oplog_vv()))
+            epochs.append(strip_envelope(peers[0].export_updates(last)))
+            last = peers[0].oplog_vv()
+        out.append(LoroFleetDoc(epochs, peers[0]))
+    return out
+
+
+def _loro_edit(rng: random.Random, d) -> None:
+    """One random edit of LoroDoc `d` on one of loro_fleet's containers."""
+    u = rng.random()
+    if u < 0.3:
+        t = d.get_text(TEXT_CID.name if u < 0.18 else RICH_CID.name)
+        n = len(t)
+        v = rng.random()
+        if u >= 0.18 and n > 2 and v < 0.25:
+            a = rng.randrange(n - 1)
+            b = rng.randint(a + 1, n)
+            if v < 0.2:
+                t.mark(a, b, rng.choice(RICHTEXT_KEYS), rng.choice(RICHTEXT_VALUES))
+            else:
+                t.unmark(a, b, rng.choice(RICHTEXT_KEYS))
+        elif n and v < 0.5:
+            pos = rng.randrange(n)
+            t.delete(pos, min(rng.randint(1, 4), n - pos))
+        else:
+            t.insert(rng.randint(0, n), "".join(rng.choice(_CHARS) for _ in range(rng.randint(1, 6))))
+    elif u < 0.46:
+        ml = d.get_movable_list(MOVABLE_CID.name)
+        n = len(ml)
+        v = rng.random()
+        if n < 2 or v < 0.4:
+            ml.insert(rng.randint(0, n), _random_value(rng))
+        elif v < 0.7:
+            ml.move(rng.randrange(n), rng.randrange(n))
+        elif v < 0.88:
+            ml.set(rng.randrange(n), _random_value(rng))
+        else:
+            ml.delete(rng.randrange(n), 1)
+    elif u < 0.64:
+        tr = d.get_tree(TREE_CID.name)
+        nodes = tr.nodes()
+        v = rng.random()
+        if len(nodes) < 3 or v < 0.4:
+            tr.create(rng.choice(nodes) if nodes and rng.random() < 0.7 else None)
+        elif v < 0.9:  # under its own subtree this is a cycle the merge rejects
+            tr.move(rng.choice(nodes), rng.choice(nodes + [None]))
+        else:
+            tr.delete(rng.choice(nodes))
+    elif u < 0.74:
+        d.get_counter(rng.choice(COUNTER_CIDS).name).increment(rng.choice(_COUNTER_STEPS))
+    elif u < 0.9:
+        m = d.get_map(MAP_CID.name)
+        key = f"k{rng.randrange(12)}"
+        if rng.random() < 0.85:
+            m.set(key, _random_value(rng))
+        else:
+            m.delete(key)
+    else:
+        ll = d.get_list(LIST_CID.name)
+        n = len(ll)
+        v = rng.random()
+        if n and v < 0.25:
+            ll.delete(rng.randrange(n), 1)
+        elif v < 0.4:
+            ll.insert_container(rng.randint(0, n), ContainerType.Text).insert(0, rng.choice(["nested", "x", "é"]))
+        else:
+            ll.insert(rng.randint(0, n), _random_value(rng))

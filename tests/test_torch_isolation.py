@@ -190,6 +190,23 @@ _BLOCKED_IMPORT = textwrap.dedent(
     for (di, vv), g in zip(reqs, got):
         assert g.tolist() == tracegen.oracle_export(groups[di], vv)
 
+    # the host engine: a LoroDoc edit, export and import round trip, and
+    # the host mirror on a LoroDoc-made fleet
+    from loro_tpu_torch import LoroDoc
+    from loro_tpu_torch.resilience.hostpath import host_merge_changes
+
+    a, b = LoroDoc(peer=1), LoroDoc(peer=2)
+    a.get_text("t").insert(0, "hello")
+    a.get_map("m").set("k", [1, "x"])
+    b.import_(a.export_updates(b.oplog_vv()))
+    b.get_text("t").insert(5, "!")
+    a.import_(b.export_updates(a.oplog_vv()))
+    assert a.get_deep_value() == b.get_deep_value() == {"m": {"k": [1, "x"]}, "t": "hello!"}
+    assert LoroDoc.from_snapshot(a.export_snapshot()).get_deep_value() == a.get_deep_value()
+    lf = tracegen.loro_fleet(1, 2, n_rounds=2)
+    assert host_merge_changes("text", [d.changes() for d in lf], tracegen.TEXT_CID) == \
+        fleet.merge_text_changes([d.changes() for d in lf], tracegen.TEXT_CID).texts
+
     # the port's entry point
     from loro_tpu_torch.entry import entry
 
@@ -226,9 +243,12 @@ def test_source_scan_finds_no_jax_or_loro_tpu_import():
     for name in ("parallel/fleet.py", "core/change.py", "core/version.py", "core/ids.py", "storage/kv.py",
                  "parallel/order_maintenance.py", "parallel/idmap.py", "native/__init__.py", "ops/lww.py",
                  "ops/tree_batch.py", "ops/richtext_batch.py", "ops/movable_batch.py", "ops/export_batch.py",
-                 "oplog/oplog.py"):
+                 "oplog/oplog.py", "oplog/dag.py", "oplog/change_store.py", "doc.py", "state.py", "txn.py",
+                 "event.py", "models/handlers.py", "codec/snapshot.py", "codec/json_schema.py", "cursor.py",
+                 "jsonpath.py", "history_cache.py", "resilience/hostpath.py", "obs/metrics.py", "utils/treap.py"):
         assert PKG / name in files, name
-    for sub in ("codec", "core", "native", "oplog", "ops", "parallel", "storage"):
+    for sub in ("codec", "core", "models", "native", "obs", "oplog", "ops", "parallel", "resilience", "storage",
+                "utils"):
         assert any(f.parent == PKG / sub for f in files), sub
     offenders = [
         f"{f.relative_to(REPO)}: {m.group(0).strip()}" for f in files for m in _IMPORT_RE.finditer(f.read_text())
