@@ -24,11 +24,20 @@ merges, their resident batches and the read plane:
                       strip_envelope)
     history_cache, cursor, jsonpath
                       checkout's state cache, stable cursors, JSONPath
-    resilience.hostpath
-                      HostEngine (per-doc LoroDoc replicas with the
-                      resident batches' read names) and
-                      host_merge_changes, the host oracle of every
-                      device merge
+    resilience        DeviceSupervisor (every one-shot Fleet merge's
+                      upload, device call and fetch, and the read
+                      plane's selection, run through it: device errors
+                      become DeviceFailure and reach the caller; under
+                      an armed fault the one-shot merges degrade to the
+                      host engine), faultinject, the backend
+                      probe; resilience.hostpath: HostEngine (per-doc
+                      LoroDoc replicas with the resident batches' read
+                      names) and host_merge_changes, the host oracle of
+                      every device merge and the degraded merges'
+                      engine
+    analysis, obs.flight
+                      the named locks and their declared order; the
+                      flight recorder of supervisor and fault events
     codec.binary      the payload decoder (decode_changes) and encoder
     codec.snapshot, codec.json_schema
                       the state snapshot codec; the JSON updates schema
@@ -73,7 +82,8 @@ from .core.version import Frontiers, VersionRange, VersionVector
 from .cursor import AbsolutePosition, Cursor, CursorSide, get_cursor, get_cursor_pos
 from .device import resolve_device
 from .doc import EncodeMode, ExportMode, ImportStatus, LoroDoc
-from .errors import ConfigError, DecodeError, DeviceUnavailable, LoroError
+from .errors import (BackendUnavailable, ConfigError, DeadlineExceeded, DecodeError, DeviceFailure,
+                     DeviceUnavailable, KernelBuildError, KernelLaunchError, LoroError, ResilienceError)
 from .event import (
     ContainerDiff,
     CounterDiff,
@@ -97,11 +107,23 @@ from .models.handlers import (
     TextHandler,
     TreeHandler,
 )
+from . import resilience
+from .resilience import DeviceSupervisor, get_supervisor, set_supervisor
 
 __all__ = [
     "resolve_device",
     "ConfigError",
     "DeviceUnavailable",
+    "DeviceFailure",
+    "BackendUnavailable",
+    "DeadlineExceeded",
+    "ResilienceError",
+    "KernelBuildError",
+    "KernelLaunchError",
+    "DeviceSupervisor",
+    "get_supervisor",
+    "set_supervisor",
+    "resilience",
     "LoroDoc",
     "LoroError",
     "DecodeError",

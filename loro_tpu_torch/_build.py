@@ -24,6 +24,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional
 
+from .errors import KernelBuildError
+
 PKG_DIR = Path(__file__).resolve().parent
 BUILD_DIR = PKG_DIR.parent / "build" / "torch_kernels"
 SOURCES: Dict[str, Path] = {
@@ -49,14 +51,14 @@ def _nvcc() -> str:
     fallback = "/usr/local/cuda/bin/nvcc"
     if os.path.exists(fallback):
         return fallback
-    raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin): cannot build the CUDA kernels")
+    raise KernelBuildError("nvcc not found (PATH or /usr/local/cuda/bin): cannot build the CUDA kernels")
 
 
 def _gxx() -> str:
     found = shutil.which("g++")
     if found:
         return found
-    raise RuntimeError("g++ not found on PATH: cannot build the host codec")
+    raise KernelBuildError("g++ not found on PATH: cannot build the host codec")
 
 
 def _flags(name: str) -> List[str]:
@@ -95,7 +97,8 @@ def _target(name: str) -> Path:
 def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, Dict[str, object]]:
     """Compile every source (or those of `names`) whose library is
     missing, in parallel.  Returns {name: {"path", "seconds", "log"}};
-    raises RuntimeError with the compiler's output when a build fails."""
+    raises KernelBuildError with the compiler's output when a build fails
+    or a compiler cannot start."""
     names = list(SOURCES) if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -107,7 +110,14 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, Dict[str, obje
         tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
         compiler = _nvcc() if SOURCES[name].suffix == ".cu" else _gxx()
         cmd = [compiler, *_flags(name), "-o", str(tmp), str(SOURCES[name])]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp, out)
+        try:
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        except OSError as e:
+            for started, _tmp, _out in procs.values():  # leave no compiler running
+                started.kill()
+                started.wait()
+            raise KernelBuildError(f"cannot start {compiler} for {name}: {e}") from e
+        procs[name] = (proc, tmp, out)
     report: Dict[str, Dict[str, object]] = {}
     failed = []
     for name, (proc, tmp, out) in procs.items():
@@ -120,7 +130,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, Dict[str, obje
         os.replace(tmp, out)
         report[name] = {"path": str(out), "seconds": seconds, "log": log}
     if failed:
-        raise RuntimeError("native build failed: " + "\n".join(failed))
+        raise KernelBuildError("native build failed: " + "\n".join(failed))
     for name in names:
         report.setdefault(name, {"path": str(_target(name)), "seconds": 0.0, "log": _cached_log(name)})
     return report
@@ -133,12 +143,17 @@ def _cached_log(name: str) -> Optional[str]:
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded shared library for one source, built at first use
-    (thread-safe: decode threads may ask for it at once)."""
+    (thread-safe: decode threads may ask for it at once).  Raises
+    KernelBuildError when it cannot be built or loaded."""
     with _load_lock:
         lib = _loaded.get(name)
         if lib is None:
             if not _target(name).exists():
                 build_all([name])
-            lib = ctypes.CDLL(str(_target(name)))
+            path = _target(name)
+            try:
+                lib = ctypes.CDLL(str(path))
+            except OSError as e:
+                raise KernelBuildError(f"cannot load {path}: {e}") from e
             _loaded[name] = lib
     return lib

@@ -37,3 +37,61 @@ class DeviceUnavailable(LoroError, RuntimeError):
     """An entry point was asked for a CUDA device on a machine without
     one.  The port never falls back to the CPU on its own: callers that
     want the CPU pass ``device="cpu"``."""
+
+
+class AnalysisError(LoroError):
+    """Base for the runtime lock-order witness (analysis/)."""
+
+
+class LockOrderViolation(AnalysisError):
+    """The runtime lock witness observed an acquisition the declared
+    partial order in analysis/lockorder.py forbids, or a cycle in the
+    witnessed lock graph (a latent deadlock).  Raised only in strict
+    witness mode (tests)."""
+
+
+class ResilienceError(LoroError):
+    """Base for the resilience subsystem (resilience/)."""
+
+
+class DeviceFailure(ResilienceError):
+    """Supervisor-declared device failure: a launch or fetch raised a
+    device error (a CUDA error, an out-of-memory, a failed kernel launch
+    or an armed fault), or exhausted its retry budget on transient
+    errors.  ``injected`` is True when the error that ended the launch
+    was an armed fault's (resilience.faultinject), False for a real one.
+    A one-shot Fleet merge degrades to the host engine on an injected
+    failure only; a real one reaches the caller as this typed error."""
+
+    def __init__(self, label: str, attempts: int = 1, cause: str = "", injected: bool = False):
+        self.label = label
+        self.attempts = attempts
+        self.injected = injected
+        super().__init__(
+            f"device failure at {label!r} after {attempts} attempt(s)"
+            + (f": {cause}" if cause else "")
+        )
+
+
+class BackendUnavailable(DeviceFailure):
+    """The backend never came up within the probe deadline
+    (resilience.probe.wait_for_backend(raise_on_timeout=True))."""
+
+
+class DeadlineExceeded(ResilienceError):
+    """A cooperative deadline expired BETWEEN launches.  Raised only at
+    launch boundaries, never by signaling a process mid-launch."""
+
+
+class KernelLaunchError(RuntimeError):
+    """A hand-written kernel's launch returned a nonzero cudaError.  A
+    device error, so the supervisor classifies it into DeviceFailure; not
+    a LoroError, which the supervisor would pass through untouched."""
+
+
+class KernelBuildError(LoroError, RuntimeError):
+    """A native source of the port could not be built or its library not
+    loaded (no compiler, a compiler that fails or cannot start, a library
+    that does not load).  A LoroError, so the supervisor passes it
+    through: a kernel that does not build never degrades to the host
+    engine in silence."""

@@ -10,8 +10,10 @@ Each library is built with g++ at its first use (``_build.library``:
 ``ctypes.CDLL``, which releases the interpreter lock for the length of
 each call, so decode threads explode payloads, and ingest threads
 append to different docs' order engines, in parallel.  There is no
-Python fallback: a library that cannot be built raises RuntimeError,
-and a malformed payload raises CodecDecodeError.
+Python fallback: a library that cannot be built raises KernelBuildError,
+and a malformed payload raises CodecDecodeError.  Every explode entry
+passes its payload through ``_obs_decode``: the decode counters and the
+``decode`` fault site.
 """
 from __future__ import annotations
 
@@ -21,6 +23,13 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 
 from ..errors import CodecDecodeError
+from ..obs import metrics as _obs
+from ..resilience import faultinject as _fi
+
+_fi.register_site(
+    "decode", "native explode entries: truncate/bit-flip the wire bytes "
+    "before the C++ parser sees them (typed CodecDecodeError -> the "
+    "caller's Python-decoder fallback)")
 
 _lib_handle: Optional[ctypes.CDLL] = None
 _engines_handle: Optional[ctypes.CDLL] = None
@@ -67,6 +76,19 @@ def _lib() -> ctypes.CDLL:
     return _lib_handle
 
 
+def _obs_decode(fn: str, payload) -> bytes:
+    """Per-call decode accounting: which native explode entry ran and
+    how many wire bytes it took (codec.native_decode_calls_total and
+    codec.native_decode_bytes_total, by fn).  Also the fault-injection
+    choke point: an armed ``decode`` fault truncates or bit-flips the
+    payload here, before the C++ parser sees it; the parser answers with
+    a typed CodecDecodeError, never a crash."""
+    payload = _fi.mangle("decode", bytes(payload))
+    _obs.counter("codec.native_decode_calls_total").inc(fn=fn)
+    _obs.counter("codec.native_decode_bytes_total").inc(len(payload), fn=fn)
+    return payload
+
+
 def set_rowtable_budget(entries: int) -> None:
     """Caps the direct (peer, counter) -> row table at `entries` entries
     (0 restores the default: 8 entries an element, plus 2^20); past the cap the
@@ -85,7 +107,7 @@ def explode_seq_payload(
     list inserts)).  Raises CodecDecodeError on malformed payloads and
     unresolvable parent references."""
     lib = _lib()
-    payload = bytes(payload)
+    payload = _obs_decode("seq", payload)
     n = lib.loro_count_seq_elements(payload, len(payload), target_cid_index)
     if n < 0:
         raise CodecDecodeError("native decode failed (malformed payload)")
@@ -118,7 +140,7 @@ def explode_seq_delta_payload(payload: bytes, target_cid_index: int) -> Dict[str
     the payload's peer table.  Raises CodecDecodeError on malformed
     payloads."""
     lib = _lib()
-    payload = bytes(payload)
+    payload = _obs_decode("seq_delta", payload)
     n = lib.loro_count_seq_delta_rows(payload, len(payload), target_cid_index)
     nd = lib.loro_count_seq_deletes(payload, len(payload), target_cid_index)
     if n < 0 or nd < 0:
@@ -145,7 +167,7 @@ def explode_seq_anchor_meta(payload: bytes, target_cid_index: int) -> Dict[str, 
     payload (for decode_value_at), lamport and flags (bit 0: is_start).
     Raises CodecDecodeError on malformed payloads."""
     lib = _lib()
-    payload = bytes(payload)
+    payload = _obs_decode("seq_anchor", payload)
     n = lib.loro_explode_seq_anchor_meta(payload, len(payload), target_cid_index, None, None, None, None, None, 0)
     if n < 0:
         raise CodecDecodeError("native anchor decode failed (malformed payload)")
@@ -169,7 +191,7 @@ def explode_map_payload(payload: bytes) -> dict:
     from ..codec.binary import read_tables
 
     lib = _lib()
-    payload = bytes(payload)
+    payload = _obs_decode("map", payload)
     n = lib.loro_count_map_ops(payload, len(payload))
     if n < 0:
         raise CodecDecodeError("native decode failed (malformed payload?)")
@@ -205,7 +227,7 @@ def explode_tree_payload(payload: bytes, target_cid_index: int) -> Dict[str, np.
     indexes into the payload's peer table.  Raises CodecDecodeError on
     malformed payloads."""
     lib = _lib()
-    payload = bytes(payload)
+    payload = _obs_decode("tree", payload)
     n = lib.loro_count_tree_ops(payload, len(payload), target_cid_index)
     if n < 0:
         raise CodecDecodeError("native decode failed (malformed payload?)")
@@ -242,7 +264,7 @@ def explode_movable_delta_payload(payload: bytes, target_cid_index: int) -> Dict
 
 def _explode_movable(payload: bytes, target_cid_index: int, delta: bool) -> Dict[str, Dict[str, np.ndarray]]:
     lib = _lib()
-    payload = bytes(payload)
+    payload = _obs_decode("movable_delta" if delta else "movable", payload)
     counts = [ctypes.c_longlong() for _ in range(3)]
     if lib.loro_count_movable(payload, len(payload), target_cid_index, *map(ctypes.byref, counts)) < 0:
         raise CodecDecodeError("native decode failed (malformed payload?)")

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
-from ..errors import ConfigError
+from ..errors import ConfigError, DeviceUnavailable, KernelLaunchError
 
 ALGOS = ("wyllie", "ruling", "blocked")
 # ring-length ceiling of the JAX package's VMEM ranking (PALLAS_RANK_MAX_M)
@@ -412,7 +412,7 @@ def _lib() -> ctypes.CDLL:
 def _check(err: int, what: str) -> None:
     if err != 0:
         msg = _lib().list_rank_error_string(err).decode()
-        raise RuntimeError(f"list_rank {what} failed: cudaError {err} ({msg})")
+        raise KernelLaunchError(f"list_rank {what} failed: cudaError {err} ({msg})")
 
 
 def _device_index(device: torch.device) -> int:
@@ -425,7 +425,7 @@ def smem_budget(device: torch.device) -> int:
     if idx not in _smem_budget:
         v = _lib().list_rank_smem_budget(idx)
         if v <= 0:
-            raise RuntimeError(f"cannot read the shared-memory limit of cuda:{idx}")
+            raise DeviceUnavailable(f"cannot read the shared-memory limit of cuda:{idx} (no such device?)")
         _smem_budget[idx] = v
     return _smem_budget[idx]
 
@@ -462,6 +462,21 @@ def launch_key(plan: RankPlan) -> str:
     return f"{plan.algo}/{'smem' if plan.smem_bytes else 'global'}"
 
 
+def _check_plan_fits(plan: RankPlan, dev: torch.device) -> None:
+    """The host-side checks of a plan against the card: its shared-memory
+    slice within the per-block budget, its cluster one the card can
+    schedule.  ConfigError (a LoroError: the supervisor passes it
+    through) when either does not hold."""
+    if plan.smem_bytes > smem_budget(dev):
+        raise ConfigError("rank plan shared memory per CTA", plan.smem_bytes,
+                          f"at most {dev}'s {smem_budget(dev)} bytes")
+    if plan.cluster > 1 and max_active_clusters(plan, dev) < 1:
+        raise ConfigError(
+            "rank plan cluster", f"{plan.cluster} CTAs with {plan.smem_bytes} bytes of shared memory each",
+            f"a cluster that {dev} ({torch.cuda.get_device_name(dev)}) can schedule",
+        )
+
+
 def _launch(succ_p: torch.Tensor, w_p: torch.Tensor, plan: RankPlan,
             stamps: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Check the inputs, launch, raise on a launch error; returns dist.
@@ -476,13 +491,7 @@ def _launch(succ_p: torch.Tensor, w_p: torch.Tensor, plan: RankPlan,
         raise ValueError("launch_kernel needs contiguous inputs")
     dev = succ_p.device
     d = succ_p.shape[0]
-    if plan.smem_bytes > smem_budget(dev):
-        raise RuntimeError(f"{plan.smem_bytes} bytes of shared memory per CTA exceed {dev}'s {smem_budget(dev)}")
-    if plan.cluster > 1 and max_active_clusters(plan, dev) < 1:
-        raise RuntimeError(
-            f"a cluster of {plan.cluster} CTAs with {plan.smem_bytes} bytes of shared memory each "
-            f"cannot be scheduled on {dev} ({torch.cuda.get_device_name(dev)})"
-        )
+    _check_plan_fits(plan, dev)
     dist = torch.empty_like(succ_p)
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptrs = (succ_p.data_ptr(), w_p.data_ptr(), dist.data_ptr())
@@ -516,9 +525,9 @@ def launch_kernel(succ_p: torch.Tensor, w_p: torch.Tensor, plan: RankPlan) -> to
     """Launch csrc/list_rank.cu on padded int32 [D, mp] CUDA tensors:
     the wide kernel on a cluster of plan.cluster CTAs a ring, or the
     one-CTA packed kernel (ruling, wyllie, blocked).  Returns int32
-    [D, mp] dist.  Raises on any launch error, on a shared-memory slice
-    the device cannot give, and on a cluster the device cannot
-    schedule."""
+    [D, mp] dist.  Raises KernelLaunchError on a launch error, and
+    ConfigError on a shared-memory slice the device cannot give and on a
+    cluster the device cannot schedule."""
     dist = _launch(succ_p, w_p, plan)
     LAUNCHES[launch_key(plan)] += 1
     return dist

@@ -30,6 +30,7 @@ import torch
 
 from ..core.change import TreeMove
 from ..core.ids import TreeID
+from ..errors import KernelLaunchError
 
 ROOT = -1
 TRASH = -2
@@ -378,7 +379,7 @@ def _lib() -> ctypes.CDLL:
 def _check(err: int, what: str) -> None:
     if err != 0:
         msg = _lib().tree_replay_error_string(err).decode()
-        raise RuntimeError(f"tree_replay {what} failed: cudaError {err} ({msg})")
+        raise KernelLaunchError(f"tree_replay {what} failed: cudaError {err} ({msg})")
 
 
 def table_stride(n_nodes: int) -> int:
@@ -521,7 +522,7 @@ def launch_kernel(target: torch.Tensor, parent: torch.Tensor, valid: torch.Tenso
     [D, n_nodes], effected bool [D, M]).  The layout is plan_replay's;
     `variant` forces a table variant (plan_variant), else the automatic
     route.  No device-to-host sync.  Raises on anything the kernel does
-    not take and on a launch error."""
+    not take, and KernelLaunchError on a launch error."""
     parents, eff, plan, _ = _launch(target, parent, valid, n_nodes, d_max, order, None, variant)
     LAUNCHES[plan.variant] += 1
     return parents, eff

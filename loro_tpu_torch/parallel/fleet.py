@@ -33,17 +33,28 @@ axis to a multiple of its doc dimension; here they are bound to one
 device, where that multiple is 1.  DeviceMovableBatch holds MovableList
 position slots in an inner DeviceDocBatch and the element winners as two
 LWW folds; every resident batch answers the read plane's batched export
-selection (export_select over ops/export_batch.ExportIndex).  Not ported
-yet: the supervised launch and fetch with its DeviceFailure -> host
-degradation (a CUDA error propagates as it is), the obs counters and
-trace instants, the op-sharded map merge, and the resident batches'
-coalesce group, doc release and compaction.
+selection (export_select over ops/export_batch.ExportIndex).
+
+Supervision (the JAX package's): every upload, device call and fetch of
+a one-shot merge, and the read plane's selection, runs through the
+process DeviceSupervisor (resilience/supervisor.py).  A device error (a
+CUDA error, an out-of-memory, a failed kernel launch, an armed fault)
+becomes a typed DeviceFailure, and a real one reaches the caller: no
+host result hides a card or a kernel that failed.  Under an armed fault
+(resilience.faultinject) the change-list and payload merges re-run on
+the host engine (resilience.hostpath.host_merge_changes), counted in
+fleet.degraded_merges_total{family} and the supervisor's report;
+merge_text_docs and merge_map_docs, which take extracts, and
+export_select let that one reach the caller too.  Every other error passes through
+unchanged.  The resident batches' appends and reads are not supervised,
+as in the JAX package.  Not ported yet: the merge obs counters and trace
+instants, the op-sharded map merge, and the resident batches' coalesce
+group, doc release and compaction.
 """
 from __future__ import annotations
 
 import os
 import struct
-import threading
 import time
 from contextlib import contextmanager
 from dataclasses import dataclass
@@ -57,10 +68,13 @@ from ..core.change import (Change, CounterIncr, MapSet, MovableMove, MovableSet,
                            TreeMove, _RunCont)
 from ..core.ids import ContainerID, TreeID
 from ..device import DeviceLike, resolve_device
-from ..errors import DecodeError, LoroError
+from ..analysis.lockwitness import named_rlock
+from ..errors import DecodeError, DeviceFailure, LoroError
+from ..obs import metrics as obs
 from ..ops.columnar import MapExtract, SeqExtract, extract_seq_container, extract_seq_from_payload
 from ..ops.fugue_batch import (
     SeqColumnsU,
+    _on,
     chain_merge_docs_u,
     materialize_by_key,
     materialize_content_batch,
@@ -99,9 +113,16 @@ from ..ops.tree_batch import (
     tree_merge_batch,
     tree_replay_log_batch,
 )
+from ..resilience import faultinject
+from ..resilience.supervisor import get_supervisor
 from ..storage import MemKvStore
 from .idmap import make_idmap
 from .order_maintenance import ShadowOrder, split_keys
+
+faultinject.register_site(
+    "export_launch", "batched delta-export selection launch (fleet "
+    "export_select thunk, inside the supervisor): transient retries, "
+    "a device error -> DeviceFailure")
 
 # Host fallbacks, incremented where each is taken: the counterpart of the
 # JAX package's fleet.host_fallback_total{kind=...}.  payload_extract: a
@@ -124,9 +145,47 @@ def texts_of(codes: np.ndarray, counts: np.ndarray, d: int) -> List[str]:
     return [codes[i, : int(counts[i])].astype("<u4").tobytes().decode("utf-32-le", "surrogatepass") for i in range(d)]
 
 
+def _sup_launch(label: str, thunk):
+    """One merge launch (an upload or a device call) through the process
+    DeviceSupervisor: bounded retry on transient errors, typed
+    DeviceFailure on a device error, in-flight accounting.  The one-shot
+    merges' thunks are pure (fresh uploads, no donated buffers), so a
+    retry is safe."""
+    return get_supervisor().launch(thunk, label=label)
+
+
+def _sup_fetch(label: str, value) -> np.ndarray:
+    """Supervised host fetch: the merge's sync point (drains the
+    in-flight queue through it)."""
+    return get_supervisor().fetch(value, label=label)
+
+
+def _host_degrade(failure: DeviceFailure, family: str, cid=None, changes=None, payloads=None):
+    """A one-shot merge that failed under an armed fault, re-run on the
+    host engine over its change lists (or its payloads, decoded): the
+    same result by the differential tests, noted in the supervisor's
+    report and counted in fleet.degraded_merges_total{family}.  A real
+    device failure (a kernel's failed launch or fault, a CUDA error, an
+    out-of-memory) is raised to the caller as it is, typed: no host
+    result hides a card or a kernel that failed."""
+    if not failure.injected:
+        raise failure
+    from ..resilience import hostpath
+
+    get_supervisor().note_degradation(f"fleet.{family}")
+    obs.counter("fleet.degraded_merges_total").inc(family=family)
+    if payloads is not None:
+        changes = [decode_changes(p) for p in payloads]
+    return hostpath.host_merge_changes(family, changes, cid)
+
+
 class Fleet:
     """Batched merge front end bound to one device (default "cuda";
-    DeviceUnavailable without a card unless "cpu" is asked for)."""
+    DeviceUnavailable without a card unless "cpu" is asked for).  Every
+    merge's upload, device call and fetch run under the process
+    DeviceSupervisor; a device failure reaches the caller as a typed
+    DeviceFailure, and under an armed fault the change-list and payload
+    merges degrade to the host engine (module docstring)."""
 
     def __init__(self, device: DeviceLike = "cuda"):
         self.device = resolve_device(device)
@@ -134,15 +193,24 @@ class Fleet:
     def merge_text_docs(self, extracts: Sequence[SeqExtract], pad_docs: Optional[int] = None) -> TextMergeResult:
         """Final text of every document of the batch, merged in one
         device call.  Docs are padded to a common bucketed element count,
-        the doc axis to `pad_docs` (default: the batch size)."""
+        the doc axis to `pad_docs` (default: the batch size).  It takes
+        extracts, so it has nothing to degrade to: a DeviceFailure reaches
+        the caller."""
         batched = stack_seq_columns(extracts, pad_bucket(max(e.n for e in extracts)), pad_docs)
-        cols = seq_columns_to_torch(batched, device=self.device)
-        codes, counts = materialize_content_batch(cols, device=self.device)
-        return TextMergeResult(texts_of(codes.cpu().numpy(), counts.cpu().numpy(), len(extracts)))
+        dev = self.device
+        cols = _sup_launch("fleet.text", lambda: seq_columns_to_torch(batched, device=dev))
+        codes, counts = _sup_launch("fleet.text", lambda: materialize_content_batch(cols, device=dev))
+        codes, counts = _sup_fetch("fleet.text", codes), _sup_fetch("fleet.text", counts)
+        return TextMergeResult(texts_of(codes, counts, len(extracts)))
 
     def merge_text_changes(self, docs_changes: Sequence[Sequence[Change]], cid: ContainerID) -> TextMergeResult:
-        """Texts of container `cid` from each doc's decoded change list."""
-        return self.merge_text_docs([extract_seq_container(chs, cid) for chs in docs_changes])
+        """Texts of container `cid` from each doc's decoded change list;
+        under an armed fault, the host engine's."""
+        extracts = [extract_seq_container(chs, cid) for chs in docs_changes]
+        try:
+            return self.merge_text_docs(extracts)
+        except DeviceFailure as e:
+            return TextMergeResult(_host_degrade(e, "text", cid, changes=docs_changes))
 
     def merge_text_payloads(self, payloads: Sequence[bytes], cid: ContainerID) -> TextMergeResult:
         """Texts of container `cid` from each doc's binary updates payload
@@ -150,7 +218,8 @@ class Fleet:
         payload it rejects (ValueError, CodecDecodeError among them) the
         Python decode, counted in FLEET_FALLBACKS.  A payload whose
         inserts name elements outside it raises ValueError; a codec that
-        cannot be built raises RuntimeError."""
+        cannot be built raises KernelBuildError.  Under an armed fault, the
+        host engine's texts of the decoded payloads."""
         extracts = []
         for p in payloads:
             try:
@@ -165,7 +234,10 @@ class Fleet:
                         "merges need full-history payloads"
                     ) from e
             extracts.append(ex)
-        return self.merge_text_docs(extracts)
+        try:
+            return self.merge_text_docs(extracts)
+        except DeviceFailure as e:
+            return TextMergeResult(_host_degrade(e, "text", cid, payloads=payloads))
 
     def merge_richtext_changes(self, docs_changes: Sequence[Sequence[Change]], cid: ContainerID,
                                pad_docs: Optional[int] = None) -> List[List[dict]]:
@@ -174,16 +246,27 @@ class Fleet:
         device call: the chain-contracted columns of each doc padded to
         bucketed (N, C, P) rows and the doc axis to `pad_docs` (default:
         the batch size), one upload a column, the chain merge with its
-        style resolution, one fetch of the outputs."""
+        style resolution, one fetch of the outputs.  Under an armed fault,
+        the host engine's segments."""
         extracts = [extract_richtext_chain(chs, cid) for chs in docs_changes]
         batch, n_keys = _stack_richtext(extracts, pad_docs or 0)
-        out = [t.cpu().numpy() for t in richtext_chain_merge_batch(batch, n_keys, device=self.device)]
+        dev = self.device
+        try:
+            cols = _sup_launch("fleet.richtext", lambda: _on(batch, dev))
+            out = _sup_launch("fleet.richtext", lambda: richtext_chain_merge_batch(cols, n_keys, device=dev))
+            out = [_sup_fetch("fleet.richtext", t) for t in out]
+        except DeviceFailure as e:
+            return _host_degrade(e, "richtext", cid, changes=docs_changes)
         return [segments_from_device(*(o[i] for o in out), keys, values) for i, (_, keys, values) in enumerate(extracts)]
 
     def merge_movable_changes(self, docs_changes: Sequence[Sequence[Change]], cid: ContainerID) -> List[list]:
         """Every doc's MovableList `cid` from its change list, as its value
-        list, in one device call."""
-        return self._merge_movable_extracted([extract_movable(chs, cid) for chs in docs_changes])
+        list, in one device call; under an armed fault, the host engine's."""
+        extracts = [extract_movable(chs, cid) for chs in docs_changes]
+        try:
+            return self._merge_movable_extracted(extracts)
+        except DeviceFailure as e:
+            return _host_degrade(e, "movable", cid, changes=docs_changes)
 
     def merge_movable_payloads(self, payloads: Sequence[bytes], cid: ContainerID) -> List[list]:
         """merge_movable_changes from each doc's binary updates payload
@@ -191,7 +274,8 @@ class Fleet:
         values decoded only where they win, and for a payload it rejects
         (ValueError, CodecDecodeError among them) the Python decode,
         counted in FLEET_FALLBACKS.  A payload whose ops name slots
-        outside it raises ValueError."""
+        outside it raises ValueError.  Under an armed fault, the host
+        engine's value lists of the decoded payloads."""
         extracts = []
         for p in payloads:
             try:
@@ -206,23 +290,34 @@ class Fleet:
                         "merges need full-history payloads"
                     ) from e
             extracts.append(ex)
-        return self._merge_movable_extracted(extracts)
+        try:
+            return self._merge_movable_extracted(extracts)
+        except DeviceFailure as e:
+            return _host_degrade(e, "movable", cid, payloads=payloads)
 
     def _merge_movable_extracted(self, extracts) -> List[list]:
         """The merge of (MovableCols, elems, values) extracts: stacked
         (_stack_movable), one upload a column, movable_merge_batch, one
         fetch, then each doc's winners' values (_movable_values)."""
         batch, n_elems = _stack_movable(extracts)
-        out, counts = (t.cpu().numpy() for t in movable_merge_batch(batch, n_elems, device=self.device))
-        return _movable_values(out, counts, extracts)
+        dev = self.device
+        cols = _sup_launch("fleet.movable", lambda: _on(batch, dev))
+        out, counts = _sup_launch("fleet.movable", lambda: movable_merge_batch(cols, n_elems, device=dev))
+        return _movable_values(_sup_fetch("fleet.movable", out), _sup_fetch("fleet.movable", counts), extracts)
 
     def merge_counter_changes(self, docs_changes: Sequence[Sequence[Change]]) -> List[Dict[ContainerID, float]]:
         """Every doc's counters {container: sum} from its change list, in
         one device call (order-independent segment sums; float32, the
-        precision contract of DeviceCounterBatch)."""
+        precision contract of DeviceCounterBatch); under an armed fault, the
+        host engine's."""
         slot, delta, valid, s, cids_per_doc = self._counter_cols(docs_changes)
         dev = self.device
-        sums = counter_merge_batch(*(_to_device(a, dev) for a in (slot, delta, valid)), s, device=dev).cpu().numpy()
+        try:
+            cols = _sup_launch("fleet.counter", lambda: [_to_device(a, dev) for a in (slot, delta, valid)])
+            sums = _sup_fetch("fleet.counter", _sup_launch("fleet.counter",
+                                                           lambda: counter_merge_batch(*cols, s, device=dev)))
+        except DeviceFailure as e:
+            return _host_degrade(e, "counter", changes=docs_changes)
         return [{cid: float(sums[di, j]) for j, cid in enumerate(cids)} for di, cids in enumerate(cids_per_doc)]
 
     def _counter_cols(self, docs_changes: Sequence[Sequence[Change]]):
@@ -279,25 +374,34 @@ class Fleet:
     def merge_map_docs(self, extracts: Sequence[MapExtract]) -> List[Dict[str, object]]:
         """LWW winners of a batch of docs in one device call; per doc
         {key: value} over every map container's keys (a key set in two
-        containers keeps the later slot's winner, as in JAX)."""
+        containers keeps the later slot's winner, as in JAX).  It takes
+        extracts, so it has nothing to degrade to: a DeviceFailure reaches
+        the caller."""
         m = pad_bucket(max(1, max(len(e.slot) for e in extracts)))
         s = max(1, max(len(e.slots) for e in extracts))
         dev = self.device
-        cols = MapOpCols(*(_to_device(a, dev) for a in self._batch_map_cols(extracts, m)))
-        vi, _, _ = lww_merge_batch(cols, s, device=dev)
-        return self._map_winner_values(vi.cpu().numpy(), extracts)
+        batched = self._batch_map_cols(extracts, m)
+        cols = _sup_launch("fleet.map", lambda: MapOpCols(*(_to_device(a, dev) for a in batched)))
+        vi, _, _ = _sup_launch("fleet.map", lambda: lww_merge_batch(cols, s, device=dev))
+        return self._map_winner_values(_sup_fetch("fleet.map", vi), extracts)
 
     def merge_tree_changes(self, docs_changes: Sequence[Sequence[Change]], cid: ContainerID) -> List[dict]:
         """Every doc's tree `cid` from its change list, in one replay
-        launch: {TreeID: parent TreeID | None} of the live nodes."""
-        return self._merge_tree_extracted([extract_tree_ops(chs, cid) for chs in docs_changes])
+        launch: {TreeID: parent TreeID | None} of the live nodes; under an
+        armed fault, the host engine's."""
+        extracted = [extract_tree_ops(chs, cid) for chs in docs_changes]
+        try:
+            return self._merge_tree_extracted(extracted, "tree")
+        except DeviceFailure as e:
+            return _host_degrade(e, "tree", cid, changes=docs_changes)
 
     def merge_tree_payloads(self, payloads: Sequence[bytes], cid: ContainerID) -> List[dict]:
         """merge_tree_changes from each doc's binary updates payload
         (envelope-stripped): the native tree explode, and for a payload it
         rejects (ValueError, CodecDecodeError among them) the Python
         decode, counted in FLEET_FALLBACKS.  Tree ops carry no references
-        into other rows, so that fallback is total."""
+        into other rows, so that fallback is total.  Under an armed fault,
+        the host engine's maps of the decoded payloads."""
         extracted = []
         for p in payloads:
             try:
@@ -306,7 +410,10 @@ class Fleet:
                 FLEET_FALLBACKS["payload_extract"] += 1
                 ex = extract_tree_ops(decode_changes(p), cid)
             extracted.append(ex)
-        return self._merge_tree_extracted(extracted)
+        try:
+            return self._merge_tree_extracted(extracted, "tree")
+        except DeviceFailure as e:
+            return _host_degrade(e, "tree", cid, payloads=payloads)
 
     def _stack_tree_cols(self, extracted) -> Tuple[TreeOpCols, int]:
         """(the extracts' move logs as [D, M] numpy columns padded to
@@ -321,24 +428,32 @@ class Fleet:
                 dst[i, : src.shape[0]] = src
         return cols, n
 
-    def _tree_replay(self, extracted) -> List[np.ndarray]:
+    def _tree_replay(self, extracted, family: str) -> List[np.ndarray]:
         """(parents [D, n], effected [D, M], deleted [D, n]) of the
         extracts: the stacked columns uploaded, the replay kernel and
-        is_deleted_batch, the results fetched."""
+        is_deleted_batch, the results fetched, each supervised under
+        fleet.{family}."""
         cols, n = self._stack_tree_cols(extracted)
-        parents, eff = tree_merge_batch(TreeOpCols(*(_to_device(c, self.device) for c in cols)), n)
-        return [t.cpu().numpy() for t in (parents, eff, is_deleted_batch(parents))]
+        dev, label = self.device, f"fleet.{family}"
+        up = _sup_launch(label, lambda: TreeOpCols(*(_to_device(c, dev) for c in cols)))
+        parents, eff = _sup_launch(label, lambda: tree_merge_batch(up, n))
+        deleted = _sup_fetch(label, _sup_launch(label, lambda: is_deleted_batch(parents)))
+        return [_sup_fetch(label, parents), _sup_fetch(label, eff), deleted]
 
-    def _merge_tree_extracted(self, extracted) -> List[dict]:
-        parents, _eff, deleted = self._tree_replay(extracted)
+    def _merge_tree_extracted(self, extracted, family: str) -> List[dict]:
+        parents, _eff, deleted = self._tree_replay(extracted, family)
         return [_parent_map(nodes, parents[i], deleted[i]) for i, (_c, nodes, _pos) in enumerate(extracted)]
 
     def merge_tree_children(self, docs_changes: Sequence[Sequence[Change]], cid: ContainerID) -> List[dict]:
         """Like merge_tree_changes, but ordered children maps {parent |
         None: [child TreeIDs by (fractional index, the winning move's
-        key)]}: the materialized tree shape."""
+        key)]}: the materialized tree shape.  Under an armed fault, the
+        host engine's."""
         extracted = [extract_tree_ops(chs, cid) for chs in docs_changes]
-        parents, eff, deleted = self._tree_replay(extracted)
+        try:
+            parents, eff, deleted = self._tree_replay(extracted, "tree_children")
+        except DeviceFailure as e:
+            return _host_degrade(e, "tree_children", cid, changes=docs_changes)
         out = []
         for i, (c, nodes, row_pos) in enumerate(extracted):
             n_rows = c.target.shape[0]
@@ -410,17 +525,27 @@ def _movable_values(out: np.ndarray, counts: np.ndarray, extracts) -> List[list]
     return results
 
 
-def _batch_export_select(batch, family: str, index, requests) -> List[np.ndarray]:
+def _batch_export_select(batch, family: str, index, requests, sup=None) -> List[np.ndarray]:
     """The read plane's selection entry, shared by every resident batch:
-    one call answers a window of (doc, frontier) pull requests against
-    the change-span index (ops/export_batch.ExportIndex.select), under
-    the batch's device lock (the selection reads no batch state, but
-    must not interleave with a grow on the same device).  `family` names
-    the batch kind, as in the JAX package, where it labels the
-    supervised launch.  Not ported yet: the supervisor thunk and its
-    export_launch fault site (they come with the supervision layer)."""
-    with batch._dev_lock:
+    ONE supervised launch (under fleet.export.{family}, through `sup` or
+    the process supervisor) answers a window of (doc, frontier) pull
+    requests against the change-span index (ops/export_batch.
+    ExportIndex.select), under the batch's device lock (the selection
+    reads no batch state, but the supervisor's drain must not interleave
+    with a grow on the same device).  The ``export_launch`` fault site
+    fires inside the supervised thunk, so an armed error is classified
+    exactly as the same error raised by the selection: a device error
+    (or a transient one past the retries) reaches the caller as a
+    DeviceFailure."""
+    sup = sup if sup is not None else get_supervisor()
+
+    def thunk():
+        faultinject.check("export_launch")
         return index.select(requests)
+
+    with batch._dev_lock:
+        # the selection is a pure read of the index: retry-safe
+        return sup.launch(thunk, label=f"fleet.export.{family}")
 
 
 def _grow_target(required: int, current: int) -> int:
@@ -612,7 +737,7 @@ class DeviceDocBatch:
         self.key_hi = torch.full((n_docs, capacity), 0xFFFFFFFF, dtype=torch.int64, device=self.device)
         self.key_lo = torch.full((n_docs, capacity), 0xFFFFFFFF, dtype=torch.int64, device=self.device)
         # serializes writers of the device tensors (appends, grow)
-        self._dev_lock = threading.RLock()
+        self._dev_lock = named_rlock("fleet.dev")
         self.clock = StageClock(self.device)
 
     # column fill values shared by __init__, grow() and the block: one
@@ -1058,9 +1183,10 @@ class DeviceDocBatch:
     def resolve_row(self, doc: int, peer: int, counter: int) -> Optional[int]:
         return self.id2row[doc].get((peer, counter))
 
-    def export_select(self, index, requests) -> List[np.ndarray]:
-        """The read plane's batched selection for the sync pull path."""
-        return _batch_export_select(self, "seq", index, requests)
+    def export_select(self, index, requests, sup=None) -> List[np.ndarray]:
+        """The read plane's batched selection for the sync pull path: one
+        launch under `sup` (default: the process supervisor)."""
+        return _batch_export_select(self, "seq", index, requests, sup)
 
     def _materialize(self, use_solver: bool = False) -> Tuple[np.ndarray, np.ndarray]:
         """(codes, counts) of the whole batch on the host, from one launch.
@@ -1589,7 +1715,7 @@ class DeviceMapBatch:
         self.values: List[List] = [[] for _ in range(n_docs)]
         # ingest epochs (the JAX server journals rounds against them)
         self.epoch = 0
-        self._dev_lock = threading.RLock()
+        self._dev_lock = named_rlock("fleet.dev")
 
     def grow(self, new_slot_capacity: int) -> None:
         """Repack the winners to a larger slot capacity, on the device."""
@@ -1723,11 +1849,11 @@ class DeviceMapBatch:
             out.append(m)
         return out
 
-    def export_select(self, index, requests) -> List[np.ndarray]:
+    def export_select(self, index, requests, sup=None) -> List[np.ndarray]:
         """The read plane's batched selection (the fold keeps no op
         history: deltas come from the change-span index, as for every
         family)."""
-        return _batch_export_select(self, "map", index, requests)
+        return _batch_export_select(self, "map", index, requests, sup)
 
     def root_value_maps(self, name: str) -> List[Dict[str, object]]:
         """Flat {key: value} per doc for the root map container `name`."""
@@ -1844,7 +1970,7 @@ class DeviceCounterBatch:
         self.sums = torch.zeros((n_docs, slot_capacity), dtype=torch.float32, device=self.device)
         # ingest epochs (the JAX server journals rounds against them)
         self.epoch = 0
-        self._dev_lock = threading.RLock()
+        self._dev_lock = named_rlock("fleet.dev")
 
     def grow(self, new_slot_capacity: int) -> None:
         """Repack the sums to a larger slot capacity, on the device."""
@@ -1895,10 +2021,10 @@ class DeviceCounterBatch:
         with self._dev_lock:
             _fold_counter_rows(self.sums, _to_device(slot, self.device), _to_device(delta, self.device))
 
-    def export_select(self, index, requests) -> List[np.ndarray]:
+    def export_select(self, index, requests, sup=None) -> List[np.ndarray]:
         """The read plane's batched selection (the sums keep no op
         history: deltas come from the change-span index, as for maps)."""
-        return _batch_export_select(self, "counter", index, requests)
+        return _batch_export_select(self, "counter", index, requests, sup)
 
     def value_maps(self) -> List[Dict[ContainerID, float]]:
         sums = self.sums.cpu().numpy()
@@ -2012,7 +2138,7 @@ class DeviceTreeBatch:
             f: torch.full((self.n_docs, move_capacity), _TREE_FILLS[f], dtype=dt, device=self.device)
             for f, dt in _TREE_DTYPES.items()
         })
-        self._dev_lock = threading.RLock()
+        self._dev_lock = named_rlock("fleet.dev")
 
     def append_changes(self, per_doc_changes: Sequence[Optional[Sequence[Change]]], cid: ContainerID) -> None:
         """Each doc's new causally ordered changes (None = no update): the
@@ -2175,9 +2301,10 @@ class DeviceTreeBatch:
             _scatter_rows(self.cols._asdict(), {f: _to_device(a, self.device) for f, a in blk.items()},
                           _to_device(offsets, self.device))
 
-    def export_select(self, index, requests) -> List[np.ndarray]:
-        """The read plane's batched selection for the sync pull path."""
-        return _batch_export_select(self, "tree", index, requests)
+    def export_select(self, index, requests, sup=None) -> List[np.ndarray]:
+        """The read plane's batched selection for the sync pull path: one
+        launch under `sup` (default: the process supervisor)."""
+        return _batch_export_select(self, "tree", index, requests, sup)
 
     def _replay(self) -> Tuple[torch.Tensor, torch.Tensor]:
         return tree_replay_log_batch(self.cols, self.node_cap)
@@ -2406,7 +2533,7 @@ class DeviceMovableBatch:
         self.values: List[list] = [[] for _ in range(n_docs)]
         self.moves = _lww_resident(n_docs, elem_capacity, 0, self.device)  # value: the winning slot row
         self.vals = _lww_resident(n_docs, elem_capacity, -2, self.device)  # value: the winning value ordinal
-        self._dev_lock = threading.RLock()
+        self._dev_lock = named_rlock("fleet.dev")
         self.clock = StageClock(self.device)
 
     @property
@@ -2698,9 +2825,10 @@ class DeviceMovableBatch:
         return [[self.values[di][j] if j >= 0 else None for j in out_idx[di, : counts[di]].tolist()]
                 for di in range(self.n_docs)]
 
-    def export_select(self, index, requests) -> List[np.ndarray]:
-        """The read plane's batched selection for the sync pull path."""
-        return _batch_export_select(self, "movable", index, requests)
+    def export_select(self, index, requests, sup=None) -> List[np.ndarray]:
+        """The read plane's batched selection for the sync pull path: one
+        launch under `sup` (default: the process supervisor)."""
+        return _batch_export_select(self, "movable", index, requests, sup)
 
     # -- checkpoint and resume ------------------------------------------
     STATE_VERSION = 2  # v2: + auto_grow flag

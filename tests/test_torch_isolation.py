@@ -207,6 +207,21 @@ _BLOCKED_IMPORT = textwrap.dedent(
     assert host_merge_changes("text", [d.changes() for d in lf], tracegen.TEXT_CID) == \
         fleet.merge_text_changes([d.changes() for d in lf], tracegen.TEXT_CID).texts
 
+    # supervision: an armed fatal launch fault degrades the merge to the
+    # host engine, counted
+    from loro_tpu_torch.resilience import DeviceSupervisor, faultinject, set_supervisor
+
+    sup = DeviceSupervisor(sleep=lambda s: None)
+    set_supervisor(sup)
+    faultinject.inject("launch", exc=RuntimeError("INTERNAL: injected"), times=1)
+    try:
+        assert fleet.merge_tree_changes([d.changes() for d in lf], tracegen.TREE_CID) == \
+            host_merge_changes("tree", [d.changes() for d in lf], tracegen.TREE_CID)
+    finally:
+        faultinject.clear()
+        set_supervisor(None)
+    assert sup.report()["degradations"] == 1
+
     # the port's entry point
     from loro_tpu_torch.entry import entry
 
@@ -245,10 +260,12 @@ def test_source_scan_finds_no_jax_or_loro_tpu_import():
                  "ops/tree_batch.py", "ops/richtext_batch.py", "ops/movable_batch.py", "ops/export_batch.py",
                  "oplog/oplog.py", "oplog/dag.py", "oplog/change_store.py", "doc.py", "state.py", "txn.py",
                  "event.py", "models/handlers.py", "codec/snapshot.py", "codec/json_schema.py", "cursor.py",
-                 "jsonpath.py", "history_cache.py", "resilience/hostpath.py", "obs/metrics.py", "utils/treap.py"):
+                 "jsonpath.py", "history_cache.py", "resilience/hostpath.py", "obs/metrics.py", "utils/treap.py",
+                 "resilience/supervisor.py", "resilience/faultinject.py", "resilience/probe.py", "obs/flight.py",
+                 "analysis/lockorder.py", "analysis/lockwitness.py"):
         assert PKG / name in files, name
-    for sub in ("codec", "core", "models", "native", "obs", "oplog", "ops", "parallel", "resilience", "storage",
-                "utils"):
+    for sub in ("analysis", "codec", "core", "models", "native", "obs", "oplog", "ops", "parallel", "resilience",
+                "storage", "utils"):
         assert any(f.parent == PKG / sub for f in files), sub
     offenders = [
         f"{f.relative_to(REPO)}: {m.group(0).strip()}" for f in files for m in _IMPORT_RE.finditer(f.read_text())
