@@ -184,6 +184,26 @@ checks it, end to end:
       tests on, no other phase may change the process supervisor's
       failures or degradations (an unasked degradation fails the run);
       its report() is printed before the last lines;
+   m. the resident batches' lifecycle: two DeviceDocBatch(128, 16,384,
+      auto_grow) fed 8 of 4e's epochs, one round by round, the other in
+      two groups of 4 rounds (the first detached and committed on a
+      second thread while the second stages): equal texts, solver and
+      export_state bytes, one scatter and one tombstone launch a group;
+      a DeviceDocBatch(128, 16,384) whose even docs hold 16,380 rows and
+      stay idle while the odd docs append 6 rounds in two groups (one
+      merged scatter, then one a round past the capacity; equal to a
+      serial batch and the LoroDocs); release_doc on 32 docs (their rows fetched: the construction
+      fills) refilled with 2,000-patch docs; compact on 8 docs at stable
+      epoch = epoch - 2 (reclaimed rows, reads unchanged by key and by
+      the solver, fetch / host / upload ms), the last two epochs fed and
+      the texts equal to the oracle, a checkpoint round trip;
+      DeviceTreeBatch(64, 4,096, 1,024) fed 4 epochs serially and in two
+      groups (equal state, maps equal to oracle_tree), compacted and
+      released; DeviceMovableBatch(64, 8,192, 4,096) fed 4 epochs (2 as a
+      group), compacted and released, equal to oracle_movable; the map
+      (32 docs) and counter (1,024 docs) batches fed 2 epochs serially
+      and as one group (one fold), equal, then released; every list-rank
+      and tree-replay launch held against its plain version;
 5. timings (CUDA events, warm-up then median; a kernel's ms is 20
    back-to-back calls of its wrapper replayed from a CUDA graph, and
    beside it eager_ms, the same 20 calls eager): merge ms per chunk and
@@ -204,7 +224,7 @@ Prints one {"kernels": [...]} line and ends with the line
 Any failed check raises, so the script exits non-zero.  Usage:
     python3 chip_smoke.py                          # the whole run, the verification
     python3 chip_smoke.py --phase 4i [--phase 4j]  # build, card tests, those phases
---phase takes 4f, 4g, 4h, 4i, 4j, 4k or 4l (the phases that stand alone);
+--phase takes 4f, 4g, 4h, 4i, 4j, 4k, 4l or 4m (the phases that stand alone);
 such a run prints its phases' results and no kernels line.
 """
 from __future__ import annotations
@@ -316,8 +336,27 @@ HE_FLEET_DOCS, HE_FLEET_ROUNDS, HE_FLEET_EDITS, HE_MIRROR_DOCS, HE_FRAME_CHECKS 
 # rounds of up to SUP_EDITS edits a peer (4k (d)'s shape); the child of (c)
 # merges SUP_CHILD_DOCS smaller ones before and after its device fault
 SUP_DOCS, SUP_ROUNDS, SUP_EDITS, SUP_CHILD_DOCS = 64, 8, 12, 8
+# the lifecycle phase (4m): DeviceDocBatch(LC_DOCS, LC_CAP) fed LC_EPOCHS of
+# 4e's epochs serially and in groups of LC_GROUP rounds, LC_RELEASE docs
+# released and refilled with LC_REFILL_PATCHES-patch docs, LC_COMPACT
+# compacted; DeviceTreeBatch(LC_TREE_DOCS, TREE_RES_CAP, TREE_RES_NODES),
+# LC_TREE_COMPACT compacted, LC_TREE_RELEASE released; DeviceMovableBatch(
+# LC_MV_DOCS, MV_RES_CAP, MV_RES_ELEMS) fed LC_MV_EPOCHS epochs; the map
+# batch (LC_MAP_DOCS over LC_MAP_DISTINCT traces) and the counter batch
+# (LC_COUNTER_DOCS) fed LC_FOLD_EPOCHS epochs.  Cut to fit 4m's 90 s: the
+# text batch from 1,024 docs to 128 (each export_state of the compared
+# batches costs ~1.7 us a row), released and compacted docs in
+# proportion (256 -> 32, 64 -> 8); the tree batch from 1,024 to 64 docs
+# (each distinct log's plain replay on the CPU, ~20 ms a doc); the
+# movable batch from 256 docs and 11 epochs to 64 and 4; the map batch
+# from 1,024 docs to 32 (a round is ~20 ms of host Python a doc)
+LC_DOCS, LC_CAP, LC_EPOCHS, LC_GROUP = 128, 16_384, 8, 4
+LC_RELEASE, LC_COMPACT, LC_REFILL_PATCHES = 32, 8, 2_000
+LC_TREE_DOCS, LC_TREE_COMPACT, LC_TREE_RELEASE = 64, 16, 8
+LC_MV_DOCS, LC_MV_EPOCHS, LC_MV_COMPACT, LC_MV_RELEASE = 64, 4, 16, 8
+LC_MAP_DOCS, LC_MAP_DISTINCT, LC_COUNTER_DOCS, LC_FOLD_EPOCHS = 32, 2, 1024, 2
 # phases `--phase` runs alone (after the build and the card tests)
-SELECTABLE = ("4f", "4g", "4h", "4i", "4j", "4k", "4l")
+SELECTABLE = ("4f", "4g", "4h", "4i", "4j", "4k", "4l", "4m")
 
 
 def check(cond: bool, what: str) -> None:
@@ -2949,6 +2988,450 @@ def supervision_phase(torch, dev, kind: str, card: str) -> dict:
     return out
 
 
+def lifecycle_phase(torch, dev, kind: str, card: str, fleet_docs=None, fleet_want=None) -> dict:
+    """Phase 4m, the resident batches' lifecycle (coalesce groups,
+    release_doc, compact).  (a) Two DeviceDocBatch(LC_DOCS, LC_CAP,
+    auto_grow) fed the same LC_EPOCHS epochs of 4e's feed (`fleet_docs`,
+    the 40,000-patch text traces, cycled): one round by round, the other
+    in groups of LC_GROUP rounds, the first group detached and committed on
+    a second thread while the next stages; equal texts, solver and
+    export_state bytes; one scatter and one tombstone launch a group.
+    (a2) idle_near_capacity(): even docs at LC_CAP - 4 rows, idle while
+    the odd docs append 6 rounds in two groups (the first detached): one
+    merged scatter, then one a round; equal to a serial batch and the
+    LoroDocs.  (b)
+    release_doc on LC_RELEASE docs, their rows fetched (the construction
+    fills), the slots refilled with 2,000-patch docs.  (c) compact on
+    LC_COMPACT docs at stable epoch = epoch - 2: rows reclaimed, reads
+    unchanged (by key and by the solver), the last two epochs fed, texts
+    equal to the oracle (`fleet_want`), a checkpoint round trip.  (d)
+    DeviceTreeBatch(LC_TREE_DOCS, 4,096, 1,024) fed 4 tree epochs serially
+    and in two groups (the first detached), equal to each other and to
+    oracle_tree; compact on LC_TREE_COMPACT docs; release_doc.  (e)
+    DeviceMovableBatch(LC_MV_DOCS, 8,192, 4,096) fed LC_MV_EPOCHS epochs
+    (the last two in a group), compact and release_doc, value_lists() ==
+    oracle_movable.  (f) DeviceMapBatch(LC_MAP_DOCS, 1,024) and
+    DeviceCounterBatch(LC_COUNTER_DOCS, 64) fed 2 epochs serially and as
+    one group, equal, then release_doc.  Every list-rank and tree-replay
+    launch is captured and held against its plain version."""
+    import threading
+
+    from loro_tpu_torch import tracegen
+    from loro_tpu_torch.obs import metrics as obs
+    from loro_tpu_torch.ops import list_rank
+    from loro_tpu_torch.ops import tree_batch as tb
+    from loro_tpu_torch.parallel import fleet as fleet_mod
+    from loro_tpu_torch.parallel.fleet import (DeviceCounterBatch, DeviceDocBatch, DeviceMapBatch,
+                                              DeviceMovableBatch, DeviceTreeBatch)
+
+    t_phase = time.perf_counter()
+    if fleet_docs is None:  # a phase run: 4d's text traces, generated (cached under build/tracegen)
+        fleet_docs = tracegen.fleet_docs(FLEET_DISTINCT - 1, n_patches=ELEMENT_PATCHES, seed=SEED)
+        fleet_want = [tracegen.oracle_text(d.extract) for d in fleet_docs]
+    distinct = len(fleet_docs)
+    eps = [tracegen.epoch_payloads(d) for d in fleet_docs]
+    check(all(len(e) == LC_EPOCHS + 2 for e in eps), f"4m: the text traces have {LC_EPOCHS + 2} epochs")
+    small = tracegen.fleet_docs(FLEET_DISTINCT - 1, n_patches=LC_REFILL_PATCHES, seed=SEED)
+    small_eps = [tracegen.epoch_payloads(d) for d in small]
+    small_want = [tracegen.oracle_text(d.extract) for d in small]
+    tdocs = [tracegen.tree_doc(SEED * 1000 + i, n_moves=TREE_MOVES, n_nodes=TREE_NODES) for i in range(TREE_DISTINCT)]
+    vdocs = [tracegen.movable_doc(SEED * 1000 + i) for i in range(MV_DISTINCT)]
+    mdocs = [tracegen.map_doc(SEED * 1000 + i, n_ops=MAP_OPS, n_keys=MAP_KEYS) for i in range(LC_MAP_DISTINCT)]
+    cdocs = [tracegen.counter_doc(SEED * 1000 + i, n_incr=COUNTER_INCR, n_counters=COUNTER_ITEMS)
+             for i in range(MAP_DISTINCT)]
+    out = {"max_abs_err": {}, "gen_s": time.perf_counter() - t_phase}
+    t_main = time.perf_counter()
+    list_rank.reset_launches()
+    tb.reset_launches()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    # the block scatters and tombstone launches of the resident batches,
+    # counted where the batches call them
+    n_dev = {"scatter": 0, "tombstone": 0}
+    real_scatter, real_set_deleted = fleet_mod._scatter_rows, fleet_mod._set_deleted
+
+    def scatter(*a):
+        n_dev["scatter"] += 1
+        return real_scatter(*a)
+
+    def set_deleted(*a):
+        n_dev["tombstone"] += 1
+        return real_set_deleted(*a)
+
+    def coalesced_rounds(family: str) -> float:
+        return obs.counter("pipeline.coalesced_rounds_total").get(family=family)
+
+    def releases(family: str) -> float:
+        return obs.counter("fleet.doc_releases_total").get(family=family)
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, (time.perf_counter() - t0) * 1e3
+
+    def detached_groups(b, rounds, feed, size: int) -> dict:
+        """The rounds in two groups, the first `size` rounds and the rest:
+        the first detached and committed on a second thread while the
+        second stages, then the second flushed.  Returns the walls (ms) of
+        the whole, the second group's staging, the wait for the commit
+        thread, the commit thread and the flush."""
+        half = size
+        box = {}
+
+        def commit(d):
+            t0 = time.perf_counter()
+            try:
+                b.commit_detached(d)
+                torch.cuda.synchronize()
+            except BaseException as e:  # re-raised on the main thread
+                box["error"] = e
+            box["commit_ms"] = (time.perf_counter() - t0) * 1e3
+
+        t0 = time.perf_counter()
+        b.begin_coalesce()
+        for e in rounds[:half]:
+            feed(b, e)
+        th = threading.Thread(target=commit, args=(b.detach_coalesce(),))
+        th.start()
+        b.begin_coalesce()
+        for e in rounds[half:]:
+            feed(b, e)
+        t1 = time.perf_counter()
+        th.join()
+        if "error" in box:
+            raise box["error"]
+        t2 = time.perf_counter()
+        b.flush_coalesce()
+        torch.cuda.synchronize()
+        return {"wall_ms": (time.perf_counter() - t0) * 1e3, "staged_second_ms": (t1 - t0) * 1e3,
+                "join_wait_ms": (t2 - t1) * 1e3, "commit_thread_ms": box["commit_ms"],
+                "flush_ms": (time.perf_counter() - t2) * 1e3}
+
+    def idle_near_capacity() -> dict:
+        """Even docs hold LC_CAP - 4 rows and stay idle while odd docs
+        append 6 rounds in two groups (the first detached): the first
+        group's merged window fits (one scatter), the second's passes the
+        capacity though each round fits (one scatter a round).  No window
+        of an idle doc may start at its row count (a device assert)."""
+        import random
+
+        from loro_tpu_torch import LoroDoc
+        from loro_tpu_torch.doc import strip_envelope
+
+        text_cid = tracegen.TEXT_CID
+        rng = random.Random(SEED)
+
+        def chars(n: int) -> str:
+            return "".join(rng.choice("abcdefgh") for _ in range(n))
+
+        big, grow = LoroDoc(peer=21), LoroDoc(peer=22)
+        big.get_text(text_cid.name).insert(0, chars(LC_CAP - 4))
+        big.commit()
+        steps = [[LC_CAP * 3 // 16], [LC_CAP // 8] * 3, [LC_CAP // 12 + 1] * 3]  # base, group 1, group 2
+        pls, vv = [], None
+        for n in (n for group in steps for n in group):
+            t = grow.get_text(text_cid.name)
+            t.insert(len(t), chars(n))
+            grow.commit()
+            pls.append(strip_envelope(grow.export_updates(vv) if vv is not None else grow.export_updates()))
+            vv = grow.oplog_vv()
+        full = strip_envelope(big.export_updates())
+
+        def feed(b, e):
+            b.append_payloads([(full if e == 0 else None) if j % 2 == 0 else pls[e] for j in range(LC_DOCS)], text_cid)
+
+        ser, co = DeviceDocBatch(LC_DOCS, LC_CAP, device=dev), DeviceDocBatch(LC_DOCS, LC_CAP, device=dev)
+        for b in (ser, co):
+            feed(b, 0)
+        _, ser_ms = timed(lambda: [feed(ser, e) for e in range(1, len(pls))])
+        n0 = dict(n_dev)
+        walls = detached_groups(co, list(range(1, len(pls))), feed, 3)
+        co_dev = {k: n_dev[k] - n0[k] for k in n_dev}
+        want = [big.get_text(text_cid.name).to_string() if j % 2 == 0 else grow.get_text(text_cid.name).to_string()
+                for j in range(LC_DOCS)]
+        check(co.cap == LC_CAP and ser.texts() == want and co.texts() == want,
+              "4m (a2): texts with idle docs near the capacity != the LoroDocs'")
+        check(co.export_state() == ser.export_state(), "4m (a2): the coalesced batch's export_state != serial's")
+        check(co_dev == {"scatter": 4, "tombstone": 0}, f"4m (a2): launches {co_dev} (1 merged + 3 a round)")
+        r = {"docs": LC_DOCS, "cap": LC_CAP, "idle_rows": LC_CAP - 4, "rows": int(co.counts.sum()),
+             "serial_ms": ser_ms, "coalesced_launches": co_dev, **{"coalesced_" + k: v for k, v in walls.items()}}
+        print(f"lifecycle idle on {kind} ({card}): DeviceDocBatch({LC_DOCS}, {LC_CAP}), even docs idle at "
+              f"{LC_CAP - 4} rows, odd docs 6 rounds in two groups (the first detached): {co_dev} launches "
+              f"(one merged, then one a round past the capacity) in {walls['wall_ms']:.1f} ms, serial "
+              f"{ser_ms:.1f} ms; texts == LoroDocs; export_state equal", flush=True)
+        return r
+
+    fleet_mod._scatter_rows, fleet_mod._set_deleted = scatter, set_deleted
+    try:
+        with captured_launches(list_rank, tb) as cap:
+            # (a) text: serial against coalesced, the same LC_EPOCHS epochs
+            cid = tracegen.TEXT_CID
+
+            def feed_text(b, e):
+                b.append_payloads([eps[j % distinct][e] for j in range(LC_DOCS)], cid)
+
+            serial = DeviceDocBatch(LC_DOCS, LC_CAP, device=dev, auto_grow=True)
+            n0 = dict(n_dev)
+            _, serial_ms = timed(lambda: [feed_text(serial, e) for e in range(LC_EPOCHS)])
+            serial_dev = {k: n_dev[k] - n0[k] for k in n_dev}
+            coal = DeviceDocBatch(LC_DOCS, LC_CAP, device=dev, auto_grow=True)
+            n0, r0 = dict(n_dev), coalesced_rounds("text")
+            walls = detached_groups(coal, list(range(LC_EPOCHS)), feed_text, LC_GROUP)
+            coal_dev = {k: n_dev[k] - n0[k] for k in n_dev}
+            texts_a, read_ms = timed(coal.texts)
+            check(serial.texts() == texts_a, "4m (a): the coalesced batch's texts != the serial batch's")
+            # the solver on both (it sets the chain budget export_state writes)
+            check(coal.texts(use_solver=True) == texts_a and serial.texts(use_solver=True) == texts_a,
+                  "4m (a): texts(use_solver=True) != texts()")
+            blob_c, export_ms = timed(coal.export_state)
+            check(serial.export_state() == blob_c, "4m (a): the coalesced batch's export_state != the serial batch's")
+            # two groups: one merged scatter and one tombstone launch each
+            check(coal_dev == {"scatter": 2, "tombstone": 2} and serial_dev["scatter"] == LC_EPOCHS,
+                  f"4m (a): launches coalesced {coal_dev}, serial {serial_dev}")
+            check(coalesced_rounds("text") - r0 == LC_EPOCHS, "4m (a): pipeline.coalesced_rounds_total{text}")
+            out["text"] = {"docs": LC_DOCS, "epochs": LC_EPOCHS, "group": LC_GROUP, "cap": coal.cap,
+                           "rows": int(coal.counts.sum()), "serial_ms": serial_ms, "serial_launches": serial_dev,
+                           "coalesced_launches": coal_dev, **{"coalesced_" + k: v for k, v in walls.items()},
+                           "texts_ms": read_ms, "export_ms": export_ms, "state_bytes": len(blob_c)}
+            del serial
+            torch.cuda.empty_cache()
+            r = out["text"]
+            print(f"lifecycle text on {kind} ({card}): DeviceDocBatch({LC_DOCS}, {LC_CAP}, auto_grow) at cap {r['cap']}, "
+                  f"{r['rows']} rows, {LC_EPOCHS} epochs of 4e's feed: serial {serial_ms:.1f} ms with {serial_dev} "
+                  f"launches; in groups of {LC_GROUP} (the first detached, committed on a second thread in "
+                  f"{walls['commit_thread_ms']:.1f} ms while the second staged; flush {walls['flush_ms']:.1f} ms) "
+                  f"{walls['wall_ms']:.1f} ms with {coal_dev} launches; texts == serial == solver; export_state "
+                  f"equal ({len(blob_c)} bytes, {export_ms:.0f} ms)", flush=True)
+
+            # (a2) idle docs near the capacity through two groups
+            out["idle"] = idle_near_capacity()
+
+            # (b) release LC_RELEASE docs, fetch their rows, refill them
+            rel = list(range(LC_RELEASE))
+            rel0 = releases("text")
+            _, release_ms = timed(lambda: [coal.release_doc(di) for di in rel])
+            fills = dict(DeviceDocBatch._COL_FILLS, key_hi=0xFFFFFFFF, key_lo=0xFFFFFFFF)
+            tensors = {f: getattr(coal.cols, f) for f in DeviceDocBatch._COL_FILLS}
+            tensors.update(key_hi=coal.key_hi, key_lo=coal.key_lo)
+            fetched, fetch_ms = timed(lambda: {f: t[:LC_RELEASE].cpu() for f, t in tensors.items()})
+            for f, t in fetched.items():
+                check(bool((t == fills[f]).all()), f"4m (b): released rows of {f} != its construction fill")
+            check(int(coal.counts[:LC_RELEASE].sum()) == 0 and releases("text") - rel0 == LC_RELEASE,
+                  "4m (b): released docs' counts and fleet.doc_releases_total{text}")
+            n_small = len(small)
+            refill_ms = 0.0
+            for e in range(max(map(len, small_eps))):
+                pls = [small_eps[j % n_small][e] if j < LC_RELEASE and e < len(small_eps[j % n_small]) else None
+                       for j in range(LC_DOCS)]
+                refill_ms += timed(lambda: coal.append_payloads(pls, cid))[1]
+            want_b = [small_want[j % n_small] if j < LC_RELEASE else texts_a[j] for j in range(LC_DOCS)]
+            check(coal.texts() == want_b, "4m (b): texts after the refill != the small docs' oracle and (a)'s texts")
+            out["release"] = {"docs": LC_RELEASE, "release_ms": release_ms, "fetch_ms": fetch_ms,
+                              "refill_ms": refill_ms, "refill_patches": LC_REFILL_PATCHES}
+            print(f"lifecycle release on {kind} ({card}): release_doc x {LC_RELEASE} in {release_ms:.2f} ms "
+                  f"({1e3 * release_ms / LC_RELEASE:.1f} us a doc, 10 row fills each); released rows fetched "
+                  f"({fetch_ms:.2f} ms) == the construction fills; refilled with {LC_REFILL_PATCHES}-patch docs in "
+                  f"{refill_ms:.1f} ms; texts == oracle", flush=True)
+
+            # (c) compact LC_COMPACT docs at epoch - 2
+            comp = list(range(LC_RELEASE, LC_RELEASE + LC_COMPACT))
+            stable = [coal.epoch - 2 if j in comp else None for j in range(LC_DOCS)]
+            rows0 = int(coal.counts.sum())
+            grid = sum(t.numel() * t.element_size() for t in (*coal.cols, coal.key_hi, coal.key_lo))
+            reclaimed, compact_ms = timed(lambda: coal.compact(stable))
+            split = coal.stage_ms()
+            check(reclaimed > 0 and int(coal.counts.sum()) == rows0 - reclaimed,
+                  f"4m (c): compact reclaimed {reclaimed} rows")
+            check(coal.texts() == want_b and coal.texts(use_solver=True) == want_b,
+                  "4m (c): texts or the solver changed by the compaction")
+            for e in range(LC_EPOCHS, LC_EPOCHS + 2):
+                coal.append_payloads([eps[j % distinct][e] if j >= LC_RELEASE else None for j in range(LC_DOCS)], cid)
+            want_c = [want_b[j] if j < LC_RELEASE else fleet_want[j % distinct] for j in range(LC_DOCS)]
+            got_c = coal.texts()
+            check(got_c == want_c, "4m (c): texts after two more epochs != the oracle")
+            check(coal.texts(use_solver=True) == got_c, "4m (c): the solver after two more epochs != texts()")
+            blob, rt_export_ms = timed(coal.export_state)
+            restored, rt_import_ms = timed(lambda: DeviceDocBatch.import_state(blob, device=dev))
+            check(restored.export_state() == blob and restored.texts() == got_c,
+                  "4m (c): the checkpoint round trip changed the bytes or the texts")
+            del restored
+            out["compact"] = {"docs": LC_COMPACT, "reclaimed": reclaimed, "rows_before": rows0,
+                              "rows_of_compacted": int(sum(coal.counts[j] for j in comp)), "wall_ms": compact_ms,
+                              "split_ms": split, "grid_bytes_each_way": grid, "export_ms": rt_export_ms,
+                              "import_ms": rt_import_ms, "state_bytes": len(blob)}
+            print(f"lifecycle compact on {kind} ({card}): compact({LC_COMPACT} of {LC_DOCS} docs, stable = epoch - 2) "
+                  f"reclaimed {reclaimed} of {rows0} rows in {compact_ms:.1f} ms: fetch {split.get('fetch', 0):.1f}, "
+                  f"host {split.get('host', 0):.1f}, upload {split.get('upload', 0):.1f} ms; the whole grid "
+                  f"{grid} bytes each way; texts and the solver unchanged; two more epochs: texts == oracle; "
+                  f"checkpoint round trip {len(blob)} bytes (export {rt_export_ms:.0f} ms, import "
+                  f"{rt_import_ms:.0f} ms) keeps the bytes", flush=True)
+            del coal
+            torch.cuda.empty_cache()
+
+            # (d) tree: serial against two groups, then compact and release
+            tcid = tracegen.TREE_CID
+            teps = [tracegen.tree_epoch_payloads(d) for d in tdocs]
+            n_t = len(tdocs)
+            n_rounds = min(map(len, teps))
+
+            def feed_tree(b, e):
+                b.append_payloads([teps[j % n_t][e] for j in range(LC_TREE_DOCS)], tcid)
+
+            tser = DeviceTreeBatch(LC_TREE_DOCS, TREE_RES_CAP, TREE_RES_NODES, device=dev)
+            n0 = dict(n_dev)
+            _, tser_ms = timed(lambda: [feed_tree(tser, e) for e in range(n_rounds)])
+            tser_dev = {k: n_dev[k] - n0[k] for k in n_dev}
+            tco = DeviceTreeBatch(LC_TREE_DOCS, TREE_RES_CAP, TREE_RES_NODES, device=dev)
+            n0 = dict(n_dev)
+            twalls = detached_groups(tco, list(range(n_rounds)), feed_tree, n_rounds // 2)
+            tco_dev = {k: n_dev[k] - n0[k] for k in n_dev}
+            check(tco.export_state() == tser.export_state(), "4m (d): the coalesced tree batch's state != serial's")
+            pre = [tracegen.oracle_tree(d, n_rounds) for d in tdocs]
+            pm, cm = tco.parent_maps(), tco.children_maps()
+            for j in range(LC_TREE_DOCS):
+                check(pm[j] == pre[j % n_t][0] and cm[j] == pre[j % n_t][1], f"4m (d): tree doc {j} != oracle_tree")
+            check(tco_dev["scatter"] == 2 and tser_dev["scatter"] == n_rounds,
+                  f"4m (d): scatters {tco_dev} in two groups vs serial {tser_dev}")
+            del tser
+            rows0 = int(tco.counts.sum())
+            tstable = [tco.epoch - 1 if j < LC_TREE_COMPACT else None for j in range(LC_TREE_DOCS)]
+            treclaimed, tcompact_ms = timed(lambda: tco.compact(tstable))
+            check(treclaimed > 0, f"4m (d): tree compact reclaimed {treclaimed}")
+            check(tco.parent_maps() == pm and tco.children_maps() == cm, "4m (d): compact changed the tree maps")
+            _, trelease_ms = timed(lambda: [tco.release_doc(j) for j in range(LC_TREE_RELEASE)])
+            pm2 = tco.parent_maps()
+            check(all(pm2[j] == {} for j in range(LC_TREE_RELEASE)) and pm2[LC_TREE_RELEASE:] == pm[LC_TREE_RELEASE:],
+                  "4m (d): released tree docs not empty, or the others changed")
+            out["tree"] = {"docs": LC_TREE_DOCS, "rounds": n_rounds, "serial_ms": tser_ms, "serial_launches": tser_dev,
+                           "coalesced_launches": tco_dev, **{"coalesced_" + k: v for k, v in twalls.items()},
+                           "compact_docs": LC_TREE_COMPACT, "reclaimed": treclaimed, "rows_before": rows0,
+                           "compact_ms": tcompact_ms, "release_docs": LC_TREE_RELEASE, "release_ms": trelease_ms}
+            print(f"lifecycle tree on {kind} ({card}): DeviceTreeBatch({LC_TREE_DOCS}, {TREE_RES_CAP}, {TREE_RES_NODES}) "
+                  f"{n_rounds} epochs: serial {tser_ms:.1f} ms {tser_dev}, two groups (the first detached) "
+                  f"{twalls['wall_ms']:.1f} ms {tco_dev}; equal state; maps == oracle_tree; compact({LC_TREE_COMPACT} "
+                  f"docs, epoch - 1) reclaimed {treclaimed} of {rows0} rows in {tcompact_ms:.1f} ms (one replay, "
+                  f"fetch, host, upload), maps unchanged; release_doc x {LC_TREE_RELEASE} {trelease_ms:.2f} ms",
+                  flush=True)
+            del tco
+
+            # (e) movable: LC_MV_EPOCHS epochs (the last two as a group), compact, release
+            vcid = tracegen.MOVABLE_CID
+            veps = [tracegen.movable_epoch_payloads(d) for d in vdocs]
+            n_v = len(vdocs)
+            mb = DeviceMovableBatch(LC_MV_DOCS, MV_RES_CAP, MV_RES_ELEMS, device=dev, auto_grow=True)
+            half = LC_MV_EPOCHS // 2
+            for e in range(half):
+                mb.append_payloads([veps[j % n_v][e] for j in range(LC_MV_DOCS)], vcid)
+            n0, r0 = dict(n_dev), coalesced_rounds("movable")
+            mb.begin_coalesce()
+            for e in range(half, LC_MV_EPOCHS):
+                mb.append_payloads([veps[j % n_v][e] for j in range(LC_MV_DOCS)], vcid)
+            _, mflush_ms = timed(mb.flush_coalesce)
+            mv_group = {k: n_dev[k] - n0[k] for k in n_dev}
+            check(coalesced_rounds("movable") - r0 == LC_MV_EPOCHS - half, "4m (e): coalesced rounds{movable}")
+            check(mv_group == {"scatter": 1, "tombstone": 1}, f"4m (e): the group's launches {mv_group}")
+            vwant = [tracegen.oracle_movable(d, LC_MV_EPOCHS) for d in vdocs]
+            check(mb.value_lists() == [vwant[j % n_v] for j in range(LC_MV_DOCS)], "4m (e): value_lists != oracle")
+            rows0 = int(mb.seq.counts.sum())
+            vreclaimed, vcompact_ms = timed(lambda: mb.compact([mb.epoch if j < LC_MV_COMPACT else None
+                                                                for j in range(LC_MV_DOCS)]))
+            check(vreclaimed > 0, f"4m (e): movable compact reclaimed {vreclaimed}")
+            _, vrelease_ms = timed(lambda: [mb.release_doc(j) for j in range(LC_MV_RELEASE)])
+            check(mb.value_lists() == [[] if j < LC_MV_RELEASE else vwant[j % n_v] for j in range(LC_MV_DOCS)],
+                  "4m (e): value_lists after compact and release != oracle")
+            out["movable"] = {"docs": LC_MV_DOCS, "epochs": LC_MV_EPOCHS, "group_launches": mv_group,
+                              "flush_ms": mflush_ms, "compact_docs": LC_MV_COMPACT, "reclaimed": vreclaimed,
+                              "rows_before": rows0, "compact_ms": vcompact_ms, "release_docs": LC_MV_RELEASE,
+                              "release_ms": vrelease_ms}
+            print(f"lifecycle movable on {kind} ({card}): DeviceMovableBatch({LC_MV_DOCS}, {MV_RES_CAP}, "
+                  f"{MV_RES_ELEMS}) {LC_MV_EPOCHS} epochs, the last {LC_MV_EPOCHS - half} as a group ({mv_group} "
+                  f"launches, flush {mflush_ms:.1f} ms); compact({LC_MV_COMPACT} docs) reclaimed {vreclaimed} of "
+                  f"{rows0} slot rows in {vcompact_ms:.1f} ms; release_doc x {LC_MV_RELEASE} {vrelease_ms:.2f} ms; "
+                  "value_lists == oracle_movable", flush=True)
+            del mb
+
+            # (f) map and counter: 2 epochs serially and as one group, then release
+            meps = [tracegen.map_epoch_payloads(d) for d in mdocs]
+            n_m = len(mdocs)
+            folds = {"n": 0}
+            real_update, real_fold = fleet_mod.lww_update_resident, fleet_mod._fold_counter_rows
+
+            def update(*a, **k):
+                folds["n"] += 1
+                return real_update(*a, **k)
+
+            def fold(*a):
+                folds["n"] += 1
+                return real_fold(*a)
+
+            fleet_mod.lww_update_resident, fleet_mod._fold_counter_rows = update, fold
+            try:
+                fam = {}
+                for name, mk, feed, n_docs in (
+                    ("map", lambda: DeviceMapBatch(LC_MAP_DOCS, MAP_RES_CAP, device=dev, auto_grow=True),
+                     lambda b, e: b.append_payloads([meps[j % n_m][e] for j in range(LC_MAP_DOCS)]), LC_MAP_DOCS),
+                    ("counter", lambda: DeviceCounterBatch(LC_COUNTER_DOCS, COUNTER_CAP, device=dev, auto_grow=True),
+                     lambda b, e: b.append_changes([cdocs[j % MAP_DISTINCT].epoch_changes()[e]
+                                                    for j in range(LC_COUNTER_DOCS)]), LC_COUNTER_DOCS),
+                ):
+                    ser, co = mk(), mk()
+                    f0 = folds["n"]
+                    _, s_ms = timed(lambda: [feed(ser, e) for e in range(LC_FOLD_EPOCHS)])
+                    s_folds = folds["n"] - f0
+                    f0 = folds["n"]
+                    co.begin_coalesce()
+                    for e in range(LC_FOLD_EPOCHS):
+                        feed(co, e)
+                    _, c_ms = timed(co.flush_coalesce)
+                    c_folds = folds["n"] - f0
+                    check(co.export_state() == ser.export_state(), f"4m (f): coalesced {name} state != serial's")
+                    check(c_folds == 1 and s_folds == LC_FOLD_EPOCHS, f"4m (f): {name} folds {c_folds} vs {s_folds}")
+                    if name == "map":
+                        want = [tracegen.oracle_map(d, LC_FOLD_EPOCHS) for d in mdocs]
+                        check(co.root_value_maps(tracegen.MAP_CID.name) == [want[j % n_m] for j in range(n_docs)],
+                              "4m (f): map root values != oracle_map")
+                    else:
+                        want = [tracegen.oracle_counter(d, LC_FOLD_EPOCHS) for d in cdocs]
+                        check(co.value_maps() == [want[j % MAP_DISTINCT] for j in range(n_docs)],
+                              "4m (f): counter sums != oracle_counter")
+                    n_rel = n_docs // 8
+                    _, rel_ms = timed(lambda: [co.release_doc(j) for j in range(n_rel)])
+                    grid = (co.res.value if name == "map" else co.sums)[:n_rel].cpu()
+                    check(bool((grid == (-2 if name == "map" else 0)).all()), f"4m (f): released {name} rows")
+                    fam[name] = {"docs": n_docs, "epochs": LC_FOLD_EPOCHS, "serial_ms": s_ms, "serial_folds": s_folds,
+                                 "flush_ms": c_ms, "coalesced_folds": c_folds, "release_docs": n_rel,
+                                 "release_ms": rel_ms}
+            finally:
+                fleet_mod.lww_update_resident, fleet_mod._fold_counter_rows = real_update, real_fold
+            out.update(fam)
+            print(f"lifecycle map and counter on {kind} ({card}): "
+                  + "; ".join(f"{k} [{v['docs']}] {v['epochs']} epochs: serial {v['serial_ms']:.1f} ms "
+                              f"({v['serial_folds']} folds), one group's flush {v['flush_ms']:.1f} ms "
+                              f"({v['coalesced_folds']} fold), equal state, == oracle; release_doc x "
+                              f"{v['release_docs']} {v['release_ms']:.2f} ms" for k, v in fam.items()), flush=True)
+    finally:
+        fleet_mod._scatter_rows, fleet_mod._set_deleted = real_scatter, real_set_deleted
+    out["main_s"] = time.perf_counter() - t_main
+    out["launches"] = {**{k: v for k, v in list_rank.LAUNCHES.items() if v},
+                       **{f"tree_replay/{k}": v for k, v in tb.LAUNCHES.items() if v}}
+    if dev.type == "cuda":
+        check(sum(list_rank.LAUNCHES.values()) > 0 and sum(tb.LAUNCHES.values()) > 0,
+              f"phase 4m launched list rank {list_rank.LAUNCHES} and tree replay {tb.LAUNCHES}")
+        check(len(cap.seen) == sum(list_rank.LAUNCHES.values()) + sum(tb.LAUNCHES.values()),
+              f"4m captured {len(cap.seen)} launches, counted {out['launches']}")
+    out["peak_device_bytes"] = torch.cuda.max_memory_allocated(dev)
+    t0 = time.perf_counter()
+    out["kernel_checks"] = check_captured(torch, list_rank, tb, cap.seen, out["max_abs_err"], phase="4m")
+    out["kernel_check_s"] = time.perf_counter() - t0
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 4m: {out['seconds']:.1f} s (traces {out['gen_s']:.1f} s, main path {out['main_s']:.1f} s, kernel "
+          f"checks {out['kernel_check_s']:.1f} s); main-path launches {out['launches']}; {len(cap.seen)} launches held "
+          f"against their plain versions, max abs err {out['max_abs_err']}; peak device memory "
+          f"{out['peak_device_bytes'] / 2**30:.2f} GiB", flush=True)
+    return out
+
+
 def resident_rounds(torch, dev, cls, docs, eps, n_docs: int, cap: int, node_cap: int, n_rounds: int,
                     profile_round=None) -> dict:
     """A DeviceTreeBatch(n_docs, cap, node_cap, auto_grow=True) fed one sync
@@ -3154,7 +3637,8 @@ def main(argv=None) -> int:
         card_tests()
         watch = SupervisorWatch()
         phase_fns = {"4f": map_counter_phase, "4g": tree_phase, "4h": richtext_phase, "4i": movable_phase,
-                     "4j": read_plane_phase, "4k": host_engine_phase, "4l": supervision_phase}
+                     "4j": read_plane_phase, "4k": host_engine_phase, "4l": supervision_phase,
+                     "4m": lifecycle_phase}
         results = {}
         first_window = {}  # 4j's first window, framed by 4k when both run (4j first)
         extra = {"4j": {"first": first_window}, "4k": {"first_window": first_window}}
@@ -3892,6 +4376,15 @@ def main(argv=None) -> int:
             max_err[name] = max(max_err[name], err)
     watch.after("4l")
 
+    # ---- 4m. the resident batches' lifecycle: coalesce groups, release_doc,
+    # compact (list-rank and tree-replay launches counted, each held
+    # against its plain version)
+    life4m = lifecycle_phase(torch, dev, kind, card, fdocs[ELEMENT_N], fleet_texts[ELEMENT_N])
+    for name, err in life4m["max_abs_err"].items():
+        if name in max_err:
+            max_err[name] = max(max_err[name], err)
+    watch.after("4m")
+
     # ---- 5. timings -------------------------------------------------------
     # each kernel at its main-path shape: the flagship chain rings for the
     # packed kernels, the element rings for the wide kernel
@@ -4088,7 +4581,8 @@ def main(argv=None) -> int:
         "bound_ms": bounds, "phases": phases, "full_card": full_card, "wyllie_over_budget": over_budget,
         "sweep": sweep, "sweep_graph": sweep_graph, "ingest": ingest, "fleet": fleet, "resident": resident4e,
         "map_counter": map_counter4f, "tree": tree4g, "richtext": richtext4h, "movable": movable4i,
-        "read_plane": read4j, "host_engine": host4k, "supervision": sup4l, "total_s": time.perf_counter() - t_start,
+        "read_plane": read4j, "host_engine": host4k, "supervision": sup4l, "lifecycle": life4m,
+        "total_s": time.perf_counter() - t_start,
     }))
     # launches in the fleet phase's checked one-shot calls, one a call
     fleet_by_kernel = {name: sum(v for ran in fleet_launches.values() for k, v in ran.items()
@@ -4107,6 +4601,7 @@ def main(argv=None) -> int:
             "launches_read_plane": sum(v for k, v in read4j["launches"].items() if k.split("/")[0] == name),
             "launches_host_engine": sum(v for k, v in host4k["launches"].items() if k.split("/")[0] == name),
             "launches_supervision": sum(v for k, v in sup4l["launches"].items() if k.split("/")[0] == name),
+            "launches_lifecycle": sum(v for k, v in life4m["launches"].items() if k.split("/")[0] == name),
             "max_abs_err": max_err[name],
             "ms": res[f"{name}_graph_ms"],
             "eager_ms": res[f"{name}_ms"],
@@ -4126,8 +4621,9 @@ def main(argv=None) -> int:
         "launches": sum(tree4g["launches"].values()),
         "launches_host_engine": sum(v for k, v in host4k["launches"].items() if k.startswith("tree_replay/")),
         "launches_supervision": sum(v for k, v in sup4l["launches"].items() if k.startswith("tree_replay/")),
+        "launches_lifecycle": sum(v for k, v in life4m["launches"].items() if k.startswith("tree_replay/")),
         "max_abs_err": max(tk["max_abs_err"], host4k["max_abs_err"].get("tree_replay", 0),
-                           sup4l["max_abs_err"].get("tree_replay", 0)),
+                           sup4l["max_abs_err"].get("tree_replay", 0), life4m["max_abs_err"].get("tree_replay", 0)),
         "ms": tk["ms"],
         "eager_ms": tk["eager_ms"],
         "plain_ms": tk["plain_ms"],

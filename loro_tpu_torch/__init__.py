@@ -24,6 +24,7 @@ merges, their resident batches and the read plane:
                       strip_envelope)
     history_cache, cursor, jsonpath
                       checkout's state cache, stable cursors, JSONPath
+    undo, awareness   UndoManager; Awareness and EphemeralStore
     resilience        DeviceSupervisor (every one-shot Fleet merge's
                       upload, device call and fetch, and the read
                       plane's selection, run through it: device errors
@@ -108,7 +109,9 @@ from .models.handlers import (
     TreeHandler,
 )
 from . import resilience
+from .awareness import Awareness, EphemeralStore
 from .resilience import DeviceSupervisor, get_supervisor, set_supervisor
+from .undo import UndoManager
 
 __all__ = [
     "resolve_device",
@@ -162,9 +165,12 @@ __all__ = [
     "TreeHandler",
     "CounterHandler",
     "Handler",
+    "UndoManager",
     "Cursor",
     "CursorSide",
     "AbsolutePosition",
     "get_cursor",
     "get_cursor_pos",
+    "Awareness",
+    "EphemeralStore",
 ]

@@ -47,9 +47,16 @@ fleet.degraded_merges_total{family} and the supervisor's report;
 merge_text_docs and merge_map_docs, which take extracts, and
 export_select let that one reach the caller too.  Every other error passes through
 unchanged.  The resident batches' appends and reads are not supervised,
-as in the JAX package.  Not ported yet: the merge obs counters and trace
-instants, the op-sharded map merge, and the resident batches' coalesce
-group, doc release and compaction.
+as in the JAX package.
+
+Lifecycle (every resident batch): a coalesce group (begin_coalesce, then
+detach_coalesce and commit_detached, or flush_coalesce) commits each
+round's host state as it comes and ships the group's device work as one
+merged scatter or fold; release_doc resets one doc's slot for reuse;
+compact (text and list, tree and movable batches) reclaims causally
+stable rows.  Counted in pipeline.coalesced_rounds_total{family} and
+fleet.doc_releases_total{family}.  Not ported yet: the merge obs
+counters and trace instants, and the op-sharded map merge.
 """
 from __future__ import annotations
 
@@ -613,6 +620,112 @@ def _set_deleted(deleted: torch.Tensor, d_idx: torch.Tensor, r_idx: torch.Tensor
     deleted.index_put_((d_idx, r_idx), torch.ones((), dtype=torch.bool, device=deleted.device))
 
 
+def _release_rows_(arrays: Sequence[torch.Tensor], di: int, fills: Sequence[object]) -> None:
+    """Reset doc row `di` of every [D, cap] tensor to its construction
+    fill, in place (the device half of release_doc): the recycled slot
+    is indistinguishable from a never-used one."""
+    for a, fill in zip(arrays, fills):
+        a[di].fill_(fill)
+
+
+class _DeferredSeqDevice:
+    """The device work of one coalesce group over a DeviceDocBatch or
+    DeviceTreeBatch: each round's host block (its host state already
+    committed: epochs, order engines, id maps, counts), waiting for the
+    one merged scatter of commit_detached.  Every stashed block is an
+    array the group owns (built fresh by its round)."""
+
+    __slots__ = ("base0", "rounds", "renumbered", "del_d", "del_r", "key_snap")
+
+    def __init__(self, base0: np.ndarray):
+        self.base0 = base0  # per-doc counts at the group's start
+        self.rounds: List[tuple] = []
+        self.renumbered: set = set()
+        self.del_d: List[np.ndarray] = []
+        self.del_r: List[np.ndarray] = []
+        self.key_snap: Optional[Dict[int, np.ndarray]] = None  # detach-time key rows of renumbered docs
+
+
+def _group_scatters(base0: np.ndarray, cap: int, rounds: Sequence[Tuple[Dict[str, np.ndarray], Sequence[int]]],
+                    fills: Dict[str, object]) -> List[Tuple[Dict[str, np.ndarray], np.ndarray]]:
+    """The scatters that commit a detached group's row blocks, as
+    [(block, offsets)]: one merged block when every doc with rows in the
+    group fits its window under the capacity, else each round's own block
+    (each validated when it was staged).  A doc's segments across rounds
+    are contiguous (appends only extend the tail), so the merged block is
+    each doc's concatenated segments at its group-start offset.  A doc
+    with no rows in a block gets offset 0, as in a serial append: its
+    window keeps its own values, and a doc idle near the capacity cannot
+    push a window past the end (a device assert on a card).  Never grows:
+    a grow here would race the next group's staging."""
+    n_new = np.asarray([k for _, k in rounds], np.int64).reshape(len(rounds), -1)
+    base0 = np.asarray(base0, np.int64)
+    total = n_new.sum(axis=0)
+    width = pad_bucket(int(total.max()), floor=16)
+    if int((base0[total > 0] + width).max(initial=0)) > cap:
+        out, off = [], base0.copy()
+        for (blk, _), k in zip(rounds, n_new):
+            out.append((blk, np.where(k > 0, off, 0)))
+            off += k
+        return out
+    merged = {f: np.full((len(base0), width), fills[f], a.dtype) for f, a in rounds[0][0].items()}
+    pos = np.zeros(len(base0), np.int64)
+    for (blk, _), k in zip(rounds, n_new):
+        for di in np.flatnonzero(k):
+            p, kd = int(pos[di]), int(k[di])
+            for f, a in merged.items():
+                a[di, p : p + kd] = blk[f][di, :kd]
+            pos[di] += kd
+    return [(merged, np.where(total > 0, base0, 0))]
+
+
+class _FoldGroupMixin:
+    """The coalesce group of a folded resident (DeviceMapBatch,
+    DeviceCounterBatch): each round's fold rows accumulate in a
+    _DeferredFold, and the commit lands them in one _device_fold (the
+    epoch still ticks every round).  `_FAMILY` labels the counter."""
+
+    _FAMILY = ""
+
+    def begin_coalesce(self) -> None:
+        if self._defer is not None:
+            raise RuntimeError("coalesce group already open")
+        self._defer = _DeferredFold(self.n_docs)
+
+    def detach_coalesce(self) -> Optional[_DeferredFold]:
+        d, self._defer = self._defer, None
+        return d
+
+    def commit_detached(self, d: Optional[_DeferredFold]) -> None:
+        if d is None or not any(d.rows):
+            return
+        self._device_fold(d.rows)
+        obs.counter("pipeline.coalesced_rounds_total").inc(d.n_rounds, family=self._FAMILY)
+
+    def flush_coalesce(self) -> None:
+        self.commit_detached(self.detach_coalesce())
+
+
+class _DeferredFold:
+    """The fold rows of one coalesce group over an LWW or counter
+    resident: per-doc row lists concatenated across rounds.  The folds
+    are associative (max by (lamport, peer), float add), so one merged
+    fold lands the winners of one fold a round."""
+
+    __slots__ = ("rows", "n_rounds")
+
+    def __init__(self, n_docs: int):
+        self.rows: List[list] = [[] for _ in range(n_docs)]
+        self.n_rounds = 0  # non-empty rounds folded
+
+    def extend(self, rows_per_doc) -> None:
+        if any(rows_per_doc):
+            self.n_rounds += 1
+        for di, rows in enumerate(rows_per_doc):
+            if rows:
+                self.rows[di].extend(rows)
+
+
 def _parent_map(nodes: list, parents: np.ndarray, deleted: np.ndarray) -> dict:
     """{TreeID: parent TreeID | None} of one doc's live nodes from its
     replayed parents row and trash reachability."""
@@ -736,7 +849,11 @@ class DeviceDocBatch:
         })
         self.key_hi = torch.full((n_docs, capacity), 0xFFFFFFFF, dtype=torch.int64, device=self.device)
         self.key_lo = torch.full((n_docs, capacity), 0xFFFFFFFF, dtype=torch.int64, device=self.device)
-        # serializes writers of the device tensors (appends, grow)
+        # the open coalesce group (None: every append launches its own
+        # scatter; see begin_coalesce)
+        self._defer: Optional[_DeferredSeqDevice] = None
+        # serializes writers of the device tensors: appends, a detached
+        # commit on another thread, grow, release_doc, compact
         self._dev_lock = named_rlock("fleet.dev")
         self.clock = StageClock(self.device)
 
@@ -759,20 +876,75 @@ class DeviceDocBatch:
 
     def stage_ms(self) -> Dict[str, float]:
         """Per-stage ms of the last append_changes / append_payloads /
-        texts / values call (waits for its device stages).  Appends:
+        texts / values / compact call (waits for its device stages).  Appends:
         explode (read_tables and the native explode, or the Python walk
         with its overlay), stage (id-map staging and the batch lookups of
         parents and deletes in earlier epochs), grow, commit (id maps,
         anchors, values), block (host block build), order (order-engine
         appends, threaded over docs), upload_scatter (block upload and
         scatter), renumber_keys (renumbered docs' whole key rows, built
-        and uploaded), tombstone.  Reads: sort or solve, fetch, decode."""
+        and uploaded), tombstone.  Reads: sort or solve, fetch, decode.
+        compact: fetch, host, upload."""
         return self.clock.read()
 
-    def _device_commit_block(self, blk, key_blk_hi, key_blk_lo, offsets, renumbered) -> None:
-        """The device tail of an append: upload the block, scatter it at
-        each doc's offset, and re-upload whole key rows of renumbered
-        docs."""
+    # -- round coalescing ----------------------------------------------
+    # Between begin_coalesce() and flush_coalesce() every append commits
+    # its host state round by round as before (epoch clock, row and
+    # tombstone epochs, order engines, id maps, counts), so the final
+    # state is byte for byte the serial one; only the device block
+    # scatters and tombstone launches accumulate, and the commit ships
+    # them as one scatter and one tombstone launch for the whole group.
+    # Reads inside a group would see stale device columns: callers read
+    # only after the commit.
+    def begin_coalesce(self) -> None:
+        if self._defer is not None:
+            raise RuntimeError("coalesce group already open")
+        self._defer = _DeferredSeqDevice(self.counts.copy())
+
+    def detach_coalesce(self) -> Optional[_DeferredSeqDevice]:
+        """Close the group and hand back its pending device work for a
+        later commit_detached (which may run on another thread while the
+        next group stages).  What the commit needs of the host state is
+        snapshotted here (renumbered docs' key rows; the group-start
+        offsets already are), so the commit never reads order engines the
+        next group is changing."""
+        d, self._defer = self._defer, None
+        if d is not None and d.renumbered:
+            d.key_snap = {di: np.asarray(self.order[di].all_keys(), np.int64).copy() for di in sorted(d.renumbered)}
+        return d
+
+    def commit_detached(self, d: Optional[_DeferredSeqDevice]) -> None:
+        """Ship a detached group's blocks as one merged scatter (one a
+        round when the merged window would pass the capacity;
+        _group_scatters) and one tombstone launch."""
+        if d is None:
+            return
+        with self._dev_lock:
+            if d.rounds:
+                fills = dict(self._COL_FILLS, key_hi=0xFFFFFFFF, key_lo=0xFFFFFFFF)
+                rounds = [(dict(blk, key_hi=kh, key_lo=kl), n_new) for blk, kh, kl, n_new in d.rounds]
+                scatters = _group_scatters(d.base0, self.cap, rounds, fills)
+                for i, (b, off) in enumerate(scatters):
+                    last = i == len(scatters) - 1
+                    self._device_commit_block({f: b[f] for f in self._COL_FILLS}, b["key_hi"], b["key_lo"], off,
+                                              sorted(d.renumbered) if last else (), d.key_snap)
+                obs.counter("pipeline.coalesced_rounds_total").inc(len(d.rounds),
+                                                                   family="text" if self.as_text else "list")
+            elif d.renumbered:
+                # delete-only or empty rounds can renumber docs too
+                self._upload_renumbered_keys(sorted(d.renumbered), d.key_snap)
+            if d.del_d:
+                self._device_mark_deleted(np.concatenate(d.del_d), np.concatenate(d.del_r))
+
+    def flush_coalesce(self) -> None:
+        """Close the open group and commit it, on this thread."""
+        self.commit_detached(self.detach_coalesce())
+
+    def _device_commit_block(self, blk, key_blk_hi, key_blk_lo, offsets, renumbered, key_snap=None) -> None:
+        """The device tail of an append (and of a group's commit): upload
+        the block, scatter it at each doc's offset, and re-upload whole
+        key rows of renumbered docs (from `key_snap` when a detached
+        group's commit gives it)."""
         with self._dev_lock:
             with self.clock.device_stage("upload_scatter"):
                 dev = self.device
@@ -784,15 +956,18 @@ class DeviceDocBatch:
                 _scatter_rows(state, blk_dev, torch.from_numpy(np.asarray(offsets, np.int64)).to(dev))
             if renumbered:
                 with self.clock.device_stage("renumber_keys"):
-                    self._upload_renumbered_keys(renumbered)
+                    self._upload_renumbered_keys(renumbered, key_snap)
 
-    def _upload_renumbered_keys(self, renumbered: Sequence[int]) -> None:
+    def _upload_renumbered_keys(self, renumbered: Sequence[int], key_snap: Optional[Dict[int, np.ndarray]] = None
+                                ) -> None:
         """Renumbered docs: whole [cap] key rows, uploaded and written in
-        one index copy a half."""
+        one index copy a half.  `key_snap` (doc -> keys) is a detached
+        group's snapshot: the live engines belong to the group staging."""
         kh_rows = np.full((len(renumbered), self.cap), 0xFFFFFFFF, np.uint32)
         kl_rows = np.full((len(renumbered), self.cap), 0xFFFFFFFF, np.uint32)
         for i, di in enumerate(renumbered):
-            kh, kl = split_keys(np.asarray(self.order[di].all_keys(), np.int64))
+            keys = key_snap[di] if key_snap is not None else self.order[di].all_keys()
+            kh, kl = split_keys(np.asarray(keys, np.int64))
             kh_rows[i, : len(kh)] = kh
             kl_rows[i, : len(kl)] = kl
         dev = self.device
@@ -824,6 +999,244 @@ class DeviceDocBatch:
                 ne[:, : self.cap] = getattr(self, name)
                 setattr(self, name, ne)
             self.cap = new_capacity
+
+    def release_doc(self, di: int) -> None:
+        """Reset doc `di` to a never-used slot (the tiered-residency
+        eviction): every host structure back to its construction value,
+        every device row back to its fill.  The caller owns the safety
+        argument: the doc's state is kept elsewhere, and no staged or
+        in-flight device work references the doc.  Inside an open
+        coalesce group the doc's group-start offset resets too, so a later
+        round of the group can land a new doc at row 0."""
+        self.counts[di] = 0
+        self.tomb_epoch[di, :] = -1
+        self.row_epoch[di, :] = -1
+        self.id2row[di] = make_idmap()
+        self.value_store[di] = []
+        self.anchor_meta[di] = {}
+        self.anchor_by_row[di] = {}
+        self.order[di] = self._fresh_order()
+        if self._defer is not None:
+            self._defer.base0[di] = 0
+            self._defer.renumbered.discard(di)
+        with self._dev_lock:
+            fields = SeqColumnsU._fields
+            _release_rows_([getattr(self.cols, f) for f in fields] + [self.key_hi, self.key_lo], di,
+                           [self._COL_FILLS[f] for f in fields] + [0xFFFFFFFF, 0xFFFFFFFF])
+        obs.counter("fleet.doc_releases_total").inc(family="text" if self.as_text else "list")
+
+    def compact(self, stable_epochs: Sequence[Optional[int]],
+                extra_protect: Optional[Sequence[Optional[np.ndarray]]] = None,
+                extra_dead: Optional[Sequence[Optional[np.ndarray]]] = None, return_remaps: bool = False):
+        """Reclaim causally stable tombstones (the reference's analog is
+        the shallow-snapshot floor, encoding/shallow_snapshot.rs:16-40).
+
+        `stable_epochs[di]` is the newest ingest epoch (self.epoch after
+        an append) that every replica of doc di has integrated; None skips
+        the doc.  A tombstone whose delete was ingested at or before it is
+        invisible at every replica.  Three keep-rules still hold, because
+        Fugue ops can reference invisible rows:
+
+        - attach targets: a future insert after a visible row with
+          R-children parents on that row's total-order successor, a
+          position-0 insert on the first row, and (text only) the
+          anchor-aware expand walk can end on the last tombstone of an
+          invisible window, so every tombstone followed by a live row and
+          the last row stay;
+        - live subtrees: a row with a surviving child stays, except a
+          run-interior tombstone whose one live R-child is its run
+          continuation, which drops by promoting that child into its
+          place;
+        - undated tombstones (from a checkpoint older than the epochs)
+          never drop.
+
+        `extra_protect[di]` marks rows a caller keeps external references
+        to (DeviceMovableBatch's winning slot rows); `extra_dead[di]`
+        marks rows the caller asserts are invisible and stably so
+        (superseded movable slots): they join the droppable set under the
+        same rules.  `return_remaps=True` also returns {di: old row -> new
+        row, -1 = dropped}.  Anchor rows never drop.
+
+        Rebuilds the order engine, id map, anchors and device columns of
+        the compacted docs; returns the rows reclaimed.  The host pass
+        fetches the whole grid, walks each compacted doc's rows in Python
+        and uploads the whole grid again; stage_ms() gives fetch, host and
+        upload."""
+        if len(stable_epochs) > self.n_docs:
+            raise ValueError(f"compact: {len(stable_epochs)} stable_epochs for a {self.n_docs}-doc batch")
+        self.clock.reset()
+        stable_epochs = list(stable_epochs) + [None] * (self.n_docs - len(stable_epochs))
+        host = None  # fetched on the first doc that compacts
+        key_hi = key_lo = None
+        reclaimed = 0
+        remaps: Dict[int, np.ndarray] = {}
+        with self._dev_lock:
+            for di, stable_e in enumerate(stable_epochs):
+                if stable_e is None or not int(self.counts[di]):
+                    continue
+                if host is None:
+                    with self.clock.host("fetch"):
+                        host = {f: getattr(self.cols, f).to("cpu", copy=True).numpy() for f in SeqColumnsU._fields}
+                        key_hi = self.key_hi.to("cpu", copy=True).numpy()
+                        key_lo = self.key_lo.to("cpu", copy=True).numpy()
+                with self.clock.host("host"):
+                    n = self._compact_doc(di, int(stable_e), host, key_hi, key_lo, extra_protect, extra_dead, remaps)
+                reclaimed += n
+            if host is not None and reclaimed:
+                with self.clock.host("upload"):
+                    dev = self.device
+                    # in place: the fetched arrays keep the tensors' dtypes,
+                    # and no second grid is resident on the card
+                    for f, v in host.items():
+                        getattr(self.cols, f).copy_(torch.from_numpy(v))
+                    self.key_hi.copy_(torch.from_numpy(key_hi))
+                    self.key_lo.copy_(torch.from_numpy(key_lo))
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize(dev)
+        return (reclaimed, remaps) if return_remaps else reclaimed
+
+    def _compact_doc(self, di, stable_e, host, key_hi, key_lo, extra_protect, extra_dead, remaps) -> int:
+        """compact()'s pass over one doc, on the fetched columns: the rows
+        reclaimed (0 leaves the doc as it was)."""
+        k = int(self.counts[di])
+        # the peer columns hold uint32 values in int64: the 64-bit peer
+        # is rebuilt unsigned before the shift
+        peer = (host["peer_hi"][di, :k].astype(np.uint64) << np.uint64(32)) | host["peer_lo"][di, :k].astype(np.uint64)
+        ctr = host["counter"][di, :k].astype(np.int64)
+        parent = host["parent"][di, :k].astype(np.int64)
+        deleted = host["deleted"][di, :k]
+        side = host["side"][di, :k].astype(np.int64)
+        te = self.tomb_epoch[di, :k]
+        dead = deleted.copy()  # invisible rows: tombstones and the caller's
+        if extra_dead is not None and extra_dead[di] is not None:
+            rows_d = np.asarray(extra_dead[di], np.int64)
+            dead[rows_d[rows_d < k]] = True
+        # attach-target protection from the standing total order
+        order = np.lexsort((key_lo[di, :k], key_hi[di, :k]))
+        protected = np.zeros(k, bool)
+        protected[order[0]] = True  # the first row (position-0 inserts)
+        succ_of = np.full(k, -1, np.int64)
+        succ_of[order[:-1]] = order[1:]
+        has_r = np.zeros(k, bool)
+        rmask = side == 1
+        has_r[parent[rmask][parent[rmask] >= 0]] = True
+        tgt = np.flatnonzero((~dead) & has_r & (succ_of >= 0))
+        protected[succ_of[tgt]] = True
+        if self.as_text:
+            # expand-walk targets (text only: style anchors can come at
+            # any time, and the anchor-aware walk ends on the last
+            # tombstone of an invisible window; lists never grow
+            # anchors): the last tombstone before a live row, and the
+            # document's last row
+            nd_succ = np.flatnonzero((succ_of >= 0) & dead & ~dead[np.clip(succ_of, 0, k - 1)])
+            protected[nd_succ] = True
+            protected[order[-1]] = True
+        # anchor rows never drop, live or dead: a dead end anchor with a
+        # live start is a style that runs to the end of the document
+        if self.anchor_by_row[di]:
+            rows_a = np.fromiter(self.anchor_by_row[di], np.int64, len(self.anchor_by_row[di]))
+            protected[rows_a[rows_a < k]] = True
+        if extra_protect is not None and extra_protect[di] is not None:
+            rows_x = np.asarray(extra_protect[di], np.int64)
+            protected[rows_x[rows_x < k]] = True
+        stable_dead = deleted & (te >= 0) & (te <= stable_e)
+        if extra_dead is not None and extra_dead[di] is not None:
+            stable_dead |= dead & ~deleted  # the caller's stability, as it is
+        stable_dead &= ~protected
+        # reverse pass (children sit at higher rows than their parents): a
+        # stable tombstone drops when it anchors no live subtree, or when
+        # its one live child is its R-side run continuation, which then
+        # takes its place (the child keeps its id; the only siblings it
+        # could re-order against are the dropped chain's own rows)
+        dparent = parent.copy()
+        dside = side.copy()
+        prom = ctr.copy()  # the promoted placement counter
+        live_l = np.zeros(k, np.int64)
+        live_r = np.zeros(k, np.int64)
+        only_r = np.full(k, -1, np.int64)  # valid where live_r == 1
+        keep = np.zeros(k, bool)
+
+        def credit(child: int, p: int, s: int) -> None:
+            if p < 0:
+                return
+            if s == 1:
+                live_r[p] += 1
+                only_r[p] = child if live_r[p] == 1 else -1
+            else:
+                live_l[p] += 1
+
+        for r in range(k - 1, -1, -1):
+            if stable_dead[r] and live_l[r] == 0:
+                if live_r[r] == 0:
+                    continue  # the whole subtree is dead: drop
+                if live_r[r] == 1:
+                    c = int(only_r[r])
+                    if peer[c] == peer[r] and prom[c] == ctr[r] + 1:
+                        dparent[c] = parent[r]
+                        dside[c] = side[r]
+                        prom[c] = ctr[r]
+                        credit(c, int(parent[r]), int(side[r]))
+                        continue  # r drops, c takes its place
+            keep[r] = True
+            credit(r, int(dparent[r]), int(dside[r]))
+        n_keep = int(keep.sum())
+        if n_keep == k:
+            return 0
+        old_rows = np.flatnonzero(keep)
+        remap = np.full(k, -1, np.int64)
+        remap[old_rows] = np.arange(n_keep)
+        remaps[di] = remap
+        new_parent = dparent[old_rows]
+        pos = new_parent >= 0
+        new_parent[pos] = remap[new_parent[pos]]
+        new_side = dside[old_rows]
+        for f in SeqColumnsU._fields:  # the doc's columns, the tail back to the fills
+            row = host[f][di]
+            vals = row[:k][old_rows].copy()
+            row[:] = self._COL_FILLS[f]
+            row[:n_keep] = vals
+        # lists: drop stranded values and renumber the survivors' ordinals
+        # (an empty store with content rows is the movable slots' external
+        # numbering: not ours to rewrite)
+        if not self.as_text and self.value_store[di]:
+            cvals = host["content"][di, :n_keep].astype(np.int64)
+            uniq = np.unique(cvals[cvals >= 0])
+            vmap = np.full(len(self.value_store[di]), -1, np.int64)
+            vmap[uniq] = np.arange(len(uniq))
+            host["content"][di, :n_keep] = np.where(cvals >= 0, vmap[np.clip(cvals, 0, None)], cvals)
+            self.value_store[di] = [self.value_store[di][int(o)] for o in uniq]
+        host["parent"][di, :n_keep] = new_parent
+        host["side"][di, :n_keep] = new_side  # promoted rows inherit
+        te_new = te[old_rows].copy()
+        self.tomb_epoch[di, :] = -1
+        self.tomb_epoch[di, :n_keep] = te_new
+        re_new = self.row_epoch[di, :k][old_rows]
+        self.row_epoch[di, :] = -1
+        self.row_epoch[di, :n_keep] = re_new
+        # the order engine and the standing keys, rebuilt by replay
+        self.order[di] = self._fresh_order()
+        keys = self.order[di].append_arrays(new_parent.astype(np.int32), host["side"][di, :n_keep], peer[old_rows],
+                                            ctr[old_rows], 0)
+        if keys is None:
+            keys = self.order[di].all_keys()
+        kh, kl = split_keys(np.asarray(keys, np.int64))
+        key_hi[di] = 0xFFFFFFFF
+        key_lo[di] = 0xFFFFFFFF
+        key_hi[di, :n_keep] = kh
+        key_lo[di, :n_keep] = kl
+        m = make_idmap()  # the id map over the survivors
+        m.insert_arrays(peer[old_rows], ctr[old_rows], np.arange(n_keep, dtype=np.int32))
+        self.id2row[di] = m
+        if self.anchor_meta[di]:  # anchors: the survivors' rows renumbered
+            new_meta = {}
+            for pc, a in self.anchor_meta[di].items():
+                nr = remap[a["row"]] if a["row"] < k else -1
+                if nr >= 0:
+                    new_meta[pc] = dict(a, row=int(nr))
+            self.anchor_meta[di] = new_meta
+            self.anchor_by_row[di] = {a["row"]: pc for pc, a in new_meta.items()}
+        self.counts[di] = n_keep
+        return k - n_keep
 
     def _fresh_order(self):
         """A new order engine: the native one, or the Python ShadowOrder
@@ -1036,7 +1449,12 @@ class DeviceDocBatch:
             renumbered = [di for di, r in zip(active, renum) if r]
             for di in active:
                 self.counts[di] += n_new[di]
-            self._device_commit_block(blk, key_blk_hi, key_blk_lo, offsets, renumbered)
+            if self._defer is not None:
+                # an open group: stash the block for its merged scatter
+                self._defer.rounds.append((blk, key_blk_hi, key_blk_lo, list(n_new)))
+                self._defer.renumbered.update(renumbered)
+            else:
+                self._device_commit_block(blk, key_blk_hi, key_blk_lo, offsets, renumbered)
         self.mark_deleted(del_pairs)
 
     def append_payloads(self, per_doc_payloads: Sequence[Optional[bytes]], cid) -> None:
@@ -1178,6 +1596,13 @@ class DeviceDocBatch:
         if not len(d_all):
             return
         self.tomb_epoch[d_all, r_all] = self.epoch
+        if self._defer is not None:
+            # an open group: the tombstones launch once at its commit,
+            # after the merged scatter (which writes only new rows, so it
+            # cannot revive a row an earlier round tombstoned)
+            self._defer.del_d.append(d_all)
+            self._defer.del_r.append(r_all)
+            return
         self._device_mark_deleted(d_all, r_all)
 
     def resolve_row(self, doc: int, peer: int, counter: int) -> Optional[int]:
@@ -1619,6 +2044,12 @@ def _lww_fills(value_fill: int) -> Dict[str, int]:
     return dict(lamport=NEG, peer_hi=0, peer_lo=0, value=value_fill)
 
 
+def _release_lww_(res: LwwResident, di: int, value_fill: int) -> None:
+    """Doc row `di` of LWW winners back to the construction fills."""
+    fills = _lww_fills(value_fill)
+    _release_rows_([getattr(res, f) for f in fills], di, list(fills.values()))
+
+
 # LwwResident tensor dtypes (peer halves: int64 holding uint32) and the
 # checkpoint's grid dtypes, the JAX package's
 _LWW_DTYPES = dict(lamport=torch.int32, peer_hi=torch.int64, peer_lo=torch.int64, value=torch.int32)
@@ -1691,7 +2122,7 @@ def _write_meta(kv: MemKvStore, batch, fields=_LWW_META) -> None:
     kv.set(b"meta", bytes(meta.buf))
 
 
-class DeviceMapBatch:
+class DeviceMapBatch(_FoldGroupMixin):
     """Device-resident LWW-map winners for a doc batch: per (doc, slot)
     the winning (lamport, peer, value ordinal), [D, S] on the device.
     A slot is a (container, key) pair of one doc, numbered by first use.
@@ -1699,6 +2130,8 @@ class DeviceMapBatch:
     device call; the values stay on the host as per-doc ordinal lists.
     Bound to one device (default "cuda"; DeviceUnavailable without a card
     unless "cpu" is asked for)."""
+
+    _FAMILY = "map"  # coalesce groups: the LWW fold is associative
 
     def __init__(self, n_docs: int, slot_capacity: int, device: DeviceLike = "cuda", auto_grow: bool = False):
         """auto_grow=True repacks the winners to the next slot bucket
@@ -1715,6 +2148,7 @@ class DeviceMapBatch:
         self.values: List[List] = [[] for _ in range(n_docs)]
         # ingest epochs (the JAX server journals rounds against them)
         self.epoch = 0
+        self._defer: Optional[_DeferredFold] = None  # the open coalesce group
         self._dev_lock = named_rlock("fleet.dev")
 
     def grow(self, new_slot_capacity: int) -> None:
@@ -1724,6 +2158,15 @@ class DeviceMapBatch:
         with self._dev_lock:
             self.res = LwwResident(**_pad_axis1(self.res._asdict(), new_slot_capacity, _lww_fills(-2)))
             self.s = new_slot_capacity
+
+    def release_doc(self, di: int) -> None:
+        """Reset doc `di` to a never-used slot (the tiered-residency
+        eviction; DeviceDocBatch.release_doc's contract)."""
+        self.slot_of[di] = {}
+        self.values[di] = []
+        with self._dev_lock:
+            _release_lww_(self.res, di, -2)
+        obs.counter("fleet.doc_releases_total").inc(family="map")
 
     def append_changes(self, per_doc_changes: Sequence[Optional[Sequence[Change]]]) -> None:
         """Fold each doc's new changes (None = no update) into the
@@ -1804,8 +2247,12 @@ class DeviceMapBatch:
             self.slot_of[di].update(new_slots[di])
             self.values[di].extend(new_vals[di])
         self.epoch += 1  # post-validation: dates this append
-        if any(rows_per_doc):
-            self._device_fold(rows_per_doc)
+        if not any(rows_per_doc):
+            return
+        if self._defer is not None:
+            self._defer.extend(rows_per_doc)
+            return
+        self._device_fold(rows_per_doc)
 
     def _device_fold(self, rows_per_doc) -> None:
         """One block [D, M] of (slot, lamport, peer, value) rows, built on
@@ -1946,7 +2393,7 @@ def _fold_counter_rows(sums: torch.Tensor, slot: torch.Tensor, delta: torch.Tens
     sums.add_(counter_merge_doc(slot, delta, slot < s, s))
 
 
-class DeviceCounterBatch:
+class DeviceCounterBatch(_FoldGroupMixin):
     """Device-resident counter sums for a doc batch (increments commute,
     so the resident state is the fold: one scatter add an append).  A
     slot is a counter container of one doc, numbered by first use.
@@ -1959,6 +2406,10 @@ class DeviceCounterBatch:
     device (default "cuda"; DeviceUnavailable without a card unless
     "cpu" is asked for)."""
 
+    # coalesce groups: float addition is associative under the precision
+    # contract's integer deltas
+    _FAMILY = "counter"
+
     def __init__(self, n_docs: int, slot_capacity: int, device: DeviceLike = "cuda", auto_grow: bool = False):
         """auto_grow=True repacks the sums to the next slot bucket instead
         of raising when an append needs more slots."""
@@ -1970,6 +2421,7 @@ class DeviceCounterBatch:
         self.sums = torch.zeros((n_docs, slot_capacity), dtype=torch.float32, device=self.device)
         # ingest epochs (the JAX server journals rounds against them)
         self.epoch = 0
+        self._defer: Optional[_DeferredFold] = None  # the open coalesce group
         self._dev_lock = named_rlock("fleet.dev")
 
     def grow(self, new_slot_capacity: int) -> None:
@@ -1979,6 +2431,14 @@ class DeviceCounterBatch:
         with self._dev_lock:
             self.sums = _pad_axis1({"sums": self.sums}, new_slot_capacity, {"sums": 0.0})["sums"]
             self.s = new_slot_capacity
+
+    def release_doc(self, di: int) -> None:
+        """Reset doc `di` to a never-used slot (the tiered-residency
+        eviction; DeviceDocBatch.release_doc's contract)."""
+        self.slot_of[di] = {}
+        with self._dev_lock:
+            _release_rows_([self.sums], di, [0.0])
+        obs.counter("fleet.doc_releases_total").inc(family="counter")
 
     def append_changes(self, per_doc_changes: Sequence[Optional[Sequence[Change]]]) -> None:
         """Add each doc's new increments (None = no update).  New slots
@@ -2006,6 +2466,9 @@ class DeviceCounterBatch:
             return
         for di, staged in enumerate(staged_slots):
             self.slot_of[di].update(staged)
+        if self._defer is not None:
+            self._defer.extend(rows_per_doc)
+            return
         self._device_fold(rows_per_doc)
 
     def _device_fold(self, rows_per_doc) -> None:
@@ -2138,7 +2601,53 @@ class DeviceTreeBatch:
             f: torch.full((self.n_docs, move_capacity), _TREE_FILLS[f], dtype=dt, device=self.device)
             for f, dt in _TREE_DTYPES.items()
         })
+        self._defer: Optional[_DeferredSeqDevice] = None  # the open coalesce group
         self._dev_lock = named_rlock("fleet.dev")
+
+    # -- round coalescing (DeviceDocBatch's contract) ----------------------
+    def begin_coalesce(self) -> None:
+        if self._defer is not None:
+            raise RuntimeError("coalesce group already open")
+        self._defer = _DeferredSeqDevice(self.counts.copy())
+
+    def detach_coalesce(self) -> Optional[_DeferredSeqDevice]:
+        d, self._defer = self._defer, None
+        return d
+
+    def commit_detached(self, d: Optional[_DeferredSeqDevice]) -> None:
+        """One merged scatter of a detached group's move blocks (one a
+        round when the merged window would pass the capacity;
+        _group_scatters)."""
+        if d is None or not d.rounds:
+            return
+        with self._dev_lock:
+            for blk, off in _group_scatters(d.base0, self.cap, d.rounds, _TREE_FILLS):
+                self._device_commit_moves(blk, off)
+            obs.counter("pipeline.coalesced_rounds_total").inc(len(d.rounds), family="tree")
+
+    def flush_coalesce(self) -> None:
+        self.commit_detached(self.detach_coalesce())
+
+    def _device_commit_moves(self, blk, offsets) -> None:
+        """Upload a block of move rows and scatter it at each doc's
+        offset, in place."""
+        with self._dev_lock:
+            _scatter_rows(self.cols._asdict(), {f: _to_device(a, self.device) for f, a in blk.items()},
+                          _to_device(np.asarray(offsets, np.int64), self.device))
+
+    def release_doc(self, di: int) -> None:
+        """Reset doc `di` to a never-used slot (the tiered-residency
+        eviction; DeviceDocBatch.release_doc's contract)."""
+        self.counts[di] = 0
+        self.move_epoch[di, :] = -1
+        self.node_ids[di] = {}
+        self.nodes[di] = []
+        self.move_meta[di] = []
+        if self._defer is not None:
+            self._defer.base0[di] = 0
+        with self._dev_lock:
+            _release_rows_([getattr(self.cols, f) for f in _TREE_FILLS], di, list(_TREE_FILLS.values()))
+        obs.counter("fleet.doc_releases_total").inc(family="tree")
 
     def append_changes(self, per_doc_changes: Sequence[Optional[Sequence[Change]]], cid: ContainerID) -> None:
         """Each doc's new causally ordered changes (None = no update): the
@@ -2297,9 +2806,11 @@ class DeviceTreeBatch:
             self.move_epoch[di, base : base + k] = self.epoch
             self.counts[di] += k
             self.move_meta[di].extend((r[0], r[1], r[2], r[3], r[5], r[6]) for r in rows)
-        with self._dev_lock:
-            _scatter_rows(self.cols._asdict(), {f: _to_device(a, self.device) for f, a in blk.items()},
-                          _to_device(offsets, self.device))
+        if self._defer is not None:
+            # an open group: stash the block for its merged scatter
+            self._defer.rounds.append((blk, [len(r) for r in rows_per_doc]))
+        else:
+            self._device_commit_moves(blk, offsets)
 
     def export_select(self, index, requests, sup=None) -> List[np.ndarray]:
         """The read plane's batched selection for the sync pull path: one
@@ -2308,6 +2819,72 @@ class DeviceTreeBatch:
 
     def _replay(self) -> Tuple[torch.Tensor, torch.Tensor]:
         return tree_replay_log_batch(self.cols, self.node_cap)
+
+    def compact(self, stable_epochs: Sequence[Optional[int]]) -> int:
+        """Collapse each move log over its causally stable prefix: per
+        node only the winning stable move (the last effected one in key
+        order) stays; every superseded or cycle-rejected stable row drops.
+        Rows newer than the doc's stable epoch all stay, and undated rows
+        (from a checkpoint older than the epochs) too.
+
+        Sound because every future move's lamport exceeds every stable
+        move's (its author's frontier covers the stable set), so future
+        rows sort after the stable prefix, and replaying only the winners
+        gives the stable tree: at each winner the reduced state is, node
+        by node, a sub-chain of the full one, and the cycle walk over
+        sub-chains can only stop earlier, so no move accepted by the full
+        replay is rejected by the reduced one.  move_meta stays row
+        aligned (children_maps' tiebreak uses the relative key order,
+        which filtering keeps); node dictionaries are not reclaimed.
+        Returns the rows dropped.  One replay launch, then a fetch of the
+        whole log, a host pass and one upload of it."""
+        if len(stable_epochs) > self.n_docs:
+            raise ValueError(f"compact: {len(stable_epochs)} stable_epochs for a {self.n_docs}-doc batch")
+        stable_epochs = list(stable_epochs) + [None] * (self.n_docs - len(stable_epochs))
+        host = None
+        eff = None
+        reclaimed = 0
+        with self._dev_lock:
+            for di, stable_e in enumerate(stable_epochs):
+                if stable_e is None or not int(self.counts[di]):
+                    continue
+                if host is None:
+                    _parents, eff_dev = self._replay()
+                    eff = eff_dev.cpu().numpy()
+                    host = {f: getattr(self.cols, f).to("cpu", copy=True).numpy() for f in _TREE_FILLS}
+                k = int(self.counts[di])
+                stable = (self.move_epoch[di, :k] <= int(stable_e)) & (self.move_epoch[di, :k] >= 0)
+                if not stable.any():
+                    continue
+                tgt = host["target"][di, :k]
+                # the peer halves hold uint32 values in int64: the same key order
+                order = np.lexsort((host["counter"][di, :k], host["peer_lo"][di, :k], host["peer_hi"][di, :k],
+                                    host["lamport"][di, :k]))
+                winner: Dict[int, int] = {}
+                for r in order:
+                    if stable[r] and eff[di, r]:
+                        winner[int(tgt[r])] = int(r)
+                keep = ~stable  # unstable rows all stay
+                keep[list(winner.values())] = True
+                n_keep = int(keep.sum())
+                if n_keep == k:
+                    continue
+                reclaimed += k - n_keep
+                old_rows = np.flatnonzero(keep)  # append order kept
+                for f in _TREE_FILLS:
+                    row = host[f][di]
+                    vals = row[:k][old_rows]
+                    row[:] = _TREE_FILLS[f]
+                    row[:n_keep] = vals
+                me = self.move_epoch[di, :k][old_rows]
+                self.move_epoch[di, :] = -1
+                self.move_epoch[di, :n_keep] = me
+                self.move_meta[di] = [self.move_meta[di][int(r)] for r in old_rows]
+                self.counts[di] = n_keep
+            if host is not None and reclaimed:
+                for f in TreeLogCols._fields:
+                    getattr(self.cols, f).copy_(torch.from_numpy(host[f]))  # in place, as DeviceDocBatch.compact
+        return reclaimed
 
     def parent_maps(self) -> List[dict]:
         """{TreeID: parent TreeID | None} of the live nodes of every doc
@@ -2510,10 +3087,7 @@ class DeviceMovableBatch:
     (movable_by_key_batch): a tombstoned winner hides its element, a newer
     concurrent move revives it.  Element dictionaries and value stores stay
     on the host.  Bound to one device (default "cuda"; DeviceUnavailable
-    without a card unless "cpu" is asked for).
-
-    Not ported yet, as for every resident batch: the coalesce group,
-    release_doc and compact."""
+    without a card unless "cpu" is asked for)."""
 
     def __init__(self, n_docs: int, capacity: int, elem_capacity: int, device: DeviceLike = "cuda",
                  auto_grow: bool = False):
@@ -2533,8 +3107,103 @@ class DeviceMovableBatch:
         self.values: List[list] = [[] for _ in range(n_docs)]
         self.moves = _lww_resident(n_docs, elem_capacity, 0, self.device)  # value: the winning slot row
         self.vals = _lww_resident(n_docs, elem_capacity, -2, self.device)  # value: the winning value ordinal
+        self._defer_moves: Optional[_DeferredFold] = None  # the open coalesce group's two folds
+        self._defer_vals: Optional[_DeferredFold] = None
         self._dev_lock = named_rlock("fleet.dev")
         self.clock = StageClock(self.device)
+
+    # -- round coalescing: the slots ride the inner seq batch's group, the
+    # two element folds accumulate here (both associative) ----------------
+    def begin_coalesce(self) -> None:
+        if self._defer_moves is not None:
+            raise RuntimeError("coalesce group already open")
+        self.seq.begin_coalesce()
+        self._defer_moves = _DeferredFold(self.n_docs)
+        self._defer_vals = _DeferredFold(self.n_docs)
+
+    def detach_coalesce(self):
+        dm, self._defer_moves = self._defer_moves, None
+        dv, self._defer_vals = self._defer_vals, None
+        return (self.seq.detach_coalesce(), dm, dv)
+
+    def commit_detached(self, pending) -> None:
+        if pending is None:
+            return
+        seq_d, dm, dv = pending
+        self.seq.commit_detached(seq_d)
+        if dm is not None and any(dm.rows):
+            self._device_fold_elem(dm.rows, "moves")
+        if dv is not None and any(dv.rows):
+            self._device_fold_elem(dv.rows, "vals")
+        if dm is not None and dm.n_rounds:
+            obs.counter("pipeline.coalesced_rounds_total").inc(dm.n_rounds, family="movable")
+
+    def flush_coalesce(self) -> None:
+        self.commit_detached(self.detach_coalesce())
+
+    def release_doc(self, di: int) -> None:
+        """Reset doc `di` to a never-used slot (the tiered-residency
+        eviction; DeviceDocBatch.release_doc's contract): the inner seq
+        batch releases its slot rows, both element folds go back to their
+        construction fills."""
+        self.seq.release_doc(di)
+        self.elem_ids[di] = {}
+        self.values[di] = []
+        with self._dev_lock:
+            _release_lww_(self.moves, di, 0)
+            _release_lww_(self.vals, di, -2)
+        obs.counter("fleet.doc_releases_total").inc(family="movable")
+
+    def compact(self, stable_epochs: Sequence[Optional[int]]) -> int:
+        """Reclaim stable dead slot rows: tombstoned ones (deleted
+        elements' history) and superseded ones (a move's losing slot is
+        invisible for good, but droppable only once the winning slot's
+        ingest epoch is acked everywhere).  Slots are sequence elements,
+        so the seq batch's rules apply; every element's winning slot row
+        (the moves fold holds rows) is protected, and the fold is
+        rewritten through the row remap afterwards.  Element dictionaries
+        and value stores keep their ordinals."""
+        stable_list = list(stable_epochs) + [None] * (self.n_docs - len(stable_epochs))
+        if all(e is None for e in stable_list):
+            return 0  # nothing to do: no fetch
+        mh = self.moves.value.to("cpu", copy=True).numpy()
+        # untouched fold slots hold the value fill (0): only slots a move
+        # folded into (lamport != NEG) name rows
+        folded = self.moves.lamport.cpu().numpy() != NEG
+        mh[~folded] = -1
+        content = self.seq.cols.content.cpu().numpy()
+        protect: List[Optional[np.ndarray]] = []
+        extra_dead: List[Optional[np.ndarray]] = []
+        for di in range(self.n_docs):
+            wr = mh[di][mh[di] >= 0].astype(np.int64)
+            protect.append(np.unique(wr) if len(wr) else None)
+            stable_e = stable_list[di]
+            k = int(self.seq.counts[di])
+            if stable_e is None or not k or not len(wr):
+                extra_dead.append(None)
+                continue
+            # a superseded slot r (element e = content[r], winner w != r) is
+            # stable-dead once the winner's ingest epoch is acked
+            e_arr = content[di, :k].astype(np.int64)
+            valid_e = e_arr >= 0
+            w_of_row = np.where(valid_e, mh[di][np.clip(e_arr, 0, None)], -1)
+            w_epoch = np.where(w_of_row >= 0, self.seq.row_epoch[di][np.clip(w_of_row, 0, None)], -1)
+            sup = valid_e & (w_of_row >= 0) & (w_of_row != np.arange(k)) & (w_epoch >= 0) & (w_epoch <= int(stable_e))
+            rows_s = np.flatnonzero(sup)
+            extra_dead.append(rows_s if len(rows_s) else None)
+        reclaimed, remaps = self.seq.compact(stable_epochs, extra_protect=protect, extra_dead=extra_dead,
+                                             return_remaps=True)
+        if reclaimed and remaps:
+            # rewritten on a fresh fetch: mh holds -1 for unfolded slots,
+            # and writing it back would change their fill (0)
+            out = self.moves.value.to("cpu", copy=True).numpy()
+            for di, remap in remaps.items():
+                row = out[di]
+                mask = folded[di] & (row >= 0) & (row < len(remap))
+                row[mask] = remap[row[mask]]
+            with self._dev_lock:
+                self.moves.value.copy_(torch.from_numpy(out))
+        return reclaimed
 
     @property
     def epoch(self) -> int:
@@ -2783,6 +3452,15 @@ class DeviceMovableBatch:
             for eid in staged_elems[di]:
                 self.elem_ids[di][eid] = len(self.elem_ids[di])
             self.values[di].extend(staged_vals[di])
+        if self._defer_moves is not None:
+            set_only = not any(move_rows) and any(set_rows)
+            self._defer_moves.extend(move_rows)
+            self._defer_vals.extend(set_rows)
+            if set_only:
+                # a set-only round shipped device work too: counted on the
+                # moves accumulator (the group's round tally)
+                self._defer_moves.n_rounds += 1
+            return
         for rows_set, res_name in ((move_rows, "moves"), (set_rows, "vals")):
             if any(rows_set):
                 self._device_fold_elem(rows_set, res_name)
