@@ -80,7 +80,7 @@ checks it, end to end:
       host oracle, timed whole and by stage, with device busy and peak
       memory, and two card folds of tenths compared bit for bit; the
       native map explode held against the Python extract on the 8
-      traces; DeviceMapBatch (1,024 docs from 1,024 slots, grown to
+      traces; DeviceMapBatch (512 docs from 1,024 slots, grown to
       4,096 in round 1, 2 of the traces' 16 sync epochs, checkpointed
       after round 1) and DeviceCounterBatch (1,024 docs from 64 slots,
       grown once, 8 epochs, checkpointed after round 4) fed one epoch a
@@ -138,7 +138,7 @@ checks it, end to end:
       then bench_movable's random columns at [256, 8,192] (ops merged/s
       by its definition), every doc equal to the CPU merge of one; then
       the resident DeviceMovableBatch(256, 8,192, 4,096, auto_grow) fed
-      the traces' sync epochs one a round through append_payloads,
+      the first 6 of the traces' sync epochs one a round through append_payloads,
       value_lists() checked against oracle_movable of the prefix at the
       middle and the last round, checkpointed after the middle round and
       the restored batch fed the rest to equal bytes, no fallback, each
@@ -156,7 +156,7 @@ checks it, end to end:
       resilience.hostpath): 259,778 automerge-perf-shaped patches applied
       one a call through a LoroDoc's text handler (patches/s; the text
       equal to a plain list replay) and its payload merged on the card as
-      8 docs; the three flagship docs imported (ops/s), snapshot and
+      8 docs; the first flagship doc imported (ops/s; all three merged on the card), snapshot and
       updates round trips; 4f-4i's traces at their bench shapes imported
       into LoroDocs, equal to their oracles, and cycled to 64 docs
       through each family's one-shot card merge, equal to the LoroDocs,
@@ -204,6 +204,22 @@ checks it, end to end:
       (32 docs) and counter (1,024 docs) batches fed 2 epochs serially
       and as one group (one fold), equal, then released; every list-rank
       and tree-replay launch held against its plain version;
+   n. the resident server: ResidentServer("text", 1,024, capacity 16,384)
+      fed 4e's 10 epochs, 2 by ingest and 8 through pipeline(coalesce=4,
+      depth=2) (two groups): texts equal to 4e's (their sha256) and the
+      oracle, rows/s, each group's stage and commit
+      walls, their overlap, its scatters and tombstone launches, the
+      journal's bytes, server.epoch_seconds, the device-stage share of
+      the piped wall (CUDA events); a durable server over 64 loro_fleet
+      docs (group fsync): checkpoint, close, persist.recover_server on
+      the card (its solver read equal), restore to the same checkpoint bytes, an armed fault
+      degrading it under the phase's own supervisor and recover(); a
+      tiered server (256 docs on 64 hot slots) equal to a plain one and
+      its residency report; the list, tree, movable, map and counter
+      families through the server (two rounds and one coalesced group)
+      equal to their batches fed directly; two shards on the card over
+      the durable rounds with one doc migrated; every list-rank and
+      tree-replay launch held against its plain version;
 5. timings (CUDA events, warm-up then median; a kernel's ms is 20
    back-to-back calls of its wrapper replayed from a CUDA graph, and
    beside it eager_ms, the same 20 calls eager): merge ms per chunk and
@@ -224,7 +240,7 @@ Prints one {"kernels": [...]} line and ends with the line
 Any failed check raises, so the script exits non-zero.  Usage:
     python3 chip_smoke.py                          # the whole run, the verification
     python3 chip_smoke.py --phase 4i [--phase 4j]  # build, card tests, those phases
---phase takes 4f, 4g, 4h, 4i, 4j, 4k, 4l or 4m (the phases that stand alone);
+--phase takes 4f, 4g, 4h, 4i, 4j, 4k, 4l, 4m or 4n (the phases that stand alone);
 such a run prints its phases' results and no kernels line.
 """
 from __future__ import annotations
@@ -280,6 +296,7 @@ RES_DOC_EPOCHS, RES_DOC_CAP, RES_DOC_C_PAD, RES_CKPT_ROUND, RES_CHECK_EVERY = 65
 MAP_DOCS, MAP_DISTINCT, MAP_OPS, MAP_KEYS = 1024, 8, 65_536, 4_096
 COUNTER_INCR, COUNTER_ITEMS = 4_096, 96
 MAP_RES_CAP, MAP_RES_ROUNDS, MAP_RES_CKPT = 1024, 2, 1
+MAP_RES_DOCS = 512  # the resident map batch's docs (cut from 1,024 to make room for 4n)
 COUNTER_CAP, COUNTER_CKPT = 64, 4
 # the tree phase: one-shot merges of TREE_DOCS payloads cycled over
 # TREE_DISTINCT tracegen.tree_doc traces (TREE_MOVES moves on TREE_NODES
@@ -309,6 +326,7 @@ RT_ONESHOT_DOCS = 256
 # one sync epoch of the traces a round, checkpointed after the middle round
 MV_DOCS, MV_DISTINCT, MV_BENCH_DOCS, MV_BENCH_SLOTS, MV_CHANGES_DOCS = 1024, 8, 256, 8192, 256
 MV_RES_DOCS, MV_RES_CAP, MV_RES_ELEMS = 256, 8192, 4096
+MV_RES_EPOCHS = 6  # the resident movable batch's epochs (cut from the traces' 11 to make room for 4n)
 # the read-plane phase: an ExportIndex over RP_DOCS docs cycled over the
 # element path's 40,000-patch text traces, fed epoch by epoch, then
 # RP_WINDOWS windows of RP_WINDOW requests (ReadBatcher's max_window), a
@@ -327,6 +345,7 @@ RP_DOCS, RP_WINDOWS, RP_WINDOW, RP_COMMIT_DOCS = 1024, 16, 256, 64
 # doc HE_ROUND_TRIPS only (~7.5 s a doc on the card's host), (f)'s
 # imports to 2 pulls (a fork of a 40,000-patch doc each)
 HE_PATCHES, HE_TEXT_DOCS, HE_ROUND_TRIPS = 259_778, CHUNK, (1,)
+HE_IMPORT_DOCS = 1  # (b)'s flagship docs imported (cut from 3 to make room for 4n; the card merges all 3)
 HE_DISTINCT, HE_TREE_DOCS, HE_CYCLE = 8, 2, 64
 HE_SHAPES = {"map": {"n_ops": MAP_OPS, "n_keys": MAP_KEYS},
              "counter": {"n_incr": COUNTER_INCR, "n_counters": COUNTER_ITEMS},
@@ -355,8 +374,26 @@ LC_RELEASE, LC_COMPACT, LC_REFILL_PATCHES = 32, 8, 2_000
 LC_TREE_DOCS, LC_TREE_COMPACT, LC_TREE_RELEASE = 64, 16, 8
 LC_MV_DOCS, LC_MV_EPOCHS, LC_MV_COMPACT, LC_MV_RELEASE = 64, 4, 16, 8
 LC_MAP_DOCS, LC_MAP_DISTINCT, LC_COUNTER_DOCS, LC_FOLD_EPOCHS = 32, 2, 1024, 2
+# the server phase (4n): (a) ResidentServer(text, SRV_DOCS) fed 4e's epochs,
+# SRV_SERIAL by ingest and the rest through pipeline(coalesce=SRV_COALESCE,
+# depth=SRV_DEPTH); (b) a durable server over SRV_DUR_DOCS loro_fleet docs
+# of SRV_DUR_ROUNDS rounds (capacity SRV_DUR_CAP), checkpointed after
+# SRV_DUR_CKPT rounds and closed after SRV_DUR_CLOSE, the rest fed to the
+# recovered server under an armed fault; (c) SRV_TIER_DOCS docs on
+# SRV_TIER_HOT hot slots, SRV_TIER_EPOCHS epochs a doc; (d) the other five
+# families at 4m's depths, SRV_FAM_ROUNDS rounds each; (e) two shards over
+# (b)'s rounds.  Cut to fit 4n's 75 s: (b)-(e) run 64-doc loro_fleet
+# histories (a host checkpoint folds every round into the mirror anchor,
+# ~40k ops/s a doc on the card's host: 4e's traces would take minutes)
+SRV_DOCS, SRV_SERIAL, SRV_COALESCE, SRV_DEPTH = RES_FLEET_DOCS, 2, 4, 2
+SRV_DUR_DOCS, SRV_DUR_ROUNDS, SRV_DUR_CKPT, SRV_DUR_CLOSE, SRV_DUR_CAP = 64, 8, 4, 6, 1024
+SRV_TIER_DOCS, SRV_TIER_HOT, SRV_TIER_EPOCHS = 256, 64, 3
+SRV_FAM_ROUNDS = 4
+# (d)'s docs a family: 4m's depths, halved for tree, movable and map and
+# cut from 1,024 to 256 for counter (4n's first call took 77.6 s of 75)
+SRV_FAM_DOCS = {"list": SRV_DUR_DOCS, "tree": 32, "movable": 32, "map": 16, "counter": 256}
 # phases `--phase` runs alone (after the build and the card tests)
-SELECTABLE = ("4f", "4g", "4h", "4i", "4j", "4k", "4l", "4m")
+SELECTABLE = ("4f", "4g", "4h", "4i", "4j", "4k", "4l", "4m", "4n")
 
 
 def check(cond: bool, what: str) -> None:
@@ -573,6 +610,7 @@ def resident_phase(torch, dev, kind: str, card: str, fleet_docs, fleet_want, fla
         out["texts_ms"] = (time.perf_counter() - t0) * 1e3
         out["texts_split_ms"] = batch.stage_ms()
         check(got == want, f"resident {label}: texts() != host oracle")
+        out["texts_sha256"] = _digest(got)
         c0 = batch._c_pad
         before = dict(list_rank.LAUNCHES)
         t0 = time.perf_counter()
@@ -966,15 +1004,15 @@ def map_counter_phase(torch, dev, kind: str, card: str) -> dict:
             native.explode_map_payload, fleet_mod.lww_update_resident = real_explode, real_update
             del b._device_fold, b.grow
         check(b.epoch == e0 + 1, "a round is one epoch")
-        n = MAP_DOCS * tracegen.MAP_SYNC_EVERY  # every epoch of a map trace holds MAP_SYNC_EVERY ops
+        n = MAP_RES_DOCS * tracegen.MAP_SYNC_EVERY  # every epoch of a map trace holds MAP_SYNC_EVERY ops
         return {"wall_ms": wall, "rows": n, "rows_per_s": n / (wall / 1e3), "grew": b.s != s0, "cap": b.s,
                 **{k + "_ms": v for k, v in acc.items()},
                 "staging_ms": wall - acc["explode"] - acc["fold"] - acc["grow"], "profiled": profiled, **prof}
 
-    mb = DeviceMapBatch(MAP_DOCS, MAP_RES_CAP, device=dev, auto_grow=True)
+    mb = DeviceMapBatch(MAP_RES_DOCS, MAP_RES_CAP, device=dev, auto_grow=True)
     rounds, restored, ckpt, reads = [], None, {}, {}
     for e in range(MAP_RES_ROUNDS):
-        pls = [eps[j % MAP_DISTINCT][e] for j in range(MAP_DOCS)]
+        pls = [eps[j % MAP_DISTINCT][e] for j in range(MAP_RES_DOCS)]
         rounds.append(timed_round(mb, pls, profiled=e + 1 == MAP_RES_ROUNDS))
         if restored is not None:
             restored.append_payloads(pls)
@@ -1005,15 +1043,15 @@ def map_counter_phase(torch, dev, kind: str, card: str) -> dict:
     del restored
     steady = [r_["rows_per_s"] for r_ in rounds if not r_["grew"]]
     out["map_resident"] = {
-        "docs": MAP_DOCS, "rounds": rounds, "cap": mb.s, "grew": grew, "value_maps_ms": reads,
+        "docs": MAP_RES_DOCS, "rounds": rounds, "cap": mb.s, "grew": grew, "value_maps_ms": reads,
         "median_rows_per_s": statistics.median(steady) if steady else None, "best_rows_per_s": max(steady, default=None),
         "checkpoint_round": ckpt, "final_export": {"bytes": len(blob), "export_ms": (t1 - t0) * 1e3},
         "winner_bytes": res_bytes, "peak_device_bytes": torch.cuda.max_memory_allocated(dev),
     }
     del mb, blob
     r = out["map_resident"]
-    print(f"resident map on {kind} ({card}): DeviceMapBatch [{MAP_DOCS}, {r['cap']}] ({res_bytes / 2**20:.1f} MiB of "
-          f"winners) from {MAP_RES_CAP} slots, {MAP_RES_ROUNDS} rounds of {MAP_DOCS} payloads x "
+    print(f"resident map on {kind} ({card}): DeviceMapBatch [{MAP_RES_DOCS}, {r['cap']}] ({res_bytes / 2**20:.1f} MiB of "
+          f"winners) from {MAP_RES_CAP} slots, {MAP_RES_ROUNDS} rounds of {MAP_RES_DOCS} payloads x "
           f"{tracegen.MAP_SYNC_EVERY} ops; rows/s median {(r['median_rows_per_s'] or 0) / 1e6:.3f}M, best "
           f"{(r['best_rows_per_s'] or 0) / 1e6:.3f}M; rounds (wall, explode, staging, fold (event span, host "
           f"included), grow ms): "
@@ -1909,7 +1947,7 @@ def movable_resident(torch, dev, kind: str, card: str, docs) -> dict:
     cid = tracegen.MOVABLE_CID
     nd = len(docs)
     eps = [tracegen.movable_epoch_payloads(d) for d in docs]
-    n_ep = max(map(len, eps))
+    n_ep = min(max(map(len, eps)), MV_RES_EPOCHS)
     mid = n_ep // 2
     # ops a round: an inserted element, a move, a set and a delete op one each
     ops_of = [[sum(op.atom_len() for ch in g for op in ch.ops) for g in d.epoch_changes()] for d in docs]
@@ -2278,7 +2316,7 @@ def host_engine_phase(torch, dev, kind: str, card: str, first_window=None) -> di
     get_text("text").insert / delete, the text held against a plain list
     replay of the patches, then its export_updates() payload merged by
     Fleet.merge_text_payloads as HE_TEXT_DOCS docs (bench.py's chunk).
-    (b) Concurrent import: the three flagship docs
+    (b) Concurrent import: the first HE_IMPORT_DOCS of the three flagship docs
     (tracegen.fleet_docs(2, HE_PATCHES)) imported from their payloads,
     each text equal to tracegen.oracle_text and to the card's
     merge_text_payloads; on the docs HE_ROUND_TRIPS, export_snapshot()
@@ -2379,7 +2417,7 @@ def host_engine_phase(torch, dev, kind: str, card: str, first_window=None) -> di
         fpay = [tracegen.trace_payload(d) for d in fdocs]
         dev_texts, card_ms = timed(lambda: fl.merge_text_payloads(fpay, tracegen.TEXT_CID).texts)
         rows = []
-        for i, (d, p) in enumerate(zip(fdocs, fpay)):
+        for i, (d, p) in enumerate(zip(fdocs[:HE_IMPORT_DOCS], fpay)):
             ld = LoroDoc(peer=(1 << 40) + i)
             _, imp_ms = timed(lambda: ld.import_(envelope(p)))
             t = ld.get_text(tracegen.TEXT_CID.name).to_string()
@@ -3432,6 +3470,511 @@ def lifecycle_phase(torch, dev, kind: str, card: str, fleet_docs=None, fleet_wan
     return out
 
 
+def _digest(texts) -> str:
+    """sha256 of a list of texts (a read compared across phases without
+    holding the texts)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in texts:
+        h.update(t.encode("utf-8", "surrogatepass") + b"\x00")
+    return h.hexdigest()
+
+
+def server_phase(torch, dev, kind: str, card: str, fleet_docs=None, fleet_want=None, digest4e=None,
+                 rounds4e=None) -> dict:
+    """Phase 4n, the resident server (parallel/server.py, pipeline.py,
+    residency.py, sharded.py and persist/) on the card.  (a) Full width:
+    ResidentServer("text", SRV_DOCS, capacity=RES_CAP) fed 4e's
+    RES_FLEET_EPOCHS epochs (`fleet_docs`, cycled): SRV_SERIAL rounds by
+    ingest, the rest through pipeline(coalesce=SRV_COALESCE,
+    depth=SRV_DEPTH), queued as a backlog (full groups); texts() equal to
+    4e's texts (`digest4e`, their sha256) and the oracle `fleet_want`, the
+    epochs increasing one a round, the futures resolved in order; rows/s,
+    each group's stage and commit walls and their overlap, its scatters
+    and tombstone launches, the journal's bytes, server.epoch_seconds and
+    the device-busy share (CUDA-event spans of the batch's device stages);
+    with `rounds4e` (4e's rounds of the same feed in this run, one dict a
+    round) the piped rounds' wall beside 4e's serial walls of the same
+    rounds.
+    (b) Durability at SRV_DUR_DOCS tracegen.loro_fleet docs: a durable
+    server (group fsync) fed SRV_DUR_CKPT epochs, checkpoint(),
+    SRV_DUR_CLOSE - SRV_DUR_CKPT more, close(); persist.recover_server on
+    the card (texts, epoch, durable_epoch equal; its solver read equal to
+    texts()); restore(checkpoint) to
+    the same checkpoint() bytes; an armed fault at server.ingest.text
+    under the phase's own supervisor degrades the recovered server, whose
+    reads equal an undegraded server's, and recover() puts it back.  (c)
+    Tiering: ResidentServer("text", SRV_TIER_DOCS, hot_slots=SRV_TIER_HOT)
+    fed rounds of SRV_TIER_HOT docs sliding over all of them (docs evict
+    and revive), texts equal to a plain server's.  (d) The other five
+    families through ResidentServer at SRV_FAM_DOCS docs: two rounds by ingest
+    and one ingest_coalesced group of two, reads equal to the same batch
+    class fed the same rounds directly (the list's solver read too).  (e) ShardedResidentServer("text",
+    SRV_DUR_DOCS, shards=2, devices=[dev, dev]) fed (b)'s rounds, one doc
+    migrated, texts equal to (b)'s.  Every list-rank and tree-replay
+    launch is captured and held against its plain version."""
+    import shutil
+    import tempfile
+    import threading
+
+    from loro_tpu_torch import tracegen
+    from loro_tpu_torch.obs import metrics as obs
+    from loro_tpu_torch.ops import list_rank
+    from loro_tpu_torch.ops import tree_batch as tb
+    from loro_tpu_torch.parallel import fleet as fleet_mod
+    from loro_tpu_torch.parallel.fleet import (DeviceCounterBatch, DeviceDocBatch, DeviceMapBatch,
+                                              DeviceMovableBatch, DeviceTreeBatch)
+    from loro_tpu_torch.parallel.server import ResidentServer
+    from loro_tpu_torch.parallel.sharded import ShardedResidentServer
+    from loro_tpu_torch.persist import recover_server
+    from loro_tpu_torch.resilience import DeviceSupervisor, faultinject, get_supervisor, set_supervisor
+
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    t_phase = time.perf_counter()
+    if fleet_docs is None:  # a phase run: 4d's text traces, generated (cached under build/tracegen)
+        fleet_docs = tracegen.fleet_docs(FLEET_DISTINCT - 1, n_patches=ELEMENT_PATCHES, seed=SEED)
+        fleet_want = [tracegen.oracle_text(d.extract) for d in fleet_docs]
+    distinct = len(fleet_docs)
+    eps = [tracegen.epoch_payloads(d) for d in fleet_docs]
+    check(all(len(e) == RES_FLEET_EPOCHS for e in eps), f"4n: the text traces have {RES_FLEET_EPOCHS} epochs")
+    lf = tracegen.loro_fleet(SEED + 18, SRV_DUR_DOCS, n_rounds=SRV_DUR_ROUNDS, max_edits=SUP_EDITS)
+    tdocs = [tracegen.tree_doc(SEED * 1000 + i, n_moves=TREE_MOVES, n_nodes=TREE_NODES) for i in range(TREE_DISTINCT)]
+    vdocs = [tracegen.movable_doc(SEED * 1000 + i) for i in range(MV_DISTINCT)]
+    mdocs = [tracegen.map_doc(SEED * 1000 + i, n_ops=MAP_OPS, n_keys=MAP_KEYS) for i in range(LC_MAP_DISTINCT)]
+    cdocs = [tracegen.counter_doc(SEED * 1000 + i, n_incr=COUNTER_INCR, n_counters=COUNTER_ITEMS)
+             for i in range(MAP_DISTINCT)]
+    out = {"max_abs_err": {}, "gen_s": time.perf_counter() - t_phase}
+    t_main = time.perf_counter()
+    list_rank.reset_launches()
+    tb.reset_launches()
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    text_cid = tracegen.TEXT_CID
+    # the block scatters and tombstone launches, with the thread that made
+    # each (the pipeline's stage thread must make none), and the batches'
+    # device-stage spans (CUDA events), counted where the batches make them
+    launches = []  # (kind, thread name, host time)
+    spans = []  # (a, b) CUDA events, or host ms on the CPU
+    busy_on = {"on": False}
+    real_scatter, real_set_deleted = fleet_mod._scatter_rows, fleet_mod._set_deleted
+    real_stage_cm = fleet_mod.StageClock.device_stage
+
+    def scatter(*a):
+        launches.append(("scatter", threading.current_thread().name, time.perf_counter()))
+        return real_scatter(*a)
+
+    def set_deleted(*a):
+        launches.append(("tombstone", threading.current_thread().name, time.perf_counter()))
+        return real_set_deleted(*a)
+
+    @contextmanager
+    def device_stage(self, name):
+        if not busy_on["on"]:
+            with real_stage_cm(self, name):
+                yield
+            return
+        if on_card:
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            try:
+                with real_stage_cm(self, name):
+                    yield
+            finally:
+                b.record()
+                spans.append((a, b))
+        else:
+            t0 = time.perf_counter()
+            try:
+                with real_stage_cm(self, name):
+                    yield
+            finally:
+                spans.append((time.perf_counter() - t0) * 1e3)
+
+    def busy_ms() -> float:
+        sync()
+        total = sum(s if isinstance(s, float) else s[0].elapsed_time(s[1]) for s in spans)
+        spans.clear()
+        return total
+
+    def count(kind_: str, since: int) -> int:
+        return sum(1 for k, _, _ in launches[since:] if k == kind_)
+
+    def reads_of(srv_or_batch, family: str):
+        if family == "tree":
+            return srv_or_batch.parent_maps(), srv_or_batch.children_maps()
+        if family == "movable":
+            return srv_or_batch.value_lists()
+        if family == "map":
+            return srv_or_batch.value_maps(), srv_or_batch.root_value_maps(tracegen.MAP_CID.name)
+        if family == "counter":
+            return srv_or_batch.value_maps()
+        if family == "list":
+            return srv_or_batch.values()
+        return srv_or_batch.texts()
+
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="server4n-", dir=str(build))
+    fleet_mod._scatter_rows, fleet_mod._set_deleted = scatter, set_deleted
+    fleet_mod.StageClock.device_stage = device_stage
+    try:
+        with captured_launches(list_rank, tb) as cap:
+            # (a) full width: 4e's feed through the server, serial then piped
+            t_a = time.perf_counter()
+            want_a = [fleet_want[j % distinct] for j in range(SRV_DOCS)]
+            rounds_a = [[eps[j % distinct][e] for j in range(SRV_DOCS)] for e in range(RES_FLEET_EPOCHS)]
+            h_epoch = obs.histogram("server.epoch_seconds", "ingest wall time per sync round")
+            h0 = h_epoch.summary()
+            srv = ResidentServer("text", SRV_DOCS, device=dev, capacity=RES_CAP)
+            serial = []
+            busy_on["on"] = True
+            for r in rounds_a[:SRV_SERIAL]:
+                rows0, n0 = int(srv.batch.counts.sum()), len(launches)
+                t0 = time.perf_counter()
+                e = srv.ingest(r, text_cid)
+                wall = (time.perf_counter() - t0) * 1e3
+                rows = int(srv.batch.counts.sum()) - rows0
+                serial.append({"epoch": e, "rows": rows, "wall_ms": wall, "rows_per_s": rows / (wall / 1e3),
+                               "scatters": count("scatter", n0), "tombstones": count("tombstone", n0),
+                               "device_stage_ms": busy_ms()})
+            auto_ckpt = len(srv.last_checkpoint or b"")
+            groups = []  # one entry a staged or committed group
+            real_istage, real_icommit = srv.ingest_stage, srv.ingest_commit
+
+            def ingest_stage(rounds, cid=None):
+                t0 = time.perf_counter()
+                h = real_istage(rounds, cid)
+                groups.append({"part": "stage", "t0": t0, "t1": time.perf_counter(), "rounds": len(rounds),
+                               "thread": threading.current_thread().name})
+                return h
+
+            def ingest_commit(h):
+                t0, n0 = time.perf_counter(), len(launches)
+                r = real_icommit(h)
+                groups.append({"part": "commit", "t0": t0, "t1": time.perf_counter(), "rounds": len(r),
+                               "scatters": count("scatter", n0), "tombstones": count("tombstone", n0),
+                               "thread": threading.current_thread().name})
+                return r
+
+            srv.ingest_stage, srv.ingest_commit = ingest_stage, ingest_commit
+            rows0, n0 = int(srv.batch.counts.sum()), len(launches)
+            t0 = time.perf_counter()
+            ex = srv.pipeline(cid=text_cid, coalesce=SRV_COALESCE, depth=SRV_DEPTH)
+            # a backlog: the rounds are queued before the stage thread takes
+            # its first group, so they form full groups of SRV_COALESCE
+            gate, real_run = threading.Event(), ex._stage_run
+            ex._stage_run = lambda: (gate.wait(), real_run())
+            futs = [ex.submit(r) for r in rounds_a[SRV_SERIAL:]]
+            gate.set()
+            ex.flush()
+            piped_wall = (time.perf_counter() - t0) * 1e3
+            piped_busy = busy_ms()
+            busy_on["on"] = False
+            piped_rows = int(srv.batch.counts.sum()) - rows0
+            rep = ex.report()
+            ex.close()
+            srv.ingest_stage, srv.ingest_commit = real_istage, real_icommit
+            epochs = [s["epoch"] for s in serial] + [f.epoch() for f in futs]
+            check(epochs == sorted(set(epochs)) and all(f.done for f in futs),
+                  f"4n (a): epochs {epochs} not strictly increasing in submit order")
+            check(epochs[-1] == srv.epoch, f"4n (a): the last round's epoch {epochs[-1]} != the server's {srv.epoch}")
+            stage_threads = {th for k, th, _ in launches[n0:]}
+            check(stage_threads <= {"loro-pipeline-commit"},
+                  f"4n (a): block scatters or tombstone launches on threads {stage_threads}")
+            stages = [g for g in groups if g["part"] == "stage"]
+            commits = [g for g in groups if g["part"] == "commit"]
+            check(len(stages) == len(commits) == -(-len(futs) // SRV_COALESCE)
+                  and sum(g["rounds"] for g in commits) == len(futs),
+                  f"4n (a): {len(stages)} staged groups, {len(commits)} commits of {len(futs)} rounds")
+            per_group = []
+            for i, (s, c) in enumerate(zip(stages, commits)):
+                nxt = stages[i + 1] if i + 1 < len(stages) else None
+                overlap = max(0.0, min(c["t1"], nxt["t1"]) - max(c["t0"], nxt["t0"])) if nxt else 0.0
+                per_group.append({"rounds": c["rounds"], "stage_ms": (s["t1"] - s["t0"]) * 1e3,
+                                  "commit_ms": (c["t1"] - c["t0"]) * 1e3,
+                                  "wall_ms": (c["t1"] - s["t0"]) * 1e3,
+                                  "overlap_with_next_stage_ms": overlap * 1e3,
+                                  "scatters": c["scatters"], "tombstones": c["tombstones"]})
+            check(srv.batch.cap == 2 * RES_CAP, f"4n (a): the batch's capacity {srv.batch.cap}, not {2 * RES_CAP}")
+            t0 = time.perf_counter()
+            got = srv.texts()
+            texts_ms = (time.perf_counter() - t0) * 1e3
+            dg = _digest(got)
+            check(got == want_a, "4n (a): texts() != the oracle")
+            if digest4e is not None:
+                check(dg == digest4e, "4n (a): texts() != 4e's texts")
+            journal_bytes = sum(len(u) for _e, ups, _c in srv._history for u in ups if u is not None)
+            h1 = h_epoch.summary()
+            serial_rows = sum(s["rows"] for s in serial)
+            serial_ms = sum(s["wall_ms"] for s in serial)
+            out["a"] = {
+                "docs": SRV_DOCS, "epochs": epochs, "cap": srv.batch.cap, "rows": int(srv.batch.counts.sum()),
+                "auto_checkpoint_bytes": auto_ckpt, "serial": serial,
+                "serial_rows_per_s": serial_rows / (serial_ms / 1e3),
+                "piped_rounds": len(futs), "piped_rows": piped_rows, "piped_wall_ms": piped_wall,
+                "piped_rows_per_s": piped_rows / (piped_wall / 1e3), "groups": per_group, "pipeline": rep,
+                "piped_device_stage_ms": piped_busy, "piped_device_busy_share": piped_busy / piped_wall,
+                "journal_bytes": journal_bytes, "journal_rounds": len(srv._history),
+                "epoch_seconds": {"count": h1["count"] - h0["count"], "sum": h1["sum"] - h0["sum"]},
+                "texts_ms": texts_ms, "texts_sha256": dg, "matches_4e": digest4e is not None,
+                "seconds": time.perf_counter() - t_a,
+            }
+            a = out["a"]
+            if rounds4e is not None:
+                late = rounds4e[SRV_SERIAL:]
+                a["serial4e_same_rounds_ms"] = sum(r_["wall_ms"] for r_ in late)
+                a["serial4e_same_rounds_rows_per_s"] = sum(r_["rows"] for r_ in late) / (
+                    a["serial4e_same_rounds_ms"] / 1e3)
+            print(f"server (a) on {kind} ({card}): ResidentServer(text, {SRV_DOCS}, capacity {RES_CAP}) fed 4e's "
+                  f"{RES_FLEET_EPOCHS} epochs ({a['rows']} rows, grew to {a['cap']}): {SRV_SERIAL} rounds by ingest "
+                  f"{serial_rows / (serial_ms / 1e3) / 1e6:.3f}M rows/s ("
+                  + ", ".join(f"{s['wall_ms']:.1f} ms, {s['scatters']} scatter, {s['tombstones']} tombstone, device "
+                              f"stages {s['device_stage_ms']:.2f} ms" for s in serial)
+                  + f"); {len(futs)} by pipeline(coalesce={SRV_COALESCE}, depth={SRV_DEPTH}) in {piped_wall:.1f} ms = "
+                  f"{a['piped_rows_per_s'] / 1e6:.3f}M rows/s"
+                  + (f" (4e fed the same {len(futs)} rounds serially in {a['serial4e_same_rounds_ms']:.1f} ms = "
+                     f"{a['serial4e_same_rounds_rows_per_s'] / 1e6:.3f}M rows/s, its last round under the profiler)"
+                     if rounds4e is not None else "") + ", groups: "
+                  + "; ".join(f"{g['rounds']} rounds, stage {g['stage_ms']:.1f} ms, commit {g['commit_ms']:.1f} ms "
+                              f"({g['scatters']} scatters, {g['tombstones']} tombstone launches), wall "
+                              f"{g['wall_ms']:.1f} ms, overlap with the next stage {g['overlap_with_next_stage_ms']:.1f} "
+                              "ms" for g in per_group)
+                  + f"; pipeline report stage {rep['stage_s']} s, commit {rep['commit_s']} s, overlap "
+                  f"{rep['overlap_s']} s ({rep['overlap_fraction']}); device stages {piped_busy:.2f} ms = "
+                  f"{100 * a['piped_device_busy_share']:.3f} % of the piped wall; epochs {epochs}; journal "
+                  f"{journal_bytes} B in {len(srv._history)} rounds; server.epoch_seconds count "
+                  f"{a['epoch_seconds']['count']} sum {a['epoch_seconds']['sum']:.3f} s; texts() {texts_ms:.1f} ms == "
+                  f"oracle{' == 4e' if digest4e is not None else ''} (sha256 {dg[:12]}); (a) {a['seconds']:.1f} s",
+                  flush=True)
+            del srv, got, rounds_a
+            if on_card:
+                torch.cuda.empty_cache()
+
+            # (b) durability at SRV_DUR_DOCS docs: journal, checkpoint, close, recovery, restore, degradation
+            t_b = time.perf_counter()
+            rounds_b = [[d.epochs[e] for d in lf] for e in range(SRV_DUR_ROUNDS)]
+            dur_dir = os.path.join(tmp, "durable")
+            srv = ResidentServer("text", SRV_DUR_DOCS, device=dev, capacity=SRV_DUR_CAP, durable_dir=dur_dir,
+                                 durable_fsync="group")
+            jms = []
+            real_record = srv._record_round
+
+            def record(updates, cid, epoch=None):
+                t0 = time.perf_counter()
+                real_record(updates, cid, epoch)
+                jms.append((time.perf_counter() - t0) * 1e3)
+
+            srv._record_round = record
+            for r in rounds_b[:SRV_DUR_CKPT]:
+                srv.ingest(r, text_cid)
+            t0 = time.perf_counter()
+            blob = srv.checkpoint()
+            ckpt_ms = (time.perf_counter() - t0) * 1e3
+            for r in rounds_b[SRV_DUR_CKPT:SRV_DUR_CLOSE]:
+                srv.ingest(r, text_cid)
+            t0 = time.perf_counter()
+            srv.close()
+            close_ms = (time.perf_counter() - t0) * 1e3
+            live = (srv.texts(), srv.epoch, srv.durable_epoch)
+            check(live[2] == live[1], f"4n (b): durable_epoch {live[2]} != epoch {live[1]} after close()")
+            t0 = time.perf_counter()
+            rec = recover_server(dur_dir, device=dev)
+            recover_ms = (time.perf_counter() - t0) * 1e3
+            check((rec.texts(), rec.epoch, rec.durable_epoch) == live, "4n (b): recover_server's texts, epoch, "
+                  "durable_epoch != the closed server's")
+            check(rec.batch.device == dev, f"4n (b): recovered onto {rec.batch.device}")
+            check(rec.batch.texts(use_solver=True) == live[0], "4n (b): the recovered server's solver != texts()")
+            t0 = time.perf_counter()
+            back = ResidentServer.restore(blob, device=dev)
+            restore_ms = (time.perf_counter() - t0) * 1e3
+            check(back.checkpoint() == blob, "4n (b): restore(checkpoint).checkpoint() != the checkpoint's bytes")
+            del back
+            # the oracle: a plain server fed every round
+            ref = ResidentServer("text", SRV_DUR_DOCS, device=dev, capacity=SRV_DUR_CAP)
+            for r in rounds_b:
+                ref.ingest(r, text_cid)
+            sup0 = get_supervisor()
+            own = DeviceSupervisor(sleep=lambda s: None)
+            set_supervisor(own)
+            try:
+                faultinject.inject("launch", exc=OSError("armed device loss (4n)"), times=1)
+                t0 = time.perf_counter()
+                rec.ingest(rounds_b[SRV_DUR_CLOSE], text_cid)
+                degrade_ms = (time.perf_counter() - t0) * 1e3
+                check(rec.degraded and own.report()["degradations"] == 1,
+                      f"4n (b): the armed fault did not degrade the server ({own.report()})")
+                t0 = time.perf_counter()
+                for r in rounds_b[SRV_DUR_CLOSE + 1:]:
+                    rec.ingest(r, text_cid)
+                degraded_round_ms = (time.perf_counter() - t0) * 1e3 / max(1, SRV_DUR_ROUNDS - SRV_DUR_CLOSE - 1)
+                check(rec.texts() == ref.texts(), "4n (b): the degraded server's texts != an undegraded server's")
+                t0 = time.perf_counter()
+                check(rec.recover(), "4n (b): recover() failed")
+                recover_dev_ms = (time.perf_counter() - t0) * 1e3
+                check(not rec.degraded and rec.texts() == ref.texts(), "4n (b): after recover(), texts != oracle")
+                check(rec.batch.device == dev, f"4n (b): recover() rebuilt the batch on {rec.batch.device}")
+            finally:
+                faultinject.clear()
+                set_supervisor(sup0)
+            rec.close()
+            out["b"] = {"docs": SRV_DUR_DOCS, "rounds": SRV_DUR_ROUNDS, "journal_ms": jms, "checkpoint_ms": ckpt_ms,
+                        "checkpoint_bytes": len(blob), "close_ms": close_ms, "recover_server_ms": recover_ms,
+                        "rounds_replayed": rec.last_recovery.rounds_replayed, "restore_ms": restore_ms,
+                        "armed_degrade_round_ms": degrade_ms, "degraded_round_ms": degraded_round_ms,
+                        "recover_ms": recover_dev_ms, "epoch": live[1], "seconds": time.perf_counter() - t_b}
+            b = out["b"]
+            print(f"server (b) on {kind} ({card}): durable ResidentServer(text, {SRV_DUR_DOCS}) over loro_fleet docs, "
+                  f"group fsync: journal {statistics.median(jms):.3f} ms a round (median of {len(jms)}); checkpoint "
+                  f"after {SRV_DUR_CKPT} rounds {ckpt_ms:.1f} ms ({len(blob)} B); close {close_ms:.1f} ms at epoch "
+                  f"{live[1]}; recover_server {recover_ms:.1f} ms ({b['rounds_replayed']} rounds replayed): texts, "
+                  f"epoch, durable_epoch equal; restore {restore_ms:.1f} ms, checkpoint() bytes equal; armed fault: "
+                  f"degraded round {degrade_ms:.1f} ms, then {degraded_round_ms:.1f} ms a round on the host mirror, "
+                  f"texts == an undegraded server's; recover() {recover_dev_ms:.1f} ms, texts equal; (b) "
+                  f"{b['seconds']:.1f} s", flush=True)
+            texts_b = ref.texts()
+
+            # (c) tiering: a hot set of SRV_TIER_HOT slots over SRV_TIER_DOCS docs
+            t_c = time.perf_counter()
+            tier = ResidentServer("text", SRV_TIER_DOCS, device=dev, capacity=SRV_DUR_CAP, hot_slots=SRV_TIER_HOT)
+            plain = ResidentServer("text", SRV_TIER_DOCS, device=dev, capacity=SRV_DUR_CAP)
+            nxt = [0] * SRV_TIER_DOCS
+            n_rounds_c = SRV_TIER_EPOCHS * SRV_TIER_DOCS // SRV_TIER_HOT
+            check(SRV_TIER_EPOCHS <= SRV_DUR_ROUNDS, "4n (c): epochs a doc")
+            tier_ms = 0.0
+            for r in range(n_rounds_c):
+                # a window of SRV_TIER_HOT docs sliding by half of it: a doc is
+                # touched in two rounds running (a miss, then a hit)
+                lo = (r * SRV_TIER_HOT // 2) % SRV_TIER_DOCS
+                ups = [None] * SRV_TIER_DOCS
+                for j in (i % SRV_TIER_DOCS for i in range(lo, lo + SRV_TIER_HOT)):
+                    ups[j] = lf[j % SRV_DUR_DOCS].epochs[nxt[j]]
+                    nxt[j] += 1
+                t0 = time.perf_counter()
+                tier.ingest(ups, text_cid)
+                tier_ms += (time.perf_counter() - t0) * 1e3
+                plain.ingest(ups, text_cid)
+            check(tier.texts() == plain.texts(), "4n (c): the tiered server's texts != a plain server's")
+            res_rep = tier.residency.report()
+            check(res_rep["evictions"] > 0 and res_rep["promotions"] > SRV_TIER_HOT,
+                  f"4n (c): no eviction and revive: {res_rep}")
+            out["c"] = {"docs": SRV_TIER_DOCS, "hot_slots": SRV_TIER_HOT, "rounds": n_rounds_c,
+                        "tiered_ingest_ms": tier_ms, "residency": res_rep, "seconds": time.perf_counter() - t_c}
+            print(f"server (c) on {kind} ({card}): ResidentServer(text, {SRV_TIER_DOCS}, hot_slots={SRV_TIER_HOT}) "
+                  f"{n_rounds_c} rounds of {SRV_TIER_HOT} docs sliding by {SRV_TIER_HOT // 2} over all: ingest {tier_ms:.1f} ms, texts == a "
+                  f"plain server's; residency.report() {json.dumps(res_rep)}; (c) {out['c']['seconds']:.1f} s",
+                  flush=True)
+            del tier, plain
+
+            # (d) the other five families through ResidentServer, against the batches fed directly
+            t_d = time.perf_counter()
+            teps = [tracegen.tree_epoch_payloads(d) for d in tdocs]
+            veps = [tracegen.movable_epoch_payloads(d) for d in vdocs]
+            meps = [tracegen.map_epoch_payloads(d) for d in mdocs]
+            ceps = [d.epoch_changes() for d in cdocs]
+            fams = {
+                "list": (tracegen.LIST_CID, SRV_FAM_DOCS["list"], dict(capacity=SRV_DUR_CAP),
+                         lambda n: DeviceDocBatch(n, SRV_DUR_CAP, device=dev, as_text=False, auto_grow=True),
+                         lambda e, n: [lf[j % len(lf)].epochs[e] for j in range(n)]),
+                "tree": (tracegen.TREE_CID, SRV_FAM_DOCS["tree"], dict(move_capacity=TREE_RES_CAP, node_capacity=TREE_RES_NODES),
+                         lambda n: DeviceTreeBatch(n, TREE_RES_CAP, TREE_RES_NODES, device=dev, auto_grow=True),
+                         lambda e, n: [teps[j % len(teps)][e] for j in range(n)]),
+                "movable": (tracegen.MOVABLE_CID, SRV_FAM_DOCS["movable"], dict(capacity=MV_RES_CAP, elem_capacity=MV_RES_ELEMS),
+                            lambda n: DeviceMovableBatch(n, MV_RES_CAP, MV_RES_ELEMS, device=dev, auto_grow=True),
+                            lambda e, n: [veps[j % len(veps)][e] for j in range(n)]),
+                "map": (None, SRV_FAM_DOCS["map"], dict(slot_capacity=MAP_RES_CAP),
+                        lambda n: DeviceMapBatch(n, MAP_RES_CAP, device=dev, auto_grow=True),
+                        lambda e, n: [meps[j % len(meps)][e] for j in range(n)]),
+                "counter": (None, SRV_FAM_DOCS["counter"], dict(slot_capacity=COUNTER_CAP),
+                            lambda n: DeviceCounterBatch(n, COUNTER_CAP, device=dev, auto_grow=True),
+                            lambda e, n: [ceps[j % len(ceps)][e] for j in range(n)]),
+            }
+            out["d"] = {}
+            for fam, (cid, n_docs, caps, mk, rnd) in fams.items():
+                t0 = time.perf_counter()
+                rounds_d = [rnd(e, n_docs) for e in range(SRV_FAM_ROUNDS)]
+                fsrv = ResidentServer(fam, n_docs, device=dev, **caps)
+                n0 = len(launches)
+                for r in rounds_d[:2]:
+                    fsrv.ingest(r, cid)
+                group = fsrv.ingest_coalesced(rounds_d[2:], cid)
+                direct = mk(n_docs)
+                for r in rounds_d:
+                    if fam in ("map", "counter"):
+                        (direct.append_changes if fam == "counter" else direct.append_payloads)(r)
+                    else:
+                        direct.append_payloads(r, cid)
+                check(reads_of(fsrv, fam) == reads_of(direct, fam), f"4n (d): {fam} server reads != the batch's")
+                if fam == "list":
+                    check(fsrv.batch.values(use_solver=True) == fsrv.values(), "4n (d): the list solver != values()")
+                check(fsrv.epoch == direct.epoch and group[-1] == fsrv.epoch,
+                      f"4n (d): {fam} epochs {group} vs the batch's {direct.epoch}")
+                out["d"][fam] = {"docs": n_docs, "rounds": SRV_FAM_ROUNDS, "group_epochs": group,
+                                 "scatters": count("scatter", n0), "tombstones": count("tombstone", n0),
+                                 "ms": (time.perf_counter() - t0) * 1e3}
+                del fsrv, direct
+            print(f"server (d) on {kind} ({card}): ResidentServer over the other five families, 2 rounds by ingest "
+                  f"and one ingest_coalesced group of {SRV_FAM_ROUNDS - 2}, reads == the batch fed directly: "
+                  + "; ".join(f"{k} [{v['docs']}] {v['ms']:.1f} ms (epochs {v['group_epochs']})"
+                              for k, v in out["d"].items())
+                  + f"; (d) {time.perf_counter() - t_d:.1f} s", flush=True)
+
+            # (e) two shards on one card over (b)'s rounds, one doc migrated
+            t_e = time.perf_counter()
+            sh = ShardedResidentServer("text", SRV_DUR_DOCS, shards=2, devices=[dev, dev], capacity=SRV_DUR_CAP)
+            check(all(s.batch.device == dev for s in sh.shards), "4n (e): a shard's batch is not on the card")
+            for r in rounds_b[:SRV_DUR_CKPT]:
+                sh.ingest(r, text_cid)
+            src = sh.placement.place(0)[0]
+            t0 = time.perf_counter()
+            sh.migrate(0, 1 - src)
+            migrate_ms = (time.perf_counter() - t0) * 1e3
+            check(sh.placement.place(0)[0] == 1 - src, "4n (e): doc 0 did not move")
+            ex = sh.pipeline(cid=text_cid, coalesce=2)
+            futs = [ex.submit(r) for r in rounds_b[SRV_DUR_CKPT:]]
+            g_eps = [f.epoch() for f in futs]
+            ex.close()
+            check(g_eps == list(range(SRV_DUR_CKPT + 2, SRV_DUR_ROUNDS + 2)),
+                  f"4n (e): global epochs {g_eps} (one a round, one for the migration)")
+            check(sh.texts() == texts_b, "4n (e): the sharded server's texts != (b)'s server's")
+            out["e"] = {"docs": SRV_DUR_DOCS, "shards": 2, "migrate_ms": migrate_ms, "global_epochs": g_eps,
+                        "seconds": time.perf_counter() - t_e}
+            print(f"server (e) on {kind} ({card}): ShardedResidentServer(text, {SRV_DUR_DOCS}, shards=2, devices=[dev, "
+                  f"dev]): {SRV_DUR_CKPT} rounds, migrate(doc 0, shard {src} -> {1 - src}) {migrate_ms:.1f} ms, "
+                  f"{len(futs)} rounds through the per-shard pipelines (global epochs {g_eps}); texts == (b)'s "
+                  f"server's; (e) {out['e']['seconds']:.1f} s", flush=True)
+            sh.close()
+            del sh, ref, rec
+    finally:
+        fleet_mod._scatter_rows, fleet_mod._set_deleted = real_scatter, real_set_deleted
+        fleet_mod.StageClock.device_stage = real_stage_cm
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["main_s"] = time.perf_counter() - t_main
+    out["launches"] = {**{k: v for k, v in list_rank.LAUNCHES.items() if v},
+                       **{f"tree_replay/{k}": v for k, v in tb.LAUNCHES.items() if v}}
+    if on_card:
+        check(sum(list_rank.LAUNCHES.values()) > 0 and sum(tb.LAUNCHES.values()) > 0,
+              f"phase 4n launched list rank {list_rank.LAUNCHES} and tree replay {tb.LAUNCHES}")
+        check(len(cap.seen) == sum(list_rank.LAUNCHES.values()) + sum(tb.LAUNCHES.values()),
+              f"4n captured {len(cap.seen)} launches, counted {out['launches']}")
+        out["peak_device_bytes"] = torch.cuda.max_memory_allocated(dev)
+    t0 = time.perf_counter()
+    out["kernel_checks"] = check_captured(torch, list_rank, tb, cap.seen, out["max_abs_err"], phase="4n")
+    out["kernel_check_s"] = time.perf_counter() - t0
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 4n: {out['seconds']:.1f} s (traces {out['gen_s']:.1f} s, main path {out['main_s']:.1f} s, kernel "
+          f"checks {out['kernel_check_s']:.1f} s); main-path launches {out['launches']}; {len(cap.seen)} launches held "
+          f"against their plain versions, max abs err {out['max_abs_err']}; peak device memory "
+          f"{out.get('peak_device_bytes', 0) / 2**30:.2f} GiB", flush=True)
+    return out
+
+
 def resident_rounds(torch, dev, cls, docs, eps, n_docs: int, cap: int, node_cap: int, n_rounds: int,
                     profile_round=None) -> dict:
     """A DeviceTreeBatch(n_docs, cap, node_cap, auto_grow=True) fed one sync
@@ -3558,9 +4101,14 @@ class SupervisorWatch:
 
         self.sup = get_supervisor()
         self.base = self.sup.report()
+        self.t = time.perf_counter()
 
     def after(self, phase: str) -> None:
         from loro_tpu_torch.resilience import get_supervisor
+
+        now = time.perf_counter()
+        print(f"phase {phase} done: {now - self.t:.1f} s since the last check", flush=True)
+        self.t = now
 
         check(get_supervisor() is self.sup, f"phase {phase} left another process supervisor installed")
         rep = self.sup.report()
@@ -3638,7 +4186,7 @@ def main(argv=None) -> int:
         watch = SupervisorWatch()
         phase_fns = {"4f": map_counter_phase, "4g": tree_phase, "4h": richtext_phase, "4i": movable_phase,
                      "4j": read_plane_phase, "4k": host_engine_phase, "4l": supervision_phase,
-                     "4m": lifecycle_phase}
+                     "4m": lifecycle_phase, "4n": server_phase}
         results = {}
         first_window = {}  # 4j's first window, framed by 4k when both run (4j first)
         extra = {"4j": {"first": first_window}, "4k": {"first_window": first_window}}
@@ -4385,6 +4933,17 @@ def main(argv=None) -> int:
             max_err[name] = max(max_err[name], err)
     watch.after("4m")
 
+    # ---- 4n. the resident server: full width through ingest and the
+    # pipeline, durability and recovery, tiering, the other families,
+    # two shards on the card (list-rank and tree-replay launches counted,
+    # each held against its plain version)
+    server4n = server_phase(torch, dev, kind, card, fdocs[ELEMENT_N], fleet_texts[ELEMENT_N],
+                            resident4e["fleet"]["texts_sha256"], resident4e["fleet"]["rounds"])
+    for name, err in server4n["max_abs_err"].items():
+        if name in max_err:
+            max_err[name] = max(max_err[name], err)
+    watch.after("4n")
+
     # ---- 5. timings -------------------------------------------------------
     # each kernel at its main-path shape: the flagship chain rings for the
     # packed kernels, the element rings for the wide kernel
@@ -4582,6 +5141,7 @@ def main(argv=None) -> int:
         "sweep": sweep, "sweep_graph": sweep_graph, "ingest": ingest, "fleet": fleet, "resident": resident4e,
         "map_counter": map_counter4f, "tree": tree4g, "richtext": richtext4h, "movable": movable4i,
         "read_plane": read4j, "host_engine": host4k, "supervision": sup4l, "lifecycle": life4m,
+        "server": server4n,
         "total_s": time.perf_counter() - t_start,
     }))
     # launches in the fleet phase's checked one-shot calls, one a call
@@ -4602,6 +5162,7 @@ def main(argv=None) -> int:
             "launches_host_engine": sum(v for k, v in host4k["launches"].items() if k.split("/")[0] == name),
             "launches_supervision": sum(v for k, v in sup4l["launches"].items() if k.split("/")[0] == name),
             "launches_lifecycle": sum(v for k, v in life4m["launches"].items() if k.split("/")[0] == name),
+            "launches_server": sum(v for k, v in server4n["launches"].items() if k.split("/")[0] == name),
             "max_abs_err": max_err[name],
             "ms": res[f"{name}_graph_ms"],
             "eager_ms": res[f"{name}_ms"],
@@ -4622,8 +5183,10 @@ def main(argv=None) -> int:
         "launches_host_engine": sum(v for k, v in host4k["launches"].items() if k.startswith("tree_replay/")),
         "launches_supervision": sum(v for k, v in sup4l["launches"].items() if k.startswith("tree_replay/")),
         "launches_lifecycle": sum(v for k, v in life4m["launches"].items() if k.startswith("tree_replay/")),
+        "launches_server": sum(v for k, v in server4n["launches"].items() if k.startswith("tree_replay/")),
         "max_abs_err": max(tk["max_abs_err"], host4k["max_abs_err"].get("tree_replay", 0),
-                           sup4l["max_abs_err"].get("tree_replay", 0), life4m["max_abs_err"].get("tree_replay", 0)),
+                           sup4l["max_abs_err"].get("tree_replay", 0), life4m["max_abs_err"].get("tree_replay", 0),
+                           server4n["max_abs_err"].get("tree_replay", 0)),
         "ms": tk["ms"],
         "eager_ms": tk["eager_ms"],
         "plain_ms": tk["plain_ms"],

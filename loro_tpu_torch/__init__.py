@@ -67,6 +67,25 @@ merges, their resident batches and the read plane:
     ops.richtext_batch, ops.movable_batch
                       the rich-text and MovableList merges
     ops.export_batch  the read plane's batched export selection
+    parallel.server   ResidentServer: the serving entry point over one
+                      resident batch (ingest, poison isolation,
+                      coalesced and staged rounds, the round journal,
+                      acks and compaction floors, checkpoint / restore,
+                      armed-fault degradation and recover(), reads)
+    parallel.pipeline PipelinedIngest: a stage and a commit thread over a
+                      server, coalesced groups, bounded depth
+    parallel.residency
+                      TieredBatch, ResidencyManager and
+                      TieredResidentServer (hot_slots=): a device hot
+                      set over host-warm and disk-cold docs
+    parallel.placement, parallel.mesh, parallel.sharded
+                      rendezvous placement; device lists;
+                      ShardedResidentServer over a device list,
+                      ShardedPipeline, migrate, recover_sharded_server
+    persist           the segmented WAL, the checkpoint ladder, the
+                      mirror anchor, recover_server / open_server and
+                      ``python -m loro_tpu_torch.persist.inspect <dir>``
+    obs.heat          per-doc and per-shard decayed heat
     entry             entry(): the element merge of an example batch
     tracegen          seeded traces (automerge-perf-shaped text, map,
                       counter, tree, rich-text and movable histories,
@@ -84,7 +103,8 @@ from .cursor import AbsolutePosition, Cursor, CursorSide, get_cursor, get_cursor
 from .device import resolve_device
 from .doc import EncodeMode, ExportMode, ImportStatus, LoroDoc
 from .errors import (BackendUnavailable, ConfigError, DeadlineExceeded, DecodeError, DeviceFailure,
-                     DeviceUnavailable, KernelBuildError, KernelLaunchError, LoroError, ResilienceError)
+                     DeviceUnavailable, KernelBuildError, KernelLaunchError, LoroError, PersistError,
+                     ResidencyError, ResilienceError, ShardingError)
 from .event import (
     ContainerDiff,
     CounterDiff,
@@ -112,6 +132,12 @@ from . import resilience
 from .awareness import Awareness, EphemeralStore
 from .resilience import DeviceSupervisor, get_supervisor, set_supervisor
 from .undo import UndoManager
+from . import persist
+from .parallel.pipeline import PipelinedIngest
+from .parallel.residency import TieredResidentServer
+from .parallel.server import ResidentServer
+from .parallel.sharded import ShardedResidentServer
+from .persist import open_server, recover_server, recover_sharded_server
 
 __all__ = [
     "resolve_device",
@@ -127,6 +153,17 @@ __all__ = [
     "get_supervisor",
     "set_supervisor",
     "resilience",
+    "persist",
+    "PersistError",
+    "ResidencyError",
+    "ShardingError",
+    "ResidentServer",
+    "TieredResidentServer",
+    "ShardedResidentServer",
+    "PipelinedIngest",
+    "recover_server",
+    "open_server",
+    "recover_sharded_server",
     "LoroDoc",
     "LoroError",
     "DecodeError",

@@ -142,6 +142,11 @@ class Reader:
         self.i += 8
         return v
 
+    def u32le(self) -> int:
+        v = struct.unpack_from("<I", self.buf, self.i)[0]
+        self.i += 4
+        return v
+
     def f64(self) -> float:
         v = struct.unpack_from("<d", self.buf, self.i)[0]
         self.i += 8

@@ -39,6 +39,48 @@ class DeviceUnavailable(LoroError, RuntimeError):
     want the CPU pass ``device="cpu"``."""
 
 
+class PersistError(LoroError):
+    """Durability-layer failure (loro_tpu/persist/): a WAL append or
+    checkpoint write did not reach disk, or a durable directory is in a
+    state the requested operation cannot honor (e.g. opening an
+    existing log as a fresh server).  Corrupt *reads* raise DecodeError
+    subclasses instead — this type is for the write/lifecycle side."""
+
+
+class ShardingError(LoroError):
+    """Sharded-fleet lifecycle misuse (loro_tpu/parallel/sharded.py,
+    docs/SHARDING.md): migrating to a shard with no free slot, moving a
+    doc on/off a degraded shard, a shard manifest that does not match
+    the durable directories under it.  Invalid shard-count *knob*
+    values (LORO_SHARDS, divisibility) raise ConfigError instead."""
+
+
+class ResidencyError(LoroError):
+    """Tiered-residency lifecycle failure (loro_tpu/parallel/residency.py,
+    docs/RESIDENCY.md): a round touched more docs than the hot-slot
+    budget can hold, no evictable victim exists (every hot doc is still
+    un-journaled), or an injected/real failure interrupted an evict or
+    revive.  The contract: a failed EVICT leaves the doc hot (no torn
+    tier state); a failed REVIVE fails only the triggering round/ticket
+    and leaves the doc warm/cold — the server itself stays healthy
+    either way.  Passes through DeviceSupervisor untouched (LoroError),
+    so it can never be misread as a device failure and trigger
+    degradation."""
+
+
+class ReplicationError(LoroError):
+    """Base for WAL-shipping replication (loro_tpu/replication/,
+    docs/REPLICATION.md): leader-side shipping, follower apply loops,
+    fencing and promotion."""
+
+
+class FencedLeader(ReplicationError):
+    """A fenced (deposed) leader attempted a WAL append: a follower was
+    promoted with a newer leader token, so this process must fail-stop
+    — continuing to journal would fork the replicated history.  Raised
+    BEFORE any bytes reach the segment (no partial record)."""
+
+
 class AnalysisError(LoroError):
     """Base for the runtime lock-order witness (analysis/)."""
 

@@ -75,6 +75,10 @@ _SITE_MODULES = (
     "loro_tpu_torch.resilience.probe",
     "loro_tpu_torch.native",
     "loro_tpu_torch.parallel.fleet",
+    "loro_tpu_torch.parallel.server",
+    "loro_tpu_torch.parallel.residency",
+    "loro_tpu_torch.persist.wal",
+    "loro_tpu_torch.persist.checkpoints",
 )
 
 _ACTIONS = ("raise", "delay", "hang", "truncate", "bitflip", "poison")

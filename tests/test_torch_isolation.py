@@ -286,7 +286,7 @@ def test_source_scan_finds_no_jax_or_loro_tpu_import():
     assert re.search(r"(^|/)loro_tpu/", "../../loro_tpu/native/x.h") and not re.search(r"(^|/)loro_tpu/", "loro_tpu_torch/x.h")
 
 
-def test_entry_points_default_to_cuda_and_raise_without_a_card():
+def test_entry_points_default_to_cuda_and_raise_without_a_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable here")
     from loro_tpu_torch import resolve_device
@@ -306,6 +306,14 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
     from loro_tpu_torch.ops.export_batch import ExportIndex
     from loro_tpu_torch.parallel.fleet import (DeviceCounterBatch, DeviceDocBatch, DeviceMapBatch, DeviceMovableBatch,
                                               DeviceTreeBatch, Fleet)
+    from loro_tpu_torch.parallel.mesh import make_mesh
+    from loro_tpu_torch.parallel.residency import TieredResidentServer
+    from loro_tpu_torch.parallel.server import ResidentServer
+    from loro_tpu_torch.parallel.sharded import ShardedResidentServer
+    from loro_tpu_torch.persist import open_server, recover_server
+
+    durable = str(tmp_path / "durable")  # a durable directory made on the CPU, recovered by default on the card
+    ResidentServer("counter", 1, device="cpu", durable_dir=durable).close()
 
     np_seq = example_cols(d=1, n=8)
     seq = fugue_batch.seq_columns_to_torch(np_seq, device="cpu")
@@ -369,6 +377,15 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
         lambda: DeviceMovableBatch(1, 16, 4),
         lambda: DeviceMovableBatch.import_state(DeviceMovableBatch(1, 16, 4, device="cpu").export_state()),
         lambda: ExportIndex(1),
+        lambda: ResidentServer("text", 1),
+        lambda: ResidentServer.restore(ResidentServer("counter", 1, device="cpu").checkpoint()),
+        lambda: TieredResidentServer("text", 2, hot_slots=1),
+        lambda: ShardedResidentServer("text", 2),
+        lambda: ShardedResidentServer("text", 2, devices=["cuda", "cuda"]),
+        lambda: make_mesh(),
+        lambda: recover_server(durable),
+        lambda: open_server(durable),
+        lambda: open_server(str(tmp_path / "fresh"), "text", 1),
     ]
     for call in calls:
         with pytest.raises(DeviceUnavailable):
@@ -396,3 +413,7 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
 
     assert DeviceMovableBatch(1, 16, 4, device="cpu").value_lists() == [[]]
     assert [g.tolist() for g in ExportIndex(1, device="cpu").select([(0, VersionVector())])] == [[]]
+    # the server layer runs when the CPU is asked for
+    assert recover_server(durable, device="cpu").value_maps() == [{}]
+    assert ShardedResidentServer("text", 2, devices=["cpu", "cpu"]).texts() == ["", ""]
+    assert TieredResidentServer("text", 2, hot_slots=1, device="cpu").texts() == ["", ""]
