@@ -86,6 +86,13 @@ merges, their resident batches and the read plane:
                       mirror anchor, recover_server / open_server and
                       ``python -m loro_tpu_torch.persist.inspect <dir>``
     obs.heat          per-doc and per-shard decayed heat
+    sync              SyncServer: client sessions over a resident server
+                      (push fan-in, delta pulls, presence), the batched
+                      ReadBatcher over the read plane
+    obs               the registry's exposition (Prometheus text,
+                      /metrics and /status.json), the health plane and
+                      its top view, the report and trace tools, the
+                      device round-trip probe
     entry             entry(): the element merge of an example batch
     tracegen          seeded traces (automerge-perf-shaped text, map,
                       counter, tree, rich-text and movable histories,
@@ -104,7 +111,8 @@ from .device import resolve_device
 from .doc import EncodeMode, ExportMode, ImportStatus, LoroDoc
 from .errors import (BackendUnavailable, ConfigError, DeadlineExceeded, DecodeError, DeviceFailure,
                      DeviceUnavailable, KernelBuildError, KernelLaunchError, LoroError, PersistError,
-                     ResidencyError, ResilienceError, ShardingError)
+                     PushRejected, ResidencyError, ResilienceError, SessionClosed, ShardingError,
+                     StaleFrontier, SyncError)
 from .event import (
     ContainerDiff,
     CounterDiff,
@@ -138,6 +146,9 @@ from .parallel.residency import TieredResidentServer
 from .parallel.server import ResidentServer
 from .parallel.sharded import ShardedResidentServer
 from .persist import open_server, recover_server, recover_sharded_server
+from . import obs
+from . import sync
+from .sync import FanIn, PresencePlane, ReadBatcher, Session, SyncServer
 
 __all__ = [
     "resolve_device",
@@ -164,6 +175,17 @@ __all__ = [
     "recover_server",
     "open_server",
     "recover_sharded_server",
+    "obs",
+    "sync",
+    "SyncServer",
+    "Session",
+    "FanIn",
+    "ReadBatcher",
+    "PresencePlane",
+    "SyncError",
+    "PushRejected",
+    "StaleFrontier",
+    "SessionClosed",
     "LoroDoc",
     "LoroError",
     "DecodeError",

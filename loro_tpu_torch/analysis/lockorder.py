@@ -10,16 +10,31 @@ tracing: strict leaves that call nothing while held) are outside the
 witness on purpose.
 
 The table is the JAX package's whole order, so the planes ported later
-(replication, the network edge, the sync server and its read batcher,
-the fan-in, the sharded server and pipeline, residency, the health
-plane) slot in at their levels.  The port's locks today, outermost
-first:
+(replication, the network edge) slot in at their levels.  The port's
+locks today, outermost first:
 
+- ``sync.server``      — SyncServer's session / oracle RLock; the commit
+  path feeds the read plane under it (server -> readplane), and a
+  degraded read window takes it only with the queue and plane locks
+  released;
+- ``sync.readbatch``   — the ReadBatcher's pull queue; sessions submit
+  under ``sync.server``, the window leader releases it before the plane;
+- ``sync.readplane``   — the read plane's index and frame cache; the
+  window leader holds it across the selection launch (-> ``fleet.dev``);
+- ``fanin.queue``      — the sync fan-in's intake; its worker runs the
+  commit with it released;
+- ``sharded.route``, ``sharded.collect``, ``pipeline.queue``,
+  ``residency.plan`` — the sharded server, its collector, the pipeline
+  and the tiered batch (each releases before calling the server);
 - ``fleet.dev``        — a resident batch's device RLock: serializes a
   grow against an in-flight commit and wraps the read plane's
   supervised selection launch;
+- ``sharded.epoch``    — the sharded fleet's global epoch map;
 - ``supervisor.state`` — DeviceSupervisor's counters; a strict leaf
   under every launch (dev -> supervisor);
+- ``obs.health``       — the heat accountant and the health plane's
+  ring and alerts; heat ticks run under serving locks, and attachment
+  reports and registry reads run with it released;
 - ``obs.flight``       — the flight-recorder ring (obs/flight.py); the
   innermost level by construction: ``flight.record()`` is called while
   other locks are held, and the recorder calls nothing while holding

@@ -47,6 +47,29 @@ class PersistError(LoroError):
     subclasses instead — this type is for the write/lifecycle side."""
 
 
+class SyncError(LoroError):
+    """Base for the sync front end (sync/)."""
+
+
+class PushRejected(SyncError):
+    """A pushed update payload did not decode (poison): the push's
+    ticket fails typed with this, other sessions' pushes in the same
+    fan-in batch land normally.  The client should re-export and retry;
+    the server state never half-applied the payload."""
+
+
+class StaleFrontier(SyncError):
+    """The client's frontier is below the server oracle's shallow root
+    (history there was trimmed by the checkpoint ladder) AND the client
+    is not empty, so neither a delta nor a snapshot can be served — the
+    client must resync from scratch (fresh doc, then ``pull()`` takes
+    the first-sync snapshot path)."""
+
+
+class SessionClosed(SyncError):
+    """Operation on a session that was closed or TTL-expired."""
+
+
 class ShardingError(LoroError):
     """Sharded-fleet lifecycle misuse (loro_tpu/parallel/sharded.py,
     docs/SHARDING.md): migrating to a shard with no free slot, moving a
@@ -79,6 +102,20 @@ class FencedLeader(ReplicationError):
     promoted with a newer leader token, so this process must fail-stop
     — continuing to journal would fork the replicated history.  Raised
     BEFORE any bytes reach the segment (no partial record)."""
+
+
+class ReplicaLag(ReplicationError):
+    """A ``pull(min_epoch=...)`` read-your-writes gate timed out: the
+    replica has not applied the requested epoch yet.  Retry, or pull
+    from the leader."""
+
+
+class ObsError(LoroError):
+    """Observability-tooling failure (obs/): an unreadable or malformed
+    trace/flight artifact handed to ``python -m
+    loro_tpu_torch.obs.trace``, or a merge over artifacts with no common
+    epoch stamps.  Always raised typed so the CLI exits with a legible
+    message instead of a stack trace."""
 
 
 class AnalysisError(LoroError):

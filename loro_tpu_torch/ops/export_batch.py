@@ -34,6 +34,7 @@ import torch
 
 from ..core.version import VersionVector
 from ..device import DeviceLike, resolve_device
+from ..obs import metrics as obs
 from .fugue_batch import _u32_tensor, pad_bucket
 
 _U32 = np.uint32
@@ -224,6 +225,11 @@ class ExportIndex:
         if self._dirty_docs is not None:
             self._dirty_docs.add(di)
         self.rows_pruned += pruned
+        obs.counter(
+            "readbatch.index_rows_pruned_total",
+            "change-span index rows dropped below the session ack "
+            "floors at compaction",
+        ).inc(pruned, family=self.family)
         return pruned
 
     def covers(self, di: int, from_vv: VersionVector) -> bool:
@@ -244,11 +250,18 @@ class ExportIndex:
         dev = self.device
         if self._dev is None or self._dirty_docs is None:
             self._dev = tuple(_upload(a, dev) for a in self._host_cols() + (self._n,))
+            kind = "full"
         else:
             docs = np.asarray(sorted(self._dirty_docs), np.int64)
             _scatter_rows(self._dev[:5], self._host_cols(), docs)
             self._dev = self._dev[:5] + (_upload(self._n, dev),)
+            kind = "delta"
         self._dirty_docs = set()
+        obs.counter(
+            "readbatch.index_uploads_total",
+            "change-span index uploads to device (full grid or "
+            "dirty-doc delta scatter)",
+        ).inc(family=self.family, kind=kind)
         return self._dev
 
     def select(self, requests: Sequence[Tuple[int, VersionVector]]) -> List[np.ndarray]:
@@ -275,6 +288,10 @@ class ExportIndex:
         dev = self.device
         order, count = select_since_batch(*(_upload(a, dev) for a in (doc, f_hi, f_lo, f_ctr, f_n)), *cols)
         self.launches += 1
+        obs.counter(
+            "readbatch.export_launches_total",
+            "batched delta-export selection launches (one per window)",
+        ).inc(family=self.family)
         count = count.cpu().numpy()
         order = order[:, : int(count.max(initial=0))].cpu().numpy()
         return [order[r, : int(count[r])] for r in range(len(requests))]

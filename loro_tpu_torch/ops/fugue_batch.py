@@ -418,7 +418,7 @@ def _coalesced_dist(succ: torch.Tensor, r_pad: Optional[int] = None, use_kernel:
 
 RANK_SPECS = tuple(f"{b}:{a}" for b in ("cuda", "torch") for a in ("ruling", "wyllie", "blocked", "coalesced"))
 # Rings sent to a plain torch rank because they are longer than the
-# kernels take (RANK_MAX_M), incremented where that route is chosen: the
+# kernels take (RANK_MAX_M), incremented where such a ring is ranked: the
 # automatic route on a CUDA device sends them to torch:wyllie, and
 # cuda:coalesced ranks a contracted ring that pads past the cap with the
 # plain weighted ruling (the JAX package's fallback, fugue_batch.py:438).
@@ -430,17 +430,17 @@ def _resolve_rank_spec(rank_impl: Optional[str], device: torch.device, m: int) -
     device, "cuda:ruling" (the hand-written kernels; no environment
     variable overrides it) when m <= list_rank.RANK_MAX_M and else
     "torch:wyllie" (the counterpart of the JAX package's XLA route past
-    PALLAS_RANK_MAX_M; a rule on the shape, counted in RANK_ROUTES), and
+    PALLAS_RANK_MAX_M; a rule on the shape), and
     "torch:ruling" on the CPU.  "cuda:*" needs CUDA tensors; on a ring
     past the cap it raises in list_rank, except "cuda:coalesced", which
     ranks a contracted ring past the cap with the plain weighted ruling
-    (_coalesced_dist)."""
+    (_coalesced_dist).  Pure: _order_core counts the over-cap route in
+    RANK_ROUTES where it ranks."""
     if rank_impl is None:
         if device.type != "cuda":
             return "torch", "ruling"
         if m <= list_rank.RANK_MAX_M:
             return "cuda", "ruling"
-        RANK_ROUTES["torch:wyllie/over_cap"] += 1
         return "torch", "wyllie"
     backend, _, algo = rank_impl.partition(":")
     if rank_impl not in RANK_SPECS:
@@ -462,6 +462,45 @@ def _rank_dist(succ: torch.Tensor, backend: str, algo: str, ring_budget: Optiona
     if algo == "blocked":
         return _blocked_dist(succ)
     return _wyllie_dist(succ)
+
+
+def _tick_rank_obs(
+    n_docs: int,
+    n_nodes: int,
+    rank_impl: Optional[str],
+    device: DeviceLike,
+    ring_budget: Optional[int] = None,
+) -> None:
+    """rank.* obs counters from the analytic gather model
+    (ops/rank_model.gather_model), ticked at the host-level entry points
+    with the caller's ring_budget, the ruling k every CUDA launch plans
+    with (list_rank.DEFAULT_K) and the blocked rank's block.  The label
+    is the resolved spec, "cuda:ruling" or "torch:wyllie" (the JAX
+    package's "pallas:" / "xla:").  Host arithmetic on shapes only: it
+    never syncs the device and never raises (the merge must not depend
+    on the obs package)."""
+    try:
+        m = 2 * (n_nodes + 1)
+        backend, algo = _resolve_rank_spec(rank_impl, torch.device(device), m)
+        from ..obs import metrics as obs_m
+        from .rank_model import gather_model
+
+        kw = {}
+        if algo == "coalesced":
+            kw["r_pad"] = ring_budget
+        if algo == "blocked":
+            kw["block"] = list_rank.DEFAULT_BLOCK
+        if backend == "cuda" and algo in ("ruling", "blocked", "coalesced"):
+            kw["k"] = list_rank.DEFAULT_K
+        mdl = gather_model(m, algo, **kw)
+        label = f"{backend}:{algo}"
+        obs_m.counter("rank.ring_tokens").inc(n_docs * m, algo=label)
+        obs_m.counter("rank.rounds_total").inc(n_docs * mdl["rounds"], algo=label)
+        obs_m.counter("rank.gather_rows_total").inc(n_docs * mdl["global_rows"], algo=label, kind="global")
+        if mdl.get("local_rows"):
+            obs_m.counter("rank.gather_rows_total").inc(n_docs * mdl["local_rows"], algo=label, kind="local")
+    except Exception:  # gather-ledger metrics are an estimate; accounting must never break the merge
+        pass
 
 
 # ---- Euler-tour ring and order ---------------------------------------------
@@ -584,6 +623,8 @@ def _order_core(
     n = parent_in.shape[1]
     succ, anchor = _ring_and_anchors(parent_in, side_in, valid_in, sib_keys)
     backend, algo = _resolve_rank_spec(rank_impl, succ.device, succ.shape[1])
+    if rank_impl is None and backend == "torch" and algo == "wyllie":
+        RANK_ROUTES["torch:wyllie/over_cap"] += 1
     dist = _rank_dist(succ, backend, algo, ring_budget)
     anchor_dist = dist.gather(1, anchor.to(torch.int64))
     rank = anchor_dist[:, n : n + 1] - anchor_dist[:, :n]
@@ -683,8 +724,18 @@ def materialize_content(
     return _compact(rank, c.valid & ~c.deleted, c.content)
 
 
-# the JAX package's vmapped batch form and its one-launch fleet entry
-materialize_content_batch = merge_docs = materialize_content
+# the JAX package's vmapped batch form
+materialize_content_batch = materialize_content
+
+
+def merge_docs(
+    cols: SeqColumns, rank_impl: Optional[str] = None, device: DeviceLike = "cuda"
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fleet entry: materialize_content of a whole batch, with the
+    rank.* accounting of one merge."""
+    c = _on(cols, device)
+    _tick_rank_obs(c.parent.shape[0], c.parent.shape[1], rank_impl, c.parent.device)
+    return materialize_content(c, rank_impl, c.parent.device)
 
 
 def merge_docs_checksum(
@@ -692,7 +743,9 @@ def merge_docs_checksum(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Merge, reduced to a per-doc order-sensitive checksum (int64 [D]
     holding uint32 values) and counts int32 [D]."""
-    codes, counts = materialize_content(cols, rank_impl, device)
+    c = _on(cols, device)
+    _tick_rank_obs(c.parent.shape[0], c.parent.shape[1], rank_impl, c.parent.device)
+    codes, counts = materialize_content(c, rank_impl, c.parent.device)
     return _weighted_checksum(codes), counts
 
 
@@ -798,7 +851,9 @@ def chain_merge_docs_u(
     """The chain-contracted merge of a resident batch at chain budget
     `c_pad`: (codes [D, N], counts [D], n_chains [D]); the codes are
     valid only where max(n_chains) <= c_pad (chain_contract_materialize_u)."""
-    return chain_contract_materialize_u(_on(cols, device), c_pad)
+    c = _on(cols, device)
+    _tick_rank_obs(c.parent.shape[0], c_pad, None, c.parent.device)
+    return chain_contract_materialize_u(c, c_pad)
 
 
 def _u32_tensor(x, dev: torch.device) -> torch.Tensor:
@@ -934,11 +989,15 @@ def _weighted_checksum(codes: torch.Tensor) -> torch.Tensor:
 
 def chain_merge_docs(cols: ChainColumns, device: DeviceLike = "cuda"):
     """Chain-contracted merge of a doc batch with the default rank."""
-    return chain_materialize(_on(cols, device))
+    c = _on(cols, device)
+    _tick_rank_obs(c.c_parent.shape[0], c.c_parent.shape[1], None, c.c_parent.device)
+    return chain_materialize(c)
 
 
 def chain_merge_docs_checksum(cols: ChainColumns, device: DeviceLike = "cuda"):
-    codes, counts = chain_materialize(_on(cols, device))
+    c = _on(cols, device)
+    _tick_rank_obs(c.c_parent.shape[0], c.c_parent.shape[1], None, c.c_parent.device)
+    codes, counts = chain_materialize(c)
     return _weighted_checksum(codes), counts
 
 
@@ -954,7 +1013,9 @@ def chain_merge_docs_v(
     None = default), the coalesced rank's `ring_budget` (in the JAX
     package's position) and placement ("sort" | "scatter").
     (codes [D, N], counts [D])."""
-    return chain_materialize(_on(cols, device), rank_impl, ring_budget, place=place)
+    c = _on(cols, device)
+    _tick_rank_obs(c.c_parent.shape[0], c.c_parent.shape[1], rank_impl, c.c_parent.device, ring_budget)
+    return chain_materialize(c, rank_impl, ring_budget, place=place)
 
 
 def chain_merge_docs_checksum_v(
@@ -966,7 +1027,9 @@ def chain_merge_docs_checksum_v(
     device: DeviceLike = "cuda",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(checksum int64 [D] holding uint32 values, counts [D])."""
-    codes, counts = chain_materialize(_on(cols, device), rank_impl, ring_budget, place=place)
+    c = _on(cols, device)
+    _tick_rank_obs(c.c_parent.shape[0], c.c_parent.shape[1], rank_impl, c.c_parent.device, ring_budget)
+    codes, counts = chain_materialize(c, rank_impl, ring_budget, place=place)
     return _weighted_checksum(codes), counts
 
 

@@ -34,6 +34,7 @@ ALGOS = ("wyllie", "ruling", "blocked")
 RANK_MAX_M = 1 << 17
 PACKED_MAX_M = 1 << 16  # dist and succ share one u32 as 16 + 16 bits
 DEFAULT_BLOCK = 1024  # blocked phase-A block (RANK_BLOCK's default in JAX)
+DEFAULT_K = 8  # ruler spacing of the ruling and blocked kernels (no caller overrides it)
 _LANES = 128
 # opt-in dynamic shared memory of one block on sm_90 (H100, H200)
 SMEM_LIMIT = 232_448
@@ -198,7 +199,7 @@ def _is_pow2(x, lo: int, hi: int) -> bool:
     return isinstance(x, (int, np.integer)) and not isinstance(x, bool) and lo <= x <= hi and (x & (x - 1)) == 0
 
 
-def plan_rank(m: int, algo: str = "ruling", k: int = 8, weighted: bool = False,
+def plan_rank(m: int, algo: str = "ruling", k: int = DEFAULT_K, weighted: bool = False,
               dist_bound: Optional[int] = None, block: int = DEFAULT_BLOCK) -> RankPlan:
     """Validate arguments and choose padding, as pallas_rank.wyllie_rank
     does: pad tokens are self-loop terminals; ruling and blocked pad to
@@ -341,7 +342,7 @@ def rank_plain(succ_p: torch.Tensor, w_p: torch.Tensor, plan: RankPlan) -> torch
     return (wide_rank_plain if plan.wide else packed_rank_plain)(succ_p, w_p, plan)
 
 
-def wyllie_rank_reference(succ, algo: str = "ruling", k: int = 8, weights=None,
+def wyllie_rank_reference(succ, algo: str = "ruling", k: int = DEFAULT_K, weights=None,
                           dist_bound: Optional[int] = None, block: int = DEFAULT_BLOCK) -> torch.Tensor:
     """Plain torch version with wyllie_rank's contract, run on whatever
     device `succ` lies on (a numpy array is taken as a CPU tensor)."""
@@ -351,7 +352,7 @@ def wyllie_rank_reference(succ, algo: str = "ruling", k: int = 8, weights=None,
     return _finish(rank_plain(succ_p, w_p, plan), plan, succ_t.dim() == 1)
 
 
-def wyllie_rank(succ, algo: str = "ruling", k: int = 8, weights=None,
+def wyllie_rank(succ, algo: str = "ruling", k: int = DEFAULT_K, weights=None,
                 dist_bound: Optional[int] = None, device: DeviceLike = "cuda",
                 block: int = DEFAULT_BLOCK) -> torch.Tensor:
     """dist-to-terminal for a successor ring (terminal = self-loop).

@@ -1,12 +1,28 @@
-"""Host ring statistics (numpy): the Euler-tour successor ring that
-fugue_batch._ring_and_anchors builds on the device, rebuilt on the host,
-and its run statistics.  n_runs is the exact occupancy of the coalesced
-rank's contracted ring, so a caller can size a tight static
-`ring_budget` (coalesce_budget) and check it before the merge.
+"""Gather-count accounting for the ranking algorithms and the host
+Euler-tour ring (numpy, host-side): the port's copy of
+loro_tpu/ops/rank_model.py.
 
-The port's copy of the host-ring part of loro_tpu/ops/rank_model.py
-(build_ring, run_heads, ring_stats, coalesce_budget); its gather model
-and simulators are not needed here.
+Three layers:
+
+- ``gather_model(m, algo)``    — analytic worst-case/cap counts from
+  the static ring length alone (what the ``rank.*`` obs counters tick:
+  cheap, no device work; ``fugue_batch._tick_rank_obs``).
+- ``simulate(succ, algo)``     — numpy re-execution of the algorithm's
+  control flow on a REAL ring, counting the rounds the adaptive loops
+  actually run and returning the distances (a host oracle for the
+  differential tests).
+- ``build_ring`` / ``run_heads`` / ``ring_stats`` / ``coalesce_budget``
+  — the Euler-tour successor ring fugue_batch._ring_and_anchors builds
+  on the device, rebuilt on the host, and its run statistics.  n_runs
+  is the exact occupancy of the coalesced rank's contracted ring, so a
+  caller can size a tight static ``ring_budget`` and check it before
+  the merge.
+
+Row classes: ``global_rows`` are random gathers addressed into an
+O(m)-row table; ``local_rows`` are block-local gathers (the blocked
+algorithm's in-block phase); ``small_rows`` are gathers from tables
+O(m/k) and below.  The counts price the algorithm's row schedule, which
+the CUDA kernels and the plain torch versions share.
 """
 from __future__ import annotations
 
@@ -15,6 +31,72 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 
 BIG = 2**30
+
+
+def _log2ceil(x: int) -> int:
+    return max(1, int(np.ceil(np.log2(max(int(x), 2)))))
+
+
+# ---------------------------------------------------------------------------
+# analytic model
+# ---------------------------------------------------------------------------
+
+
+def gather_model(
+    m: int,
+    algo: str,
+    k: int = 8,
+    block: int = 1024,
+    r_pad: Optional[int] = None,
+) -> Dict[str, int]:
+    """Scheduled gather-row counts for a ring of m tokens (worst case:
+    adaptive loops priced at their round CAP; `simulate` gives the
+    realized counts).  Keys: rounds (cap of the dominant global loop),
+    global_rows, local_rows, small_rows.  Counts are backend-neutral:
+    they price the ROW SCHEDULE, which is identical for the CUDA
+    kernels and the plain torch versions (a kernel's constant factors
+    are its own concern, not a schedule one)."""
+    lm = _log2ceil(m)
+    if algo == "wyllie":
+        return {"rounds": lm, "global_rows": lm * m, "local_rows": 0, "small_rows": 0}
+    if algo == "ruling":
+        # dense table = ceil(m/k) ruler slots + the sink row (exactly
+        # what _sim_ruling and the kernels rank)
+        mr = -(-m // k) + 1
+        return {
+            "rounds": lm,
+            "global_rows": lm * m + _log2ceil(mr) * mr,
+            "local_rows": 0,
+            "small_rows": m,  # recombine gather from the dense table
+        }
+    if algo == "blocked":
+        # mirror _blocked_dist exactly: block clamped to the lane-padded
+        # ring, then the ring padded to a block multiple — phase B runs
+        # over mp tokens, so the ledger must price mp, not m
+        b = min(block, max(128, -(-m // 128) * 128))
+        mp = -(-m // b) * b
+        la = _log2ceil(b)
+        sub = gather_model(mp, "ruling", k=k)
+        return {
+            "rounds": sub["rounds"],
+            "global_rows": sub["global_rows"],
+            "local_rows": la * mp,
+            "small_rows": sub["small_rows"],
+        }
+    if algo == "coalesced":
+        # mirror _coalesced_dist's budget rounding; the ruling sub-rank
+        # sees rp+1 tokens (sink slot), and the contraction performs
+        # TWO rp-row gathers into O(m) tables (succ[tail_tok] and
+        # run_id[succ_tail])
+        rp = max(128, -(-(r_pad if r_pad is not None else m) // 128) * 128)
+        sub = gather_model(rp + 1, "ruling", k=k)
+        return {
+            "rounds": sub["rounds"],
+            "global_rows": sub["global_rows"] + 2 * rp,
+            "local_rows": 0,
+            "small_rows": sub["small_rows"],  # expansion is scatter+cumsum
+        }
+    raise ValueError(f"unknown rank algo {algo!r}")
 
 
 def build_ring(
@@ -105,3 +187,137 @@ def coalesce_budget(n_runs_max: int, slack: int = 128) -> int:
     """Static ring_budget from a measured largest run count: one slack
     quantum on top, rounded up to 128."""
     return -(-(n_runs_max + slack) // 128) * 128
+
+
+# ---------------------------------------------------------------------------
+# simulators (realized rounds/rows on a concrete ring + oracle dists)
+# ---------------------------------------------------------------------------
+
+
+def _sim_wyllie(d: np.ndarray, t: np.ndarray) -> Tuple[np.ndarray, int]:
+    rounds = _log2ceil(len(t))
+    for _ in range(rounds):
+        d = d + d[t]
+        t = t[t]
+    return d, rounds
+
+
+def _sim_ruling(
+    d: np.ndarray, t: np.ndarray, k: int = 8
+) -> Tuple[np.ndarray, Dict[str, int]]:
+    """Numpy re-execution of _ruling_dist_from: adaptive phase-1 with
+    the exactness cap, dense ruler ring, recombine."""
+    m = len(t)
+    tok = np.arange(m)
+    is_term = t == tok
+    is_stop = ((tok % k) == 0) | is_term
+    d1, t1 = d.copy(), t.copy()
+    frozen = is_term | is_stop[t1]
+    cap = _log2ceil(m)
+    r1 = 0
+    while not frozen.all() and r1 < cap:
+        nd = np.where(frozen, d1, d1 + d1[t1])
+        nt = np.where(frozen, t1, t1[t1])
+        d1, t1 = nd, nt
+        frozen = is_term | is_stop[t1]
+        r1 += 1
+    mr = (m + k - 1) // k
+    r_tok = np.arange(mr) * k
+
+    def dense(tt):
+        return np.where(is_term[tt], mr, tt // k)
+
+    rD = np.append(d1[r_tok], 0)
+    rT = np.append(dense(t1[r_tok]), mr)
+    rD, dense_rounds = _sim_wyllie(rD, rT)
+    dist = d1 + rD[dense(t1)]
+    counts = {
+        "rounds": r1,
+        "global_rows": r1 * m + dense_rounds * (mr + 1),
+        "local_rows": 0,
+        "small_rows": m,
+    }
+    return dist, counts
+
+
+def _sim_blocked(
+    succ: np.ndarray, block: int = 1024, k: int = 8
+) -> Tuple[np.ndarray, Dict[str, int]]:
+    m = len(succ)
+    # mirror _blocked_dist: clamp the block to the lane-padded ring,
+    # pad to a block multiple (self-loop pads), phase B over mp
+    b = min(block, max(128, -(-m // 128) * 128))
+    mp = -(-m // b) * b
+    succ = np.concatenate([succ.astype(np.int64), np.arange(m, mp)])
+    tok = np.arange(mp)
+    d = np.where(succ == tok, 0, 1)
+    t = succ.copy()
+    la = _log2ceil(b)
+    for _ in range(la):
+        active = (t // b == tok // b) & (t != tok)
+        d = np.where(active, d + d[t], d)
+        t = np.where(active, t[t], t)
+    dist, counts = _sim_ruling(d, t, k=k)
+    counts["local_rows"] = la * mp
+    return dist[:m], counts
+
+
+def _sim_coalesced(
+    succ: np.ndarray, r_pad: Optional[int] = None, k: int = 8
+) -> Tuple[np.ndarray, Dict[str, int]]:
+    m = len(succ)
+    tok = np.arange(m)
+    heads = run_heads(succ)
+    n_runs = int(heads.sum())
+    r = r_pad if r_pad is not None else m
+    if n_runs > r:
+        raise ValueError(f"ring_budget {r} < n_runs {n_runs}")
+    head_tok = np.flatnonzero(heads)
+    run_id = np.cumsum(heads) - 1
+    tail_tok = np.append(head_tok[1:], m) - 1
+    succ_tail = succ[tail_tok]
+    is_term_run = succ_tail == tail_tok
+    w = (tail_tok - head_tok) + np.where(is_term_run, 0, 1)
+    t = np.where(is_term_run, n_runs, run_id[succ_tail])
+    # sink node + budget pads (self-loops), mirroring _coalesced_dist
+    rp = max(128, -(-r // 128) * 128)
+    w1 = np.zeros(rp + 1, np.int64)
+    t1 = np.arange(rp + 1)
+    w1[:n_runs] = w
+    t1[:n_runs] = np.where(t == n_runs, rp, t)  # terminals -> sink slot rp
+    dist_c, counts = _sim_ruling(w1, t1, k=k)
+    dist = dist_c[run_id] - (tok - head_tok[run_id])
+    # the succ[tail_tok] + run_id[succ_tail] contraction gathers (two
+    # rp-row random gathers into O(m) tables)
+    counts["global_rows"] += 2 * rp
+    counts["n_runs"] = n_runs
+    return dist, counts
+
+
+def simulate(
+    succ: np.ndarray,
+    algo: str,
+    k: int = 8,
+    block: int = 1024,
+    r_pad: Optional[int] = None,
+) -> Tuple[np.ndarray, Dict[str, int]]:
+    """(dist, counts) — realized gather-row counts of `algo` on a real
+    ring plus the distances themselves (host oracle: every algorithm
+    must produce bit-identical distances)."""
+    m = len(succ)
+    tok = np.arange(m)
+    if algo == "wyllie":
+        d, rounds = _sim_wyllie(np.where(succ == tok, 0, 1), succ.copy())
+        return d, {
+            "rounds": rounds,
+            "global_rows": rounds * m,
+            "local_rows": 0,
+            "small_rows": 0,
+        }
+    if algo == "ruling":
+        return _sim_ruling(np.where(succ == tok, 0, 1), succ.copy(), k=k)
+    if algo == "blocked":
+        return _sim_blocked(succ, block=block, k=k)
+    if algo == "coalesced":
+        return _sim_coalesced(succ, r_pad=r_pad, k=k)
+    raise ValueError(f"unknown rank algo {algo!r}")

@@ -55,8 +55,10 @@ round's host state as it comes and ships the group's device work as one
 merged scatter or fold; release_doc resets one doc's slot for reuse;
 compact (text and list, tree and movable batches) reclaims causally
 stable rows.  Counted in pipeline.coalesced_rounds_total{family} and
-fleet.doc_releases_total{family}.  Not ported yet: the merge obs
-counters and trace instants, and the op-sharded map merge.
+fleet.doc_releases_total{family}.  Each one-shot merge ticks the JAX
+package's fleet.* merge counters (_obs_merge), each host fallback
+fleet.host_fallback_total{kind} beside FLEET_FALLBACKS.  Not ported yet:
+the trace instants and the op-sharded map merge.
 """
 from __future__ import annotations
 
@@ -152,6 +154,26 @@ def texts_of(codes: np.ndarray, counts: np.ndarray, d: int) -> List[str]:
     return [codes[i, : int(counts[i])].astype("<u4").tobytes().decode("utf-32-le", "surrogatepass") for i in range(d)]
 
 
+def _obs_merge(family: str, docs: int, real_rows: int, padded_rows: int, shape: Tuple[int, ...]) -> None:
+    """One accounting point per one-shot merge: real vs padded rows
+    quantify pad_bucket waste; the distinct padded shapes (the JAX
+    package's jit-cache proxy) count the shapes the port's merges ran."""
+    obs.counter("fleet.merge_calls_total").inc(family=family)
+    obs.counter("fleet.docs_merged_total").inc(docs, family=family)
+    obs.counter("fleet.ops_merged_total").inc(real_rows, family=family)
+    obs.counter("fleet.pad_waste_rows_total").inc(max(0, padded_rows - real_rows), family=family)
+    obs.counter("fleet.device_launches_total").inc(family=family)
+    obs.unique("fleet.padded_shapes_distinct").add((family,) + tuple(shape))
+
+
+def _obs_fallback(kind: str) -> None:
+    """Host-fallback hits: the forced Python order engine (LORO_PY_ORDER)
+    and per-payload decode fallbacks, in fleet.host_fallback_total{kind}
+    beside FLEET_FALLBACKS."""
+    FLEET_FALLBACKS[kind] += 1
+    obs.counter("fleet.host_fallback_total").inc(kind=kind)
+
+
 def _sup_launch(label: str, thunk):
     """One merge launch (an upload or a device call) through the process
     DeviceSupervisor: bounded retry on transient errors, typed
@@ -203,7 +225,11 @@ class Fleet:
         the doc axis to `pad_docs` (default: the batch size).  It takes
         extracts, so it has nothing to degrade to: a DeviceFailure reaches
         the caller."""
-        batched = stack_seq_columns(extracts, pad_bucket(max(e.n for e in extracts)), pad_docs)
+        n = pad_bucket(max(e.n for e in extracts))
+        d = len(extracts)
+        d_pad = pad_docs or d
+        _obs_merge("text", d, sum(e.n for e in extracts), n * d_pad, (n, d_pad))
+        batched = stack_seq_columns(extracts, n, pad_docs)
         dev = self.device
         cols = _sup_launch("fleet.text", lambda: seq_columns_to_torch(batched, device=dev))
         codes, counts = _sup_launch("fleet.text", lambda: materialize_content_batch(cols, device=dev))
@@ -232,7 +258,7 @@ class Fleet:
             try:
                 ex = extract_seq_from_payload(p, cid)
             except ValueError:
-                FLEET_FALLBACKS["payload_extract"] += 1
+                _obs_fallback("payload_extract")
                 try:
                     ex = extract_seq_container(decode_changes(p), cid)
                 except KeyError as e:
@@ -257,6 +283,12 @@ class Fleet:
         the host engine's segments."""
         extracts = [extract_richtext_chain(chs, cid) for chs in docs_changes]
         batch, n_keys = _stack_richtext(extracts, pad_docs or 0)
+        n = pad_bucket(max(1, max(c.chain.chain_id.shape[0] for c, _, _ in extracts)))
+        cpad = pad_bucket(max(1, max(c.chain.c_parent.shape[0] for c, _, _ in extracts)))
+        p = pad_bucket(max(1, max(c.pair_start.shape[0] for c, _, _ in extracts)), floor=16)
+        d_pad = max(len(extracts), pad_docs or 0)
+        _obs_merge("richtext", len(extracts), sum(c.chain.chain_id.shape[0] for c, _, _ in extracts), n * d_pad,
+                   (n, cpad, p, n_keys, d_pad))
         dev = self.device
         try:
             cols = _sup_launch("fleet.richtext", lambda: _on(batch, dev))
@@ -288,7 +320,7 @@ class Fleet:
             try:
                 ex = extract_movable_from_payload(p, cid)
             except ValueError:
-                FLEET_FALLBACKS["payload_extract"] += 1
+                _obs_fallback("payload_extract")
                 try:
                     ex = extract_movable(decode_changes(p), cid)
                 except KeyError as e:
@@ -307,6 +339,9 @@ class Fleet:
         (_stack_movable), one upload a column, movable_merge_batch, one
         fetch, then each doc's winners' values (_movable_values)."""
         batch, n_elems = _stack_movable(extracts)
+        d, s_, k = len(extracts), batch.seq.parent.shape[1], batch.set_elem.shape[1]
+        _obs_merge("movable", d, sum(c.seq.parent.shape[0] + c.set_elem.shape[0] for c, _, _ in extracts),
+                   (s_ + k) * d, (s_, k, n_elems, d))
         dev = self.device
         cols = _sup_launch("fleet.movable", lambda: _on(batch, dev))
         out, counts = _sup_launch("fleet.movable", lambda: movable_merge_batch(cols, n_elems, device=dev))
@@ -318,6 +353,8 @@ class Fleet:
         precision contract of DeviceCounterBatch); under an armed fault, the
         host engine's."""
         slot, delta, valid, s, cids_per_doc = self._counter_cols(docs_changes)
+        d, m = slot.shape
+        _obs_merge("counter", d, int(valid.sum()), m * d, (m, s, d))
         dev = self.device
         try:
             cols = _sup_launch("fleet.counter", lambda: [_to_device(a, dev) for a in (slot, delta, valid)])
@@ -386,6 +423,7 @@ class Fleet:
         the caller."""
         m = pad_bucket(max(1, max(len(e.slot) for e in extracts)))
         s = max(1, max(len(e.slots) for e in extracts))
+        _obs_merge("map", len(extracts), sum(len(e.slot) for e in extracts), m * len(extracts), (m, s, len(extracts)))
         dev = self.device
         batched = self._batch_map_cols(extracts, m)
         cols = _sup_launch("fleet.map", lambda: MapOpCols(*(_to_device(a, dev) for a in batched)))
@@ -414,7 +452,7 @@ class Fleet:
             try:
                 ex = extract_tree_from_payload(p, cid)
             except ValueError:
-                FLEET_FALLBACKS["payload_extract"] += 1
+                _obs_fallback("payload_extract")
                 ex = extract_tree_ops(decode_changes(p), cid)
             extracted.append(ex)
         try:
@@ -441,6 +479,10 @@ class Fleet:
         is_deleted_batch, the results fetched, each supervised under
         fleet.{family}."""
         cols, n = self._stack_tree_cols(extracted)
+        d, m = cols.target.shape
+        # tree_children is a family of its own: its extra reads must not
+        # alias the plain tree merge's shapes
+        _obs_merge(family, d, sum(c.target.shape[0] for c, _, _ in extracted), m * d, (m, n, d))
         dev, label = self.device, f"fleet.{family}"
         up = _sup_launch(label, lambda: TreeOpCols(*(_to_device(c, dev) for c in cols)))
         parents, eff = _sup_launch(label, lambda: tree_merge_batch(up, n))
@@ -1247,7 +1289,7 @@ class DeviceDocBatch:
             from ..native import native_order
 
             return native_order()
-        FLEET_FALLBACKS["order"] += 1
+        _obs_fallback("order")
         return ShadowOrder()
 
     def append_changes(self, per_doc_changes: Sequence[Optional[Sequence[Change]]], cid) -> None:
@@ -1557,7 +1599,7 @@ class DeviceDocBatch:
             except (KeyError, ValueError):
                 # unresolvable refs or malformed input for the native
                 # path: the Python decode for this payload only
-                FLEET_FALLBACKS["payload_decode"] += 1
+                _obs_fallback("payload_decode")
                 self.id2row[di].abort()
                 rows.clear()
                 rows_per_doc[di] = rows

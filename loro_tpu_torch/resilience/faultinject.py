@@ -19,9 +19,13 @@ The port's sites:
                      be: a transient UNAVAILABLE retries like any
                      launch, a device error becomes DeviceFailure
 
-The JAX package's other sites (``poison_doc``, ``wal_write``,
-``sync_push``, ``read_batch``, ...) belong to planes not ported yet;
-each registers here with its module.
+The server, persistence and residency planes register ``poison_doc``,
+``wal_write``, ``wal_torn_tail``, ``ckpt_corrupt``, ``evict_flush`` and
+``revive_replay``; the sync front end ``sync_push``, ``sync_pull``,
+``session_stall`` and ``read_batch`` (an armed ``read_batch`` fault
+degrades its read window to the oracle); the health plane
+``health_tick``.  Each registers with its module.  The JAX package's
+replication and network sites belong to planes not ported yet.
 
 Arm programmatically::
 
@@ -79,6 +83,11 @@ _SITE_MODULES = (
     "loro_tpu_torch.parallel.residency",
     "loro_tpu_torch.persist.wal",
     "loro_tpu_torch.persist.checkpoints",
+    "loro_tpu_torch.sync.server",
+    "loro_tpu_torch.sync.session",
+    "loro_tpu_torch.sync.presence",
+    "loro_tpu_torch.sync.readbatch",
+    "loro_tpu_torch.obs.health",
 )
 
 _ACTIONS = ("raise", "delay", "hang", "truncate", "bitflip", "poison")

@@ -266,7 +266,7 @@ def test_plain_rank_algorithms_match_jax(m):
             np.testing.assert_array_equal(row, want, err_msg=f"block={block}")
 
 
-def test_rank_spec_contract():
+def test_rank_spec_contract(monkeypatch):
     cpu = torch.device("cpu")
     cuda = torch.device("cuda")  # a device object needs no card
     cap = list_rank.RANK_MAX_M
@@ -274,14 +274,30 @@ def test_rank_spec_contract():
     assert pfb._resolve_rank_spec(None, cpu, cap + 2) == ("torch", "ruling")
     assert pfb._resolve_rank_spec("torch:wyllie", cpu, 1000) == ("torch", "wyllie")
     assert pfb._resolve_rank_spec("torch:blocked", cpu, 1000) == ("torch", "blocked")
-    # auto route on a CUDA device: the kernels up to the cap, the counted
-    # plain torch Wyllie past it (the JAX package's XLA route)
+    # auto route on a CUDA device: the kernels up to the cap, the plain
+    # torch Wyllie past it (the JAX package's XLA route); resolving counts
+    # nothing
     before = pfb.RANK_ROUTES["torch:wyllie/over_cap"]
     for m in (1000, 65538, cap):
         assert pfb._resolve_rank_spec(None, cuda, m) == ("cuda", "ruling")
-    assert pfb.RANK_ROUTES["torch:wyllie/over_cap"] == before
     assert pfb._resolve_rank_spec(None, cuda, cap + 2) == ("torch", "wyllie")
-    assert pfb.RANK_ROUTES["torch:wyllie/over_cap"] == before + 1
+    assert pfb.RANK_ROUTES["torch:wyllie/over_cap"] == before
+    # the merge counts the automatic over-cap route where it ranks (the
+    # CUDA device's resolution stood in on the CPU), and not an explicit
+    # torch:wyllie
+    from loro_tpu_torch import entry
+
+    real = pfb._resolve_rank_spec
+    monkeypatch.setattr(pfb, "_resolve_rank_spec",
+                        lambda impl, dev, m: ("torch", "wyllie") if impl is None else real(impl, dev, m))
+    cols = pfb.seq_columns_to_torch(entry.example_cols(d=1, n=64), device="cpu")
+    want = pfb.materialize_content(cols, "torch:ruling", "cpu")
+    for impl, counted in ((None, 1), ("torch:wyllie", 0)):
+        routes = pfb.RANK_ROUTES["torch:wyllie/over_cap"]
+        got = pfb.materialize_content(cols, impl, "cpu")
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        assert pfb.RANK_ROUTES["torch:wyllie/over_cap"] == routes + counted
+    monkeypatch.undo()
     assert pfb._resolve_rank_spec("cuda:blocked", cuda, cap + 2) == ("cuda", "blocked")
     with pytest.raises(ValueError, match="too long"):
         list_rank.wyllie_rank(np.arange(cap + 2, dtype=np.int32), algo="blocked", device="cpu")

@@ -432,10 +432,11 @@ def test_probe_body_names_no_jax():
 
 def test_fault_sites_are_the_ports():
     assert sorted(pfi.sites()) == ["backend_init", "ckpt_corrupt", "decode", "evict_flush", "export_launch", "fetch",
-                                   "launch", "poison_doc", "revive_replay", "wal_torn_tail", "wal_write"]
+                                   "health_tick", "launch", "poison_doc", "read_batch", "revive_replay",
+                                   "session_stall", "sync_pull", "sync_push", "wal_torn_tail", "wal_write"]
     assert all(m.startswith("loro_tpu_torch.") for info in pfi.sites().values() for m in info["modules"])
     with pytest.raises(perrors.ConfigError):
-        pfi.inject("sync_push")  # a JAX-package site the port has no plane for yet
+        pfi.inject("net_frame")  # a JAX-package site the port has no plane for yet
 
 
 @pytest.mark.faultinject
