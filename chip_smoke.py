@@ -80,7 +80,7 @@ checks it, end to end:
       host oracle, timed whole and by stage, with device busy and peak
       memory, and two card folds of tenths compared bit for bit; the
       native map explode held against the Python extract on the 8
-      traces; DeviceMapBatch (512 docs from 1,024 slots, grown to
+      traces; DeviceMapBatch (256 docs from 1,024 slots, grown to
       4,096 in round 1, 2 of the traces' 16 sync epochs, checkpointed
       after round 1) and DeviceCounterBatch (1,024 docs from 64 slots,
       grown once, 8 epochs, checkpointed after round 4) fed one epoch a
@@ -235,6 +235,26 @@ checks it, end to end:
       window and, in a child, a device-side assert in the selection
       reaching the puller as DeviceFailure; every list-rank and
       tree-replay launch held against its plain version;
+   p. the network edge and replication: the 4o text server at 256 docs
+      made durable (group fsync) and replication-enabled behind a
+      NetServer on loopback, 128 writer NetClients (2 docs each, 3 epochs
+      of 16 seeded edits a push) and 128 reader NetClients (4 docs each)
+      from 16 threads: pushes/s over the wire, push-to-ack and push-to-visible
+      p50 / p99, pulls/s, texts equal to the clients' and the solver's,
+      every pulled blob equal to the oracle's Updates export; a Follower
+      on the card bootstrapped after epoch 1 and caught up after each
+      epoch, its ReadOnlySyncServer behind a second NetServer (pulls
+      gated by min_epoch, a push answered NOT_LEADER with the leader's
+      address), catch-up rounds/s and apply lag, its texts and solver
+      equal to the leader's; promote(), timed, and one more epoch pushed
+      to it over the wire; a tree leader and its follower (parent_maps()
+      equal, the replay kernel); a ShardedFollower over two map shards on
+      the card, promoted; an armed repl_apply and net_frame fault each
+      failing only what they should and, in two children, a device-side
+      assert in the follower's apply reaching catch_up() as
+      DeviceFailure and one in a pull behind the NetServer reaching its
+      NetClient as NetError with no bytes; every list-rank and
+      tree-replay launch held against its plain version;
 5. timings (CUDA events, warm-up then median; a kernel's ms is 20
    back-to-back calls of its wrapper replayed from a CUDA graph, and
    beside it eager_ms, the same 20 calls eager): merge ms per chunk and
@@ -255,7 +275,7 @@ Prints one {"kernels": [...]} line and ends with the line
 Any failed check raises, so the script exits non-zero.  Usage:
     python3 chip_smoke.py                          # the whole run, the verification
     python3 chip_smoke.py --phase 4i [--phase 4j]  # build, card tests, those phases
---phase takes 4f, 4g, 4h, 4i, 4j, 4k, 4l, 4m, 4n or 4o (the phases that stand alone);
+--phase takes 4f, 4g, 4h, 4i, 4j, 4k, 4l, 4m, 4n, 4o or 4p (the phases that stand alone);
 such a run prints its phases' results and no kernels line.
 """
 from __future__ import annotations
@@ -311,7 +331,11 @@ RES_DOC_EPOCHS, RES_DOC_CAP, RES_DOC_C_PAD, RES_CKPT_ROUND, RES_CHECK_EVERY = 65
 MAP_DOCS, MAP_DISTINCT, MAP_OPS, MAP_KEYS = 1024, 8, 65_536, 4_096
 COUNTER_INCR, COUNTER_ITEMS = 4_096, 96
 MAP_RES_CAP, MAP_RES_ROUNDS, MAP_RES_CKPT = 1024, 2, 1
-MAP_RES_DOCS = 512  # the resident map batch's docs (cut from 1,024 to make room for 4n)
+# the resident map batch's docs: cut from 1,024 to 512 to make room for 4n,
+# then to 256 for 4p (the whole script took 1,155.2 s at 512 on an H100
+# 80GB HBM3 at 700.00 W; at 512 the cell's rounds, reads and checkpoints
+# took ~100 s of host Python)
+MAP_RES_DOCS = 256
 COUNTER_CAP, COUNTER_CKPT = 64, 4
 # the tree phase: one-shot merges of TREE_DOCS payloads cycled over
 # TREE_DISTINCT tracegen.tree_doc traces (TREE_MOVES moves on TREE_NODES
@@ -423,8 +447,24 @@ SYNC_DOCS, SYNC_WRITERS, SYNC_EPOCHS, SYNC_EDITS, SYNC_THREADS = 512, 2, 6, 16, 
 SYNC_COALESCE, SYNC_QUEUE = 8, 128
 SYNC_READERS, SYNC_FOLLOW, SYNC_HOST_DOCS = 256, 4, 256
 SYNC_FAM_ROUNDS = 2
+# the network edge and replication (4p): (a) 4o's server, SyncServer("text",
+# NET_DOCS, capacity=RES_CAP, coalesce=SYNC_COALESCE, max_queue=SYNC_QUEUE),
+# made durable (group fsync) and replication-enabled, behind a NetServer on
+# loopback: NET_WRITERS writer NetClients owning NET_WRITER_DOCS docs each
+# (NET_WRITERS * NET_WRITER_DOCS == NET_DOCS) push NET_EPOCHS epochs of
+# NET_EDITS seeded edits a push, NET_READERS reader NetClients follow
+# NET_FOLLOW docs each, all from NET_THREADS threads; (b) a Follower after
+# epoch 1 behind a second NetServer with as many readers, promoted, then one
+# more epoch; (c) a tree leader over NET_TREE_DOCS loro_fleet docs,
+# NET_FAM_ROUNDS rounds, and a map fleet of NET_MAP_DOCS docs on two shards
+# Cuts: NET_DOCS 512 -> 256 (and NET_WRITERS 256 -> 128): at 512 docs 4p took
+# 64.2 s alone on an H100 80GB HBM3 at 700.00 W, over its 60 s budget; then
+# NET_EPOCHS 4 -> 3, when the whole script took 1,155.2 s there.
+NET_DOCS, NET_WRITERS, NET_WRITER_DOCS, NET_READERS, NET_FOLLOW = 256, 128, 2, 128, 4
+NET_EPOCHS, NET_EDITS, NET_THREADS = 3, 16, 16
+NET_TREE_DOCS, NET_MAP_DOCS, NET_FAM_ROUNDS = 64, 32, 3
 # phases `--phase` runs alone (after the build and the card tests)
-SELECTABLE = ("4f", "4g", "4h", "4i", "4j", "4k", "4l", "4m", "4n", "4o")
+SELECTABLE = ("4f", "4g", "4h", "4i", "4j", "4k", "4l", "4m", "4n", "4o", "4p")
 
 
 def check(cond: bool, what: str) -> None:
@@ -4558,6 +4598,625 @@ def sync_phase(torch, dev, kind: str, card: str) -> dict:
     return out
 
 
+NET_CHILD = r'''
+import json, os, sys, tempfile
+sys.path.insert(0, sys.argv[1])
+import torch
+from loro_tpu_torch import LoroDoc, NetClient, NetServer, SyncServer, replication
+from loro_tpu_torch.doc import strip_envelope
+from loro_tpu_torch.errors import DeviceFailure, NetError
+from loro_tpu_torch.obs import metrics as obs
+from loro_tpu_torch.parallel.server import ResidentServer
+from loro_tpu_torch.resilience import DeviceSupervisor, set_supervisor
+
+mode, tmp = sys.argv[2], tempfile.mkdtemp(prefix="net4p-child-", dir=sys.argv[3])
+sup = DeviceSupervisor(sleep=lambda s: None)
+set_supervisor(sup)
+d = LoroDoc(peer=7)
+t = d.get_text("text")
+t.insert(0, "a device fault behind the network edge")
+d.commit()
+cid = t.id
+
+
+def device_assert():
+    # a device-side assert queued on the card: an index past a CUDA
+    # tensor's end; the next sync then raises
+    x = torch.zeros(4, device="cuda")
+    x[torch.full((1,), 1 << 20, dtype=torch.int64, device="cuda")]
+
+
+out = {"mode": mode}
+if mode == "apply":
+    srv = ResidentServer("text", 4, capacity=1024, durable_dir=os.path.join(tmp, "L"))
+    replication.enable(srv, "leader")
+    mark = {}
+    for i in range(4):
+        if i:
+            t.insert(0, f"r{i} ")
+            d.commit()
+        srv.ingest([strip_envelope(d.export_updates(mark)), None, None, None], cid)
+        mark = d.oplog_vv()
+        if i == 1:
+            fol = replication.Follower(os.path.join(tmp, "L"), os.path.join(tmp, "F"), leader=srv)
+            clean = fol.resident.texts() == srv.texts()
+    before = fol.applied_epoch
+    real = fol.resident._replay_round
+
+    def replay(*a, **k):
+        device_assert()
+        return real(*a, **k)
+
+    fol.resident._replay_round = replay
+    try:
+        fol.catch_up()
+        out["raised"] = None
+    except DeviceFailure as e:
+        out["raised"] = {"injected": e.injected, "cause": type(e.__cause__).__name__, "message": str(e)[:300]}
+    out.update(clean=clean, applied_before=before, applied_after=fol.applied_epoch,
+               rounds_applied=fol.rounds_applied, degraded=fol.resident.degraded, leader_epoch=srv.epoch)
+else:
+    srv = SyncServer("text", 4, cid=cid, capacity=1024)
+    net = NetServer(srv)
+    w = NetClient("127.0.0.1", net.port, "text", "w", timeout=120)
+    r = NetClient("127.0.0.1", net.port, "text", "r", timeout=120)
+    w.connect()
+    r.connect()
+    w.push(0, d.export_updates({}))
+    clean = r.pull(0) == srv.oracle_doc(0).export_updates({})
+    vv = d.oplog_vv()
+    t.insert(0, "more ")
+    d.commit()
+    w.push(0, d.export_updates(vv))
+    index = srv._readbatch.plane.index
+    real = index.select
+
+    def select(requests):
+        device_assert()
+        return real(requests)
+
+    index.select = select
+    e0 = obs.counter("net.internal_errors_total").get(family="text")
+    r2 = NetClient("127.0.0.1", net.port, "text", "r2", timeout=120)
+    r2.connect()
+    data = None
+    try:
+        data = r2.pull(0)
+        out["raised"] = None
+    except NetError as e:
+        out["raised"] = {"type": type(e).__name__, "message": str(e)[:300]}
+    out.update(clean=clean, served_bytes=None if data is None else len(data), frontiers_after=len(r2.frontiers),
+               last_pull=r2.last_pull, connected=r2.connected,
+               internal_errors=obs.counter("net.internal_errors_total").get(family="text") - e0,
+               degraded_windows=srv.report()["readbatch"]["degraded_windows"])
+out["supervisor"] = sup.report()
+print(json.dumps(out), flush=True)
+os._exit(0)  # the context is lost: no teardown of its allocations
+'''
+
+
+def net_phase(torch, dev, kind: str, card: str) -> dict:
+    """Phase 4p, the network edge (net/: NetServer, NetClient) and WAL-
+    shipping replication (replication/: enable, Follower, ShardedFollower,
+    ReadOnlySyncServer) on the card.  (a) 4o's SyncServer("text", NET_DOCS,
+    capacity=RES_CAP, coalesce=SYNC_COALESCE, max_queue=SYNC_QUEUE), durable
+    under build/net4p-* (group fsync) and replication.enable'd, behind
+    NetServer(srv, port=0) on loopback: NET_WRITERS writer NetClients, each
+    owning NET_WRITER_DOCS docs (port LoroDocs), push NET_EPOCHS epochs of
+    NET_EDITS seeded edits a push and NET_READERS reader NetClients pull
+    NET_FOLLOW docs each, from a pool of NET_THREADS threads: pushes/s over
+    the wire (the clients' push calls only), push-to-ack (the tickets'
+    net.send mark) beside push-to-visible (their last server mark) p50 /
+    p99, pulls/s, texts equal to the clients' and to the solver's read,
+    every pulled blob equal to the oracle's Updates export from the
+    reader's frontier.  (b) a Follower(device=dev) bootstrapped after epoch
+    1 and caught up after each epoch (the leader's group window flushed
+    first: only durable bytes ship), its ReadOnlySyncServer behind
+    NetServer(leader_addr=...) with NET_READERS readers pulling with
+    min_epoch; catch-up rounds/s, apply lag p50 / p99 from lag_samples(),
+    follower pulls/s, its texts and solver read equal to the leader's, a
+    push to it answered NOT_LEADER with the leader's address; the leader
+    retires, promote() is timed and the writers reconnect to the promoted
+    follower for one more epoch, its texts equal to the clients'.  (c) a
+    durable ResidentServer("tree", NET_TREE_DOCS) leader and its Follower
+    over NET_FAM_ROUNDS loro_fleet rounds (parent_maps() equal: the replay
+    kernel), and a ShardedFollower of a two-shard durable map fleet on
+    [dev, dev], caught up, compared, promoted and fed one more round (its
+    maps equal to HostEngine's).  (d) an armed repl_apply fault fails one
+    catch_up with applied_epoch unmoved and the next lands; an armed
+    net_frame fault fails one connection, the others serve and it resumes;
+    NET_CHILD, two child processes: a device-side assert in the follower's
+    replayed round reaches catch_up() as DeviceFailure(injected=False)
+    with applied_epoch unmoved and no degradation, and one in a pull's
+    selection behind the NetServer reaches the NetClient as NetError (E_INTERNAL) with
+    no bytes.  Every list-rank and tree-replay launch is captured and held
+    against its plain version."""
+    import concurrent.futures as cf
+    import random
+    import resource
+    import shutil
+    import tempfile
+
+    from loro_tpu_torch import replication, tracegen
+    from loro_tpu_torch.core.version import VersionVector
+    from loro_tpu_torch.doc import ExportMode, LoroDoc
+    from loro_tpu_torch.errors import CodecDecodeError, NetError, NotLeader
+    from loro_tpu_torch.net import NetClient, NetServer
+    from loro_tpu_torch.obs import metrics as obs
+    from loro_tpu_torch.ops import list_rank
+    from loro_tpu_torch.ops import tree_batch as tb
+    from loro_tpu_torch.parallel.server import ResidentServer
+    from loro_tpu_torch.parallel.sharded import ShardedResidentServer
+    from loro_tpu_torch.resilience import faultinject
+    from loro_tpu_torch.resilience.hostpath import HostEngine
+    from loro_tpu_torch.sync import SyncServer
+
+    on_card = dev.type == "cuda"
+    check(NET_WRITERS * NET_WRITER_DOCS == NET_DOCS, "4p: writers x docs a writer != NET_DOCS")
+
+    def pct(xs, q):
+        xs = sorted(xs)
+        return xs[min(len(xs) - 1, int(q * len(xs)))] if xs else None
+
+    t_phase = time.perf_counter()
+    out = {"max_abs_err": {}}
+    # one process holds both ends of every loopback connection: two
+    # descriptors a connection, so the soft limit goes up to the hard one
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    want = hard if hard != resource.RLIM_INFINITY else max(soft, 1 << 16)
+    if soft < want:
+        resource.setrlimit(resource.RLIMIT_NOFILE, (want, hard))
+    out["nofile"] = {"soft_before": soft, "hard": hard, "soft": resource.getrlimit(resource.RLIMIT_NOFILE)[0]}
+    print(f"net: RLIMIT_NOFILE soft {soft} -> {out['nofile']['soft']} (hard {hard})", flush=True)
+    text_cid = tracegen.TEXT_CID
+    lf = tracegen.loro_fleet(SEED + 20, max(NET_TREE_DOCS, NET_MAP_DOCS), n_rounds=NET_FAM_ROUNDS, max_edits=SUP_EDITS)
+    out["gen_s"] = time.perf_counter() - t_phase
+    t_main = time.perf_counter()
+    list_rank.reset_launches()
+    tb.reset_launches()
+    pool = cf.ThreadPoolExecutor(NET_THREADS, thread_name_prefix="net4p")
+
+    def run_all(fn, items):
+        """fn over items on the pool, one slice a thread; results in item order."""
+        slices = [list(range(i, len(items), NET_THREADS)) for i in range(NET_THREADS)]
+        futs = [pool.submit(lambda sl=sl: [(k, fn(items[k])) for k in sl]) for sl in slices if sl]
+        res = [None] * len(items)
+        for f in futs:
+            for k, v in f.result():
+                res[k] = v
+        return res
+
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="net4p-", dir=str(build))
+    srv = net = fol = net2 = None
+    clients = []
+    try:
+        with captured_launches(list_rank, tb) as cap:
+            # (a) the text server behind the network edge
+            t_a = time.perf_counter()
+            ldir, fdir = os.path.join(tmp, "L"), os.path.join(tmp, "F")
+            srv = SyncServer("text", NET_DOCS, device=dev, cid=text_cid, capacity=RES_CAP, coalesce=SYNC_COALESCE,
+                             max_queue=SYNC_QUEUE, durable_dir=ldir, durable_fsync="group")
+            check(srv.resident.batch.device == dev and srv._readbatch.plane.index.device == dev,
+                  "4p (a): the server's batch or read index is not on the card")
+            net = NetServer(srv, port=0)
+            replication.enable(srv.resident, leader_id=net.addr)
+            tickets = []
+            real_push = srv._push
+
+            def push_kept(session, di, data):
+                tk = real_push(session, di, data)
+                tickets.append(tk)
+                return tk
+
+            srv._push = push_kept
+            host_ms = {"fanin_commit": 0.0, "ship": 0.0, "replay": 0.0, "replicated_feed": 0.0}
+
+            def timed(key, fn):
+                def run(*a, **k):
+                    t = time.perf_counter()
+                    try:
+                        return fn(*a, **k)
+                    finally:
+                        host_ms[key] += (time.perf_counter() - t) * 1e3
+                return run
+
+            srv._fanin._commit = timed("fanin_commit", srv._fanin._commit)
+            writers = []
+            for k in range(NET_WRITERS):
+                cli = NetClient("127.0.0.1", net.port, "text", client_id=f"w{k}", timeout=600)
+                clients.append(cli)
+                docs = [k * NET_WRITER_DOCS + j for j in range(NET_WRITER_DOCS)]
+                writers.append({"cli": cli, "docs": docs, "rng": random.Random((SEED << 20) ^ k),
+                                "doc": {di: LoroDoc(peer=5000 + di) for di in docs},
+                                "mark": {di: VersionVector() for di in docs}})
+            readers = []
+            for r in range(NET_READERS):
+                cli = NetClient("127.0.0.1", net.port, "text", client_id=f"r{r}", timeout=600)
+                clients.append(cli)
+                readers.append({"cli": cli, "docs": [(r * NET_FOLLOW + k) % NET_DOCS for k in range(NET_FOLLOW)]})
+            run_all(lambda c: c.connect(), clients)
+            connect_s = time.perf_counter() - t_a
+            check(net.report()["connections"] == NET_WRITERS + NET_READERS,
+                  f"4p (a): {net.report()['connections']} connections")
+
+            def edit_all():
+                """Each writer's edits and exports for one epoch (host work
+                timed apart from the pushes)."""
+                blobs = []
+                for wr in writers:
+                    bw = []
+                    for di in wr["docs"]:
+                        d, rng = wr["doc"][di], wr["rng"]
+                        t = d.get_text("text")
+                        for _ in range(NET_EDITS):
+                            n = len(t)
+                            if n > 8 and rng.random() < 0.25:
+                                t.delete(rng.randrange(n - 3), rng.randint(1, 3))
+                            else:
+                                t.insert(rng.randint(0, n),
+                                         "".join(rng.choice("abcdefgh ") for _ in range(rng.randint(1, 4))))
+                        d.commit()
+                        bw.append((di, d.export_updates(wr["mark"][di])))
+                        wr["mark"][di] = d.oplog_vv()
+                    blobs.append(bw)
+                return blobs
+
+            def push_epoch(label):
+                """One epoch's pushes over the wire: (wall ms, acks, tickets)."""
+                t0 = time.perf_counter()
+                blobs = edit_all()
+                edit_ms = (time.perf_counter() - t0) * 1e3
+                n0 = len(tickets)
+                t0 = time.perf_counter()
+                acks = run_all(lambda wb: [wb[0]["cli"].push(di, blob) for di, blob in wb[1]],
+                               list(zip(writers, blobs)))
+                wall = (time.perf_counter() - t0) * 1e3
+                tks = tickets[n0:]
+                check(len(tks) == NET_DOCS, f"4p {label}: {len(tks)} tickets for {NET_DOCS} pushes")
+                deadline = time.perf_counter() + 60
+                while not all(tk.marks and tk.marks[-1][0] == "net.send" for tk in tks):
+                    check(time.perf_counter() < deadline, f"4p {label}: a ticket lacks its net.send mark")
+                    time.sleep(0.001)
+                return wall, edit_ms, [a for aw in acks for a in aw], tks
+
+            def pull_readers(rds, server, min_epoch=None):
+                """Every reader's pulls, each blob held against the server
+                oracle's Updates export from the reader's frontier."""
+                with server._lock:
+                    wants = [[server.oracle_doc(di).export(ExportMode.Updates(
+                        rd["cli"].frontiers.get(di, VersionVector()))) for di in rd["docs"]] for rd in rds]
+                t0 = time.perf_counter()
+                got = run_all(lambda rd: [rd["cli"].pull(di, min_epoch=min_epoch) for di in rd["docs"]], rds)
+                wall = (time.perf_counter() - t0) * 1e3
+                check(got == wants, "4p: a reader's pulled bytes != the oracle's Updates export")
+                return wall, sum(len(b) for g in got for b in g)
+
+            push_walls, edit_ms, p2a, p2v, pull_walls, fpull_walls, catch = [], 0.0, [], [], [], [], []
+            stages = {}  # the tickets' breakdown, summed by stage
+            pulled_bytes = fpulled_bytes = 0
+            freaders = []
+            h_ack = obs.histogram("net.push_to_ack_seconds")
+            h0 = h_ack.summary()
+            apply_fault = {}
+            for e in range(NET_EPOCHS):
+                wall, ems, acks, tks = push_epoch(f"(a) epoch {e}")
+                push_walls.append(wall)
+                edit_ms += ems
+                check(max(a["epoch"] for a in acks) == srv.epoch,
+                      f"4p (a): epoch {e}: acks' epochs {max(a['epoch'] for a in acks)} != the server's {srv.epoch}")
+                for tk in tks:
+                    for k, v in tk.breakdown().items():
+                        if k.endswith("_ms"):
+                            stages[k] = stages.get(k, 0.0) + v
+                    last_srv = [t for name, t in tk.marks if not name.startswith("net.")][-1]
+                    p2v.append((last_srv - tk.t0) * 1e3)
+                    p2a.append((tk.marks[-1][1] - tk.t0) * 1e3)
+                w, b = pull_readers(readers, srv)
+                pull_walls.append(w)
+                pulled_bytes += b
+                # (b) the follower: only durable bytes ship, so the group
+                # window is flushed first
+                srv.flush()
+                srv.resident.flush_durable()
+                t0 = time.perf_counter()
+                if e == 0:
+                    fol = replication.Follower(ldir, fdir, leader=srv.resident, device=dev)
+                    boot_s = time.perf_counter() - t0
+                    check(fol.resident.batch.device == dev, "4p (b): the follower's batch is not on the card")
+                    # a catch-up's host time by part: shipping, the round
+                    # replay on the card, the read-only front's feed
+                    fol._ship_files = timed("ship", fol._ship_files)
+                    fol.resident._replay_journal_tail = timed("replay", fol.resident._replay_journal_tail)
+                    fol.sync._apply_replicated = timed("replicated_feed", fol.sync._apply_replicated)
+                    net2 = NetServer(fol.sync, port=0, leader_addr=net.addr)
+                    for r in range(NET_READERS):
+                        cli = NetClient("127.0.0.1", net2.port, "text", client_id=f"f{r}", timeout=600)
+                        clients.append(cli)
+                        freaders.append({"cli": cli, "docs": readers[r]["docs"]})
+                    run_all(lambda rd: rd["cli"].connect(), freaders)
+                else:
+                    if e == NET_EPOCHS - 1:
+                        # (d) an armed repl_apply fault fails this pass only
+                        a0 = fol.applied_epoch
+                        faultinject.inject("repl_apply", exc_factory=lambda: faultinject.InjectedFault("armed (4p)"),
+                                           times=1)
+                        try:
+                            try:
+                                fol.catch_up()
+                                apply_fault["raised"] = None
+                            except faultinject.InjectedFault as ex:
+                                apply_fault["raised"] = str(ex)
+                        finally:
+                            faultinject.clear()
+                        apply_fault.update(applied_before=a0, applied_after=fol.applied_epoch,
+                                           degraded=fol.resident.degraded)
+                        check(apply_fault["raised"] and apply_fault["applied_after"] == a0 and not
+                              apply_fault["degraded"], f"4p (d): the armed repl_apply fault: {apply_fault}")
+                        t0 = time.perf_counter()
+                    rep = fol.catch_up()
+                    catch.append({"s": time.perf_counter() - t0, "rounds": rep["rounds"],
+                                  "bytes": rep["shipped_bytes"]})
+                check(fol.applied_epoch == srv.epoch == srv.resident.durable_epoch,
+                      f"4p (b): epoch {e}: follower applied {fol.applied_epoch}, leader {srv.epoch}")
+                w, b = pull_readers(freaders, fol.sync, min_epoch=srv.epoch)
+                fpull_walls.append(w)
+                fpulled_bytes += b
+            h1 = h_ack.summary()
+            texts = srv.texts()
+            client_texts = [writers[di // NET_WRITER_DOCS]["doc"][di].get_text("text").to_string()
+                            for di in range(NET_DOCS)]
+            check(texts == client_texts, "4p (a): texts() != the clients' texts")
+            t0 = time.perf_counter()
+            check(srv.resident.batch.texts(use_solver=True) == texts, "4p (a): the solver's read != texts()")
+            solver_ms = (time.perf_counter() - t0) * 1e3
+            check(fol.resident.texts() == texts, "4p (b): the follower's texts != the leader's")
+            check(fol.resident.batch.texts(use_solver=True) == texts, "4p (b): the follower's solver read != the leader's")
+            rep_a, rb_f = srv.report(), fol.sync.report()["readbatch"]
+            rb_a = rep_a["readbatch"]
+            check(rb_a["degraded_windows"] == 0 and rb_f["degraded_windows"] == 0, "4p: a read window degraded")
+            # a push to the follower: NOT_LEADER over the wire, carrying the leader's address
+            wr = writers[0]
+            try:
+                freaders[0]["cli"].push(wr["docs"][0], wr["doc"][wr["docs"][0]].export_updates({}))
+                nl = None
+            except NotLeader as ex:
+                nl = ex.leader
+            check(nl == net.addr, f"4p (b): a push to the follower got leader {nl!r}, not {net.addr!r}")
+            # (d) an armed net_frame fault fails one connection only
+            fr0 = net.report()["frame_errors"]
+            a, b = readers[0]["cli"], readers[1]["cli"]
+            faultinject.inject("net_frame", action="bitflip", flip_at=2, times=1)
+            try:
+                try:
+                    a.pull(readers[0]["docs"][0])
+                    frame_fault = None
+                except (CodecDecodeError, NetError) as ex:
+                    frame_fault = type(ex).__name__
+            finally:
+                faultinject.clear()
+            b.pull(readers[1]["docs"][0])
+            deadline = time.perf_counter() + 30
+            while net.report()["frame_errors"] != fr0 + 1 and time.perf_counter() < deadline:
+                time.sleep(0.01)
+            resumed = a.reconnect()["resumed"]
+            a.pull(readers[0]["docs"][0])
+            check(frame_fault is not None and net.report()["frame_errors"] == fr0 + 1 and resumed >= 1,
+                  f"4p (d): the armed net_frame fault: {frame_fault}, frame errors {net.report()['frame_errors']}")
+            n_push = NET_DOCS * NET_EPOCHS
+            n_pull = NET_READERS * NET_FOLLOW * NET_EPOCHS
+            lags = sorted(ms for _e, _t, ms in fol.lag_samples())
+            rounds = sum(c["rounds"] for c in catch)
+            catch_s = sum(c["s"] for c in catch)
+            out["a"] = {
+                "docs": NET_DOCS, "writers": NET_WRITERS, "readers": NET_READERS, "epochs": NET_EPOCHS,
+                "pushes": n_push, "connect_s": connect_s, "push_walls_ms": push_walls,
+                "pushes_per_s": n_push / (sum(push_walls) / 1e3), "client_edit_ms_a_push": edit_ms / n_push,
+                "push_to_ack_p50_ms": pct(p2a, 0.5), "push_to_ack_p99_ms": pct(p2a, 0.99),
+                "push_to_visible_p50_ms": pct(p2v, 0.5), "push_to_visible_p99_ms": pct(p2v, 0.99),
+                "net_push_to_ack_hist": {"count": h1["count"] - h0["count"], "p50_s": h1["p50"], "p99_s": h1["p99"]},
+                "pulls": n_pull, "pull_walls_ms": pull_walls, "pulls_per_s": n_pull / (sum(pull_walls) / 1e3),
+                "pulled_bytes": pulled_bytes, "connections": NET_WRITERS + NET_READERS, "solver_ms": solver_ms,
+                "fanin_batches": rep_a["batches"], "rounds": rep_a["rounds"], "net": net.report(),
+                "epoch": srv.epoch, "durable_epoch": srv.resident.durable_epoch,
+                "fanin_worker_ms_a_push": host_ms["fanin_commit"] / n_push,
+                "p2a_stage_mean_ms": {k: v / n_push for k, v in stages.items()},
+                "windows": rb_a["windows"], "pulls_a_window": rb_a["pulls"] / max(1, rb_a["windows"]),
+                "launches": rb_a["launches"],
+            }
+            out["b"] = {
+                "bootstrap_s": boot_s, "catch_ups": catch, "rounds": rounds,
+                "rounds_per_s": rounds / catch_s if catch_s else None, "apply_lag_p50_ms": pct(lags, 0.5),
+                "apply_lag_p99_ms": pct(lags, 0.99), "lag_samples": len(lags), "pulls": n_pull,
+                "pull_walls_ms": fpull_walls, "pulls_per_s": n_pull / (sum(fpull_walls) / 1e3),
+                "pulled_bytes": fpulled_bytes, "not_leader": nl, "report": fol.report(),
+                "catch_up_ms_by_part": {k: host_ms[k] for k in ("ship", "replay", "replicated_feed")},
+                "windows": rb_f["windows"], "pulls_a_window": rb_f["pulls"] / max(1, rb_f["windows"]),
+                "launches": rb_f["launches"],
+            }
+            out["d_armed"] = {"repl_apply": apply_fault, "net_frame": {"raised": frame_fault, "resumed": resumed}}
+            print(f"net (a) on {kind} ({card}): NetServer over SyncServer(text, {NET_DOCS}, capacity {RES_CAP}, coalesce "
+                  f"{SYNC_COALESCE}, max_queue {SYNC_QUEUE}, group fsync), {NET_WRITERS} writers x {NET_WRITER_DOCS} docs "
+                  f"x {NET_EPOCHS} epochs x {NET_EDITS} edits and {NET_READERS} readers x {NET_FOLLOW} docs from "
+                  f"{NET_THREADS} threads, {NET_WRITERS + NET_READERS} connections: {out['a']['pushes_per_s']:.1f} "
+                  f"pushes/s over the wire, push-to-ack p50 {out['a']['push_to_ack_p50_ms']:.2f} ms p99 "
+                  f"{out['a']['push_to_ack_p99_ms']:.2f} ms (push-to-visible p50 {out['a']['push_to_visible_p50_ms']:.2f}"
+                  f" ms p99 {out['a']['push_to_visible_p99_ms']:.2f} ms), {out['a']['pulls_per_s']:.1f} reader pulls/s; "
+                  f"{rep_a['batches']} fan-in batches, {rep_a['rounds']} rounds; texts == the clients' and the "
+                  f"solver's ({solver_ms:.1f} ms)", flush=True)
+            print(f"net (a) on {kind} ({card}): the fan-in worker {out['a']['fanin_worker_ms_a_push']:.4f} ms a push; "
+                  "push-to-ack by stage, mean ms: " + ", ".join(f"{k[:-3]} {v:.3f}"
+                                                                for k, v in out["a"]["p2a_stage_mean_ms"].items())
+                  + f"; reads: {rb_a['windows']} windows, {out['a']['pulls_a_window']:.2f} pulls a window, "
+                  f"{rb_a['launches']} launches", flush=True)
+            print(f"net (b) on {kind} ({card}): Follower bootstrap {boot_s:.2f} s; {len(catch)} catch-ups, {rounds} "
+                  f"rounds in {catch_s:.3f} s = {out['b']['rounds_per_s']:.1f} rounds/s; apply lag p50 "
+                  f"{out['b']['apply_lag_p50_ms']:.1f} ms p99 {out['b']['apply_lag_p99_ms']:.1f} ms ({len(lags)} "
+                  f"samples); follower pulls/s {out['b']['pulls_per_s']:.1f} (min_epoch gated) beside the leader's "
+                  f"{out['a']['pulls_per_s']:.1f}; texts and solver == the leader's; a push to it: NOT_LEADER -> {nl}",
+                  flush=True)
+            print(f"net (b) on {kind} ({card}): catch-up host ms by part: ship {host_ms['ship']:.1f}, round replay "
+                  f"{host_ms['replay']:.1f}, read-only front's feed {host_ms['replicated_feed']:.1f}; follower reads: "
+                  f"{rb_f['windows']} windows, {out['b']['pulls_a_window']:.2f} pulls a window, {rb_f['launches']} "
+                  "launches", flush=True)
+
+            # (b) promotion: the leader retires, the writers follow the follower
+            for wr in writers:
+                wr["cli"].close()
+            for rd in readers:
+                rd["cli"].close()
+            net.close()
+            net = None
+            srv.close()
+            srv = None
+            t0 = time.perf_counter()
+            promoted = fol.promote("f1")
+            promote_ms = (time.perf_counter() - t0) * 1e3
+            check(fol.promoted and promoted is fol.resident, "4p (b): promote() did not flip the follower")
+            for wr in writers:
+                wr["cli"].port = net2.port
+            run_all(lambda wr: wr["cli"].reconnect(), writers)
+            n0 = len(tickets)
+            fol_push = fol.sync._push
+            tickets_p = []
+
+            def push_kept_f(session, di, data):
+                tk = fol_push(session, di, data)
+                tickets_p.append(tk)
+                return tk
+
+            fol.sync._push = push_kept_f
+            t0 = time.perf_counter()
+            blobs = edit_all()
+            acks = run_all(lambda wb: [wb[0]["cli"].push(di, blob) for di, blob in wb[1]], list(zip(writers, blobs)))
+            pwall = (time.perf_counter() - t0) * 1e3
+            check(len(tickets_p) == NET_DOCS and n0 == len(tickets), f"4p (b): {len(tickets_p)} promoted pushes")
+            ftexts = fol.sync.texts()
+            client_texts = [writers[di // NET_WRITER_DOCS]["doc"][di].get_text("text").to_string()
+                            for di in range(NET_DOCS)]
+            check(ftexts == client_texts, "4p (b): the promoted follower's texts != the clients' texts")
+            check(fol.resident.batch.texts(use_solver=True) == ftexts, "4p (b): the promoted solver read != texts()")
+            check(max(a["epoch"] for aw in acks for a in aw) == fol.resident.epoch
+                  and fol.resident.durable_epoch == fol.resident.epoch, "4p (b): the promoted acks or WAL lag")
+            out["b"].update(promote_ms=promote_ms, promoted_epoch_wall_ms=pwall, promoted_epoch=fol.resident.epoch)
+            print(f"net (b) on {kind} ({card}): promote() {promote_ms:.1f} ms; {NET_DOCS} pushes to the promoted "
+                  f"follower over the wire in {pwall:.1f} ms (edits included); its texts == the clients'", flush=True)
+            for c in clients:
+                c.close()
+            net2.close()
+            net2 = None
+            fol.close()
+            fol = None
+
+            # (c) the tree family and shards
+            t_c = time.perf_counter()
+            tdir, tfdir = os.path.join(tmp, "TL"), os.path.join(tmp, "TF")
+            tree = ResidentServer("tree", NET_TREE_DOCS, device=dev, move_capacity=TREE_RES_CAP,
+                                  node_capacity=TREE_RES_NODES, durable_dir=tdir)
+            replication.enable(tree, "tree-leader")
+            tfol = None
+            for e in range(NET_FAM_ROUNDS):
+                tree.ingest([lf[j].epochs[e] for j in range(NET_TREE_DOCS)], tracegen.TREE_CID)
+                if tfol is None:
+                    tfol = replication.Follower(tdir, tfdir, leader=tree, device=dev)
+                else:
+                    tfol.catch_up()
+                check(tfol.applied_epoch == tree.epoch, f"4p (c): tree round {e}: follower {tfol.applied_epoch}")
+                check(tfol.resident.parent_maps() == tree.parent_maps(), f"4p (c): tree round {e}: parent maps differ")
+            check(tfol.sync is not None and tfol.resident.batch.device == dev, "4p (c): the tree follower's front")
+            tfol.close()
+            tree.close()
+            mdir, mfdir = os.path.join(tmp, "ML"), os.path.join(tmp, "MF")
+            sh = ShardedResidentServer("map", NET_MAP_DOCS, shards=2, devices=[dev, dev], slot_capacity=MAP_RES_CAP,
+                                       durable_dir=mdir)
+            replication.enable(sh, "map-leader")
+            eng = HostEngine("map", NET_MAP_DOCS)
+            for e in range(NET_FAM_ROUNDS - 1):
+                ups = [lf[j].epochs[e] for j in range(NET_MAP_DOCS)]
+                sh.ingest(ups, None)
+                eng.apply(ups, None)
+            sfol = replication.ShardedFollower(mdir, mfdir, leader=sh, devices=[dev, dev])
+            srep = sfol.catch_up()
+            check(sfol.applied_epoch == sh.durable_epoch and sfol.lag_epochs == 0, f"4p (c): sharded follower {srep}")
+            check(sfol.value_maps() == sh.value_maps() == eng.value_maps(), "4p (c): the sharded follower's maps")
+            sh.close()
+            t0 = time.perf_counter()
+            fleet = sfol.promote("map-f1")
+            sh_promote_ms = (time.perf_counter() - t0) * 1e3
+            ups = [lf[j].epochs[NET_FAM_ROUNDS - 1] for j in range(NET_MAP_DOCS)]
+            fleet.ingest(ups, None)
+            eng.apply(ups, None)
+            check(fleet.value_maps() == eng.value_maps() and fleet.durable_epoch == fleet.epoch,
+                  "4p (c): the promoted fleet's maps != HostEngine's")
+            check(all(s.batch.device == dev for s in fleet.shards), "4p (c): a promoted shard is not on the card")
+            fleet.close()
+            sfol.close()
+            out["c"] = {"tree_docs": NET_TREE_DOCS, "map_docs": NET_MAP_DOCS, "rounds": NET_FAM_ROUNDS,
+                        "sharded_promote_ms": sh_promote_ms, "seconds": time.perf_counter() - t_c}
+            print(f"net (c) on {kind} ({card}): tree leader [{NET_TREE_DOCS}] and follower, {NET_FAM_ROUNDS} rounds, "
+                  f"parent_maps() equal each round; ShardedFollower over map [{NET_MAP_DOCS}] on 2 shards of the card, "
+                  f"maps == the leader's and HostEngine's, promote() {sh_promote_ms:.1f} ms, one more round; (c) "
+                  f"{out['c']['seconds']:.1f} s", flush=True)
+    finally:
+        faultinject.clear()
+        for c in clients:
+            c.kill()
+        for s_ in (net, net2, fol, srv):
+            if s_ is not None:
+                try:
+                    s_.close()
+                except Exception as ex:  # noqa: BLE001 — the phase's own failure is the one to report
+                    print(f"net: teardown of {type(s_).__name__} raised {type(ex).__name__}: {ex}", flush=True)
+        pool.shutdown(wait=True)
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["main_s"] = time.perf_counter() - t_main
+    out["launches"] = {**{k: v for k, v in list_rank.LAUNCHES.items() if v},
+                       **{f"tree_replay/{k}": v for k, v in tb.LAUNCHES.items() if v}}
+    if on_card:
+        check(sum(list_rank.LAUNCHES.values()) > 0 and sum(tb.LAUNCHES.values()) > 0,
+              f"phase 4p launched list rank {list_rank.LAUNCHES} and tree replay {tb.LAUNCHES}")
+        check(len(cap.seen) == sum(list_rank.LAUNCHES.values()) + sum(tb.LAUNCHES.values()),
+              f"4p captured {len(cap.seen)} launches, counted {out['launches']}")
+    t0 = time.perf_counter()
+    out["kernel_checks"] = check_captured(torch, list_rank, tb, cap.seen, out["max_abs_err"], phase="4p")
+    out["kernel_check_s"] = time.perf_counter() - t0
+
+    # (d) real device failures, in two children run side by side
+    if on_card:
+        t0 = time.perf_counter()
+        root = str(Path(__file__).resolve().parent)
+        procs = {m: subprocess.Popen([sys.executable, "-c", NET_CHILD, root, m, str(build)], stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True) for m in ("apply", "pull")}
+        res = {}
+        for m, pr in procs.items():
+            so, se = pr.communicate(timeout=600)
+            lines = [ln for ln in so.splitlines() if ln.startswith("{")]
+            check(pr.returncode == 0 and lines, f"4p (d): the {m} child failed (rc {pr.returncode}): {so[-1500:]}{se[-3000:]}")
+            res[m] = json.loads(lines[-1])
+        ap, pu = res["apply"], res["pull"]
+        ra, rp = ap["raised"] or {}, pu["raised"] or {}
+        check(ap["clean"] and ra.get("injected") is False and ra.get("cause") == "AcceleratorError"
+              and ap["applied_after"] == ap["applied_before"] < ap["leader_epoch"] and ap["rounds_applied"] == 0
+              and not ap["degraded"] and ap["supervisor"]["degradations"] == 0, f"4p (d): the apply child {ap}")
+        check(pu["clean"] and rp.get("type") == "NetError" and "INTERNAL" in rp.get("message", "")
+              and pu["served_bytes"] is None and pu["frontiers_after"] == 0 and pu["last_pull"] is None
+              and pu["internal_errors"] == 1 and pu["degraded_windows"] == 0
+              and pu["supervisor"]["degradations"] == 0, f"4p (d): the pull child {pu}")
+        out["d"] = {"apply": ap, "pull": pu, "children_s": time.perf_counter() - t0}
+        print(f"net (d) on {kind} ({card}): an armed repl_apply fault failed one catch_up (applied epoch kept) and an "
+              f"armed net_frame fault one connection ({out['d_armed']['net_frame']['raised']}, resumed); children: a "
+              f"device-side assert in the follower's apply -> DeviceFailure(injected=False, cause {ra.get('cause')}) at "
+              f"catch_up(), applied epoch {ap['applied_after']} kept, not degraded; one in a pull's selection -> "
+              f"NetError ({rp.get('message', '')[:60]}...) at the NetClient, no bytes, 1 internal error "
+              f"({out['d']['children_s']:.1f} s)", flush=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 4p: {out['seconds']:.1f} s (traces {out['gen_s']:.1f} s, main path {out['main_s']:.1f} s, kernel "
+          f"checks {out['kernel_check_s']:.1f} s); main-path launches {out['launches']}; {len(cap.seen)} launches held "
+          f"against their plain versions, max abs err {out['max_abs_err']}", flush=True)
+    return out
+
+
 def resident_rounds(torch, dev, cls, docs, eps, n_docs: int, cap: int, node_cap: int, n_rounds: int,
                     profile_round=None) -> dict:
     """A DeviceTreeBatch(n_docs, cap, node_cap, auto_grow=True) fed one sync
@@ -4769,7 +5428,7 @@ def main(argv=None) -> int:
         watch = SupervisorWatch()
         phase_fns = {"4f": map_counter_phase, "4g": tree_phase, "4h": richtext_phase, "4i": movable_phase,
                      "4j": read_plane_phase, "4k": host_engine_phase, "4l": supervision_phase,
-                     "4m": lifecycle_phase, "4n": server_phase, "4o": sync_phase}
+                     "4m": lifecycle_phase, "4n": server_phase, "4o": sync_phase, "4p": net_phase}
         results = {}
         first_window = {}  # 4j's first window, framed by 4k when both run (4j first)
         extra = {"4j": {"first": first_window}, "4k": {"first_window": first_window}}
@@ -5537,6 +6196,17 @@ def main(argv=None) -> int:
             max_err[name] = max(max_err[name], err)
     watch.after("4o")
 
+    # ---- 4p. the network edge and replication: writer and reader NetClients
+    # over the durable text server, a follower on the card behind a second
+    # NetServer, promoted; a tree follower and a sharded map follower; armed
+    # and real faults (list-rank and tree-replay launches counted, each held
+    # against its plain version)
+    net4p = net_phase(torch, dev, kind, card)
+    for name, err in net4p["max_abs_err"].items():
+        if name in max_err:
+            max_err[name] = max(max_err[name], err)
+    watch.after("4p")
+
     # ---- 5. timings -------------------------------------------------------
     # each kernel at its main-path shape: the flagship chain rings for the
     # packed kernels, the element rings for the wide kernel
@@ -5734,7 +6404,7 @@ def main(argv=None) -> int:
         "sweep": sweep, "sweep_graph": sweep_graph, "ingest": ingest, "fleet": fleet, "resident": resident4e,
         "map_counter": map_counter4f, "tree": tree4g, "richtext": richtext4h, "movable": movable4i,
         "read_plane": read4j, "host_engine": host4k, "supervision": sup4l, "lifecycle": life4m,
-        "server": server4n, "sync": sync4o,
+        "server": server4n, "sync": sync4o, "net": net4p,
         "total_s": time.perf_counter() - t_start,
     }))
     # launches in the fleet phase's checked one-shot calls, one a call
@@ -5757,6 +6427,7 @@ def main(argv=None) -> int:
             "launches_lifecycle": sum(v for k, v in life4m["launches"].items() if k.split("/")[0] == name),
             "launches_server": sum(v for k, v in server4n["launches"].items() if k.split("/")[0] == name),
             "launches_sync": sum(v for k, v in sync4o["launches"].items() if k.split("/")[0] == name),
+            "launches_net": sum(v for k, v in net4p["launches"].items() if k.split("/")[0] == name),
             "max_abs_err": max_err[name],
             "ms": res[f"{name}_graph_ms"],
             "eager_ms": res[f"{name}_ms"],
@@ -5779,9 +6450,11 @@ def main(argv=None) -> int:
         "launches_lifecycle": sum(v for k, v in life4m["launches"].items() if k.startswith("tree_replay/")),
         "launches_server": sum(v for k, v in server4n["launches"].items() if k.startswith("tree_replay/")),
         "launches_sync": sum(v for k, v in sync4o["launches"].items() if k.startswith("tree_replay/")),
+        "launches_net": sum(v for k, v in net4p["launches"].items() if k.startswith("tree_replay/")),
         "max_abs_err": max(tk["max_abs_err"], host4k["max_abs_err"].get("tree_replay", 0),
                            sup4l["max_abs_err"].get("tree_replay", 0), life4m["max_abs_err"].get("tree_replay", 0),
-                           server4n["max_abs_err"].get("tree_replay", 0), sync4o["max_abs_err"].get("tree_replay", 0)),
+                           server4n["max_abs_err"].get("tree_replay", 0), sync4o["max_abs_err"].get("tree_replay", 0),
+                           net4p["max_abs_err"].get("tree_replay", 0)),
         "ms": tk["ms"],
         "eager_ms": tk["eager_ms"],
         "plain_ms": tk["plain_ms"],

@@ -93,6 +93,12 @@ merges, their resident batches and the read plane:
                       /metrics and /status.json), the health plane and
                       its top view, the report and trace tools, the
                       device round-trip probe
+    net               NetServer (asyncio TCP front over a SyncServer, one
+                      session a connection), NetClient, the wire codec
+    replication       enable() (leader token, append fence, visibility
+                      marker, retention pin), WalShipper, Follower and
+                      ShardedFollower (rolling recovery of shipped WAL on
+                      the card, promote()), ReadOnlySyncServer
     entry             entry(): the element merge of an example batch
     tracegen          seeded traces (automerge-perf-shaped text, map,
                       counter, tree, rich-text and movable histories,
@@ -110,9 +116,10 @@ from .cursor import AbsolutePosition, Cursor, CursorSide, get_cursor, get_cursor
 from .device import resolve_device
 from .doc import EncodeMode, ExportMode, ImportStatus, LoroDoc
 from .errors import (BackendUnavailable, ConfigError, DeadlineExceeded, DecodeError, DeviceFailure,
-                     DeviceUnavailable, KernelBuildError, KernelLaunchError, LoroError, PersistError,
-                     PushRejected, ResidencyError, ResilienceError, SessionClosed, ShardingError,
-                     StaleFrontier, SyncError)
+                     DeviceUnavailable, FencedLeader, KernelBuildError, KernelLaunchError, LoroError, NetError,
+                     NetProtocolError, NotLeader, PersistError, PushRejected, ReplicaLag, ReplicationError,
+                     ResidencyError, ResilienceError, SessionClosed, ShardingError, StaleFollower, StaleFrontier,
+                     SyncError)
 from .event import (
     ContainerDiff,
     CounterDiff,
@@ -149,6 +156,10 @@ from .persist import open_server, recover_server, recover_sharded_server
 from . import obs
 from . import sync
 from .sync import FanIn, PresencePlane, ReadBatcher, Session, SyncServer
+from . import net
+from . import replication
+from .net import NetClient, NetServer
+from .replication import Follower, ReadOnlySyncServer, ShardedFollower
 
 __all__ = [
     "resolve_device",
@@ -186,6 +197,20 @@ __all__ = [
     "PushRejected",
     "StaleFrontier",
     "SessionClosed",
+    "net",
+    "NetServer",
+    "NetClient",
+    "NetError",
+    "NetProtocolError",
+    "replication",
+    "Follower",
+    "ShardedFollower",
+    "ReadOnlySyncServer",
+    "ReplicationError",
+    "NotLeader",
+    "FencedLeader",
+    "StaleFollower",
+    "ReplicaLag",
     "LoroDoc",
     "LoroError",
     "DecodeError",

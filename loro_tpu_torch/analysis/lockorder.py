@@ -9,10 +9,23 @@ allowed.  Locks not named here (the obs registry, the fault table,
 tracing: strict leaves that call nothing while held) are outside the
 witness on purpose.
 
-The table is the JAX package's whole order, so the planes ported later
-(replication, the network edge) slot in at their levels.  The port's
-locks today, outermost first:
+The table is the JAX package's whole order.  The port's locks today,
+outermost first:
 
+- ``repl.follower``    — a replication Follower's catch_up / promote
+  RLock (replication/follower.py), the outermost level of the standby
+  plane: one pass holds it across the shipped-round replay (->
+  ``fleet.dev`` / ``supervisor.state`` through the resident) and the
+  read-only sync feed (-> ``sync.server`` -> ``sync.readplane``);
+  nothing acquires it while holding anything below;
+- ``net.accept``       — the NetServer's connection registry and
+  pending-poll slots (net/server.py): taken on the asyncio loop thread
+  (accept, teardown), the notifier thread (claim a pending poll, then
+  release it before ``session.poll`` -> ``sync.server``) and the acker
+  thread; every session call under it is made after release, so the
+  declared edge ``net.accept`` -> ``sync.server`` serves only the
+  teardown path that snapshots the registry before disconnecting
+  sessions;
 - ``sync.server``      — SyncServer's session / oracle RLock; the commit
   path feeds the read plane under it (server -> readplane), and a
   degraded read window takes it only with the queue and plane locks

@@ -70,6 +70,24 @@ class SessionClosed(SyncError):
     """Operation on a session that was closed or TTL-expired."""
 
 
+class NetError(LoroError):
+    """Base for the network edge (net/): frame-layer violations
+    (oversized frames, send-queue overflow, a closed or refused
+    connection) and client-side transport failures.  A NetError fails
+    exactly ONE connection — the accept loop and every other live
+    session keep serving.  Truncated / bit-flipped frame *bytes* raise
+    ``CodecDecodeError`` (the codec-harden contract); sync-layer
+    outcomes crossing the wire re-raise their own types
+    (``PushRejected``, ``StaleFrontier``, ``NotLeader``, ...)."""
+
+
+class NetProtocolError(NetError):
+    """The peer spoke the wrong protocol: bad HELLO magic, an
+    unsupported protocol version, an unknown message type, or a frame
+    whose declared length exceeds the negotiated maximum.  The
+    connection closes typed; reconnect-with-frontier resume applies."""
+
+
 class ShardingError(LoroError):
     """Sharded-fleet lifecycle misuse (loro_tpu/parallel/sharded.py,
     docs/SHARDING.md): migrating to a shard with no free slot, moving a
@@ -92,9 +110,18 @@ class ResidencyError(LoroError):
 
 
 class ReplicationError(LoroError):
-    """Base for WAL-shipping replication (loro_tpu/replication/,
-    docs/REPLICATION.md): leader-side shipping, follower apply loops,
-    fencing and promotion."""
+    """Base for WAL-shipping replication (replication/): leader-side
+    shipping, follower apply loops, fencing and promotion."""
+
+
+class NotLeader(ReplicationError):
+    """A write (push/ingest) reached a read-only follower.  Carries the
+    current leader's identity so clients can redirect instead of
+    guessing."""
+
+    def __init__(self, msg: str, leader=None):
+        self.leader = leader
+        super().__init__(msg + (f" (leader: {leader})" if leader else ""))
 
 
 class FencedLeader(ReplicationError):
@@ -102,6 +129,14 @@ class FencedLeader(ReplicationError):
     promoted with a newer leader token, so this process must fail-stop
     — continuing to journal would fork the replicated history.  Raised
     BEFORE any bytes reach the segment (no partial record)."""
+
+
+class StaleFollower(ReplicationError):
+    """The follower's shipped position fell below the leader's WAL
+    prune floor (its retention pin was dropped by the staleness
+    cutoff, then the history it still needed was deleted).  The
+    follower must re-bootstrap from a fresh directory — resuming would
+    silently fabricate a truncated history."""
 
 
 class ReplicaLag(ReplicationError):

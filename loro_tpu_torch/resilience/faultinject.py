@@ -24,8 +24,14 @@ The server, persistence and residency planes register ``poison_doc``,
 ``revive_replay``; the sync front end ``sync_push``, ``sync_pull``,
 ``session_stall`` and ``read_batch`` (an armed ``read_batch`` fault
 degrades its read window to the oracle); the health plane
-``health_tick``.  Each registers with its module.  The JAX package's
-replication and network sites belong to planes not ported yet.
+``health_tick``; replication ``repl_ship`` (every shipped byte: raise /
+delay = a mid-ship crash, truncate / bitflip = a torn shipped tail),
+``repl_apply`` (before each shipped round applies) and ``repl_promote``
+(promotion entry, before the fencing token bump); the network edge
+``net_accept`` (refuse the next accepted connection), ``net_frame``
+(mangle one received frame before its crc gate) and ``conn_stall`` (a
+connection's writer: delay = a slow reader, raise = that connection
+torn down typed).  Each registers with its module.
 
 Arm programmatically::
 
@@ -87,7 +93,10 @@ _SITE_MODULES = (
     "loro_tpu_torch.sync.session",
     "loro_tpu_torch.sync.presence",
     "loro_tpu_torch.sync.readbatch",
+    "loro_tpu_torch.replication.shipper",
+    "loro_tpu_torch.replication.follower",
     "loro_tpu_torch.obs.health",
+    "loro_tpu_torch.net.server",
 )
 
 _ACTIONS = ("raise", "delay", "hang", "truncate", "bitflip", "poison")

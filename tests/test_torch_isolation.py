@@ -311,9 +311,15 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(tmp_path):
     from loro_tpu_torch.parallel.server import ResidentServer
     from loro_tpu_torch.parallel.sharded import ShardedResidentServer
     from loro_tpu_torch.persist import open_server, recover_server
+    from loro_tpu_torch.replication import Follower, ShardedFollower, enable
 
     durable = str(tmp_path / "durable")  # a durable directory made on the CPU, recovered by default on the card
     ResidentServer("counter", 1, device="cpu", durable_dir=durable).close()
+    leader_dir, sharded_dir = str(tmp_path / "leader"), str(tmp_path / "sharded")  # followed by default on the card
+    for lead in (ResidentServer("counter", 1, device="cpu", durable_dir=leader_dir),
+                 ShardedResidentServer("counter", 2, devices=["cpu", "cpu"], durable_dir=sharded_dir)):
+        enable(lead)
+        lead.close()
 
     np_seq = example_cols(d=1, n=8)
     seq = fugue_batch.seq_columns_to_torch(np_seq, device="cpu")
@@ -386,6 +392,8 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(tmp_path):
         lambda: recover_server(durable),
         lambda: open_server(durable),
         lambda: open_server(str(tmp_path / "fresh"), "text", 1),
+        lambda: Follower(leader_dir, str(tmp_path / "follower")),
+        lambda: ShardedFollower(sharded_dir, str(tmp_path / "sharded_follower")),
     ]
     for call in calls:
         with pytest.raises(DeviceUnavailable):
@@ -417,3 +425,8 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(tmp_path):
     assert recover_server(durable, device="cpu").value_maps() == [{}]
     assert ShardedResidentServer("text", 2, devices=["cpu", "cpu"]).texts() == ["", ""]
     assert TieredResidentServer("text", 2, hot_slots=1, device="cpu").texts() == ["", ""]
+    # the followers run when the CPU is asked for
+    with Follower(leader_dir, str(tmp_path / "follower"), device="cpu") as fol:
+        assert fol.catch_up()["applied_epoch"] == 0 and fol.resident.value_maps() == [{}]
+    with ShardedFollower(sharded_dir, str(tmp_path / "sharded_follower"), devices=["cpu", "cpu"]) as sfol:
+        assert sfol.catch_up()["applied_epoch"] == 0 and sfol.value_maps() == [{}, {}]

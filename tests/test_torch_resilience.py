@@ -431,12 +431,15 @@ def test_probe_body_names_no_jax():
 
 
 def test_fault_sites_are_the_ports():
-    assert sorted(pfi.sites()) == ["backend_init", "ckpt_corrupt", "decode", "evict_flush", "export_launch", "fetch",
-                                   "health_tick", "launch", "poison_doc", "read_batch", "revive_replay",
-                                   "session_stall", "sync_pull", "sync_push", "wal_torn_tail", "wal_write"]
+    assert sorted(pfi.sites()) == ["backend_init", "ckpt_corrupt", "conn_stall", "decode", "evict_flush",
+                                   "export_launch", "fetch", "health_tick", "launch", "net_accept", "net_frame",
+                                   "poison_doc", "read_batch", "repl_apply", "repl_promote", "repl_ship",
+                                   "revive_replay", "session_stall", "sync_pull", "sync_push", "wal_torn_tail",
+                                   "wal_write"]
+    assert sorted(pfi.sites()) == sorted(JAX.fi.sites())  # every JAX-package site has its plane in the port
     assert all(m.startswith("loro_tpu_torch.") for info in pfi.sites().values() for m in info["modules"])
     with pytest.raises(perrors.ConfigError):
-        pfi.inject("net_frame")  # a JAX-package site the port has no plane for yet
+        pfi.inject("net_frmae")  # a misspelled site never fires: refused typed
 
 
 @pytest.mark.faultinject
