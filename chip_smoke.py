@@ -19,8 +19,9 @@ checks it, end to end:
    tests/test_torch_map_counter_cuda.py, tests/test_torch_tree_cuda.py,
    tests/test_torch_richtext_cuda.py, tests/test_torch_movable_cuda.py,
    tests/test_torch_movable_resident_cuda.py,
-   tests/test_torch_export_cuda.py, tests/test_torch_doc_cuda.py and
-   tests/test_torch_resilience_cuda.py (pytest -m cuda) as a subprocess;
+   tests/test_torch_export_cuda.py, tests/test_torch_doc_cuda.py,
+   tests/test_torch_resilience_cuda.py and
+   tests/test_torch_op_sharding_cuda.py (pytest -m cuda) as a subprocess;
 4. main paths, each with launch counts reset before and read after:
    a. chain merge: a full-size 8-doc chunk of automerge-perf-shaped
       documents (tracegen), chain-contracted, merged with
@@ -107,7 +108,9 @@ checks it, end to end:
       against its plain version (both table variants) on the traces and
       on bench_tree's random columns at [1,024, 2,048], and in the
       resident replays' permutation form on the resident fleet's last
-      log and the first 4,096 rows of the depth cell's (n = 2,048),
+      log and the first 4,096 rows of the depth cell's (n = 2,048; the
+      random columns' and the resident logs' plain versions run on the
+      host, in processes of their own while the card times the kernel),
       timed by graph and eager beside its latency bound (the longest
       doc's dependent loads at a shared-memory load latency measured on
       the card) and its bytes bound; its timed split (tree_batch.
@@ -255,6 +258,19 @@ checks it, end to end:
       DeviceFailure and one in a pull behind the NetServer reaching its
       NetClient as NetError with no bytes; every list-rank and
       tree-replay launch held against its plain version;
+   q. the chaos plane: seeded fault and nemesis schedules over the
+      composed stack on the card, the planted violation caught, replayed
+      and shrunk, a kill step, the lock witness; the port's linter in a
+      child (chaos_phase);
+   r. the device mesh and op-axis sharding on meshes naming the one card
+      many times (every collective a copy on one device): the op-sharded
+      ring rank ("wyllie", "blocked") on 2 x 4 over 8 rings of 34,820
+      tokens equal to the CUDA Wyllie kernel and the plain version, each
+      timed; merge_map_docs_sharded at 4f's width on 2 x 2 equal to the
+      one-device merge and oracle_map (wall, device busy, peak memory);
+      merge_text_docs and merge_map_docs doc-sharded on 4 x 1 equal to
+      one device; dryrun_multichip(8); every list-rank and tree-replay
+      launch held against its plain version (mesh_phase);
 5. timings (CUDA events, warm-up then median; a kernel's ms is 20
    back-to-back calls of its wrapper replayed from a CUDA graph, and
    beside it eager_ms, the same 20 calls eager): merge ms per chunk and
@@ -275,7 +291,7 @@ Prints one {"kernels": [...]} line and ends with the line
 Any failed check raises, so the script exits non-zero.  Usage:
     python3 chip_smoke.py                          # the whole run, the verification
     python3 chip_smoke.py --phase 4i [--phase 4j]  # build, card tests, those phases
---phase takes 4f, 4g, 4h, 4i, 4j, 4k, 4l, 4m, 4n, 4o or 4p (the phases that stand alone);
+--phase takes 4f, 4g, 4h, 4i, 4j, 4k, 4l, 4m, 4n, 4o, 4p, 4q or 4r (the phases that stand alone);
 such a run prints its phases' results and no kernels line.
 """
 from __future__ import annotations
@@ -477,8 +493,10 @@ CHAOS_PLANTED = dict(seed=77, steps=8, families=("map",), docs=2, shards=1, hot_
 # seeds of (a) arm few device sites)
 CHAOS_DEVICE_SITES = ("launch", "fetch", "decode", "read_batch", "export_launch")
 CHAOS_ARM_FAMILIES = (("text", "tree"), ("map", "counter", "movable"))
+MESH_RING = 34_820  # 4r (a): the flagship ring (34,818 tokens) padded to a multiple of the op axis
+MESH_MAP_DOCS = 512  # 4r (b), (c): map docs at 4f's row width (cut from 4f's 1,024 to fit the script's time)
 # phases `--phase` runs alone (after the build and the card tests)
-SELECTABLE = ("4f", "4g", "4h", "4i", "4j", "4k", "4l", "4m", "4n", "4o", "4p", "4q")
+SELECTABLE = ("4f", "4g", "4h", "4i", "4j", "4k", "4l", "4m", "4n", "4o", "4p", "4q", "4r")
 
 
 def check(cond: bool, what: str) -> None:
@@ -854,7 +872,7 @@ def resident_phase(torch, dev, kind: str, card: str, fleet_docs, fleet_want, fla
     return resident4e
 
 
-def map_counter_phase(torch, dev, kind: str, card: str) -> dict:
+def map_counter_phase(torch, dev, kind: str, card: str, shared=None) -> dict:
     """Phase 4f, the LWW-map and counter merges: Fleet.merge_map_docs on
     MAP_DOCS extracts cycled over MAP_DISTINCT map traces and
     Fleet.merge_counter_changes on as many counter change lists, each
@@ -866,7 +884,9 @@ def map_counter_phase(torch, dev, kind: str, card: str) -> dict:
     state bytes, each round timed and split from outside (the host clock
     and CUDA events around the explode, the fold and the grow; the last
     map round under the profiler for its device time); the one-shot
-    calls' host stages timed inside the calls whose walls are reported."""
+    calls' host stages timed inside the calls whose walls are reported.
+    `shared`, a dict, gets the map traces' oracle maps and extracts under
+    "map" (phase 4r merges the same extracts)."""
     import numpy as np
 
     from loro_tpu_torch import native, tracegen
@@ -908,6 +928,8 @@ def map_counter_phase(torch, dev, kind: str, card: str) -> dict:
     t0 = time.perf_counter()
     exs = [columnar.extract_map_ops(decode_changes(p)) for p in mpayloads]
     decode_extract_ms = (time.perf_counter() - t0) * 1e3 / MAP_DISTINCT
+    if shared is not None:
+        shared["map"] = (mwant, exs)
     explode_ms = []
     for d, p, ex in zip(mdocs, mpayloads, exs):
         check(len(ex.slot) == MAP_OPS and len(ex.slots) <= MAP_KEYS, f"map trace: {len(ex.slot)} ops, {len(ex.slots)} slots")
@@ -1218,7 +1240,9 @@ def tree_phase(torch, dev, kind: str, card: str) -> dict:
     to equal state bytes; the permutation form the resident replays
     launch held bit for bit against the plain version on (c)'s last log
     and on the first TREE_DEEP_PLAIN_ROWS rows of (d)'s, both table
-    variants; then the kernel's timed split (tree_split) on the traces
+    variants (the plain versions of the random columns and of these logs
+    run on the host, one process each, while the card times the kernel:
+    HostPlain); then the kernel's timed split (tree_split) on the traces
     and the random columns, and the docs-a-warp sweep (tree_sweep) at
     [1,024, 2,048], [10,240, 2,048] and on (d)'s whole last log in the
     permutation form.  The main path's replay launches are counted
@@ -1370,34 +1394,19 @@ def tree_phase(torch, dev, kind: str, card: str) -> dict:
     launches = dict(tb.LAUNCHES)
     out["launches"] = launches
 
-    # kernel vs plain version, timings and bounds (after the count)
-    t0 = time.perf_counter()
-    p_plain, e_plain, loads = tb.replay_plain(cols.target, cols.parent, cols.valid, n)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    check(torch.equal(p_plain, parents) and torch.equal(e_plain, eff), "tree kernel != plain version on the traces")
+    # kernel vs plain version, timings and bounds (after the count).  The
+    # plain versions of bench_tree's random columns and of the resident
+    # replays' permutation form (the sort's order given, effected written
+    # back by row) on each resident cell's last batch, (c) whole and (d)
+    # at n = 2,048 on the first TREE_DEEP_PLAIN_ROWS rows of its log
+    # (rounds 1-2; the plain version walks for minutes on the whole log),
+    # run on the host, one process each, while the card runs and times
+    # the kernel; the traces' plain version runs on the card (plain_ms).
     rng = np.random.default_rng(SEED)
     rand = tb.TreeOpCols(torch.from_numpy(rng.integers(0, n, (TREE_DOCS, m)).astype(np.int32)).to(dev),
                          torch.from_numpy(rng.integers(-2, n, (TREE_DOCS, m)).astype(np.int32)).to(dev),
                          torch.ones((TREE_DOCS, m), dtype=torch.bool, device=dev))
-    t0 = time.perf_counter()
-    rp_plain, re_plain, rloads = tb.replay_plain(*rand, n)
-    torch.cuda.synchronize()
-    rand_plain_ms = (time.perf_counter() - t0) * 1e3
-    variants, max_err = {}, 0
-    for v in tb.VARIANTS:
-        for label, c, want_p, want_e in (("traces", cols, p_plain, e_plain), ("random", rand, rp_plain, re_plain)):
-            gp, ge = tb.launch_kernel(*c, n, variant=v)
-            torch.cuda.synchronize()
-            max_err = max(max_err, int((gp.long() - want_p.long()).abs().max()), int((ge != want_e).sum()))
-            check(torch.equal(gp, want_p) and torch.equal(ge, want_e), f"tree kernel ({v}) != plain on the {label} columns")
-        variants[v] = both_ms(torch, lambda: tb.launch_kernel(*cols, n, variant=v))
-    # the resident replays' permutation form (the sort's order given,
-    # effected written back by row) on each resident cell's last batch:
-    # (c) whole, (d) at n = 2,048 on the first TREE_DEEP_PLAIN_ROWS rows
-    # of its log (rounds 1-2; the plain version walks for minutes on the
-    # whole log)
-    resident_vs_plain = {}
+    resident_logs = {}
     for label, res, rows in (("resident", res_c, None), ("resident_deep", res_d, TREE_DEEP_PLAIN_ROWS)):
         rc = res["last_batch"].cols
         if rows is not None:
@@ -1405,51 +1414,73 @@ def tree_phase(torch, dev, kind: str, card: str) -> dict:
         nc = res["node_cap"]
         plan = tb.plan_replay(rc.target.shape[0], nc, tb.sm_count(dev))
         check(plan.variant == "smem", f"tree {label}: n = {nc} plans {plan}")
-        order = tb._sort_order(rc)
+        resident_logs[label] = (rc, nc, tb._sort_order(rc), plan)
+    with HostPlain() as host:
+        host.submit("random", *rand, n)
+        for label, (rc, nc, order, _plan) in resident_logs.items():
+            host.submit(label, rc.target, rc.parent, rc.valid, nc, order)
         t0 = time.perf_counter()
-        want_p, want_e, _ = tb.replay_plain(rc.target, rc.parent, rc.valid, nc, order=order)
+        p_plain, e_plain, loads = tb.replay_plain(cols.target, cols.parent, cols.valid, n)
         torch.cuda.synchronize()
-        resident_vs_plain[label] = {"shape": list(rc.target.shape), "n": nc, "docs_per_warp": plan.docs_per_warp,
-                                    "plain_ms": (time.perf_counter() - t0) * 1e3}
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        check(torch.equal(p_plain, parents) and torch.equal(e_plain, eff), "tree kernel != plain version on the traces")
+        variants, max_err, held = {}, 0, []
         for v in tb.VARIANTS:
-            gp, ge = tb.launch_kernel(rc.target, rc.parent, rc.valid, nc, order=order.to(torch.int32), variant=v)
+            gp, ge = tb.launch_kernel(*cols, n, variant=v)
             torch.cuda.synchronize()
-            max_err = max(max_err, int((gp.long() - want_p.long()).abs().max()), int((ge != want_e).sum()))
-            check(torch.equal(gp, want_p) and torch.equal(ge, want_e),
-                  f"tree kernel ({v}, permutation form) != plain on the {label} cell's log {list(rc.target.shape)}")
-        del rc, order, want_p, want_e, gp, ge
-    eager_ms, graph_ms = variants["smem"]
-    rand_eager, rand_graph = both_ms(torch, lambda: tb.tree_merge_batch(rand, n))
-    big_eager, big_graph = both_ms(torch, lambda: tb.tree_merge_batch(big, n))
-    load_cycles = tb.smem_load_cycles(dev)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm,clocks.sm", "--format=csv,noheader,nounits"],
-                         capture_output=True, text=True, timeout=60)
-    max_mhz, cur_mhz = (float(x) for x in smi.stdout.strip().splitlines()[0].split(","))
-    # the least time: the longest doc's dependent loads (its moves plus its
-    # walk steps), each one shared-memory load latency, at the top SM
-    # clock; beside it the bytes (9 read and 1 written a move, 4 written a
-    # node) over the device memory rate
-    longest = int(loads.max())
-    bound = longest * load_cycles / (max_mhz * 1e3)
-    bytes_bound = TREE_DOCS * (10 * m + 4 * n) / HBM_BYTES_PER_S * 1e3
+            max_err = max(max_err, int((gp.long() - p_plain.long()).abs().max()), int((ge != e_plain).sum()))
+            check(torch.equal(gp, p_plain) and torch.equal(ge, e_plain), f"tree kernel ({v}) != plain on the traces")
+            held.append(("random", f"tree kernel ({v}) != plain on the random columns", tb.launch_kernel(*rand, n, variant=v)))
+            for label, (rc, nc, order, _plan) in resident_logs.items():
+                held.append((label, f"tree kernel ({v}, permutation form) != plain on the {label} cell's log "
+                             f"{list(rc.target.shape)}", tb.launch_kernel(rc.target, rc.parent, rc.valid, nc,
+                                                                          order=order.to(torch.int32), variant=v)))
+            variants[v] = both_ms(torch, lambda: tb.launch_kernel(*cols, n, variant=v))
+        eager_ms, graph_ms = variants["smem"]
+        rand_eager, rand_graph = both_ms(torch, lambda: tb.tree_merge_batch(rand, n))
+        big_eager, big_graph = both_ms(torch, lambda: tb.tree_merge_batch(big, n))
+        load_cycles = tb.smem_load_cycles(dev)
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm,clocks.sm", "--format=csv,noheader,nounits"],
+                             capture_output=True, text=True, timeout=60)
+        max_mhz, cur_mhz = (float(x) for x in smi.stdout.strip().splitlines()[0].split(","))
+        # the least time: the longest doc's dependent loads (its moves plus its
+        # walk steps), each one shared-memory load latency, at the top SM
+        # clock; beside it the bytes (9 read and 1 written a move, 4 written a
+        # node) over the device memory rate
+        longest = int(loads.max())
+        bound = longest * load_cycles / (max_mhz * 1e3)
+        bytes_bound = TREE_DOCS * (10 * m + 4 * n) / HBM_BYTES_PER_S * 1e3
+        deep_cols = res_d["last_batch"].cols
+        deep_ms = time_ms(torch, lambda: tb.tree_replay_log_batch(deep_cols, res_d["node_cap"]), warmup=1, reps=5)
+        order = tb._sort_order(deep_cols).to(torch.int32)
+        deep_kernel_ms = time_ms(torch, lambda: tb.launch_kernel(deep_cols.target, deep_cols.parent, deep_cols.valid,
+                                                                 res_d["node_cap"], order=order), warmup=1, reps=5)
+        # where a warp's time goes (the timed instantiation), and the
+        # docs-a-warp sweep behind plan_replay's rule
+        split = {"traces": tree_split(torch, tb, cols, n), "random": tree_split(torch, tb, rand, n)}
+        for label, sp in split.items():
+            print(f"tree split on the {label} [{TREE_DOCS}, {m}] ({sp['docs_per_warp']} docs a warp, median of 10; the "
+                  f"chase {load_cycles:.2f} cycles a load): " + tree_split_line(sp), flush=True)
+        sweep = {
+            "traces": tree_sweep(torch, dev, tb, f"traces [{TREE_DOCS}, {m}]", cols, n, want=(parents, eff)),
+            "big": tree_sweep(torch, dev, tb, f"traces tiled [{TREE_BIG_DOCS}, {m}]", big, n),
+            "deep": tree_sweep(torch, dev, tb, f"resident depth [{TREE_DEEP_DOCS}, {res_d['cap']}], permutation form",
+                               deep_cols[4:7], res_d["node_cap"], order=order, light=True),
+        }
+        plain_host = host.results()
+    # the host's plain versions held against the kernel's launches above
+    for label, what, (gp, ge) in held:
+        (want_p, want_e, _), _s = plain_host[label]
+        gp, ge = gp.cpu(), ge.cpu()
+        max_err = max(max_err, int((gp.long() - want_p.long()).abs().max()), int((ge != want_e).sum()))
+        check(torch.equal(gp, want_p) and torch.equal(ge, want_e), what)
+    del held
+    (_p, _e, rloads), rand_plain_s = plain_host["random"]
     rand_bound = int(rloads.max()) * load_cycles / (max_mhz * 1e3)
-    deep_cols = res_d["last_batch"].cols
-    deep_ms = time_ms(torch, lambda: tb.tree_replay_log_batch(deep_cols, res_d["node_cap"]), warmup=1, reps=5)
-    order = tb._sort_order(deep_cols).to(torch.int32)
-    deep_kernel_ms = time_ms(torch, lambda: tb.launch_kernel(deep_cols.target, deep_cols.parent, deep_cols.valid,
-                                                             res_d["node_cap"], order=order), warmup=1, reps=5)
-    # where a warp's time goes (the timed instantiation), and the
-    # docs-a-warp sweep behind plan_replay's rule
-    split = {"traces": tree_split(torch, tb, cols, n), "random": tree_split(torch, tb, rand, n)}
-    for label, sp in split.items():
-        print(f"tree split on the {label} [{TREE_DOCS}, {m}] ({sp['docs_per_warp']} docs a warp, median of 10; the "
-              f"chase {load_cycles:.2f} cycles a load): " + tree_split_line(sp), flush=True)
-    sweep = {
-        "traces": tree_sweep(torch, dev, tb, f"traces [{TREE_DOCS}, {m}]", cols, n, want=(parents, eff)),
-        "big": tree_sweep(torch, dev, tb, f"traces tiled [{TREE_BIG_DOCS}, {m}]", big, n),
-        "deep": tree_sweep(torch, dev, tb, f"resident depth [{TREE_DEEP_DOCS}, {res_d['cap']}], permutation form",
-                           deep_cols[4:7], res_d["node_cap"], order=order, light=True),
-    }
+    resident_vs_plain = {label: {"shape": list(rc.target.shape), "n": nc, "docs_per_warp": plan.docs_per_warp,
+                                 "plain_host_ms": plain_host[label][1] * 1e3}
+                         for label, (rc, nc, _o, plan) in resident_logs.items()}
+    del resident_logs, plain_host
     del res_d["last_batch"], res_c["last_batch"], deep_cols, order
     out["kernel"] = {
         "shape": [TREE_DOCS, m], "n": n, "max_abs_err": max_err, "ms": graph_ms, "eager_ms": eager_ms, "global_ms": variants["global"][1],
@@ -1457,7 +1488,7 @@ def tree_phase(torch, dev, kind: str, card: str) -> dict:
         "longest_doc_loads": longest, "median_doc_loads": float(loads.double().median()),
         "smem_load_cycles": load_cycles, "sm_clock_max_mhz": max_mhz, "sm_clock_mhz": cur_mhz,
         "moves_per_s": TREE_DOCS * m / (graph_ms / 1e3),
-        "random": {"ms": rand_graph, "eager_ms": rand_eager, "plain_ms": rand_plain_ms, "bound_ms": rand_bound,
+        "random": {"ms": rand_graph, "eager_ms": rand_eager, "plain_host_ms": rand_plain_s * 1e3, "bound_ms": rand_bound,
                    "longest_doc_loads": int(rloads.max())},
         "big": {"shape": [TREE_BIG_DOCS, m], "ms": big_graph, "eager_ms": big_eager,
                 "moves_per_s": TREE_BIG_DOCS * m / (big_graph / 1e3)},
@@ -1474,16 +1505,70 @@ def tree_phase(torch, dev, kind: str, card: str) -> dict:
           f"longest doc's {longest} dependent loads, median {k['median_doc_loads']:.0f}, x {load_cycles:.2f} cycles at "
           f"{max_mhz:.0f} MHz; the clock read {cur_mhz:.0f}), bytes bound {bytes_bound:.5f} ms; plain {plain_ms:.0f} ms "
           f"(bit-exact, both variants); bench_tree's random columns [{TREE_DOCS}, {m}]: graph {rand_graph:.4f} ms "
-          f"(eager {rand_eager:.4f}), bound {rand_bound:.4f} ms ({int(rloads.max())} loads), plain {rand_plain_ms:.0f} ms "
-          f"(bit-exact); [{TREE_BIG_DOCS}, {m}]: graph {big_graph:.4f} ms (eager {big_eager:.4f}) = "
+          f"(eager {rand_eager:.4f}), bound {rand_bound:.4f} ms ({int(rloads.max())} loads), plain {rand_plain_s * 1e3:.0f} ms "
+          f"on the host (bit-exact); [{TREE_BIG_DOCS}, {m}]: graph {big_graph:.4f} ms (eager {big_eager:.4f}) = "
           f"{k['big']['moves_per_s'] / 1e9:.3f}G moves/s (each doc == its trace's result); resident depth "
           f"[{TREE_DEEP_DOCS}, {res_d['cap']}] n = {res_d['node_cap']}: sort + replay {deep_ms:.3f} ms, kernel "
           f"{deep_kernel_ms:.3f} ms; permutation form == plain (both variants) on "
-          + ", ".join(f"{lb} {x['shape']} n = {x['n']} ({x['docs_per_warp']} docs a warp; plain {x['plain_ms']:.0f} ms)"
+          + ", ".join(f"{lb} {x['shape']} n = {x['n']} ({x['docs_per_warp']} docs a warp; plain {x['plain_host_ms']:.0f} "
+                      "ms on the host)"
                       for lb, x in resident_vs_plain.items())
           + f"; launches in the phase's main path {launches}", flush=True)
     torch.cuda.empty_cache()
     return out
+
+
+class HostPlain:
+    """tree_batch.replay_plain on the host, one process a job (spawned:
+    this process holds the card), so the plain versions of large logs run
+    while the card works; the plain version's per-move loop is quicker on
+    the host than on the card at these sizes.  submit(label, target,
+    parent, valid, n, order=None) takes tensors on any device; results()
+    waits and gives {label: ((parents, effected, loads) CPU tensors, the
+    job's seconds)}.  As a context manager it stops its processes on the
+    way out."""
+
+    def __init__(self, workers: int = 3):
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+
+        self.pool = ProcessPoolExecutor(max_workers=workers, mp_context=multiprocessing.get_context("spawn"))
+        self.jobs = {}
+
+    def submit(self, label: str, target, parent, valid, n: int, order=None) -> None:
+        cols = [c.cpu().numpy() for c in (target, parent, valid)]
+        self.jobs[label] = self.pool.submit(replay_plain_job, *cols, n, None if order is None else order.cpu().numpy())
+
+    def results(self) -> dict:
+        import torch
+
+        out = {}
+        for label, job in self.jobs.items():
+            arrays, seconds = job.result()
+            out[label] = (tuple(torch.from_numpy(a) for a in arrays), seconds)
+        return out
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.pool.shutdown(wait=True, cancel_futures=True)
+        return False
+
+
+def replay_plain_job(target, parent, valid, n: int, order):
+    """HostPlain's job, in its own process: tree_batch.replay_plain on
+    numpy columns (the permutation form with `order`), back as numpy
+    arrays with the seconds it took."""
+    import torch
+
+    from loro_tpu_torch.ops import tree_batch as tb
+
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    out = tb.replay_plain(*(torch.from_numpy(c) for c in (target, parent, valid)), n,
+                          order=None if order is None else torch.from_numpy(order))
+    return [x.numpy() for x in out], time.perf_counter() - t0
 
 
 def tree_split(torch, tb, cols, n: int, reps: int = 10) -> dict:
@@ -5346,7 +5431,7 @@ def resident_rounds(torch, dev, cls, docs, eps, n_docs: int, cap: int, node_cap:
     return res
 
 
-def chaos_phase(torch, dev, kind: str, card: str) -> dict:
+def chaos_phase(torch, dev, kind: str, card: str, lint: "Child" = None) -> dict:
     """Phase 4q, the chaos plane (chaos/: plan, stack, invariants, runner,
     replay, shrink) over every serving plane composed on the card, and the
     port's linter (analysis/: core, rules, lint).  (a) CHAOS_SEEDS, each a
@@ -5369,7 +5454,8 @@ def chaos_phase(torch, dev, kind: str, card: str) -> dict:
     kill step executed in process: clean, chaos.kill_downgraded_total up
     by one.  The lock witness runs through (a)-(c): acyclic and conformant
     to the declared order.  (d) python -m loro_tpu_torch.analysis.lint in
-    a child: exit 0, no active finding.  The phase runs under a
+    a child (`lint`, where the caller started it earlier): exit 0, no
+    active finding.  The phase runs under a
     DeviceSupervisor of its own (the armed launch faults degrade under
     it) and puts the process one back.  Every list-rank and tree-replay
     launch is captured and held against its plain version."""
@@ -5546,22 +5632,191 @@ def chaos_phase(torch, dev, kind: str, card: str) -> dict:
     out["kernel_checks"] = check_captured(torch, list_rank, tb, cap.seen, out["max_abs_err"], phase="4q")
     out["kernel_check_s"] = time.perf_counter() - t0
 
-    # (d) the port's linter in a child process
-    t0 = time.perf_counter()
-    root = str(Path(__file__).resolve().parent)
-    lint = subprocess.run([sys.executable, "-m", "loro_tpu_torch.analysis.lint", "--format=json"], cwd=root,
-                          capture_output=True, text=True, timeout=300)
-    check(lint.returncode == 0, f"4q (d): the linter exited {lint.returncode}: {lint.stdout[-2000:]}{lint.stderr[-2000:]}")
-    res = json.loads(lint.stdout)
+    # (d) the port's linter in a child process (started here, or earlier
+    # by the whole run so that it runs beside the script's own work)
+    lint = lint or start_lint()
+    done = lint.wait()
+    check(done.returncode == 0, f"4q (d): the linter exited {done.returncode}: {done.stdout[-2000:]}{done.stderr[-2000:]}")
+    res = json.loads(done.stdout)
     check(res["ok"] and not res["active"], f"4q (d): active findings {res['active'][:5]}")
     supp = dict(collections.Counter(f["rule"] for f in res["suppressed"]))
-    out["d"] = {"files": res["files"], "active": 0, "suppressed": supp, "seconds": time.perf_counter() - t0}
+    out["d"] = {"files": res["files"], "active": 0, "suppressed": supp, "waited_s": lint.waited}
     print(f"chaos (d): python -m loro_tpu_torch.analysis.lint: exit 0, {res['files']} files, 0 active, suppressed "
-          f"by rule {supp} ({out['d']['seconds']:.1f} s)", flush=True)
+          f"by rule {supp} (waited {lint.waited:.1f} s)", flush=True)
     out["seconds"] = time.perf_counter() - t_phase
     print(f"phase 4q: {out['seconds']:.1f} s (main path {out['main_s']:.1f} s, kernel checks "
           f"{out['kernel_check_s']:.1f} s); main-path launches {out['launches']}; {len(cap.seen)} launches held "
           f"against their plain versions, max abs err {out['max_abs_err']}", flush=True)
+    return out
+
+
+def mesh_phase(torch, dev, kind: str, card: str, shared=None) -> dict:
+    """Phase 4r, the device mesh and op-axis sharding (parallel/mesh.py,
+    ops/lww.make_lww_sharded, ops/fugue_batch.make_ring_rank_sharded,
+    Fleet(mesh=), entry.dryrun_multichip) on meshes that name the one card
+    many times, so every collective is a copy on one device: this measures
+    the sharded algorithms, not NVLink.  (a) 8 rings of MESH_RING tokens
+    (random rings, index runs, chains whose every pointer crosses an op
+    shard, one pure index run) on a 2 x 4 mesh: make_ring_rank_sharded "wyllie" and
+    "blocked" each equal, bit for bit, to list_rank.wyllie_rank(algo=
+    "wyllie") (the CUDA Wyllie kernel, counted) and to the plain
+    _wyllie_dist; each timed (CUDA events, median) beside the kernel and
+    the plain version, with blocked's rounds.  (b) merge_map_docs_sharded
+    on MESH_MAP_DOCS extracts cycled over 4f's MAP_DISTINCT map traces
+    ([docs, MAP_OPS] op rows, MAP_KEYS slots; 4f's extracts when
+    shared["map"] holds them) on a 2 x 2 mesh: equal to the one-device
+    merge_map_docs and to oracle_map on every trace; the wall and peak
+    memory of both calls; the sharded merge's device time (CUDA events
+    over make_lww_sharded on the uploaded columns, its outputs equal to
+    lww_merge_batch's) beside the one-device merge's.  (c) a 4 x 1
+    mesh: merge_text_docs on 4d's element chunk (CHUNK docs at N =
+    ELEMENT_N, two a row: the wide cluster kernel once a row) and
+    merge_map_docs at (b)'s width, each equal to the one-device result.
+    (d) dryrun_multichip(8) on the card.  Every list-rank and tree-replay
+    launch of (a)-(d) is captured and held against its plain version."""
+    import numpy as np
+
+    from loro_tpu_torch import tracegen
+    from loro_tpu_torch.codec.binary import decode_changes
+    from loro_tpu_torch.entry import dryrun_multichip
+    from loro_tpu_torch.ops import columnar, list_rank, lww
+    from loro_tpu_torch.ops import tree_batch as tb
+    from loro_tpu_torch.ops.fugue_batch import _wyllie_dist, make_ring_rank_sharded
+    from loro_tpu_torch.parallel import fleet as fleet_mod
+    from loro_tpu_torch.parallel.fleet import Fleet
+    from loro_tpu_torch.parallel.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    out = {"max_abs_err": {}}
+    m = MESH_RING
+    check(m % 20 == 0, "the 4r ring divides over 4 op shards and into the cross-slice rings' strides")
+    rings = np.stack([random_ring(np, m, 41), random_ring(np, m, 42), random_ring(np, m, 43),
+                      runs_ring(np, m, 37, 44), runs_ring(np, m, 1000, 45), cross_slice_ring(np, m, m // 4),
+                      cross_slice_ring(np, m, m // 20), np.minimum(np.arange(1, m + 1, dtype=np.int32), m - 1)])
+    t0 = time.perf_counter()
+    if shared and "map" in shared:
+        mwant, exs = shared["map"]
+    else:
+        mdocs = [tracegen.map_doc(SEED * 1000 + i, n_ops=MAP_OPS, n_keys=MAP_KEYS) for i in range(MAP_DISTINCT)]
+        exs = [columnar.extract_map_ops(decode_changes(tracegen.map_payload(d))) for d in mdocs]
+        mwant = [tracegen.oracle_map(d) for d in mdocs]
+    batch = [exs[j % MAP_DISTINCT] for j in range(MESH_MAP_DOCS)]
+    edocs = tracegen.fleet_docs(2, n_patches=ELEMENT_PATCHES, seed=SEED)
+    eidx = [j % len(edocs) for j in range(CHUNK)]
+    etexts = [tracegen.oracle_text(edocs[i].extract) for i in eidx]
+    out["gen_s"] = time.perf_counter() - t0
+    fl1 = Fleet(device=dev)
+    list_rank.reset_launches()
+    tb.reset_launches()
+    t_main = time.perf_counter()
+    with captured_launches(list_rank, tb) as cap:
+        # (a) the op-sharded ring rank on a 2 x 4 mesh of the card
+        mesh_a = make_mesh([dev] * 8, op_parallel=4)
+        succ = torch.from_numpy(rings).to(dev)
+        want = list_rank.wyllie_rank(succ, algo="wyllie", device=dev)
+        plain = _wyllie_dist(succ)
+        torch.cuda.synchronize()
+        check(torch.equal(want, plain), "4r (a): the Wyllie kernel != _wyllie_dist")
+        a = {"shape": list(succ.shape), "mesh": mesh_a.shape}
+        for algo in ("wyllie", "blocked"):
+            fn = make_ring_rank_sharded(mesh_a, m, algo)
+            got = fn(succ)
+            torch.cuda.synchronize()
+            err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+            check(got.dtype == torch.int32 and torch.equal(got, want) and torch.equal(got, plain),
+                  f"4r (a): sharded {algo} != the Wyllie kernel / _wyllie_dist (max abs err {err})")
+            a[algo] = {"rounds": list(fn.rounds), "max_abs_err": err}
+        with cap.paused():
+            for algo in ("wyllie", "blocked"):
+                fn = make_ring_rank_sharded(mesh_a, m, algo)
+                a[algo]["ms"] = time_ms(torch, lambda: fn(succ), warmup=2, reps=10)
+            a["kernel_ms"] = time_ms(torch, lambda: list_rank.wyllie_rank(succ, algo="wyllie", device=dev), reps=10)
+            a["plain_ms"] = time_ms(torch, lambda: _wyllie_dist(succ), warmup=1, reps=5)
+        out["a"] = a
+        print(f"mesh (a): {a['shape']} on a 2 x 4 mesh of one card, equal to the Wyllie kernel and _wyllie_dist: "
+              f"sharded wyllie {a['wyllie']['ms']:.3f} ms ({a['wyllie']['rounds'][0]} rounds a row), sharded blocked "
+              f"{a['blocked']['ms']:.3f} ms (rounds a row {a['blocked']['rounds']}); the Wyllie kernel "
+              f"{a['kernel_ms']:.4f} ms, plain _wyllie_dist {a['plain_ms']:.3f} ms ({card})", flush=True)
+
+        # (b) the op-sharded LWW merge at 4f's width on a 2 x 2 mesh
+        fl22 = Fleet(mesh=make_mesh([dev] * 4, op_parallel=2))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        got = fl22.merge_map_docs_sharded(batch)
+        wall_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        one = fl1.merge_map_docs(batch)
+        one_s = time.perf_counter() - t0
+        one_peak = torch.cuda.max_memory_allocated(dev)
+        check(got == one, "4r (b): merge_map_docs_sharded != the one-device merge_map_docs")
+        for j in range(MAP_DISTINCT):
+            check(got[j] == mwant[j], f"4r (b): doc {j} != oracle_map")
+        # the device time: the sharded merge alone on the uploaded columns
+        m_pad = fleet_mod.pad_bucket(max(len(e.slot) for e in batch))
+        n_slots = max(len(e.slots) for e in batch)
+        dcols = lww.MapOpCols(*(torch.from_numpy(a).to(dev) for a in fl22._batch_map_cols(batch, m_pad)))
+        fn = lww.make_lww_sharded(fl22.mesh, n_slots)
+        for g, w in zip(fn(dcols), lww.lww_merge_batch(dcols, n_slots, device=dev)):
+            check(torch.equal(g, w), "4r (b): make_lww_sharded != lww_merge_batch on the card")
+        sharded_ms = time_ms(torch, lambda: fn(dcols), warmup=1, reps=5)
+        one_ms = time_ms(torch, lambda: lww.lww_merge_batch(dcols, n_slots, device=dev), warmup=1, reps=5)
+        del dcols
+        b = {"docs": len(batch), "ops": MAP_OPS, "slots": n_slots, "mesh": fl22.mesh.shape,
+             "op_bytes": len(batch) * MAP_OPS * 17, "wall_ms": wall_s * 1e3, "peak_bytes": peak,
+             "sharded_merge_ms": sharded_ms, "one_device_merge_ms": one_ms, "one_device_wall_ms": one_s * 1e3,
+             "one_device_peak_bytes": one_peak}
+        out["b"] = b
+        print(f"mesh (b): merge_map_docs_sharded [{len(batch)}, {MAP_OPS}] op rows, {n_slots} slots on a 2 x 2 mesh "
+              f"of one card, equal to merge_map_docs and oracle_map: wall {b['wall_ms']:.1f} ms, peak "
+              f"{peak / 2**30:.3f} GiB, the sharded merge {sharded_ms:.3f} ms by events; one device: wall "
+              f"{b['one_device_wall_ms']:.1f} ms, peak {one_peak / 2**30:.3f} GiB, lww_merge_batch {one_ms:.3f} ms "
+              f"({card})", flush=True)
+
+        # (c) the doc-sharded one-shot merges on a 4 x 1 mesh
+        fl41 = Fleet(mesh=make_mesh([dev] * 4))
+        extracts = [edocs[i].extract for i in eidx]
+        t0 = time.perf_counter()
+        text4 = fl41.merge_text_docs(extracts).texts
+        text4_s = time.perf_counter() - t0
+        text1 = fl1.merge_text_docs(extracts).texts
+        check(text4 == text1 == etexts, "4r (c): the 4-row merge_text_docs != the one-device one / the oracle")
+        t0 = time.perf_counter()
+        map4 = fl41.merge_map_docs(batch)
+        map4_s = time.perf_counter() - t0
+        check(map4 == one, "4r (c): the 4-row merge_map_docs != the one-device one")
+        out["c"] = {"text_docs": len(extracts), "n": ELEMENT_N, "text_wall_ms": text4_s * 1e3,
+                    "map_wall_ms": map4_s * 1e3}
+        print(f"mesh (c): a 4 x 1 mesh of one card: merge_text_docs [{len(extracts)}, {ELEMENT_N}] two docs a row "
+              f"{text4_s * 1e3:.1f} ms, merge_map_docs [{len(batch)}, {MAP_OPS}] {map4_s * 1e3:.1f} ms; both equal "
+              "to the one-device results", flush=True)
+
+        # (d) the dry run over an 8-entry mesh of the card
+        t0 = time.perf_counter()
+        dmesh = dryrun_multichip(8)
+        out["d"] = {"mesh": dmesh.shape, "seconds": time.perf_counter() - t0}
+        print(f"mesh (d): dryrun_multichip(8) on {dmesh.shape}: five steps equal to their oracles "
+              f"({out['d']['seconds']:.2f} s)", flush=True)
+        torch.cuda.synchronize()
+        out["launches"] = {k: v for k, v in list_rank.LAUNCHES.items() if v}
+        out["launches"].update({f"tree_replay/{k}": v for k, v in tb.LAUNCHES.items() if v})
+        out["main_s"] = time.perf_counter() - t_main
+        check(len(cap.seen) == sum(list_rank.LAUNCHES.values()) + sum(tb.LAUNCHES.values()),
+              f"4r captured {len(cap.seen)} launches, counted {out['launches']}")
+    check(sum(v for k, v in out["launches"].items() if k.startswith("wyllie/")) >= 1,
+          f"4r: the Wyllie kernel was not launched ({out['launches']})")
+    check(out["launches"].get("wide/cluster", 0) >= 4, f"4r (c): the wide kernel did not run once a row "
+          f"({out['launches']})")
+    t0 = time.perf_counter()
+    out["kernel_checks"] = check_captured(torch, list_rank, tb, cap.seen, out["max_abs_err"], phase="4r")
+    out["kernel_check_s"] = time.perf_counter() - t0
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 4r: {out['seconds']:.1f} s (data {out['gen_s']:.1f} s, main path {out['main_s']:.1f} s, kernel "
+          f"checks {out['kernel_check_s']:.1f} s); main-path launches {out['launches']}; {len(cap.seen)} launches "
+          f"held against their plain versions, max abs err {out['max_abs_err']}", flush=True)
     return out
 
 
@@ -5592,24 +5847,73 @@ class SupervisorWatch:
                   f"to {rep[key]} (an unasked device failure or degradation)")
 
 
-def card_tests() -> None:
+class Child:
+    """A child process started now and waited for later (it runs beside
+    the script's own work): its output goes to temporary files, so no
+    pipe fills, and it is killed if the script ends first.  wait() gives
+    a CompletedProcess; `waited` is the time wait() blocked, `seconds`
+    the time from the start to wait()'s return (an upper bound of the
+    child's run: it may have ended long before)."""
+
+    def __init__(self, args: list, timeout: float):
+        import atexit
+        import tempfile
+
+        self.out, self.err = tempfile.TemporaryFile(mode="w+"), tempfile.TemporaryFile(mode="w+")
+        self.timeout, self.t0, self.seconds, self.waited = timeout, time.perf_counter(), None, None
+        self.proc = subprocess.Popen(args, cwd=Path(__file__).resolve().parent, stdout=self.out, stderr=self.err,
+                                     text=True)
+        atexit.register(self.kill)
+
+    def wait(self) -> subprocess.CompletedProcess:
+        t0 = time.perf_counter()
+        try:
+            rc = self.proc.wait(timeout=max(1.0, self.timeout - (time.perf_counter() - self.t0)))
+        except subprocess.TimeoutExpired:
+            self.kill()
+            raise
+        self.seconds, self.waited = time.perf_counter() - self.t0, time.perf_counter() - t0
+        self.out.seek(0)
+        self.err.seek(0)
+        return subprocess.CompletedProcess(self.proc.args, rc, self.out.read(), self.err.read())
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+CARD_TESTS = ["tests/test_torch_list_rank_cuda.py", "tests/test_torch_fleet_cuda.py", "tests/test_torch_resident_cuda.py",
+              "tests/test_torch_map_counter_cuda.py", "tests/test_torch_tree_cuda.py",
+              "tests/test_torch_richtext_cuda.py", "tests/test_torch_movable_cuda.py",
+              "tests/test_torch_movable_resident_cuda.py", "tests/test_torch_export_cuda.py",
+              "tests/test_torch_doc_cuda.py", "tests/test_torch_resilience_cuda.py",
+              "tests/test_torch_op_sharding_cuda.py"]
+
+
+def start_card_tests() -> Child:
     """The port's card tests, tests/test_torch_*_cuda.py (pytest -m cuda),
-    as a subprocess; every one must pass and none skip."""
-    t0 = time.perf_counter()
-    root = Path(__file__).resolve().parent
-    test = subprocess.run(
-        [sys.executable, "-m", "pytest", "-q", "-m", "cuda", "--noconftest", "-p", "no:cacheprovider",
-         "-o", "markers=cuda: needs an NVIDIA GPU", "tests/test_torch_list_rank_cuda.py",
-         "tests/test_torch_fleet_cuda.py", "tests/test_torch_resident_cuda.py", "tests/test_torch_map_counter_cuda.py",
-         "tests/test_torch_tree_cuda.py", "tests/test_torch_richtext_cuda.py", "tests/test_torch_movable_cuda.py",
-         "tests/test_torch_movable_resident_cuda.py", "tests/test_torch_export_cuda.py", "tests/test_torch_doc_cuda.py",
-         "tests/test_torch_resilience_cuda.py"],
-        cwd=root, capture_output=True, text=True, timeout=600,
-    )
+    started as a child; card_tests() waits for them."""
+    return Child([sys.executable, "-m", "pytest", "-q", "-m", "cuda", "--noconftest", "-p", "no:cacheprovider",
+                  "-o", "markers=cuda: needs an NVIDIA GPU", *CARD_TESTS], timeout=600)
+
+
+def start_lint() -> Child:
+    """The port's linter (python -m loro_tpu_torch.analysis.lint), started
+    as a child; phase 4q (d) waits for it."""
+    return Child([sys.executable, "-m", "loro_tpu_torch.analysis.lint", "--format=json"], timeout=300)
+
+
+def card_tests(child: Child = None) -> None:
+    """The card tests (started by start_card_tests, or here): every one
+    must pass and none skip."""
+    child = child or start_card_tests()
+    test = child.wait()
     summary = (test.stdout.strip().splitlines() or ["(no output)"])[-1]
     print(f"pytest -m cuda tests/test_torch_{{list_rank,fleet,resident,map_counter,tree,richtext,movable,"
-          f"movable_resident,export,doc,resilience}}_cuda.py: "
-          f"rc {test.returncode}, {summary} ({time.perf_counter() - t0:.1f} s)", flush=True)
+          f"movable_resident,export,doc,resilience,op_sharding}}_cuda.py: "
+          f"rc {test.returncode}, {summary} (waited {child.waited:.1f} s; started {child.seconds:.1f} s before the "
+          "wait's end)", flush=True)
     check(test.returncode == 0 and " passed" in summary and "skipped" not in summary,
           "the card tests failed on the card:\n" + test.stdout[-4000:] + test.stderr[-2000:])
 
@@ -5662,10 +5966,12 @@ def main(argv=None) -> int:
         phase_fns = {"4f": map_counter_phase, "4g": tree_phase, "4h": richtext_phase, "4i": movable_phase,
                      "4j": read_plane_phase, "4k": host_engine_phase, "4l": supervision_phase,
                      "4m": lifecycle_phase, "4n": server_phase, "4o": sync_phase, "4p": net_phase,
-                     "4q": chaos_phase}
+                     "4q": chaos_phase, "4r": mesh_phase}
         results = {}
         first_window = {}  # 4j's first window, framed by 4k when both run (4j first)
-        extra = {"4j": {"first": first_window}, "4k": {"first_window": first_window}}
+        shared = {}  # 4f's map extracts, merged again by 4r when both run (4f first)
+        extra = {"4j": {"first": first_window}, "4k": {"first_window": first_window}, "4f": {"shared": shared},
+                 "4r": {"shared": shared}}
         for name in dict.fromkeys(args.phase):
             list_rank.reset_launches()
             results[name] = phase_fns[name](torch, dev, kind, card, **extra.get(name, {}))
@@ -5678,6 +5984,10 @@ def main(argv=None) -> int:
         print(card)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
         return 0
+
+    # the card tests and the linter run in children beside the data's
+    # generation (host only) and phase 3; card_tests() and 4q wait for them
+    tests_child, lint_child = start_card_tests(), start_lint()
 
     # ---- main-path data (generated here; the flagship ring feeds phase 3)
     t0 = time.perf_counter()
@@ -5823,7 +6133,7 @@ def main(argv=None) -> int:
     compare("chain m=131072", cross_slice_ring(np, 131072, 131072), "ruling", v)
     for v in list_rank.LAUNCHES:
         check(v in variants_seen, f"variant {v} was not exercised")
-    card_tests()
+    card_tests(tests_child)
     watch = SupervisorWatch()
 
     # ---- 4. main path ----------------------------------------------------
@@ -6349,7 +6659,8 @@ def main(argv=None) -> int:
     # ---- 4f. the LWW-map and counter merges, one-shot and resident -------
     # (torch scatter ops: no list-rank kernel runs here, checked)
     list_rank.reset_launches()
-    map_counter4f = map_counter_phase(torch, dev, kind, card)
+    shared = {}  # 4f's map extracts, merged again by 4r
+    map_counter4f = map_counter_phase(torch, dev, kind, card, shared=shared)
     check(not any(list_rank.LAUNCHES.values()), f"the map and counter phase launched {list_rank.LAUNCHES}")
     watch.after("4f")
 
@@ -6446,11 +6757,21 @@ def main(argv=None) -> int:
     # planted violation caught, replayed and shrunk, an in-process kill; the
     # port's linter (list-rank and tree-replay launches counted, each held
     # against its plain version)
-    chaos4q = chaos_phase(torch, dev, kind, card)
+    chaos4q = chaos_phase(torch, dev, kind, card, lint=lint_child)
     for name, err in chaos4q["max_abs_err"].items():
         if name in max_err:
             max_err[name] = max(max_err[name], err)
     watch.after("4q")
+
+    # ---- 4r. the device mesh and op-axis sharding on meshes of the one card:
+    # the sharded ring rank against the Wyllie kernel, the sharded LWW merge,
+    # doc-sharded one-shot merges, the dry run (list-rank and tree-replay
+    # launches counted, each held against its plain version)
+    mesh4r = mesh_phase(torch, dev, kind, card, shared=shared)
+    for name, err in mesh4r["max_abs_err"].items():
+        if name in max_err:
+            max_err[name] = max(max_err[name], err)
+    watch.after("4r")
 
     # ---- 5. timings -------------------------------------------------------
     # each kernel at its main-path shape: the flagship chain rings for the
@@ -6649,7 +6970,7 @@ def main(argv=None) -> int:
         "sweep": sweep, "sweep_graph": sweep_graph, "ingest": ingest, "fleet": fleet, "resident": resident4e,
         "map_counter": map_counter4f, "tree": tree4g, "richtext": richtext4h, "movable": movable4i,
         "read_plane": read4j, "host_engine": host4k, "supervision": sup4l, "lifecycle": life4m,
-        "server": server4n, "sync": sync4o, "net": net4p, "chaos": chaos4q,
+        "server": server4n, "sync": sync4o, "net": net4p, "chaos": chaos4q, "mesh": mesh4r,
         "total_s": time.perf_counter() - t_start,
     }))
     # launches in the fleet phase's checked one-shot calls, one a call
@@ -6674,6 +6995,7 @@ def main(argv=None) -> int:
             "launches_sync": sum(v for k, v in sync4o["launches"].items() if k.split("/")[0] == name),
             "launches_net": sum(v for k, v in net4p["launches"].items() if k.split("/")[0] == name),
             "launches_chaos": sum(v for k, v in chaos4q["launches"].items() if k.split("/")[0] == name),
+            "launches_mesh": sum(v for k, v in mesh4r["launches"].items() if k.split("/")[0] == name),
             "max_abs_err": max_err[name],
             "ms": res[f"{name}_graph_ms"],
             "eager_ms": res[f"{name}_ms"],
@@ -6698,10 +7020,12 @@ def main(argv=None) -> int:
         "launches_sync": sum(v for k, v in sync4o["launches"].items() if k.startswith("tree_replay/")),
         "launches_net": sum(v for k, v in net4p["launches"].items() if k.startswith("tree_replay/")),
         "launches_chaos": sum(v for k, v in chaos4q["launches"].items() if k.startswith("tree_replay/")),
+        "launches_mesh": sum(v for k, v in mesh4r["launches"].items() if k.startswith("tree_replay/")),
         "max_abs_err": max(tk["max_abs_err"], host4k["max_abs_err"].get("tree_replay", 0),
                            sup4l["max_abs_err"].get("tree_replay", 0), life4m["max_abs_err"].get("tree_replay", 0),
                            server4n["max_abs_err"].get("tree_replay", 0), sync4o["max_abs_err"].get("tree_replay", 0),
-                           net4p["max_abs_err"].get("tree_replay", 0), chaos4q["max_abs_err"].get("tree_replay", 0)),
+                           net4p["max_abs_err"].get("tree_replay", 0), chaos4q["max_abs_err"].get("tree_replay", 0),
+                           mesh4r["max_abs_err"].get("tree_replay", 0)),
         "ms": tk["ms"],
         "eager_ms": tk["eager_ms"],
         "plain_ms": tk["plain_ms"],

@@ -79,8 +79,10 @@ merges, their resident batches and the read plane:
                       TieredResidentServer (hot_slots=): a device hot
                       set over host-warm and disk-cold docs
     parallel.placement, parallel.mesh, parallel.sharded
-                      rendezvous placement; device lists;
-                      ShardedResidentServer over a device list,
+                      rendezvous placement; the device mesh (a grid
+                      of torch.devices, op_parallel, doc_sharding,
+                      shard_meshes); ShardedResidentServer over a
+                      mesh's rows or a device list,
                       ShardedPipeline, migrate, recover_sharded_server
     persist           the segmented WAL, the checkpoint ladder, the
                       mirror anchor, recover_server / open_server and

@@ -65,11 +65,12 @@ def chaos_devices(cfg: ChaosConfig, devices=None) -> list:
     card (DeviceUnavailable without one); a list whose length
     ``cfg.shards`` does not divide is repeated ``cfg.shards`` times, so
     ``[cuda:0]`` at two shards runs both on the one card (a list may
-    name one device twice).  The list is not part of the config: plans
+    name one device twice).  A mesh gives its rows' lead devices, where
+    the shards' batches live.  The list is not part of the config: plans
     and artifacts stay a function of ``(config, seed)``."""
     from ..parallel.mesh import make_mesh
 
-    devs = make_mesh(devices)
+    devs = [row[0] for row in make_mesh(devices).devices]
     if len(devs) % cfg.shards:
         devs = devs * cfg.shards
     return devs

@@ -5,7 +5,8 @@ variants) and the chain-contracted merge (chain_materialize ..
 chain_merge_docs_checksum_v), the packed uint8 transport of a chunk
 (pack_chain_doc_into .. chain_merge_docs_packed_checksum), and the
 resident text path's device ops on SeqColumnsU (chain_merge_docs_u,
-materialize_by_key).
+materialize_by_key), and the op-axis-sharded ring rank over a device
+mesh (make_ring_rank_sharded).
 
 Every function takes an explicit leading doc axis ([D, N] / [D, C]
 tensors) where the JAX package vmaps one doc; nothing is jitted.  Per
@@ -258,6 +259,98 @@ def _wyllie_dist(succ: torch.Tensor) -> torch.Tensor:
     d0 = (t != tok).to(torch.int64)
     d, _ = _double(d0, t, list_rank.ceil_log2(m))
     return d.to(torch.int32)
+
+
+def make_ring_rank_sharded(mesh, m: int, algo: str = "wyllie"):
+    """Op-axis-sharded Wyllie ranking over a ("docs", "ops") mesh
+    (parallel/mesh.py; a device list is one column): fn(succ int32
+    [D, m], tensor or numpy) -> dist int32 [D, m] on the mesh's first
+    device, equal to _wyllie_dist.  Each op shard owns m / S contiguous
+    ring rows (global ids; shard c's first is c * m / S) of its row's
+    docs on its device.  A doubling round gathers the row's (dist, succ)
+    tables onto each shard's device (the all-gather, as copies) and
+    updates only the shard's rows.
+
+    "wyllie": ceil(log2 m) rounds.  "blocked": first a shard-local phase
+    A (a pointer composes only while its target is a row of its own
+    shard: ceil(log2(m / S)) rounds, no copies), then adaptive rounds
+    that stop, a mesh row at a time, once a round changed no target of
+    the row's shards (terminals are the only fixpoint; the round cap
+    keeps any ring exact).  The stop check is one host read a round for
+    all rows, the counterpart of the JAX package's psum vote; fn.rounds
+    holds each row's all-gather rounds of the last call.
+
+    ConfigError for another algo, or when S does not divide m or the
+    rows do not divide D; ValueError for an entry outside [0, m)."""
+    from ..parallel.mesh import DOC_AXIS, OP_AXIS, make_mesh
+
+    if algo not in ("wyllie", "blocked"):
+        raise ConfigError("sharded rank algo", algo, "wyllie|blocked")
+    mesh = make_mesh(mesh)
+    n_rows, n_sh = mesh.shape[DOC_AXIS], mesh.shape[OP_AXIS]
+    if m % n_sh:
+        raise ConfigError("ring length", m, f"a multiple of the mesh's op axis ({n_sh})")
+    ms = m // n_sh
+    n_steps = list_rank.ceil_log2(m)
+
+    def gather_step(tabs, devs):
+        fulls = {}  # the row's whole table, copied once onto each distinct device
+        for dev in dict.fromkeys(devs):
+            fulls[dev] = [torch.cat([tab[k].to(dev) for tab in tabs], 1) for k in (0, 1)]
+        out = []
+        for (d, t), dev in zip(tabs, devs):
+            idx = t.long()
+            fd, ft = fulls[dev]
+            out.append((d + fd.gather(1, idx), ft.gather(1, idx)))
+        return out
+
+    def phase_a(d, t, tok, tok0):
+        for _ in range(list_rank.ceil_log2(ms)):
+            lt = t.long() - tok0
+            in_shard = (lt >= 0) & (lt < ms) & (t != tok)
+            lt = lt.clamp(0, ms - 1)
+            d, t = torch.where(in_shard, d + d.gather(1, lt), d), torch.where(in_shard, t.gather(1, lt), t)
+        return d, t
+
+    def run(succ):
+        s = succ if isinstance(succ, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(succ))
+        if s.dtype != torch.int32:
+            raise TypeError(f"succ must be int32, got {s.dtype}")
+        if s.dim() != 2 or s.shape[1] != m:
+            raise ValueError(f"succ must be [D, {m}], got shape {tuple(s.shape)}")
+        if s.shape[0] % n_rows:
+            raise ConfigError("docs", s.shape[0], f"a multiple of the mesh's doc axis ({n_rows})")
+        if s.numel() and (int(s.min()) < 0 or int(s.max()) >= m):
+            raise ValueError("succ entries must lie in [0, m)")
+        dr = s.shape[0] // n_rows
+        tabs = []
+        for r, row in enumerate(mesh.devices):
+            row_tabs = []
+            for c, dev in enumerate(row):
+                t = s[r * dr:(r + 1) * dr, c * ms:(c + 1) * ms].to(dev).contiguous()
+                tok = torch.arange(c * ms, (c + 1) * ms, dtype=torch.int32, device=dev)
+                d = (t != tok).to(torch.int32)
+                row_tabs.append(phase_a(d, t, tok, c * ms) if algo == "blocked" else (d, t))
+            tabs.append(row_tabs)
+        rounds = [0] * n_rows
+        active = list(range(n_rows))
+        while active and rounds[active[0]] < n_steps:
+            flags = []
+            for r in active:
+                new = gather_step(tabs[r], mesh.devices[r])
+                if algo == "blocked":
+                    flags.append(torch.stack([(nt != t).any().to(mesh.lead)
+                                              for (_, nt), (_, t) in zip(new, tabs[r])]).any())
+                tabs[r] = new
+                rounds[r] += 1
+            if algo == "blocked":
+                changed = torch.stack(flags).tolist()  # the one host read of the round
+                active = [r for r, ch in zip(active, changed) if ch]
+        run.rounds = rounds
+        return torch.cat([torch.cat([d.to(mesh.lead) for d, _ in row_tabs], 1) for row_tabs in tabs])
+
+    run.rounds = []
+    return run
 
 
 def _ruling_dist(succ: torch.Tensor, k: int = 8) -> torch.Tensor:

@@ -17,15 +17,19 @@ int64 tensor holding the uint32 value (the SeqColumnsU convention): the
 scatter maximum on a card does not cover uint32, and an int32 view would
 order halves of 2^31 and more below smaller ones.
 
-Not ported yet: make_lww_sharded (op-axis sharding over a mesh).
+make_lww_sharded merges the op rows of a batch sharded over the op axis
+of a device mesh (parallel/mesh.py): each shard's partial winners
+combine in the (lamport, peer, value) order on its row's lead device.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..errors import ConfigError
 
 NEG = -(2**31) + 1  # "no op": below every lamport and peer rank
 
@@ -101,6 +105,50 @@ def counter_merge_batch(slot, delta, valid, n_slots: int, *, device: DeviceLike 
     """[D, M] counter rows -> float32 sums [D, S] on `device`."""
     dev = resolve_device(device)
     return counter_merge_doc(slot.to(dev), delta.to(dev), valid.to(dev), n_slots)
+
+
+def make_lww_sharded(mesh, n_slots: int):
+    """Op-axis-sharded LWW merge over a ("docs", "ops") mesh
+    (parallel/mesh.py; a device list is one column).  Returns fn:
+    MapOpCols [D, M] (tensors or numpy) -> (value_idx, lamport, peer)
+    int32 [D, S] on the mesh's first device.  D must divide by the rows
+    and M by the columns (ConfigError).  Each (row, column) block of
+    [D / rows, M / columns] runs the three scatter-max passes of
+    _lww_winners on its device; the partials combine across the op axis
+    on the row's lead device in the lexicographic (lamport, peer, value)
+    order, one field at a time, as the JAX package's three pmax
+    collectives do."""
+    from ..parallel.mesh import DOC_AXIS, OP_AXIS, make_mesh
+
+    mesh = make_mesh(mesh)
+    rows, cols_n = mesh.shape[DOC_AXIS], mesh.shape[OP_AXIS]
+
+    def run(cols: MapOpCols):
+        d, m = cols.slot.shape
+        if d % rows or m % cols_n:
+            raise ConfigError("map op columns", (d, m), f"[D, M] with D % {rows} == 0 and M % {cols_n} == 0")
+        dr, mc = d // rows, m // cols_n
+        out = []
+        for r, row in enumerate(mesh.devices):
+            parts = [_lww_winners(*(_block(a, r * dr, dr, c * mc, mc, dev) for a in cols), n_slots)
+                     for c, dev in enumerate(row)]
+            # the collective: every shard's partials copied onto the row's lead device
+            val, lam, peer = (torch.stack([t.to(row[0]) for t in ts]) for ts in zip(*parts))
+            g_lam = lam.amax(0)
+            g_peer = torch.where(lam == g_lam, peer, NEG).amax(0)
+            g_val = torch.where((lam == g_lam) & (peer == g_peer), val, -2).amax(0)
+            out.append((torch.where(g_lam == NEG, -2, g_val), g_lam, g_peer))
+        first = mesh.lead
+        return tuple(torch.cat([o[k].to(first) for o in out]) for k in range(3))
+
+    return run
+
+
+def _block(a, r0: int, nr: int, c0: int, nc: int, dev: torch.device) -> torch.Tensor:
+    """a[r0:r0+nr, c0:c0+nc] as a contiguous tensor on `dev` (numpy
+    becomes a tensor)."""
+    t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
+    return t[r0:r0 + nr, c0:c0 + nc].to(dev).contiguous()
 
 
 def _blk_winners(slot, lam, hi, lo, val, valid, n_slots: int) -> Tuple[torch.Tensor, ...]:

@@ -2,18 +2,24 @@
 (the port of loro_tpu/parallel/fleet.py's one-shot merges:
 Fleet.merge_text_docs / merge_text_changes / merge_text_payloads,
 merge_richtext_changes, merge_movable_changes / merge_movable_payloads,
-merge_map_docs, merge_counter_changes and merge_tree_changes /
-merge_tree_payloads / merge_tree_children), and the resident batches that
+merge_map_docs, merge_map_docs_sharded, merge_counter_changes and
+merge_tree_changes / merge_tree_payloads / merge_tree_children), and the
+resident batches that
 keep documents on the device between syncs (DeviceDocBatch for text and
 lists, DeviceMapBatch for LWW maps, DeviceCounterBatch for counters,
 DeviceTreeBatch for movable trees, DeviceMovableBatch for movable
 lists).
 
 One-shot, per call: every document's rows are padded to one bucketed
-row count (pad_bucket), the doc axis to `pad_docs` with all-invalid
-filler docs where the call takes one, the columns are written into one
-host array a column and uploaded (one copy a column), one device merge
-runs over the whole batch, and one fetch brings back the result.
+row count (pad_bucket), the doc axis with all-invalid filler docs to a
+multiple of the Fleet's device mesh's rows (_mesh_pad; `pad_docs` where
+the call takes one), the columns are written into one host array a
+column, each mesh row's contiguous docs are uploaded to the row's lead
+device (one copy a column), one device merge runs a row, the rows'
+results are gathered on the mesh's first device, and one fetch brings
+back the result.  On a one-device Fleet that is one upload, one merge
+and one fetch.  merge_map_docs_sharded shards each doc's op rows over the
+mesh's op axis as well (ops/lww.make_lww_sharded).
 
 Resident: DeviceDocBatch holds each doc's element table on the device
 ([D, capacity] SeqColumnsU plus standing order keys); each append ships
@@ -28,11 +34,12 @@ DeviceTreeBatch holds each doc's move log ([D, capacity] TreeLogCols,
 append order); each read sorts the logs by the move key on the device
 and replays them in the replay kernel (ops/tree_batch).
 
-The JAX package binds all of them to a device mesh and pads the doc
-axis to a multiple of its doc dimension; here they are bound to one
-device, where that multiple is 1.  DeviceMovableBatch holds MovableList
-position slots in an inner DeviceDocBatch and the element winners as two
-LWW folds; every resident batch answers the read plane's batched export
+The JAX package binds the resident batches to a device mesh and pads
+their doc axis to a multiple of its doc dimension; here they are bound
+to one device, where that multiple is 1 (a sharded server carves a
+mesh's rows, one batch on each slice's lead device).
+DeviceMovableBatch holds MovableList position slots in an inner
+DeviceDocBatch and the element winners as two LWW folds; every resident batch answers the read plane's batched export
 selection (export_select over ops/export_batch.ExportIndex).
 
 Supervision (the JAX package's): every upload, device call and fetch of
@@ -58,7 +65,7 @@ stable rows.  Counted in pipeline.coalesced_rounds_total{family} and
 fleet.doc_releases_total{family}.  Each one-shot merge ticks the JAX
 package's fleet.* merge counters (_obs_merge), each host fallback
 fleet.host_fallback_total{kind} beside FLEET_FALLBACKS.  Not ported yet:
-the trace instants and the op-sharded map merge.
+the trace instants.
 """
 from __future__ import annotations
 
@@ -67,7 +74,7 @@ import struct
 import time
 from contextlib import contextmanager
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -78,7 +85,7 @@ from ..core.change import (Change, CounterIncr, MapSet, MovableMove, MovableSet,
 from ..core.ids import ContainerID, TreeID
 from ..device import DeviceLike, resolve_device
 from ..analysis.lockwitness import named_rlock
-from ..errors import DecodeError, DeviceFailure, LoroError
+from ..errors import ConfigError, DecodeError, DeviceFailure, LoroError
 from ..obs import metrics as obs
 from ..ops.columnar import MapExtract, SeqExtract, extract_seq_container, extract_seq_from_payload
 from ..ops.fugue_batch import (
@@ -92,7 +99,8 @@ from ..ops.fugue_batch import (
     stack_rows,
     stack_seq_columns,
 )
-from ..ops.lww import NEG, LwwResident, MapOpCols, counter_merge_batch, counter_merge_doc, lww_merge_batch, lww_update_resident
+from ..ops.lww import (NEG, LwwResident, MapOpCols, counter_merge_batch, counter_merge_doc, lww_merge_batch,
+                       lww_update_resident, make_lww_sharded)
 from ..ops.movable_batch import (
     LazyPayloadValue,
     MovableCols,
@@ -126,6 +134,7 @@ from ..resilience import faultinject
 from ..resilience.supervisor import get_supervisor
 from ..storage import MemKvStore
 from .idmap import make_idmap
+from .mesh import DOC_AXIS, OP_AXIS, Mesh, MeshLike, doc_count, doc_sharding, docs_of, make_mesh
 from .order_maintenance import ShadowOrder, split_keys
 
 faultinject.register_site(
@@ -145,6 +154,14 @@ FLEET_FALLBACKS: Dict[str, int] = {"payload_extract": 0, "payload_decode": 0, "o
 @dataclass
 class TextMergeResult:
     texts: List[str]
+
+
+class _CounterCols(NamedTuple):
+    """[D, M] counter rows of a one-shot counter merge."""
+
+    slot: np.ndarray  # int32 doc-local counter slot
+    delta: np.ndarray  # float32
+    valid: np.ndarray  # bool
 
 
 def texts_of(codes: np.ndarray, counts: np.ndarray, d: int) -> List[str]:
@@ -208,33 +225,76 @@ def _host_degrade(failure: DeviceFailure, family: str, cid=None, changes=None, p
     return hostpath.host_merge_changes(family, changes, cid)
 
 
-class Fleet:
-    """Batched merge front end bound to one device (default "cuda";
-    DeviceUnavailable without a card unless "cpu" is asked for).  Every
-    merge's upload, device call and fetch run under the process
-    DeviceSupervisor; a device failure reaches the caller as a typed
-    DeviceFailure, and under an armed fault the change-list and payload
-    merges degrade to the host engine (module docstring)."""
+def _mesh_pad(mesh: Mesh, d: int) -> int:
+    """Doc count padded up to a multiple of the mesh's doc dimension."""
+    dm = mesh.shape[DOC_AXIS]
+    return ((d + dm - 1) // dm) * dm
 
-    def __init__(self, device: DeviceLike = "cuda"):
-        self.device = resolve_device(device)
+
+def _gather_docs(outs: list, lead: torch.device):
+    """The mesh rows' outputs (each a tensor or a tuple of tensors with a
+    leading doc axis) concatenated in doc order on `lead`, the mesh's
+    first device: the gather of the JAX package's P("docs") outputs.  One
+    row's outputs come back as they are."""
+    if len(outs) == 1:
+        return outs[0]
+    if isinstance(outs[0], torch.Tensor):
+        return torch.cat([o.to(lead) for o in outs])
+    return type(outs[0])(torch.cat([o[k].to(lead) for o in outs]) for k in range(len(outs[0])))
+
+
+class Fleet:
+    """Batched merge front end bound to a device mesh (parallel/mesh.py)
+    or one device (default "cuda"; DeviceUnavailable without a card
+    unless "cpu" is asked for).  Give `device` or `mesh`, not both: a
+    mesh's first device is the fleet's `device`, and one device is a 1 x
+    1 mesh.  Every one-shot merge pads its doc axis to a multiple of the
+    mesh's rows (_mesh_pad) and runs each row's contiguous docs on that
+    row's lead device, the rows' results gathered in doc order on the
+    first device (a one-row mesh: one device call).  Every merge's
+    upload, device call and fetch run under the process
+    DeviceSupervisor, one supervised step for all rows; a device failure
+    reaches the caller as a typed DeviceFailure, and under an armed
+    fault the change-list and payload merges degrade to the host engine
+    (module docstring)."""
+
+    def __init__(self, device: Optional[DeviceLike] = None, mesh: Optional[MeshLike] = None):
+        if device is not None and mesh is not None:
+            raise ConfigError("device", str(device), "None when a mesh is given (its first device is the fleet's)")
+        if mesh is not None:
+            self.mesh = make_mesh(mesh)
+            self.device = self.mesh.lead
+        else:
+            self.device = resolve_device("cuda" if device is None else device)
+            self.mesh = Mesh([[self.device]])
+
+    def _sharded(self, label: str, batch, upload, merge):
+        """A one-shot merge's device call over the mesh rows: the numpy
+        column tuple `batch` ([D, ...], D a multiple of the rows) cut into
+        each row's docs, `upload(part, dev)` of every row in one
+        supervised launch, `merge(cols, dev)` of every row in a second,
+        whose outputs (a tensor or a tuple of [docs, ...] tensors) come
+        back gathered on the mesh's first device in doc order."""
+        parts = doc_sharding(self.mesh, doc_count(batch))
+        cols = _sup_launch(label, lambda: [upload(docs_of(batch, sl), dev) for dev, sl in parts])
+        return _sup_launch(label, lambda: _gather_docs([merge(c, dev) for c, (dev, _) in zip(cols, parts)],
+                                                       self.mesh.lead))
 
     def merge_text_docs(self, extracts: Sequence[SeqExtract], pad_docs: Optional[int] = None) -> TextMergeResult:
         """Final text of every document of the batch, merged in one
-        device call.  Docs are padded to a common bucketed element count,
-        the doc axis to `pad_docs` (default: the batch size).  It takes
-        extracts, so it has nothing to degrade to: a DeviceFailure reaches
-        the caller."""
+        device call a mesh row.  Docs are padded to a common bucketed
+        element count, the doc axis to `pad_docs` (default: a multiple of
+        the mesh's rows).  It takes extracts, so it has nothing to degrade
+        to: a DeviceFailure reaches the caller."""
         n = pad_bucket(max(e.n for e in extracts))
         d = len(extracts)
-        d_pad = pad_docs or d
+        d_pad = pad_docs or _mesh_pad(self.mesh, d)
         _obs_merge("text", d, sum(e.n for e in extracts), n * d_pad, (n, d_pad))
-        batched = stack_seq_columns(extracts, n, pad_docs)
-        dev = self.device
-        cols = _sup_launch("fleet.text", lambda: seq_columns_to_torch(batched, device=dev))
-        codes, counts = _sup_launch("fleet.text", lambda: materialize_content_batch(cols, device=dev))
+        batched = stack_seq_columns(extracts, n, d_pad)
+        codes, counts = self._sharded("fleet.text", batched, seq_columns_to_torch,
+                                      lambda c, dev: materialize_content_batch(c, device=dev))
         codes, counts = _sup_fetch("fleet.text", codes), _sup_fetch("fleet.text", counts)
-        return TextMergeResult(texts_of(codes, counts, len(extracts)))
+        return TextMergeResult(texts_of(codes, counts, d))
 
     def merge_text_changes(self, docs_changes: Sequence[Sequence[Change]], cid: ContainerID) -> TextMergeResult:
         """Texts of container `cid` from each doc's decoded change list;
@@ -276,23 +336,23 @@ class Fleet:
                                pad_docs: Optional[int] = None) -> List[List[dict]]:
         """Every doc's rich text `cid` from its change list, as Quill-style
         segments [{insert, attributes?}] with resolved styles, in one
-        device call: the chain-contracted columns of each doc padded to
-        bucketed (N, C, P) rows and the doc axis to `pad_docs` (default:
-        the batch size), one upload a column, the chain merge with its
-        style resolution, one fetch of the outputs.  Under an armed fault,
-        the host engine's segments."""
+        device call a mesh row: the chain-contracted columns of each doc
+        padded to bucketed (N, C, P) rows and the doc axis to `pad_docs`
+        (default: a multiple of the mesh's rows), one upload a column, the
+        chain merge with its style resolution, one fetch of the outputs.
+        Under an armed fault, the host engine's segments."""
         extracts = [extract_richtext_chain(chs, cid) for chs in docs_changes]
-        batch, n_keys = _stack_richtext(extracts, pad_docs or 0)
+        d = len(extracts)
+        d_pad = max(d, pad_docs) if pad_docs else _mesh_pad(self.mesh, d)
+        batch, n_keys = _stack_richtext(extracts, d_pad)
         n = pad_bucket(max(1, max(c.chain.chain_id.shape[0] for c, _, _ in extracts)))
         cpad = pad_bucket(max(1, max(c.chain.c_parent.shape[0] for c, _, _ in extracts)))
         p = pad_bucket(max(1, max(c.pair_start.shape[0] for c, _, _ in extracts)), floor=16)
-        d_pad = max(len(extracts), pad_docs or 0)
-        _obs_merge("richtext", len(extracts), sum(c.chain.chain_id.shape[0] for c, _, _ in extracts), n * d_pad,
+        _obs_merge("richtext", d, sum(c.chain.chain_id.shape[0] for c, _, _ in extracts), n * d_pad,
                    (n, cpad, p, n_keys, d_pad))
-        dev = self.device
         try:
-            cols = _sup_launch("fleet.richtext", lambda: _on(batch, dev))
-            out = _sup_launch("fleet.richtext", lambda: richtext_chain_merge_batch(cols, n_keys, device=dev))
+            out = self._sharded("fleet.richtext", batch, _on,
+                                lambda c, dev: richtext_chain_merge_batch(c, n_keys, device=dev))
             out = [_sup_fetch("fleet.richtext", t) for t in out]
         except DeviceFailure as e:
             return _host_degrade(e, "richtext", cid, changes=docs_changes)
@@ -300,7 +360,8 @@ class Fleet:
 
     def merge_movable_changes(self, docs_changes: Sequence[Sequence[Change]], cid: ContainerID) -> List[list]:
         """Every doc's MovableList `cid` from its change list, as its value
-        list, in one device call; under an armed fault, the host engine's."""
+        list, in one device call a mesh row; under an armed fault, the
+        host engine's."""
         extracts = [extract_movable(chs, cid) for chs in docs_changes]
         try:
             return self._merge_movable_extracted(extracts)
@@ -336,38 +397,41 @@ class Fleet:
 
     def _merge_movable_extracted(self, extracts) -> List[list]:
         """The merge of (MovableCols, elems, values) extracts: stacked
-        (_stack_movable), one upload a column, movable_merge_batch, one
-        fetch, then each doc's winners' values (_movable_values)."""
-        batch, n_elems = _stack_movable(extracts)
-        d, s_, k = len(extracts), batch.seq.parent.shape[1], batch.set_elem.shape[1]
+        (_stack_movable) with the doc axis padded to the mesh, one upload
+        a column, movable_merge_batch, one fetch, then each doc's
+        winners' values (_movable_values)."""
+        d = len(extracts)
+        d_pad = _mesh_pad(self.mesh, d)
+        batch, n_elems = _stack_movable(extracts, d_pad)
+        s_, k = batch.seq.parent.shape[1], batch.set_elem.shape[1]
         _obs_merge("movable", d, sum(c.seq.parent.shape[0] + c.set_elem.shape[0] for c, _, _ in extracts),
-                   (s_ + k) * d, (s_, k, n_elems, d))
-        dev = self.device
-        cols = _sup_launch("fleet.movable", lambda: _on(batch, dev))
-        out, counts = _sup_launch("fleet.movable", lambda: movable_merge_batch(cols, n_elems, device=dev))
+                   (s_ + k) * d_pad, (s_, k, n_elems, d_pad))
+        out, counts = self._sharded("fleet.movable", batch, _on,
+                                    lambda c, dev: movable_merge_batch(c, n_elems, device=dev))
         return _movable_values(_sup_fetch("fleet.movable", out), _sup_fetch("fleet.movable", counts), extracts)
 
     def merge_counter_changes(self, docs_changes: Sequence[Sequence[Change]]) -> List[Dict[ContainerID, float]]:
         """Every doc's counters {container: sum} from its change list, in
-        one device call (order-independent segment sums; float32, the
-        precision contract of DeviceCounterBatch); under an armed fault, the
-        host engine's."""
-        slot, delta, valid, s, cids_per_doc = self._counter_cols(docs_changes)
-        d, m = slot.shape
-        _obs_merge("counter", d, int(valid.sum()), m * d, (m, s, d))
-        dev = self.device
+        one device call a mesh row (order-independent segment sums;
+        float32, the precision contract of DeviceCounterBatch); under an
+        armed fault, the host engine's."""
+        d = len(docs_changes)
+        d_pad = _mesh_pad(self.mesh, d)
+        slot, delta, valid, s, cids_per_doc = self._counter_cols(docs_changes, d_pad)
+        m = slot.shape[1]
+        _obs_merge("counter", d, int(valid.sum()), m * d_pad, (m, s, d_pad))
         try:
-            cols = _sup_launch("fleet.counter", lambda: [_to_device(a, dev) for a in (slot, delta, valid)])
-            sums = _sup_fetch("fleet.counter", _sup_launch("fleet.counter",
-                                                           lambda: counter_merge_batch(*cols, s, device=dev)))
+            sums = self._sharded("fleet.counter", _CounterCols(slot, delta, valid), _on,
+                                 lambda c, dev: counter_merge_batch(*c, s, device=dev))
+            sums = _sup_fetch("fleet.counter", sums)
         except DeviceFailure as e:
             return _host_degrade(e, "counter", changes=docs_changes)
         return [{cid: float(sums[di, j]) for j, cid in enumerate(cids)} for di, cids in enumerate(cids_per_doc)]
 
-    def _counter_cols(self, docs_changes: Sequence[Sequence[Change]]):
-        """(slot, delta, valid [D, M] numpy columns, slot count, each doc's
-        counters in slot order): one row per increment, a doc's counters
-        numbered by first use."""
+    def _counter_cols(self, docs_changes: Sequence[Sequence[Change]], d_pad: int = 0):
+        """(slot, delta, valid [max(D, d_pad), M] numpy columns, slot
+        count, each doc's counters in slot order): one row per increment,
+        a doc's counters numbered by first use, filler docs all invalid."""
         rows_per_doc = []
         cids_per_doc = []
         for changes in docs_changes:
@@ -386,7 +450,7 @@ class Fleet:
             cids_per_doc.append(cids)
         m = pad_bucket(max(1, max(len(r) for r in rows_per_doc)), floor=16)
         s = max(1, max(len(c) for c in cids_per_doc))
-        d = len(docs_changes)
+        d = max(len(docs_changes), d_pad)
         slot = np.zeros((d, m), np.int32)
         delta = np.zeros((d, m), np.float32)
         valid = np.zeros((d, m), bool)
@@ -397,12 +461,12 @@ class Fleet:
                 valid[di, : len(rows)] = True
         return slot, delta, valid, s, cids_per_doc
 
-    def _batch_map_cols(self, extracts: Sequence[MapExtract], m: int) -> MapOpCols:
-        """Per-doc MapExtract rows stacked into padded [D, M] numpy
-        columns."""
+    def _batch_map_cols(self, extracts: Sequence[MapExtract], m: int, d_pad: int = 0) -> MapOpCols:
+        """Per-doc MapExtract rows stacked into padded [max(D, d_pad), M]
+        numpy columns (filler docs all invalid)."""
 
         def col(rows_list, fill, dtype):
-            out = np.full((len(extracts), m), fill, dtype)
+            out = np.full((max(len(extracts), d_pad), m), fill, dtype)
             for i, r in enumerate(rows_list):
                 out[i, : len(r)] = r
             return out
@@ -416,24 +480,48 @@ class Fleet:
         )
 
     def merge_map_docs(self, extracts: Sequence[MapExtract]) -> List[Dict[str, object]]:
-        """LWW winners of a batch of docs in one device call; per doc
-        {key: value} over every map container's keys (a key set in two
-        containers keeps the later slot's winner, as in JAX).  It takes
-        extracts, so it has nothing to degrade to: a DeviceFailure reaches
-        the caller."""
+        """LWW winners of a batch of docs in one device call a mesh row;
+        per doc {key: value} over every map container's keys (a key set in
+        two containers keeps the later slot's winner, as in JAX).  It
+        takes extracts, so it has nothing to degrade to: a DeviceFailure
+        reaches the caller."""
         m = pad_bucket(max(1, max(len(e.slot) for e in extracts)))
         s = max(1, max(len(e.slots) for e in extracts))
-        _obs_merge("map", len(extracts), sum(len(e.slot) for e in extracts), m * len(extracts), (m, s, len(extracts)))
-        dev = self.device
-        batched = self._batch_map_cols(extracts, m)
-        cols = _sup_launch("fleet.map", lambda: MapOpCols(*(_to_device(a, dev) for a in batched)))
-        vi, _, _ = _sup_launch("fleet.map", lambda: lww_merge_batch(cols, s, device=dev))
+        d_pad = _mesh_pad(self.mesh, len(extracts))
+        _obs_merge("map", len(extracts), sum(len(e.slot) for e in extracts), m * d_pad, (m, s, d_pad))
+        batched = self._batch_map_cols(extracts, m, d_pad)
+        vi = self._sharded("fleet.map", batched, _on, lambda c, dev: lww_merge_batch(c, s, device=dev)[0])
         return self._map_winner_values(_sup_fetch("fleet.map", vi), extracts)
+
+    def merge_map_docs_sharded(self, extracts: Sequence[MapExtract]) -> List[Dict[str, object]]:
+        """merge_map_docs with each doc's op rows sharded over the mesh's
+        op axis as well (ops/lww.make_lww_sharded), for very large
+        imports: the op rows padded to a multiple of the op axis, uploaded
+        to the mesh's first device in one supervised launch, the sharded
+        merge in a second (each (row, column) block on its device, the
+        partials combined on the row's lead device), one fetch.  On a
+        mesh whose op axis is 1, merge_map_docs.  The same output
+        contract, and nothing to degrade to."""
+        op_dim = self.mesh.shape[OP_AXIS]
+        if op_dim <= 1:
+            return self.merge_map_docs(extracts)
+        m = pad_bucket(max(1, max(len(e.slot) for e in extracts)))
+        m = ((m + op_dim - 1) // op_dim) * op_dim  # divisible by the op axis
+        s = max(1, max(len(e.slots) for e in extracts))
+        d_pad = _mesh_pad(self.mesh, len(extracts))
+        _obs_merge("map_sharded", len(extracts), sum(len(e.slot) for e in extracts), m * d_pad,
+                   (m, s, d_pad, op_dim))
+        batched = self._batch_map_cols(extracts, m, d_pad)
+        lead = self.mesh.lead
+        cols = _sup_launch("fleet.map_sharded", lambda: _on(batched, lead))
+        fn = make_lww_sharded(self.mesh, s)
+        vi, _, _ = _sup_launch("fleet.map_sharded", lambda: fn(cols))
+        return self._map_winner_values(_sup_fetch("fleet.map_sharded", vi), extracts)
 
     def merge_tree_changes(self, docs_changes: Sequence[Sequence[Change]], cid: ContainerID) -> List[dict]:
         """Every doc's tree `cid` from its change list, in one replay
-        launch: {TreeID: parent TreeID | None} of the live nodes; under an
-        armed fault, the host engine's."""
+        launch a mesh row: {TreeID: parent TreeID | None} of the live
+        nodes; under an armed fault, the host engine's."""
         extracted = [extract_tree_ops(chs, cid) for chs in docs_changes]
         try:
             return self._merge_tree_extracted(extracted, "tree")
@@ -460,13 +548,13 @@ class Fleet:
         except DeviceFailure as e:
             return _host_degrade(e, "tree", cid, payloads=payloads)
 
-    def _stack_tree_cols(self, extracted) -> Tuple[TreeOpCols, int]:
-        """(the extracts' move logs as [D, M] numpy columns padded to
-        M = pad_bucket(longest log, 16) rows (target 0, parent ROOT,
-        invalid), n = max(1, most nodes))."""
+    def _stack_tree_cols(self, extracted, d_pad: int = 0) -> Tuple[TreeOpCols, int]:
+        """(the extracts' move logs as [max(D, d_pad), M] numpy columns
+        padded to M = pad_bucket(longest log, 16) rows (target 0, parent
+        ROOT, invalid; filler docs likewise), n = max(1, most nodes))."""
         m = pad_bucket(max(1, max(c.target.shape[0] for c, _, _ in extracted)), floor=16)
         n = max(1, max(len(nodes) for _, nodes, _ in extracted))
-        d = len(extracted)
+        d = max(len(extracted), d_pad)
         cols = TreeOpCols(np.zeros((d, m), np.int32), np.full((d, m), ROOT, np.int32), np.zeros((d, m), bool))
         for i, (c, _, _) in enumerate(extracted):
             for dst, src in zip(cols, c):
@@ -475,17 +563,18 @@ class Fleet:
 
     def _tree_replay(self, extracted, family: str) -> List[np.ndarray]:
         """(parents [D, n], effected [D, M], deleted [D, n]) of the
-        extracts: the stacked columns uploaded, the replay kernel and
-        is_deleted_batch, the results fetched, each supervised under
-        fleet.{family}."""
-        cols, n = self._stack_tree_cols(extracted)
-        d, m = cols.target.shape
+        extracts: the stacked columns uploaded, the replay kernel a mesh
+        row, is_deleted_batch on the gathered parents, the results
+        fetched, each supervised under fleet.{family}."""
+        d = len(extracted)
+        d_pad = _mesh_pad(self.mesh, d)
+        cols, n = self._stack_tree_cols(extracted, d_pad)
+        m = cols.target.shape[1]
         # tree_children is a family of its own: its extra reads must not
         # alias the plain tree merge's shapes
-        _obs_merge(family, d, sum(c.target.shape[0] for c, _, _ in extracted), m * d, (m, n, d))
-        dev, label = self.device, f"fleet.{family}"
-        up = _sup_launch(label, lambda: TreeOpCols(*(_to_device(c, dev) for c in cols)))
-        parents, eff = _sup_launch(label, lambda: tree_merge_batch(up, n))
+        _obs_merge(family, d, sum(c.target.shape[0] for c, _, _ in extracted), m * d_pad, (m, n, d_pad))
+        label = f"fleet.{family}"
+        parents, eff = self._sharded(label, cols, _on, lambda c, dev: tree_merge_batch(c, n))
         deleted = _sup_fetch(label, _sup_launch(label, lambda: is_deleted_batch(parents)))
         return [_sup_fetch(label, parents), _sup_fetch(label, eff), deleted]
 
@@ -532,8 +621,8 @@ class Fleet:
 # ---- resident text batch ------------------------------------------------------
 
 
-def _stack_richtext(extracts, pad_docs: int = 0):
-    """(numpy RichtextChainCols [max(D, pad_docs), ...], n_keys) of
+def _stack_richtext(extracts, d_pad: int = 0):
+    """(numpy RichtextChainCols [max(D, d_pad), ...], n_keys) of
     extract_richtext_chain outputs: rows padded to pad_bucket of the most
     elements and chains, pairs to pad_bucket(most pairs, 16), the style
     keys to pad_bucket(most keys, 4)."""
@@ -542,21 +631,23 @@ def _stack_richtext(extracts, pad_docs: int = 0):
     c_pad = pad_bucket(max(1, max(c.chain.c_parent.shape[0] for c in cols)))
     p = pad_bucket(max(1, max(c.pair_start.shape[0] for c in cols)), floor=16)
     n_keys = pad_bucket(max(1, max(len(k) for _, k, _ in extracts)), floor=4)
-    return stack_richtext_chain_cols(cols, n, c_pad, p, pad_docs), n_keys
+    return stack_richtext_chain_cols(cols, n, c_pad, p, d_pad), n_keys
 
 
-def _stack_movable(extracts):
-    """(numpy MovableCols [D, ...], n_elems) of movable extracts: slots
-    padded to pad_bucket(most slots), sets to pad_bucket(most sets, 16),
-    the element count to pad_bucket(most elements, 16)."""
+def _stack_movable(extracts, d_pad: int = 0):
+    """(numpy MovableCols [max(D, d_pad), ...], n_elems) of movable
+    extracts: slots padded to pad_bucket(most slots), sets to
+    pad_bucket(most sets, 16), the element count to pad_bucket(most
+    elements, 16), filler docs all invalid."""
     cols = [c for c, _, _ in extracts]
     s = pad_bucket(max(1, max(c.seq.parent.shape[0] for c in cols)))
     k = pad_bucket(max(1, max(c.set_elem.shape[0] for c in cols)), floor=16)
 
     def col(f, size, fill):
-        return stack_rows([getattr(c, f) for c in cols], size, fill, dtype=bool if f == "set_valid" else np.int32)
+        return stack_rows([getattr(c, f) for c in cols], size, fill, d_pad,
+                          dtype=bool if f == "set_valid" else np.int32)
 
-    batch = MovableCols(stack_seq_columns([c.seq for c in cols], s), col("lamport", s, 0),
+    batch = MovableCols(stack_seq_columns([c.seq for c in cols], s, d_pad), col("lamport", s, 0),
                         *[col(f, k, False if f == "set_valid" else 0) for f in MovableCols._fields[2:]])
     return batch, pad_bucket(max(1, max(len(e) for _, e, _ in extracts)), floor=16)
 

@@ -1,7 +1,7 @@
 """Sharded resident fleet: one logical ResidentServer over a device
-list (the port's counterpart of the JAX package's ("docs",) mesh:
-parallel/mesh.py carves the list into one contiguous slice a shard, and
-each shard's server is bound to the first device of its slice).  A
+mesh or list (parallel/mesh.py carves the mesh's doc axis, a list being
+one column, into one contiguous slice of rows a shard, and each shard's
+server is bound to the lead device of its slice).  A
 list may name one device twice: ``devices=["cpu", "cpu"]`` runs two
 shards on the host, ``[dev, dev]`` two shards on one card, each with
 its own batch tensors, its own ``fleet.dev`` lock and, under a
@@ -69,7 +69,7 @@ from ..device import DeviceLike
 from ..errors import ConfigError, LoroError, PersistError, ShardingError
 from ..obs import heat as heat_acct
 from ..obs import metrics as obs
-from .mesh import make_mesh, shard_meshes
+from .mesh import DOC_AXIS, make_mesh, shard_meshes
 from .pipeline import PendingRound
 from .placement import ShardPlacement, _EpochMap, rendezvous_shard
 from .server import ResidentServer
@@ -88,8 +88,8 @@ MANIFEST_VERSION = 1
 def _resolve_shards(shards, devices) -> int:
     """Shard-count knob resolution with typed first-use validation:
     explicit ``shards=`` wins, else ``LORO_SHARDS``, else one shard per
-    device of the list.  Divisibility against the list is validated by
-    ``shard_meshes`` (also typed ConfigError)."""
+    doc-axis row of the mesh (a device of a list).  Divisibility against
+    the mesh is validated by ``shard_meshes`` (also typed ConfigError)."""
     if shards is None:
         env = os.environ.get("LORO_SHARDS")
         if env is not None:
@@ -102,7 +102,7 @@ def _resolve_shards(shards, devices) -> int:
             if shards < 1:
                 raise ConfigError("LORO_SHARDS", env, "positive integer")
         else:
-            shards = len(devices)
+            shards = devices.shape[DOC_AXIS]
     return shards
 
 
@@ -292,9 +292,10 @@ class ShardedResidentServer:
 
     ``ShardedResidentServer(family, n_docs, shards=|devices=, **caps)``:
     ``shards`` defaults to ``LORO_SHARDS`` (typed ConfigError on a bad
-    value) and then to one shard per device of ``devices`` (every
-    visible card when omitted, DeviceUnavailable without one); the
-    shard count must divide the list's length.  Capacity kwargs apply per shard.
+    value) and then to one shard per doc-axis row of ``devices`` (a
+    mesh, or a list as one column; every visible card when omitted,
+    DeviceUnavailable without one); the shard count must divide the
+    rows.  Capacity kwargs apply per shard.
     ``doc_keys`` are the rendezvous placement keys (default: the doc
     index as a string; pass stable names — e.g. stringified container
     ids — when the fleet will be resized, so placement survives the
@@ -364,7 +365,7 @@ class ShardedResidentServer:
                         int(hot_slots), self.placement.widths[s]
                     )
                 self.shards.append(ResidentServer(
-                    family, self.placement.widths[s], device=self.shard_devices[s][0],
+                    family, self.placement.widths[s], device=self.shard_devices[s].lead,
                     auto_grow=auto_grow, supervisor=self.supervisors[s],
                     host_fallback=host_fallback,
                     auto_checkpoint=auto_checkpoint,
@@ -605,7 +606,7 @@ class ShardedResidentServer:
         ok = True
         for s in targets:
             if self.shards[s].degraded:
-                ok = self.shards[s].recover(device=self.shard_devices[s][0]) and ok
+                ok = self.shards[s].recover(device=self.shard_devices[s].lead) and ok
         obs.gauge(
             "shard.degraded_shards", "shards degraded to their host mirror"
         ).set(len(self.degraded_shards()), family=self.family)
@@ -735,7 +736,7 @@ class ShardedResidentServer:
                 raise DecodeError(
                     f"ShardedResidentServer state: missing shard {s}"
                 )
-            shard_srvs.append(ResidentServer.restore(blob, device=shard_devices[s][0]))
+            shard_srvs.append(ResidentServer.restore(blob, device=shard_devices[s].lead))
         return cls._assemble(manifest, shard_srvs, devices, shard_devices,
                              durable_dir=None)
 
@@ -1066,7 +1067,7 @@ def recover_sharded_server(durable_dir: str, devices: Optional[Sequence[DeviceLi
                     f"but shard-{s:02d}/ is missing"
                 )
             shard_srvs.append(
-                recover_server(sub, device=shard_devices[s][0], fsync=fsync)
+                recover_server(sub, device=shard_devices[s].lead, fsync=fsync)
             )
     except BaseException:
         for srv in shard_srvs:

@@ -643,9 +643,9 @@ class ShardedFollower:
     never route through a placement whose migration round has not
     applied yet.  ``durable_epoch``-style watermarks aggregate min-
     over-shards; lag is max-over-shards.  ``devices=`` is the device
-    list carved one slice a shard (default every visible card; a list
-    may name one device twice), each shard's follower on the first
-    device of its slice."""
+    mesh or list whose rows are carved one slice a shard (default every
+    visible card; a list may name one device twice), each shard's
+    follower on the lead device of its slice."""
 
     def __init__(self, source_dir: str, follower_dir: str,
                  follower_id: str = "follower", leader=None,
@@ -681,7 +681,7 @@ class ShardedFollower:
                 os.path.join(follower_dir, f"shard-{s:02d}"),
                 follower_id=follower_id,
                 leader=leader_shards[s] if leader_shards else None,
-                device=self.shard_devices[s][0], sync_server=False, clock=clock,
+                device=self.shard_devices[s].lead, sync_server=False, clock=clock,
                 stale_after=stale_after,
             ))
         self.promoted = False

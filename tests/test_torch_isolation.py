@@ -229,6 +229,22 @@ _BLOCKED_IMPORT = textwrap.dedent(
     fn, (ex,) = entry()
     codes, counts = fn(ex, device="cpu")
     assert codes.shape == (8, 256) and int(counts[0]) == 256 - 256 // 7
+    # the device mesh: one op-sharded map merge and one op-sharded rank on the host
+    from loro_tpu_torch.ops.columnar import extract_map_ops
+    from loro_tpu_torch.ops.fugue_batch import _wyllie_dist, make_ring_rank_sharded
+    from loro_tpu_torch.parallel.fleet import Fleet as MeshFleet
+    from loro_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(["cpu"] * 4, op_parallel=2)
+    md = LoroDoc(peer=7)
+    md.get_map("m").set("k", 1)
+    md.get_map("m").set("j", "x")
+    md.commit()
+    got = MeshFleet(mesh=mesh).merge_map_docs_sharded([extract_map_ops(md.oplog.changes_in_causal_order())])
+    assert got == [md.get_map("m").get_value()], got
+    ring = np.stack([np.minimum(np.arange(1, 65, dtype=np.int32), 63)] * 2)
+    import torch
+    assert torch.equal(make_ring_rank_sharded(mesh, 64, "blocked")(ring), _wyllie_dist(torch.from_numpy(ring)))
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "loro_tpu"))
     assert not leaked, leaked
     print("OK", len(names))
@@ -304,7 +320,7 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(tmp_path):
         content=np.array([[97, 98, 99, 100]], np.int32), valid=np.ones((1, 4), bool),
     )
     cpu_cols = fugue_batch.chain_columns_to_torch(np_cols, device="cpu")
-    from loro_tpu_torch.entry import entry, example_cols
+    from loro_tpu_torch.entry import dryrun_multichip, entry, example_cols
     from loro_tpu_torch.ops import lww
     from loro_tpu_torch.ops.export_batch import ExportIndex
     from loro_tpu_torch.parallel.fleet import (DeviceCounterBatch, DeviceDocBatch, DeviceMapBatch, DeviceMovableBatch,
@@ -399,6 +415,9 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(tmp_path):
         lambda: ShardedResidentServer("text", 2),
         lambda: ShardedResidentServer("text", 2, devices=["cuda", "cuda"]),
         lambda: make_mesh(),
+        lambda: make_mesh(op_parallel=2),
+        lambda: Fleet(mesh=make_mesh()),
+        lambda: dryrun_multichip(8),
         lambda: recover_server(durable),
         lambda: open_server(durable),
         lambda: open_server(str(tmp_path / "fresh"), "text", 1),
