@@ -112,9 +112,6 @@ def render(snapshot: Optional[dict] = None) -> str:
             f"distinct padded shapes (jit-cache proxy): "
             f"{_fmt_num(_metric_total(shapes))}"
         )
-    rtt = snap.get("tunnel.rtt_ms")
-    if rtt and rtt["values"]:
-        head.append(f"tunnel RTT: {_fmt_num(rtt['values'][0]['value'])} ms")
     for h in head:
         lines.append("  * " + h)
     if head:

@@ -42,6 +42,7 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..errors import ConfigError
+from ..utils import tracing
 from . import list_rank
 
 BIG = 2**30  # rank of pads / unreachable nodes (jnp.int32(2**30) in JAX)
@@ -718,7 +719,8 @@ def _order_core(
     backend, algo = _resolve_rank_spec(rank_impl, succ.device, succ.shape[1])
     if rank_impl is None and backend == "torch" and algo == "wyllie":
         RANK_ROUTES["torch:wyllie/over_cap"] += 1
-    dist = _rank_dist(succ, backend, algo, ring_budget)
+    with tracing.device_span("fugue.rank", succ.device, D=succ.shape[0], m=succ.shape[1]):
+        dist = _rank_dist(succ, backend, algo, ring_budget)
     anchor_dist = dist.gather(1, anchor.to(torch.int64))
     rank = anchor_dist[:, n : n + 1] - anchor_dist[:, :n]
     return torch.where(valid_in, rank, BIG).to(torch.int32)

@@ -64,8 +64,13 @@ compact (text and list, tree and movable batches) reclaims causally
 stable rows.  Counted in pipeline.coalesced_rounds_total{family} and
 fleet.doc_releases_total{family}.  Each one-shot merge ticks the JAX
 package's fleet.* merge counters (_obs_merge), each host fallback
-fleet.host_fallback_total{kind} beside FLEET_FALLBACKS.  Not ported yet:
+fleet.host_fallback_total{kind} beside FLEET_FALLBACKS; the one-shot text
+merges tick rank.* as ops/fugue_batch.merge_docs does.  Not ported yet:
 the trace instants.
+
+Spans (utils/tracing, whose docstring holds the catalogue): the text
+merges' fleet.text.* spans and fleet.text.merge_device device span, and
+each StageClock stage as a resident.<stage> span or device span.
 """
 from __future__ import annotations
 
@@ -91,6 +96,7 @@ from ..ops.columnar import MapExtract, SeqExtract, extract_seq_container, extrac
 from ..ops.fugue_batch import (
     SeqColumnsU,
     _on,
+    _tick_rank_obs,
     chain_merge_docs_u,
     materialize_by_key,
     materialize_content_batch,
@@ -133,6 +139,7 @@ from ..ops.tree_batch import (
 from ..resilience import faultinject
 from ..resilience.supervisor import get_supervisor
 from ..storage import MemKvStore
+from ..utils import tracing
 from .idmap import make_idmap
 from .mesh import DOC_AXIS, OP_AXIS, Mesh, MeshLike, doc_count, doc_sharding, docs_of, make_mesh
 from .order_maintenance import ShadowOrder, split_keys
@@ -275,8 +282,17 @@ class Fleet:
         supervised launch, `merge(cols, dev)` of every row in a second,
         whose outputs (a tensor or a tuple of [docs, ...] tensors) come
         back gathered on the mesh's first device in doc order."""
+        parts, cols = self._upload_rows(label, batch, upload)
+        return self._merge_rows(label, parts, cols, merge)
+
+    def _upload_rows(self, label: str, batch, upload):
+        """_sharded's first launch: (the rows' (device, slice) parts, their
+        uploaded columns)."""
         parts = doc_sharding(self.mesh, doc_count(batch))
-        cols = _sup_launch(label, lambda: [upload(docs_of(batch, sl), dev) for dev, sl in parts])
+        return parts, _sup_launch(label, lambda: [upload(docs_of(batch, sl), dev) for dev, sl in parts])
+
+    def _merge_rows(self, label: str, parts, cols, merge):
+        """_sharded's second launch."""
         return _sup_launch(label, lambda: _gather_docs([merge(c, dev) for c, (dev, _) in zip(cols, parts)],
                                                        self.mesh.lead))
 
@@ -285,25 +301,39 @@ class Fleet:
         device call a mesh row.  Docs are padded to a common bucketed
         element count, the doc axis to `pad_docs` (default: a multiple of
         the mesh's rows).  It takes extracts, so it has nothing to degrade
-        to: a DeviceFailure reaches the caller."""
-        n = pad_bucket(max(e.n for e in extracts))
+        to: a DeviceFailure reaches the caller.  Ticks rank.* for the
+        [d_pad, n] rings it ranks, as ops/fugue_batch.merge_docs does."""
         d = len(extracts)
-        d_pad = pad_docs or _mesh_pad(self.mesh, d)
-        _obs_merge("text", d, sum(e.n for e in extracts), n * d_pad, (n, d_pad))
-        batched = stack_seq_columns(extracts, n, d_pad)
-        codes, counts = self._sharded("fleet.text", batched, seq_columns_to_torch,
-                                      lambda c, dev: materialize_content_batch(c, device=dev))
-        codes, counts = _sup_fetch("fleet.text", codes), _sup_fetch("fleet.text", counts)
-        return TextMergeResult(texts_of(codes, counts, d))
+        with tracing.span("fleet.text.stack", docs=d) as sp:
+            n = pad_bucket(max(e.n for e in extracts))
+            d_pad = pad_docs or _mesh_pad(self.mesh, d)
+            _obs_merge("text", d, sum(e.n for e in extracts), n * d_pad, (n, d_pad))
+            _tick_rank_obs(d_pad, n, None, self.device)
+            batched = stack_seq_columns(extracts, n, d_pad)
+            if sp is not None:
+                sp["rows"] = n
+        with tracing.span("fleet.text.upload"):
+            parts, cols = self._upload_rows("fleet.text", batched, seq_columns_to_torch)
+        with tracing.span("fleet.text.launch"), tracing.device_span("fleet.text.merge_device", self.mesh.lead):
+            codes, counts = self._merge_rows("fleet.text", parts, cols,
+                                             lambda c, dev: materialize_content_batch(c, device=dev))
+        # the fetch waits for the merge's stream: its span, closing,
+        # delivers the merge's device spans
+        with tracing.span("fleet.text.fetch"):
+            codes, counts = _sup_fetch("fleet.text", codes), _sup_fetch("fleet.text", counts)
+        with tracing.span("fleet.text.decode", docs=d):
+            return TextMergeResult(texts_of(codes, counts, d))
 
     def merge_text_changes(self, docs_changes: Sequence[Sequence[Change]], cid: ContainerID) -> TextMergeResult:
         """Texts of container `cid` from each doc's decoded change list;
         under an armed fault, the host engine's."""
-        extracts = [extract_seq_container(chs, cid) for chs in docs_changes]
-        try:
-            return self.merge_text_docs(extracts)
-        except DeviceFailure as e:
-            return TextMergeResult(_host_degrade(e, "text", cid, changes=docs_changes))
+        with tracing.span("fleet.text.changes", docs=len(docs_changes)):
+            with tracing.span("fleet.text.extract", docs=len(docs_changes), fallbacks=0):
+                extracts = [extract_seq_container(chs, cid) for chs in docs_changes]
+            try:
+                return self.merge_text_docs(extracts)
+            except DeviceFailure as e:
+                return TextMergeResult(_host_degrade(e, "text", cid, changes=docs_changes))
 
     def merge_text_payloads(self, payloads: Sequence[bytes], cid: ContainerID) -> TextMergeResult:
         """Texts of container `cid` from each doc's binary updates payload
@@ -313,24 +343,29 @@ class Fleet:
         inserts name elements outside it raises ValueError; a codec that
         cannot be built raises KernelBuildError.  Under an armed fault, the
         host engine's texts of the decoded payloads."""
-        extracts = []
-        for p in payloads:
+        with tracing.span("fleet.text.payloads", docs=len(payloads), payload_bytes=sum(map(len, payloads))):
+            with tracing.span("fleet.text.extract", docs=len(payloads)) as sp:
+                extracts, fallbacks = [], 0
+                for p in payloads:
+                    try:
+                        ex = extract_seq_from_payload(p, cid)
+                    except ValueError:
+                        _obs_fallback("payload_extract")
+                        fallbacks += 1
+                        try:
+                            ex = extract_seq_container(decode_changes(p), cid)
+                        except KeyError as e:
+                            raise ValueError(
+                                f"payload is not self-contained (references elements outside it: {e}); one-shot "
+                                "fleet merges need full-history payloads"
+                            ) from e
+                    extracts.append(ex)
+                if sp is not None:
+                    sp["fallbacks"] = fallbacks
             try:
-                ex = extract_seq_from_payload(p, cid)
-            except ValueError:
-                _obs_fallback("payload_extract")
-                try:
-                    ex = extract_seq_container(decode_changes(p), cid)
-                except KeyError as e:
-                    raise ValueError(
-                        f"payload is not self-contained (references elements outside it: {e}); one-shot fleet "
-                        "merges need full-history payloads"
-                    ) from e
-            extracts.append(ex)
-        try:
-            return self.merge_text_docs(extracts)
-        except DeviceFailure as e:
-            return TextMergeResult(_host_degrade(e, "text", cid, payloads=payloads))
+                return self.merge_text_docs(extracts)
+            except DeviceFailure as e:
+                return TextMergeResult(_host_degrade(e, "text", cid, payloads=payloads))
 
     def merge_richtext_changes(self, docs_changes: Sequence[Sequence[Change]], cid: ContainerID,
                                pad_docs: Optional[int] = None) -> List[List[dict]]:
@@ -896,7 +931,10 @@ def _to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
 class StageClock:
     """Per-stage times, ms, of a resident batch's last public call: host
     stages by the host clock, device stages by CUDA events on a card (by
-    the host clock on the CPU).  `read()` waits for the device stages."""
+    the host clock on the CPU).  `read()` waits for the device stages.
+    While spans are live, each stage is also a `resident.<stage>` span of
+    utils/tracing with the clock's own times: a host span, or a device
+    span over the stage's event pair."""
 
     def __init__(self, device: torch.device):
         self.device = device
@@ -909,11 +947,13 @@ class StageClock:
 
     @contextmanager
     def host(self, name: str):
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
         try:
             yield
         finally:
-            self._host[name] = self._host.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+            t1 = time.perf_counter_ns()
+            self._host[name] = self._host.get(name, 0.0) + (t1 - t0) / 1e6
+            tracing.record("resident." + name, t0, t1)
 
     @contextmanager
     def device_stage(self, name: str):
@@ -922,12 +962,14 @@ class StageClock:
                 yield
             return
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter_ns()
         a.record()
         try:
             yield
         finally:
             b.record()
             self._events.append((name, a, b))
+            tracing.add_device_span("resident." + name, t0, a, b, self.device)
 
     def read(self) -> Dict[str, float]:
         out = dict(self._host)

@@ -1,6 +1,5 @@
 """The port's observability plane (loro_tpu_torch.obs: exposition, report,
-trace, health, top and the device round-trip probe) on the CPU against
-the JAX package's.
+trace, health and top) on the CPU against the JAX package's.
 
 The same registry operations, artifacts, fake clocks and sync scenarios
 go through both packages; outputs must be equal exactly (tolerance:
@@ -14,7 +13,8 @@ compared), and registry series that only one package has (the rates
 are compared on the sync, read-plane and server series).
 
 Port-only: /metrics and /status.json through serve(port=0) on
-127.0.0.1, and measure_tunnel_rtt(device="cpu").
+127.0.0.1.  The JAX package's measure_tunnel_rtt (a remote tunnel's round
+trip) has no counterpart in the port.
 """
 import importlib
 import json
@@ -76,7 +76,6 @@ def _ops_counters(reg):
     reg.counter("fleet.ops_merged_total", "rows merged").inc(10, family="text")
     reg.counter("fleet.ops_merged_total", "rows merged").inc(7, family="map")
     reg.counter("a.b_total").inc(3, k='v"q\\')
-    reg.gauge("tunnel.rtt_ms").set(74.0)
     reg.gauge("g.half").set(0.125, shard=1)
 
 
@@ -570,20 +569,14 @@ def test_span_metrics_bridge():
     assert any(r["labels"].get("span") == "torch.obs.probe" and r["count"] >= 1 for r in rows)
 
 
-def test_measure_tunnel_rtt_on_cpu():
-    """The round-trip probe on device="cpu": a positive float (seconds),
-    the tunnel.rtt_ms gauge set to it and one probe counted."""
-    n0 = PT.obs.counter("tunnel.probes_total").get()
-    rtt = PT.obs.measure_tunnel_rtt(reps=3, device="cpu")
-    assert isinstance(rtt, float) and rtt > 0
-    assert PT.obs.gauge("tunnel.rtt_ms").get() == pytest.approx(rtt * 1e3)
-    assert PT.obs.counter("tunnel.probes_total").get() == n0 + 1
-
-
 def test_obs_exports_match_jax():
-    assert sorted(PT.obs.__all__) == sorted(JX.obs.__all__)
-    for name in JX.obs.__all__:
+    """The port exports what the JAX package does, less measure_tunnel_rtt
+    (the JAX package's remote-tunnel probe)."""
+    want = sorted(set(JX.obs.__all__) - {"measure_tunnel_rtt"})
+    assert sorted(PT.obs.__all__) == want
+    for name in want:
         assert hasattr(PT.obs, name), name
+    assert not hasattr(PT.obs, "measure_tunnel_rtt")
 
 
 def test_health_lock_conformance():
