@@ -34,8 +34,8 @@ checks it, end to end:
       which must launch only the wide cluster kernel; texts equal the oracle and
       codes equal the chain path's on the same docs; an N = 16,384 chunk
       through the default, "cuda:blocked" and "cuda:ruling"; one doc at
-      N = 65,536, past the kernels' ring cap, through the counted
-      torch:wyllie route; the port's entry() once;
+      N = 65,536, past the shared-memory kernels' ring cap, through the
+      counted cuda:sparse route; the port's entry() once;
    c. ingest (bench.py's e2e phase): tracegen's payloads of the flagship
       docs decoded by the port's native codec (the tables must equal the
       generator's), contracted, packed one uint8 row a doc; the packed
@@ -271,6 +271,13 @@ checks it, end to end:
       merge_text_docs and merge_map_docs doc-sharded on 4 x 1 equal to
       one device; dryrun_multichip(8); every list-rank and tree-replay
       launch held against its plain version (mesh_phase);
+   s. the sparse ruling route past the ring cap (sparse_phase): the
+      kernel bit-exact against its plain version and _wyllie_dist at
+      [4, 524,290] and [2, 1,048,578] (Euler rings, random lists,
+      in-trees, stars), one launch a call, no sync; at the import
+      cell's [256, 524,290] its ms and its passes' beside its bound, the
+      plain version's ms and _wyllie_dist's (library_ms), with peak
+      memory;
 5. timings (CUDA events, warm-up then median; a kernel's ms is 20
    back-to-back calls of its wrapper replayed from a CUDA graph, and
    beside it eager_ms, the same 20 calls eager): merge ms per chunk and
@@ -291,7 +298,7 @@ Prints one {"kernels": [...]} line and ends with the line
 Any failed check raises, so the script exits non-zero.  Usage:
     python3 chip_smoke.py                          # the whole run, the verification
     python3 chip_smoke.py --phase 4i [--phase 4j]  # build, card tests, those phases
---phase takes 4f, 4g, 4h, 4i, 4j, 4k, 4l, 4m, 4n, 4o, 4p, 4q or 4r (the phases that stand alone);
+--phase takes 4f, 4g, 4h, 4i, 4j, 4k, 4l, 4m, 4n, 4o, 4p, 4q, 4r or 4s (the phases that stand alone);
 such a run prints its phases' results and no kernels line.
 """
 from __future__ import annotations
@@ -328,6 +335,9 @@ FLEET_DOCS, FLEET_DISTINCT, FLEET_REPS = 1024, 8, 2
 # rounds of (supervised, direct, direct, supervised) calls
 SUP_AB_PAIRS = 3
 FLAGSHIP_N, C_PAD_START = 262_144, 256
+# 4s, the sparse ruling route: the import cell's call shape, SPARSE_DOCS
+# Euler rings of 2 (FLAGSHIP_N + 1) tokens
+SPARSE_DOCS = 256
 # the resident phase: DeviceDocBatch fed one sync epoch a round, at fleet
 # depth (RES_FLEET_DOCS docs cycled over the fleet phase's distinct docs)
 # and at document depth (the flagship docs over CHUNK docs, checkpointed
@@ -496,7 +506,7 @@ CHAOS_ARM_FAMILIES = (("text", "tree"), ("map", "counter", "movable"))
 MESH_RING = 34_820  # 4r (a): the flagship ring (34,818 tokens) padded to a multiple of the op axis
 MESH_MAP_DOCS = 512  # 4r (b), (c): map docs at 4f's row width (cut from 4f's 1,024 to fit the script's time)
 # phases `--phase` runs alone (after the build and the card tests)
-SELECTABLE = ("4f", "4g", "4h", "4i", "4j", "4k", "4l", "4m", "4n", "4o", "4p", "4q", "4r")
+SELECTABLE = ("4f", "4g", "4h", "4i", "4j", "4k", "4l", "4m", "4n", "4o", "4p", "4q", "4r", "4s")
 
 
 def check(cond: bool, what: str) -> None:
@@ -2402,20 +2412,26 @@ class Capture:
 
 @contextmanager
 def captured_launches(list_rank, tb):
-    """Within the block, every list_rank.launch_kernel and
-    tree_batch.launch_kernel call (the one place each counts a launch) is
+    """Within the block, every list_rank.launch_kernel, list_rank.sparse_rank
+    and tree_batch.launch_kernel call (the places that count a launch) is
     recorded with copies of its inputs and outputs in the yielded
-    Capture's `seen`: ("rank", succ_p, w_p, plan, dist) and ("tree",
-    target, parent, valid, n_nodes, d_max, order, parents, effected).
-    check_captured holds each against its plain version; nothing is
-    launched again."""
+    Capture's `seen`: ("rank", succ_p, w_p, plan, dist), ("sparse", succ,
+    dist) and ("tree", target, parent, valid, n_nodes, d_max, order,
+    parents, effected).  check_captured holds each against its plain
+    version; nothing is launched again."""
     cap = Capture(list_rank, tb)
-    real_rank, real_tree = list_rank.launch_kernel, tb.launch_kernel
+    real_rank, real_sparse, real_tree = list_rank.launch_kernel, list_rank.sparse_rank, tb.launch_kernel
 
     def rank(succ_p, w_p, plan):
         dist = real_rank(succ_p, w_p, plan)
         if cap.on:
             cap.seen.append(("rank", succ_p.clone(), w_p.clone(), plan, dist.clone()))
+        return dist
+
+    def sparse(succ):
+        dist = real_sparse(succ)
+        if cap.on and dist.device.type == "cuda":
+            cap.seen.append(("sparse", succ.clone(), dist.clone()))
         return dist
 
     def tree(target, parent, valid, n_nodes, d_max=None, order=None, variant=None):
@@ -2425,17 +2441,18 @@ def captured_launches(list_rank, tb):
                              None if order is None else order.clone(), parents.clone(), eff.clone()))
         return parents, eff
 
-    list_rank.launch_kernel, tb.launch_kernel = rank, tree
+    list_rank.launch_kernel, list_rank.sparse_rank, tb.launch_kernel = rank, sparse, tree
     try:
         yield cap
     finally:
-        list_rank.launch_kernel, tb.launch_kernel = real_rank, real_tree
+        list_rank.launch_kernel, list_rank.sparse_rank, tb.launch_kernel = real_rank, real_sparse, real_tree
 
 
 def check_captured(torch, list_rank, tb, seen, errs: dict, phase: str = "4k") -> list:
     """Each captured launch held bit for bit against its plain version on
     its own inputs: the list-rank kernels against list_rank.rank_plain on
-    the card, the tree replay against tree_batch.replay_plain (on the
+    the card, the sparse route against list_rank.sparse_rank_plain on the
+    card, the tree replay against tree_batch.replay_plain (on the
     CPU, where its per-move loop is quicker at these sizes).  Max abs
     errors fold into errs[kernel]; returns one line a launch.  `phase`
     names the phase in a failed check."""
@@ -2461,6 +2478,13 @@ def check_captured(torch, list_rank, tb, seen, errs: dict, phase: str = "4k") ->
             check(torch.equal(dist, want),
                   f"{phase}: {key} kernel != plain version on {list(succ_p.shape)} (max abs err {err})")
             name = key.split("/")[0]
+        elif rec[0] == "sparse":
+            _, succ, dist = rec
+            want = list_rank.sparse_rank_plain(succ.reshape(-1, succ.shape[-1])).reshape(succ.shape)
+            err = int((dist.to(torch.int64) - want.to(torch.int64)).abs().max()) if dist.numel() else 0
+            key, name = "sparse/global", "sparse"
+            check(torch.equal(dist, want), f"{phase}: sparse kernel != plain version on {list(succ.shape)} (max abs "
+                                           f"err {err})")
         else:
             _, target, parent, valid, n, d_max, order, parents, eff = rec
             k = input_key(target, parent, valid, order) + repr((n, d_max))
@@ -2610,8 +2634,8 @@ def host_engine_phase(torch, dev, kind: str, card: str, first_window=None) -> di
             rows.append(row)
             del ld
         out["concurrent"] = {"docs": rows, "card_merge_ms": card_ms,
-                             "over_cap_routes": fugue_batch.RANK_ROUTES["torch:wyllie/over_cap"]
-                             - over0["torch:wyllie/over_cap"]}
+                             "over_cap_routes": fugue_batch.RANK_ROUTES["cuda:sparse/over_cap"]
+                             - over0["cuda:sparse/over_cap"]}
         for i, r in enumerate(rows):
             trip = (f"; snapshot {r['snapshot_bytes']} B exported {r['export_snapshot_ms']:.1f} ms, from_snapshot "
                     f"{r['from_snapshot_ms']:.1f} ms; updates {r['updates_bytes']} B exported "
@@ -5888,6 +5912,116 @@ CARD_TESTS = ["tests/test_torch_list_rank_cuda.py", "tests/test_torch_fleet_cuda
               "tests/test_torch_op_sharding_cuda.py", "tests/test_torch_tracing_cuda.py"]
 
 
+def euler_rings(torch, dev, docs, n: int):
+    """The Euler rings int32 [len(docs), 2 (n + 1)] of tracegen docs padded
+    to n rows, on `dev` (fugue_batch._ring_and_anchors)."""
+    from loro_tpu_torch.ops import columnar, fugue_batch
+
+    cols = columnar.stack_docs([d.extract.to_seq_columns(pad_to=n) for d in docs])
+    t = fugue_batch.seq_columns_to_torch(cols, device=dev)
+    return fugue_batch._ring_and_anchors(t.parent, t.side, t.valid)[0]
+
+
+def sparse_phase(torch, dev, kind: str, card: str) -> dict:
+    """4s: the sparse ruling route past RANK_MAX_M (list_rank.sparse_rank,
+    csrc/sparse_rank.cu).  (a) The kernel against sparse_rank_plain and
+    fugue_batch._wyllie_dist, bit for bit, at [4, 524,290] (a flagship
+    doc's Euler ring, a random list, a random in-tree, a star) and twice
+    at [2, 1,048,578] (a flagship doc padded to 524,288 rows, a random
+    list, an in-tree and a star), one launch a call in
+    LAUNCHES["sparse/global"]; no sync under set_sync_debug_mode("error"),
+    alone and on the automatic over-cap route.  (b) At the import cell's
+    shape [SPARSE_DOCS, 524,290] (the two flagship rings alternating):
+    the kernel's ms (CUDA events) and its passes' (the profiler) beside
+    its bound (8 bytes a token, succ read and dist written, over
+    HBM_BYTES_PER_S), the plain version's ms, _wyllie_dist's (library_ms:
+    the route before) and each one's peak device memory."""
+    import numpy as np
+
+    from loro_tpu_torch import tracegen
+    from loro_tpu_torch.ops import fugue_batch, list_rank
+
+    t_phase = time.perf_counter()
+    out = {"k": list_rank.SPARSE_K}
+    docs = tracegen.fleet_docs(2, seed=SEED)[:2]
+    m = fugue_batch.rank_bound(FLAGSHIP_N)
+    flag = euler_rings(torch, dev, docs, FLAGSHIP_N)
+    check(tuple(flag.shape) == (2, m) and m > list_rank.RANK_MAX_M, f"4s: flagship rings {tuple(flag.shape)}")
+
+    def on_dev(succ):
+        return torch.from_numpy(np.ascontiguousarray(succ)).to(dev)
+
+    def star(n):
+        return np.full(n, n // 3, np.int32)
+
+    m2 = fugue_batch.rank_bound(2 * FLAGSHIP_N)
+    flag2 = euler_rings(torch, dev, docs[:1], 2 * FLAGSHIP_N)
+    cases = {
+        f"[4, {m}] flagship, random list, in-tree, star": torch.stack(
+            [flag[0], on_dev(random_ring(np, m, 1)), on_dev(in_tree(np, m, 2)), on_dev(star(m))]),
+        f"[2, {m2}] flagship, random list": torch.stack([flag2[0], on_dev(random_ring(np, m2, 3))]),
+        f"[2, {m2}] in-tree, star": torch.stack([on_dev(in_tree(np, m2, 4)), on_dev(star(m2))]),
+    }
+    checked = []
+    for label, succ in cases.items():
+        before = list_rank.LAUNCHES["sparse/global"]
+        got = list_rank.sparse_rank(succ)
+        torch.cuda.synchronize()
+        check(list_rank.LAUNCHES["sparse/global"] == before + 1, f"4s: {label}: not one sparse launch")
+        want = fugue_batch._wyllie_dist(succ)
+        plain = list_rank.sparse_rank_plain(succ)
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        check(torch.equal(got, want), f"4s: sparse kernel != _wyllie_dist on {label} (max abs err {err})")
+        check(torch.equal(plain, want), f"4s: sparse_rank_plain != _wyllie_dist on {label}")
+        checked.append({"rings": label, "max_abs_err": err})
+        print(f"4s: sparse kernel == sparse_rank_plain == _wyllie_dist on {label}", flush=True)
+    out["checked"] = checked
+    succ = cases[next(iter(cases))]
+    torch.cuda.synchronize()
+    routes = fugue_batch.RANK_ROUTES["cuda:sparse/over_cap"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        list_rank.sparse_rank(succ)
+        fugue_batch._rank_dist(succ, *fugue_batch._resolve_rank_spec(None, succ.device, succ.shape[1]))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check(fugue_batch.RANK_ROUTES["cuda:sparse/over_cap"] == routes, "4s: _rank_dist counted a route")
+    print("4s: no sync under set_sync_debug_mode('error'), alone and on the automatic over-cap route", flush=True)
+
+    # (b) the cell's shape
+    big = flag.repeat(SPARSE_DOCS // 2, 1).contiguous()
+    want = fugue_batch._wyllie_dist(big)
+
+    def peak_ms(fn, warmup: int, reps: int):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_ms(torch, fn, warmup=warmup, reps=reps)
+        return ms, torch.cuda.max_memory_allocated() - base
+
+    with uncounted(list_rank):
+        got = list_rank.sparse_rank(big)
+        check(torch.equal(got, want), f"4s: sparse kernel != _wyllie_dist at [{SPARSE_DOCS}, {m}]")
+        kernel_ms, kernel_peak = peak_ms(lambda: list_rank.sparse_rank(big), 2, 10)
+        busy_ms, wall_ms, rows = device_breakdown(torch, lambda: list_rank.sparse_rank(big), calls=3, top=None)
+    del got
+    wyllie_ms, wyllie_peak = peak_ms(lambda: fugue_batch._wyllie_dist(big), 1, 3)
+    plain_ms, plain_peak = peak_ms(lambda: list_rank.sparse_rank_plain(big), 0, 1)
+    bound_ms = 8 * big.numel() / HBM_BYTES_PER_S * 1e3
+    out.update({"shape": [SPARSE_DOCS, m], "ms": kernel_ms, "bound_ms": bound_ms, "roofline_pct": 100 * bound_ms / kernel_ms,
+                "plain_ms": plain_ms, "library_ms": wyllie_ms, "peak_bytes": kernel_peak,
+                "plain_peak_bytes": plain_peak, "library_peak_bytes": wyllie_peak, "busy_ms": busy_ms,
+                "passes": [[name, ms, cnt] for ms, name, cnt in rows]})
+    print(f"4s on {kind} ({card}): sparse_rank at [{SPARSE_DOCS}, {m}] (K {list_rank.SPARSE_K}): {kernel_ms:.4f} ms "
+          f"(bound {bound_ms:.4f} ms, {out['roofline_pct']:.2f} % of it), peak {kernel_peak / 2**30:.2f} GiB; "
+          f"passes " + "; ".join(f"{name[:40]} x{cnt} {ms:.4f} ms" for ms, name, cnt in rows)
+          + f"; plain {plain_ms:.1f} ms ({plain_peak / 2**30:.2f} GiB); _wyllie_dist (library) {wyllie_ms:.3f} ms "
+          f"({wyllie_peak / 2**30:.2f} GiB)", flush=True)
+
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def start_card_tests() -> Child:
     """The port's card tests, tests/test_torch_*_cuda.py (pytest -m cuda),
     started as a child; card_tests() waits for them."""
@@ -5963,7 +6097,7 @@ def main(argv=None) -> int:
         phase_fns = {"4f": map_counter_phase, "4g": tree_phase, "4h": richtext_phase, "4i": movable_phase,
                      "4j": read_plane_phase, "4k": host_engine_phase, "4l": supervision_phase,
                      "4m": lifecycle_phase, "4n": server_phase, "4o": sync_phase, "4p": net_phase,
-                     "4q": chaos_phase, "4r": mesh_phase}
+                     "4q": chaos_phase, "4r": mesh_phase, "4s": sparse_phase}
         results = {}
         first_window = {}  # 4j's first window, framed by 4k when both run (4j first)
         shared = {}  # 4f's map extracts, merged again by 4r when both run (4f first)
@@ -6128,6 +6262,22 @@ def main(argv=None) -> int:
     compare("blocked on a wide ring m=65600", random_ring(np, 65600, 10), "blocked", v)
     compare("cross-slice ring m=65664", cross_slice_ring(np, 65664, 65664 // list_rank.WIDE_CLUSTER), "ruling", v)
     compare("chain m=131072", cross_slice_ring(np, 131072, 131072), "ruling", v)
+    # sparse: any length through sparse_rank (past RANK_MAX_M on the main
+    # path; at the import cell's shape in 4s), against its plain version
+    for label, succ in (("random ring m=131073", random_ring(np, 131_073, 11)),
+                        ("in-tree m=200000", in_tree(np, 200_000, 12)),
+                        ("short lists m=140000", short_lists(np, 140_000, 7, 13)),
+                        ("adversarial ruler gap m=2048", gap_ring(np, 2048, 8))):
+        s = torch.as_tensor(succ).to(dev)
+        before = dict(list_rank.LAUNCHES)
+        got = list_rank.sparse_rank(s)
+        ref = list_rank.sparse_rank_plain(s[None])[0]
+        torch.cuda.synchronize()
+        ran = [k for k in list_rank.LAUNCHES if list_rank.LAUNCHES[k] != before[k]]
+        check(ran == ["sparse/global"], f"{label}: expected one sparse launch, saw {ran}")
+        variants_seen.add(ran[0])
+        check(torch.equal(got, ref), f"{label}: sparse kernel != plain version")
+        print(f"  ok {label:<40} sparse  {ran[0]}", flush=True)
     for v in list_rank.LAUNCHES:
         check(v in variants_seen, f"variant {v} was not exercised")
     card_tests(tests_child)
@@ -6220,16 +6370,17 @@ def main(argv=None) -> int:
     spine = entry.example_cols(d=1, n=SPINE_ELEMENTS)
     spine = fugue_batch.SeqColumns(*[a[0] for a in spine])
     list_rank.reset_launches()
-    over_cap = fugue_batch.RANK_ROUTES["torch:wyllie/over_cap"]
+    over_cap = fugue_batch.RANK_ROUTES["cuda:sparse/over_cap"]
     codes, counts = fugue_batch.merge_docs(
         fugue_batch.seq_columns_to_torch(fugue_batch.pad_seq_columns(spine, SPINE_N), device=dev), device=dev
     )
     torch.cuda.synchronize()
     want = "".join(chr(97 + i % 26) for i in range(SPINE_ELEMENTS) if i % 7 != 6)
     check("".join(map(chr, codes[0][: int(counts[0])].tolist())) == want, "over-cap doc text != oracle")
-    check(fugue_batch.RANK_ROUTES["torch:wyllie/over_cap"] == over_cap + 1, "over-cap doc did not take torch:wyllie")
-    check(sum(list_rank.LAUNCHES.values()) == 0, "over-cap doc launched a kernel")
-    print(f"over-cap doc N={SPINE_N} (ring {fugue_batch.rank_bound(SPINE_N)} tokens): torch:wyllie route, "
+    check(fugue_batch.RANK_ROUTES["cuda:sparse/over_cap"] == over_cap + 1, "over-cap doc did not take cuda:sparse")
+    over_cap_launches = {k: v for k, v in list_rank.LAUNCHES.items() if v}
+    check(over_cap_launches == {"sparse/global": 1}, f"over-cap doc launched {over_cap_launches}, not one sparse kernel")
+    print(f"over-cap doc N={SPINE_N} (ring {fugue_batch.rank_bound(SPINE_N)} tokens): cuda:sparse route, "
           "text == oracle", flush=True)
 
     fn, (ex_cols,) = entry.entry()
@@ -6563,18 +6714,19 @@ def main(argv=None) -> int:
               + "; ".join(f"{name[:50]} x{cnt} {ms:.2f} ms" for ms, name, cnt in busy_top), flush=True)
 
     # the flagship payloads: their rings pass the kernels' cap
-    over0 = fugue_batch.RANK_ROUTES["torch:wyllie/over_cap"]
+    over0 = fugue_batch.RANK_ROUTES["cuda:sparse/over_cap"]
     list_rank.reset_launches()
     t0 = time.perf_counter()
     out = fl.merge_text_payloads(payloads, tracegen.TEXT_CID)
     flag_s = time.perf_counter() - t0
     check(out.texts == texts, "fleet flagship payloads: texts != host oracle")
-    check(sum(list_rank.LAUNCHES.values()) == 0, "fleet flagship payloads launched a kernel")
-    check(fugue_batch.RANK_ROUTES["torch:wyllie/over_cap"] == over0 + 1, "fleet flagship payloads: not torch:wyllie")
+    flag_launches = {k: v for k, v in list_rank.LAUNCHES.items() if v}
+    check(flag_launches == {"sparse/global": 1}, f"fleet flagship payloads launched {flag_launches}, not one sparse kernel")
+    check(fugue_batch.RANK_ROUTES["cuda:sparse/over_cap"] == over0 + 1, "fleet flagship payloads: not cuda:sparse")
     fleet["flagship"] = {"docs": len(payloads), "n": fugue_batch.pad_bucket(max(d.extract.n for d in docs)),
-                         "route": "torch:wyllie/over_cap", "wall_s": flag_s}
+                         "route": "cuda:sparse/over_cap", "wall_s": flag_s, "launches": flag_launches}
     print(f"fleet flagship on {kind} ({card}): {len(payloads)} payloads, N {fleet['flagship']['n']} (ring "
-          f"{fugue_batch.rank_bound(fleet['flagship']['n'])} tokens): torch:wyllie/over_cap route, texts == host "
+          f"{fugue_batch.rank_bound(fleet['flagship']['n'])} tokens): cuda:sparse/over_cap route, texts == host "
           f"oracle ({flag_s:.2f} s, not timed against a kernel)", flush=True)
 
     # merge_text_changes on the distinct 40,000-patch docs
@@ -6601,12 +6753,12 @@ def main(argv=None) -> int:
     c_pad, calls = C_PAD_START, []
     while True:  # DeviceDocBatch._materialize's budget loop
         list_rank.reset_launches()
-        over0 = fugue_batch.RANK_ROUTES["torch:wyllie/over_cap"]
+        over0 = fugue_batch.RANK_ROUTES["cuda:sparse/over_cap"]
         ucodes, ucounts, un = fugue_batch.chain_merge_docs_u(ucols, c_pad, device=dev)
         max_chains = int(un.max())
         calls.append({"c_pad": c_pad, "ring_tokens": fugue_batch.rank_bound(c_pad), "max_n_chains": max_chains,
                       "launches": {k: v for k, v in list_rank.LAUNCHES.items() if v},
-                      "over_cap": fugue_batch.RANK_ROUTES["torch:wyllie/over_cap"] - over0})
+                      "over_cap": fugue_batch.RANK_ROUTES["cuda:sparse/over_cap"] - over0})
         if max_chains <= c_pad:
             break
         while c_pad < max_chains:
@@ -6614,8 +6766,9 @@ def main(argv=None) -> int:
     final = calls[-1]
     if fugue_batch.rank_bound(c_pad) <= list_rank.RANK_MAX_M:
         check(sum(final["launches"].values()) == 1, f"chain_merge_docs_u at c_pad {c_pad} launched {final['launches']}")
-    else:  # found, not changed: the ring passes the kernels' cap
-        check(final["over_cap"] == 1, f"chain_merge_docs_u at c_pad {c_pad}: no kernel and no counted route")
+    else:  # found, not changed: the ring passes the shared-memory kernels' cap
+        check(final["over_cap"] == 1 and final["launches"] == {"sparse/global": 1},
+              f"chain_merge_docs_u at c_pad {c_pad}: launched {final['launches']}, counted {final['over_cap']}")
     check(torch.equal(fugue_batch._weighted_checksum(ucodes), cs_kernel) and torch.equal(ucounts, n_kernel),
           "chain_merge_docs_u != chain_merge_docs_checksum_v on the flagship docs")
     ucodes_h, ucounts_h = ucodes.cpu().numpy(), ucounts.cpu().numpy()
@@ -6769,6 +6922,11 @@ def main(argv=None) -> int:
         if name in max_err:
             max_err[name] = max(max_err[name], err)
     watch.after("4r")
+
+    # ---- 4s. the sparse ruling route past the ring cap ----------------------
+    list_rank.reset_launches()
+    sparse4s = sparse_phase(torch, dev, kind, card)
+    watch.after("4s")
 
     # ---- 5. timings -------------------------------------------------------
     # each kernel at its main-path shape: the flagship chain rings for the
@@ -6967,7 +7125,7 @@ def main(argv=None) -> int:
         "sweep": sweep, "sweep_graph": sweep_graph, "ingest": ingest, "fleet": fleet, "resident": resident4e,
         "map_counter": map_counter4f, "tree": tree4g, "richtext": richtext4h, "movable": movable4i,
         "read_plane": read4j, "host_engine": host4k, "supervision": sup4l, "lifecycle": life4m,
-        "server": server4n, "sync": sync4o, "net": net4p, "chaos": chaos4q, "mesh": mesh4r,
+        "server": server4n, "sync": sync4o, "net": net4p, "chaos": chaos4q, "mesh": mesh4r, "sparse": sparse4s,
         "total_s": time.perf_counter() - t_start,
     }))
     # launches in the fleet phase's checked one-shot calls, one a call
@@ -7030,6 +7188,31 @@ def main(argv=None) -> int:
         "bound_by": "latency",
         "bytes_bound_ms": tk["bytes_bound_ms"],
         "library_ms": None,
+    })
+    held = (host4k, sup4l, life4m, server4n, sync4o, net4p, chaos4q, mesh4r)
+    kernels.append({
+        "name": "sparse_rank",
+        "route": "cuda",
+        "source": "loro_tpu_torch/csrc/sparse_rank.cu",
+        "replaces": "none: the JAX package's XLA route past PALLAS_RANK_MAX_M (loro_tpu/ops/fugue_batch.py _wyllie_dist)",
+        "launches": over_cap_launches["sparse/global"],
+        "launches_fleet": fleet["flagship"]["launches"]["sparse/global"],
+        "launches_resident": sum(v for k, v in resident4e["launches"].items() if k.startswith("sparse/")),
+        "launches_richtext": sum(v for k, v in richtext4h["launches"].items() if k.startswith("sparse/")),
+        "launches_movable": sum(v for k, v in movable4i["launches"].items() if k.startswith("sparse/")),
+        "launches_read_plane": sum(v for k, v in read4j["launches"].items() if k.startswith("sparse/")),
+        **{f"launches_{label}": sum(v for k, v in ph["launches"].items() if k.startswith("sparse/"))
+           for label, ph in zip(("host_engine", "supervision", "lifecycle", "server", "sync", "net", "chaos", "mesh"),
+                                held)},
+        "max_abs_err": max([c["max_abs_err"] for c in sparse4s["checked"]]
+                           + [p["max_abs_err"].get("sparse", 0) for p in held]),
+        "ms": sparse4s["ms"],
+        "plain_ms": sparse4s["plain_ms"],
+        "bound_ms": sparse4s["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": sparse4s["library_ms"],
+        "k": sparse4s["k"],
+        "shape": sparse4s["shape"],
     })
     print(f"script: {time.perf_counter() - t_start:.1f} s", flush=True)
     watch.after("5-6")

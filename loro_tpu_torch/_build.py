@@ -30,6 +30,7 @@ PKG_DIR = Path(__file__).resolve().parent
 BUILD_DIR = PKG_DIR.parent / "build" / "torch_kernels"
 SOURCES: Dict[str, Path] = {
     "list_rank": PKG_DIR / "csrc" / "list_rank.cu",
+    "sparse_rank": PKG_DIR / "csrc" / "sparse_rank.cu",
     "tree_replay": PKG_DIR / "csrc" / "tree_replay.cu",
     "seq_codec": PKG_DIR / "native" / "seq_codec.cpp",
     "order_idmap": PKG_DIR / "native" / "order_idmap.cpp",

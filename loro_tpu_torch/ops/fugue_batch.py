@@ -510,24 +510,26 @@ def _coalesced_dist(succ: torch.Tensor, r_pad: Optional[int] = None, use_kernel:
 
 # ---- rank dispatch ----------------------------------------------------------
 
-RANK_SPECS = tuple(f"{b}:{a}" for b in ("cuda", "torch") for a in ("ruling", "wyllie", "blocked", "coalesced"))
-# Rings sent to a plain torch rank because they are longer than the
-# kernels take (RANK_MAX_M), incremented where such a ring is ranked: the
-# automatic route on a CUDA device sends them to torch:wyllie, and
+RANK_SPECS = tuple(f"{b}:{a}" for b in ("cuda", "torch")
+                   for a in ("ruling", "wyllie", "blocked", "coalesced", "sparse"))
+# Rings longer than the shared-memory kernels take (RANK_MAX_M),
+# incremented where such a ring is ranked: the automatic route on a CUDA
+# device sends them to cuda:sparse (list_rank.sparse_rank), and
 # cuda:coalesced ranks a contracted ring that pads past the cap with the
 # plain weighted ruling (the JAX package's fallback, fugue_batch.py:438).
-RANK_ROUTES: Dict[str, int] = {"torch:wyllie/over_cap": 0, "torch:coalesced/over_cap": 0}
+RANK_ROUTES: Dict[str, int] = {"cuda:sparse/over_cap": 0, "torch:coalesced/over_cap": 0}
 
 
 def _resolve_rank_spec(rank_impl: Optional[str], device: torch.device, m: int) -> Tuple[str, str]:
     """(backend, algo) for rings of m tokens.  None picks, on a CUDA
-    device, "cuda:ruling" (the hand-written kernels; no environment
+    device, "cuda:ruling" (the shared-memory kernels; no environment
     variable overrides it) when m <= list_rank.RANK_MAX_M and else
-    "torch:wyllie" (the counterpart of the JAX package's XLA route past
-    PALLAS_RANK_MAX_M; a rule on the shape), and
-    "torch:ruling" on the CPU.  "cuda:*" needs CUDA tensors; on a ring
-    past the cap it raises in list_rank, except "cuda:coalesced", which
-    ranks a contracted ring past the cap with the plain weighted ruling
+    "cuda:sparse" (the sparse ruling kernel in device memory, where the
+    JAX package takes its XLA route past PALLAS_RANK_MAX_M; a rule on the
+    shape), and "torch:ruling" on the CPU.  "cuda:*" needs CUDA tensors;
+    on a ring past the cap "cuda:{ruling,wyllie,blocked}" raise in
+    list_rank, "cuda:sparse" takes any length, and "cuda:coalesced" ranks
+    a contracted ring past the cap with the plain weighted ruling
     (_coalesced_dist).  Pure: _order_core counts the over-cap route in
     RANK_ROUTES where it ranks."""
     if rank_impl is None:
@@ -535,7 +537,7 @@ def _resolve_rank_spec(rank_impl: Optional[str], device: torch.device, m: int) -
             return "torch", "ruling"
         if m <= list_rank.RANK_MAX_M:
             return "cuda", "ruling"
-        return "torch", "wyllie"
+        return "cuda", "sparse"
     backend, _, algo = rank_impl.partition(":")
     if rank_impl not in RANK_SPECS:
         raise ConfigError("rank_impl", rank_impl, "|".join(RANK_SPECS) + " or None")
@@ -549,6 +551,8 @@ def _rank_dist(succ: torch.Tensor, backend: str, algo: str, ring_budget: Optiona
     `ring_budget` is read by the coalesced rank only."""
     if algo == "coalesced":
         return _coalesced_dist(succ, ring_budget, use_kernel=backend == "cuda")
+    if algo == "sparse":
+        return list_rank.sparse_rank(succ) if backend == "cuda" else list_rank.sparse_rank_plain(succ)
     if backend == "cuda":
         return list_rank.wyllie_rank(succ, algo=algo, device=succ.device)
     if algo == "ruling":
@@ -569,8 +573,9 @@ def _tick_rank_obs(
     (ops/rank_model.gather_model), ticked at the host-level entry points
     with the caller's ring_budget, the ruling k every CUDA launch plans
     with (list_rank.DEFAULT_K) and the blocked rank's block.  The label
-    is the resolved spec, "cuda:ruling" or "torch:wyllie" (the JAX
-    package's "pallas:" / "xla:").  Host arithmetic on shapes only: it
+    is the resolved spec, "cuda:ruling" or "cuda:sparse" (the JAX
+    package's "pallas:" / "xla:"), whose ruler spacing is
+    list_rank.SPARSE_K.  Host arithmetic on shapes only: it
     never syncs the device and never raises (the merge must not depend
     on the obs package)."""
     try:
@@ -586,6 +591,8 @@ def _tick_rank_obs(
             kw["block"] = list_rank.DEFAULT_BLOCK
         if backend == "cuda" and algo in ("ruling", "blocked", "coalesced"):
             kw["k"] = list_rank.DEFAULT_K
+        if algo == "sparse":
+            kw["k"] = list_rank.SPARSE_K
         mdl = gather_model(m, algo, **kw)
         label = f"{backend}:{algo}"
         obs_m.counter("rank.ring_tokens").inc(n_docs * m, algo=label)
@@ -717,8 +724,8 @@ def _order_core(
     n = parent_in.shape[1]
     succ, anchor = _ring_and_anchors(parent_in, side_in, valid_in, sib_keys)
     backend, algo = _resolve_rank_spec(rank_impl, succ.device, succ.shape[1])
-    if rank_impl is None and backend == "torch" and algo == "wyllie":
-        RANK_ROUTES["torch:wyllie/over_cap"] += 1
+    if rank_impl is None and algo == "sparse":
+        RANK_ROUTES["cuda:sparse/over_cap"] += 1
     with tracing.device_span("fugue.rank", succ.device, D=succ.shape[0], m=succ.shape[1]):
         dist = _rank_dist(succ, backend, algo, ring_budget)
     anchor_dist = dist.gather(1, anchor.to(torch.int64))

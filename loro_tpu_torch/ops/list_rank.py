@@ -16,6 +16,10 @@ tensor it runs the plain torch version of the same algorithm (same
 padding, same rounds, same freeze): packed_rank_plain, or
 wide_rank_plain for rings that need the wide kernel.  chip_smoke.py
 holds every kernel against its plain version on the card.
+
+Rings past RANK_MAX_M, which wyllie_rank refuses, take sparse_rank: a
+sparse ruling set in device memory (csrc/sparse_rank.cu, ruler spacing
+SPARSE_K), with its plain version sparse_rank_plain beside it.
 """
 from __future__ import annotations
 
@@ -36,6 +40,9 @@ PACKED_MAX_M = 1 << 16  # dist and succ share one u32 as 16 + 16 bits
 DEFAULT_BLOCK = 1024  # blocked phase-A block (RANK_BLOCK's default in JAX)
 DEFAULT_K = 8  # ruler spacing of the ruling and blocked kernels (no caller overrides it)
 _LANES = 128
+# Ruler spacing of sparse_rank, chosen by a sweep on an H100 (16 to 256)
+# at the element rings of 524,290 tokens (PERF.md has its numbers).
+SPARSE_K = 128
 # opt-in dynamic shared memory of one block on sm_90 (H100, H200)
 SMEM_LIMIT = 232_448
 MAX_CLUSTER = 16  # largest thread-block cluster on sm_90 (non-portable above 8)
@@ -66,8 +73,9 @@ _U32 = 0xFFFFFFFF
 # Launches of the CUDA kernels, by algorithm and by where the tables live
 # (launch_key): one CTA's shared memory, a global scratch buffer above
 # the shared-memory limit (ruling, blocked), or split across a
-# thread-block cluster's shared memories (wide; wyllie above the limit).
-# Incremented only where a kernel is launched.
+# thread-block cluster's shared memories (wide; wyllie above the limit);
+# "sparse/global" counts sparse_rank's launches (its tables in device
+# memory).  Incremented only where a kernel is launched.
 LAUNCHES: Dict[str, int] = {
     "ruling/smem": 0,
     "ruling/global": 0,
@@ -76,6 +84,7 @@ LAUNCHES: Dict[str, int] = {
     "blocked/smem": 0,
     "blocked/global": 0,
     "wide/cluster": 0,
+    "sparse/global": 0,
 }
 
 
@@ -567,3 +576,138 @@ def wyllie_rounds(stamps: torch.Tensor) -> Dict[str, object]:
         "store_cycles": float((st[:, 2 * MAX_ROUNDS + 2] - end).median()),
         "total_cycles": float((st[:, 2 * MAX_ROUNDS + 2] - st[:, 0]).median()),
     }
+
+
+# ---- the sparse ruling route (rings past RANK_MAX_M) -------------------------
+
+
+def sparse_rank_plain(succ: torch.Tensor) -> torch.Tensor:
+    """Plain torch version of csrc/sparse_rank.cu on int32 [D, m], on
+    succ's device: the same rulers (index % SPARSE_K == 0, terminals,
+    in-degree other than 1), every ruler's walk taken one step a round
+    for all rulers at once, the ruler ring ranked by synchronous pointer
+    doubling, the same expansion dist = D(owner) - offset.  Irregular
+    rulers take their slots in token order (the kernel's are in the
+    order of its atomics; no distance depends on it).  The kernel walks
+    a run of index-consecutive tokens as one step and writes owners at
+    run starts only; the owners it implies are the ones written here.
+    Returns int32 [D, m]."""
+    n_docs, m = succ.shape
+    dev = succ.device
+    if n_docs * m == 0:
+        return torch.empty((n_docs, m), dtype=torch.int32, device=dev)
+    i64 = torch.int64
+    tok = torch.arange(m, dtype=i64, device=dev)
+    s = succ.to(i64)
+    term = (s == tok) | (s < 0) | (s >= m)
+    s = torch.where(term, tok, s)
+    indeg = torch.zeros((n_docs, m), dtype=i64, device=dev).scatter_add_(1, s, (~term).to(i64))
+    regular = (tok % SPARSE_K) == 0
+    ruler = regular | term | (indeg != 1)
+    irregular = ruler & ~regular
+    nblk = -(-m // SPARSE_K)
+    slot = torch.where(regular, tok // SPARSE_K, nblk + irregular.cumsum(1) - 1)
+    # flat ids: token (d, i) -> d * m + i, slot (d, j) -> d * m + j (a ring has at most m rulers)
+    base = torch.arange(n_docs, dtype=i64, device=dev)[:, None] * m
+    nxt = (s + base).view(-1)
+    is_ruler = ruler.view(-1)
+    starts = (tok + base)[ruler]
+    gslot = (slot + base)[ruler]
+    own_slot = torch.zeros(n_docs * m, dtype=i64, device=dev)
+    own_off = torch.zeros_like(own_slot)
+    own_slot[starts] = gslot
+    stop = starts.clone()
+    weight = torch.zeros_like(starts)
+    live = torch.nonzero(nxt[starts] != starts).view(-1)  # terminal rulers stop at themselves
+    cur = nxt[starts[live]]
+    steps = 1
+    while live.numel():
+        at = is_ruler[cur]
+        stop[live[at]] = cur[at]
+        weight[live[at]] = steps
+        live, cur = live[~at], cur[~at]
+        own_slot[cur] = gslot[live]
+        own_off[cur] = steps
+        cur = nxt[cur]
+        steps += 1
+    r_d = torch.zeros(n_docs * m, dtype=i64, device=dev)
+    r_t = torch.arange(n_docs * m, dtype=i64, device=dev)
+    r_d[gslot] = weight
+    r_t[gslot] = own_slot[stop]
+    for _ in range(ceil_log2(nblk + int(irregular.sum(1).max()))):
+        r_d, r_t = r_d + r_d[r_t], r_t[r_t]
+    return (r_d[own_slot] - own_off).view(n_docs, m).to(torch.int32)
+
+
+def sparse_rank(succ) -> torch.Tensor:
+    """dist-to-terminal of a successor in-forest of any length (terminal =
+    self-loop; any number of heads and of tokens sharing a successor), the
+    route for rings past RANK_MAX_M.  succ: int32 [m] or [D, m]; returns
+    int32 of the same shape on succ's device.  A CUDA tensor launches
+    csrc/sparse_rank.cu (LAUNCHES["sparse/global"]) or raises, with no
+    host sync; a CPU tensor runs sparse_rank_plain.  The result equals
+    fugue_batch._wyllie_dist bit for bit.  No bounds check (it would sync
+    the device): an entry outside [0, m) ranks as a terminal."""
+    succ_t = torch.as_tensor(succ)
+    if succ_t.dtype != torch.int32:
+        raise TypeError(f"succ must be int32, got {succ_t.dtype}")
+    if succ_t.dim() not in (1, 2):
+        raise ValueError(f"succ must be [m] or [D, m], got shape {tuple(succ_t.shape)}")
+    s2 = succ_t.reshape(1, -1) if succ_t.dim() == 1 else succ_t
+    if s2.device.type == "cpu":
+        out = sparse_rank_plain(s2)
+    else:
+        out = _launch_sparse(s2)
+        LAUNCHES["sparse/global"] += 1
+    return out[0] if succ_t.dim() == 1 else out
+
+
+_sparse_handle: Optional[ctypes.CDLL] = None
+
+
+def _sparse_lib() -> ctypes.CDLL:
+    global _sparse_handle
+    if _sparse_handle is None:
+        from .._build import library
+
+        lib = library("sparse_rank")
+        lib.sparse_rank_launch.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.sparse_rank_launch.restype = ctypes.c_int
+        lib.sparse_rank_error_string.argtypes = [ctypes.c_int]
+        lib.sparse_rank_error_string.restype = ctypes.c_char_p
+        _sparse_handle = lib
+    return _sparse_handle
+
+
+def _launch_sparse(succ: torch.Tensor) -> torch.Tensor:
+    """Launch csrc/sparse_rank.cu on int32 [D, m] CUDA succ at ruler
+    spacing SPARSE_K; not counted.  The scratch tables are allocated
+    here: 24 bytes a token and four bits.  Raises KernelLaunchError on a
+    launch error."""
+    if succ.device.type != "cuda":
+        raise ValueError(f"sparse_rank launches on a CUDA tensor, got {succ.device}")
+    k = SPARSE_K
+    succ = succ.contiguous()
+    d, m = succ.shape
+    dev = succ.device
+    dist = torch.empty((d, m), dtype=torch.int32, device=dev)
+    if d * m == 0:
+        return dist
+    nblk = -(-m // k)
+    i32 = dict(dtype=torch.int32, device=dev)
+    n = d * m
+    deg, bits = torch.empty(-(-n // 16), **i32), torch.empty(2 * -(-n // 32), **i32)
+    rtok, nirr = torch.empty((d, m), **i32), torch.empty(d, **i32)
+    own, rw = (torch.empty((d, m), dtype=torch.int64, device=dev) for _ in range(2))
+    # rulers one CTA ranks in shared memory (the kernel cuts it to the
+    # device's limit): room for as many irregular rulers (heads, merges,
+    # terminals) as regular ones; more take its device-memory rounds
+    smem_slots = min(m, 2 * nblk)
+    ptrs = [t.data_ptr() for t in (succ, dist, deg, bits, rtok, nirr, own, rw)]
+    with torch.cuda.device(dev):
+        err = _sparse_lib().sparse_rank_launch(*ptrs, d, m, k.bit_length() - 1, smem_slots,
+                                               torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        msg = _sparse_lib().sparse_rank_error_string(err).decode()
+        raise KernelLaunchError(f"sparse_rank launch failed: cudaError {err} ({msg})")
+    return dist

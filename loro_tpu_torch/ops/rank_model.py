@@ -96,6 +96,15 @@ def gather_model(
             "local_rows": 0,
             "small_rows": sub["small_rows"],  # expansion is scatter+cumsum
         }
+    if algo == "sparse":
+        # the port's sparse ruling route (list_rank.sparse_rank; the JAX
+        # package has none): the in-degree scatter and the walks touch
+        # every token once in O(m)-row tables, one stop-slot read a ruler;
+        # the ruler ring (m/k regular rulers, priced without the few heads
+        # and merges a real ring adds) doubles, and the expansion reads it
+        r = -(-m // k)
+        lr_ = _log2ceil(r)
+        return {"rounds": lr_, "global_rows": 2 * m + r, "local_rows": 0, "small_rows": lr_ * r + m}
     raise ValueError(f"unknown rank algo {algo!r}")
 
 

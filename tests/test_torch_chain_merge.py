@@ -274,34 +274,38 @@ def test_rank_spec_contract(monkeypatch):
     assert pfb._resolve_rank_spec(None, cpu, cap + 2) == ("torch", "ruling")
     assert pfb._resolve_rank_spec("torch:wyllie", cpu, 1000) == ("torch", "wyllie")
     assert pfb._resolve_rank_spec("torch:blocked", cpu, 1000) == ("torch", "blocked")
-    # auto route on a CUDA device: the kernels up to the cap, the plain
-    # torch Wyllie past it (the JAX package's XLA route); resolving counts
-    # nothing
-    before = pfb.RANK_ROUTES["torch:wyllie/over_cap"]
+    # auto route on a CUDA device: the shared-memory kernels up to the
+    # cap, the sparse ruling kernel past it (where the JAX package takes
+    # its XLA route); resolving counts nothing
+    before = pfb.RANK_ROUTES["cuda:sparse/over_cap"]
     for m in (1000, 65538, cap):
         assert pfb._resolve_rank_spec(None, cuda, m) == ("cuda", "ruling")
-    assert pfb._resolve_rank_spec(None, cuda, cap + 2) == ("torch", "wyllie")
-    assert pfb.RANK_ROUTES["torch:wyllie/over_cap"] == before
+    assert pfb._resolve_rank_spec(None, cuda, cap + 2) == ("cuda", "sparse")
+    assert pfb.RANK_ROUTES["cuda:sparse/over_cap"] == before
+    assert "torch:wyllie/over_cap" not in pfb.RANK_ROUTES  # the old over-cap route is gone
     # the merge counts the automatic over-cap route where it ranks (the
-    # CUDA device's resolution stood in on the CPU), and not an explicit
-    # torch:wyllie
+    # CUDA device's resolution stood in on the CPU, where sparse_rank runs
+    # its plain version), and not an explicit torch:wyllie or torch:sparse
     from loro_tpu_torch import entry
 
     real = pfb._resolve_rank_spec
     monkeypatch.setattr(pfb, "_resolve_rank_spec",
-                        lambda impl, dev, m: ("torch", "wyllie") if impl is None else real(impl, dev, m))
+                        lambda impl, dev, m: ("cuda", "sparse") if impl is None else real(impl, dev, m))
     cols = pfb.seq_columns_to_torch(entry.example_cols(d=1, n=64), device="cpu")
     want = pfb.materialize_content(cols, "torch:ruling", "cpu")
-    for impl, counted in ((None, 1), ("torch:wyllie", 0)):
-        routes = pfb.RANK_ROUTES["torch:wyllie/over_cap"]
+    for impl, counted in ((None, 1), ("torch:wyllie", 0), ("torch:sparse", 0)):
+        routes = pfb.RANK_ROUTES["cuda:sparse/over_cap"]
         got = pfb.materialize_content(cols, impl, "cpu")
         assert all(torch.equal(g, w) for g, w in zip(got, want))
-        assert pfb.RANK_ROUTES["torch:wyllie/over_cap"] == routes + counted
+        assert pfb.RANK_ROUTES["cuda:sparse/over_cap"] == routes + counted
     monkeypatch.undo()
+    assert pfb._resolve_rank_spec("torch:wyllie", cuda, cap + 2) == ("torch", "wyllie")
+    assert pfb._resolve_rank_spec("cuda:sparse", cuda, 1000) == ("cuda", "sparse")
+    assert pfb._resolve_rank_spec("torch:sparse", cpu, cap + 2) == ("torch", "sparse")
     assert pfb._resolve_rank_spec("cuda:blocked", cuda, cap + 2) == ("cuda", "blocked")
     with pytest.raises(ValueError, match="too long"):
         list_rank.wyllie_rank(np.arange(cap + 2, dtype=np.int32), algo="blocked", device="cpu")
-    for spec in ("cuda:ruling", "cuda:blocked"):
+    for spec in ("cuda:ruling", "cuda:blocked", "cuda:sparse"):
         with pytest.raises(ValueError, match="CUDA"):
             pfb._resolve_rank_spec(spec, cpu, 1000)
     assert pfb._resolve_rank_spec("torch:coalesced", cpu, 1000) == ("torch", "coalesced")

@@ -302,6 +302,22 @@ def test_ring_past_the_kernel_cap_merges_on_cpu():
         list_rank.wyllie_rank(succ, device="cpu")
 
 
+def test_ring_past_the_kernel_cap_merges_sparse_on_cpu():
+    """The same over-cap doc through torch:sparse (the plain version of
+    the sparse ruling kernel the CUDA default takes there) equals the JAX
+    XLA merge, and its ring's distances equal _wyllie_dist."""
+    n_el, n = 40_000, 65_536
+    ex = pentry.example_cols(d=1, n=n_el)
+    np_cols = pfb.SeqColumns(*[pcol.pad_rows(a[0], n, f) for a, f in zip(ex, (-1, 0, 0, 0, True, -1, False))])
+    t = pfb.seq_columns_to_torch(np_cols, device="cpu")
+    codes, counts = pfb.merge_docs(t, rank_impl="torch:sparse", device="cpu")
+    jcodes, jcounts = jfb.merge_docs(_to_jax(pfb.SeqColumns(*[a[None] for a in np_cols])))
+    _eq(codes.numpy(), jcodes)
+    _eq(counts.numpy(), jcounts)
+    succ, _ = pfb._ring_and_anchors(t.parent, t.side, t.valid)
+    assert torch.equal(pfb._rank_dist(succ, "torch", "sparse"), pfb._wyllie_dist(succ))
+
+
 # ---- the slice at its width (N = 32,768), two docs -------------------------
 
 

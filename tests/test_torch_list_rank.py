@@ -560,3 +560,100 @@ def test_blocked_families_match_pallas(block, monkeypatch):
     for succ in (_runs_ring(2000, 37, block), _in_tree(2000, block), _short_lists(2000, 6, block)):
         want = np.asarray(jax_wyllie_rank(jnp.asarray(succ), interpret=True, algo="blocked"))
         np.testing.assert_array_equal(_port(succ, algo="blocked", block=block), want)
+
+
+# ---- the sparse ruling route (rings past RANK_MAX_M) ---------------------------
+
+
+def _spine_ring(n_el: int = 40_000, n: int = 65_536) -> np.ndarray:
+    """The Euler ring of a right spine of n_el elements padded to n rows
+    (test_torch_element_merge's over-cap doc): 2 (n + 1) tokens, the
+    invalid rows' tokens chained by index into it."""
+    from loro_tpu_torch import entry
+    from loro_tpu_torch.ops import columnar as pcol
+    from loro_tpu_torch.ops import fugue_batch as pfb
+
+    ex = entry.example_cols(d=1, n=n_el)
+    cols = pfb.SeqColumns(*[pcol.pad_rows(a[0], n, f) for a, f in zip(ex, (-1, 0, 0, 0, True, -1, False))])
+    t = pfb.seq_columns_to_torch(cols, device="cpu")
+    return pfb._ring_and_anchors(t.parent, t.side, t.valid)[0][0].numpy()
+
+
+def _forest_ring(n: int, seed: int) -> np.ndarray:
+    """The Euler ring of a random Fugue tree whose invalid rows are
+    scattered among the valid ones (each valid row's parent an earlier
+    valid row or the root): many heads and merge points."""
+    from loro_tpu_torch.ops import fugue_batch as pfb
+
+    rng = np.random.default_rng(seed)
+    valid = rng.random(n) < 0.7
+    parent = np.array([rng.integers(-1, i) if i else -1 for i in range(n)], np.int64)
+    parent = np.where(valid[np.maximum(parent, 0)] | (parent < 0), parent, -1)
+    side = rng.integers(0, 2, n)
+    t = [torch.from_numpy(a) for a in (parent[None].astype(np.int32), side[None].astype(np.int32), valid[None])]
+    return pfb._ring_and_anchors(*t)[0][0].numpy()
+
+
+def _star(m: int) -> np.ndarray:
+    """Every token points at one terminal: every token but it is a head."""
+    succ = np.full(m, m // 3, np.int32)
+    return succ
+
+
+_SPARSE_RINGS = {
+    "spine-euler": lambda: _spine_ring()[None],
+    "random-list": lambda: _random_ring(200_003, 41)[None],
+    "in-forest": lambda: _forest_ring(70_000, 42)[None],
+    "in-tree": lambda: _in_tree(150_000, 43)[None],
+    "star": lambda: _star(140_001)[None],
+    "three-rows": lambda: np.stack([_random_ring(131_200, 44), _star(131_200), _in_tree(131_200, 45)]),
+}
+
+
+@pytest.mark.parametrize("ring", list(_SPARSE_RINGS))
+def test_sparse_plain_matches_wyllie_past_the_cap(ring):
+    """torch:sparse (sparse_rank_plain, and sparse_rank on a CPU tensor)
+    equals the port's and the JAX package's _wyllie_dist bit for bit on
+    rings past RANK_MAX_M: the over-cap Euler ring, a random single list,
+    an Euler in-forest with index-chained invalid tokens, a random in-tree,
+    a star, and three rows of different shapes."""
+    from loro_tpu_torch.ops import fugue_batch as pfb
+
+    succ = _SPARSE_RINGS[ring]()
+    assert succ.shape[1] > lr.RANK_MAX_M
+    s = torch.from_numpy(succ)
+    want = pfb._wyllie_dist(s)
+    got = lr.sparse_rank_plain(s)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert torch.equal(lr.sparse_rank(s), want)
+    for row, jw in zip(want.numpy(), (np.asarray(jax.jit(jax_wyllie_dist)(jnp.asarray(r))) for r in succ)):
+        np.testing.assert_array_equal(row, jw)
+
+
+@pytest.mark.parametrize("k", [2, 8, 128, 1024])
+def test_sparse_plain_is_exact_at_every_ruler_spacing(k, monkeypatch):
+    """The distances do not depend on SPARSE_K: spacings down to 2 (a
+    ruler every other token) and past the gap of the longest walk."""
+    from loro_tpu_torch.ops import fugue_batch as pfb
+
+    monkeypatch.setattr(lr, "SPARSE_K", k)
+    for succ in (_random_ring(5000, k), _forest_ring(3000, k)[:], _gap_ring(4096, 8), _star(777), _short_lists(3000, 5, k)):
+        s = torch.from_numpy(np.ascontiguousarray(succ))[None]
+        assert torch.equal(lr.sparse_rank_plain(s), pfb._wyllie_dist(s)), k
+
+
+def test_sparse_route_contract_on_cpu():
+    """One ring [m] or a batch [D, m]; int32 only; the CPU path never
+    launches; an entry outside [0, m) ranks as a terminal."""
+    lr.reset_launches()
+    succ = _random_ring(3000, 46)
+    one = lr.sparse_rank(succ)
+    assert one.shape == (3000,) and sorted(one.tolist()) == list(range(3000))
+    assert torch.equal(lr.sparse_rank(np.stack([succ, succ]))[1], one)
+    assert sum(lr.LAUNCHES.values()) == 0 and "sparse/global" in lr.LAUNCHES
+    with pytest.raises(TypeError):
+        lr.sparse_rank(succ.astype(np.int64))
+    with pytest.raises(ValueError):
+        lr.sparse_rank(np.zeros((2, 2, 2), np.int32))
+    assert lr.sparse_rank(np.array([1, -5, 9, 2], np.int32)).tolist() == [1, 0, 0, 1]
+    assert lr.sparse_rank(np.zeros((0, 5), np.int32)).shape == (0, 5)

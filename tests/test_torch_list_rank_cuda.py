@@ -312,3 +312,129 @@ def test_packed_merge_on_card_matches_cpu():
     for spec in (None, "cuda:ruling", "cuda:wyllie", "cuda:blocked", "cuda:coalesced"):
         got = fb.chain_merge_docs_packed_checksum(packed, pad_c, pad_n, spec, device="cuda")
         assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want)), spec
+
+
+# ---- the sparse ruling route (rings past RANK_MAX_M) ---------------------------
+
+
+def _euler_ring(n_el: int, n: int, device) -> torch.Tensor:
+    """The Euler ring [2 (n + 1)] of a right spine of n_el elements padded
+    to n rows: the invalid rows' tokens chained by index into it."""
+    from loro_tpu_torch import entry
+    from loro_tpu_torch.ops import columnar as pcol
+    from loro_tpu_torch.ops import fugue_batch as fb
+
+    ex = entry.example_cols(d=1, n=n_el)
+    cols = fb.SeqColumns(*[pcol.pad_rows(a[0], n, f) for a, f in zip(ex, (-1, 0, 0, 0, True, -1, False))])
+    t = fb.seq_columns_to_torch(cols, device=device)
+    return fb._ring_and_anchors(t.parent, t.side, t.valid)[0][0]
+
+
+def _sparse_rows(rows: str, m: int, device) -> torch.Tensor:
+    """[len(rows), m] rings on the card: e an Euler ring (a spine of
+    m / 4 elements), r a random single list, t a random in-tree, s a
+    star (every token but one a head)."""
+    make = {
+        "e": lambda: _euler_ring(m // 4, m // 2 - 1, device),
+        "r": lambda: torch.from_numpy(_random_ring(m, m + 1)).to(device),
+        "t": lambda: torch.from_numpy(_in_tree(m, m + 2)).to(device),
+        "s": lambda: torch.full((m,), m // 3, dtype=torch.int32, device=device),
+    }
+    return torch.stack([make[c]() for c in rows])
+
+
+_SPARSE_SHAPES = [("erts", 524_290), ("er", 1_048_578), ("ts", 1_048_578)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,m", _SPARSE_SHAPES, ids=[f"{r}-m{m}" for r, m in _SPARSE_SHAPES])
+def test_sparse_kernel_matches_plain_and_wyllie_on_card(rows, m):
+    """The sparse ruling kernel equals its plain version and _wyllie_dist
+    bit for bit past RANK_MAX_M (Euler ring, random list, in-tree, star),
+    with one launch a call in LAUNCHES["sparse/global"]."""
+    _needs_card()
+    from loro_tpu_torch.ops import fugue_batch as fb
+
+    s = _sparse_rows(rows, m, "cuda")
+    assert m > lr.RANK_MAX_M and fb._resolve_rank_spec(None, s.device, m) == ("cuda", "sparse")
+    for _ in range(2):
+        before = dict(lr.LAUNCHES)
+        got = lr.sparse_rank(s)
+        torch.cuda.synchronize()
+        assert {k: v - before[k] for k, v in lr.LAUNCHES.items() if v != before[k]} == {"sparse/global": 1}
+    want = fb._wyllie_dist(s)
+    assert got.dtype == torch.int32 and got.shape == s.shape
+    assert torch.equal(got, want), int((got.long() - want.long()).abs().max())
+    assert torch.equal(lr.sparse_rank_plain(s), want)
+    assert torch.equal(lr.sparse_rank(s[0]), want[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", ["rows", "one_token"])
+def test_sparse_kernel_reads_unaligned_views_in_place_on_card(offset):
+    """A view that starts off a 16-byte boundary (rows 1.. of a batch whose
+    row is 2,097,160 bytes, or a ring one token into a larger buffer)
+    ranks in place, bit-equal to _wyllie_dist, with one launch."""
+    _needs_card()
+    from loro_tpu_torch.ops import fugue_batch as fb
+
+    s = _sparse_rows("erts", 524_290, "cuda")
+    if offset == "rows":
+        view = s[1:]
+    else:
+        buf = torch.empty(s.numel() + 1, dtype=torch.int32, device="cuda")
+        buf[1:] = s.flatten()
+        view = buf[1:].view(s.shape)
+    assert view.is_contiguous() and view.data_ptr() % 16
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(lr.LAUNCHES)
+    got = lr.sparse_rank(view)
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in lr.LAUNCHES.items() if v != before[k]} == {"sparse/global": 1}
+    # dist and the scratch tables take 24.5 bytes a token; a copy of the
+    # ring would add 4 more
+    assert torch.cuda.max_memory_allocated() - base < 26 * view.numel()
+    assert torch.equal(got, fb._wyllie_dist(view))
+
+
+@pytest.mark.cuda
+def test_sparse_rank_syncs_nothing_on_card():
+    """The over-cap rank, alone and through the automatic route of
+    _rank_dist, makes no host sync."""
+    _needs_card()
+    from loro_tpu_torch.ops import fugue_batch as fb
+
+    s = _sparse_rows("erts", 524_290, "cuda")
+    want = fb._wyllie_dist(s)
+    lr.sparse_rank(s)  # builds and loads the library
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = lr.sparse_rank(s)
+        auto = fb._rank_dist(s, *fb._resolve_rank_spec(None, s.device, s.shape[1]))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(got, want) and torch.equal(auto, want)
+
+
+@pytest.mark.cuda
+def test_over_cap_merge_takes_the_sparse_kernel_on_card():
+    """The over-cap doc merges on the card through cuda:sparse: one sparse
+    launch, the route counted once, the text the oracle's."""
+    _needs_card()
+    from loro_tpu_torch import entry
+    from loro_tpu_torch.ops import columnar as pcol
+    from loro_tpu_torch.ops import fugue_batch as fb
+
+    n_el, n = 40_000, 65_536
+    ex = entry.example_cols(d=1, n=n_el)
+    cols = fb.SeqColumns(*[pcol.pad_rows(a[0], n, f) for a, f in zip(ex, (-1, 0, 0, 0, True, -1, False))])
+    before, routes = dict(lr.LAUNCHES), fb.RANK_ROUTES["cuda:sparse/over_cap"]
+    codes, counts = fb.merge_docs(fb.seq_columns_to_torch(cols, device="cuda"), device="cuda")
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in lr.LAUNCHES.items() if v != before[k]} == {"sparse/global": 1}
+    assert fb.RANK_ROUTES["cuda:sparse/over_cap"] == routes + 1
+    want = "".join(chr(97 + i % 26) for i in range(n_el) if i % 7 != 6)
+    assert "".join(map(chr, codes[0][: int(counts[0])].tolist())) == want

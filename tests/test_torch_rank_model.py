@@ -261,10 +261,25 @@ def test_card_labels_match_pallas(spec):
     pd = _delta(p0, _rank_counters(pobs), mapped=True)
     assert pd == _delta(j0, _rank_counters(jobs)) and pd
     assert list_rank.DEFAULT_K == 8 and pfb.RANK_ROUTES == routes0
-    over = list_rank.RANK_MAX_M  # n_nodes past the kernels' cap: torch:wyllie, uncounted
+    over = list_rank.RANK_MAX_M  # n_nodes past the kernels' cap: cuda:sparse, uncounted
     p0 = _rank_counters(pobs)
     pfb._tick_rank_obs(1, over, None, "cuda")
-    assert {k[1] for k in _delta(p0, _rank_counters(pobs))} == {"torch:wyllie"} and pfb.RANK_ROUTES == routes0
+    assert {k[1] for k in _delta(p0, _rank_counters(pobs))} == {"cuda:sparse"} and pfb.RANK_ROUTES == routes0
+
+
+def test_over_cap_tick_counts_the_cells_ring_tokens():
+    """The import cell's call (256 docs of 262,144 slots, rings of
+    524,290 tokens past the cap) ticks rank.ring_tokens by D x m under
+    the sparse route's label, priced by gather_model at SPARSE_K; a
+    device object needs no card."""
+    m = 2 * (262_144 + 1)
+    c0 = pobs.counter("rank.ring_tokens").get(algo="cuda:sparse")
+    r0 = pobs.counter("rank.rounds_total").get(algo="cuda:sparse")
+    pfb._tick_rank_obs(256, 262_144, None, torch.device("cuda"))
+    assert pobs.counter("rank.ring_tokens").get(algo="cuda:sparse") == c0 + 256 * 524_290
+    mdl = prm.gather_model(m, "sparse", k=list_rank.SPARSE_K)
+    assert pobs.counter("rank.rounds_total").get(algo="cuda:sparse") == r0 + 256 * mdl["rounds"]
+    assert mdl["global_rows"] == 2 * m + -(-m // list_rank.SPARSE_K)
 
 
 def test_tick_never_raises():
